@@ -1,0 +1,136 @@
+"""Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
+that the decoder LM builds with (fc, embedding, layer_norm, reduce_sum,
+elementwise_add/sub/mul, scale). Each function appends the same ops,
+with the same attrs and var names, as its JAX-package counterpart."""
+from __future__ import annotations
+
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper, ParamAttr
+
+__all__ = ["fc", "embedding", "layer_norm", "reduce_sum",
+           "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "scale"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None, dtype=None):
+    """Fully-connected layer. Multiple inputs are projected separately
+    and summed."""
+    helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    dtype = dtype or inputs[0].dtype
+    mul_results = []
+    for inp in inputs:
+        in_shape = inp.shape
+        flat_dim = 1
+        for d in in_shape[num_flatten_dims:]:
+            flat_dim *= int(d)
+        w = helper.create_parameter(helper.param_attr,
+                                    shape=[flat_dim, size], dtype=dtype)
+        out_shape = list(in_shape[:num_flatten_dims]) + [size]
+        tmp = helper.create_tmp_variable(dtype, lod_level=inp.lod_level,
+                                         shape=out_shape)
+        helper.append_op(type="mul", inputs={"X": inp, "Y": w},
+                         outputs={"Out": tmp},
+                         attrs={"x_num_col_dims": num_flatten_dims
+                                if inp.lod_level == 0 else inp.lod_level + 1,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError(
+            "fc over several inputs needs the sum op, which is not "
+            "ported yet")
+    pre_act = helper.append_bias_op(mul_results[0], size=size)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32",
+              shard_axis="model"):
+    """Embedding lookup. is_distributed/shard_axis are recorded in the
+    op's attrs for IR parity; the port looks up on one device."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, shape=list(size),
+                                dtype=dtype)
+    out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": w, "Ids": input}, outputs={"Out": out},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "shard_axis": shard_axis,
+                            "padding_idx": -1 if padding_idx is None
+                            else padding_idx})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    norm_dim = 1
+    for d in input.shape[begin_norm_axis:]:
+        norm_dim *= int(d)
+    inputs = {"X": input}
+    if scale:
+        s = helper.create_parameter(
+            helper.param_attr, shape=[norm_dim], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = s
+    if shift:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[norm_dim], dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = b
+    out = helper.create_tmp_variable(dtype)
+    mean = helper.create_tmp_variable(dtype)
+    var = helper.create_tmp_variable(dtype)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def _reduce(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(input.dtype)
+        helper.append_op(type=op_type, inputs={"X": input},
+                         outputs={"Out": out},
+                         attrs={"dim": dim, "keep_dim": keep_dim,
+                                "reduce_all": dim is None})
+        return out
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _reduce("reduce_sum")
+
+
+def _binary(op_type):
+    def fn(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+        helper.append_op(type=op_type, inputs={"X": x, "Y": y},
+                         outputs={"Out": out}, attrs={"axis": axis})
+        return helper.append_activation(out)
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _binary("elementwise_add")
+elementwise_sub = _binary("elementwise_sub")
+elementwise_mul = _binary("elementwise_mul")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op(type="scale", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)

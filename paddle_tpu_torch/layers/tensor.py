@@ -1,0 +1,108 @@
+"""Tensor-construction and manipulation layers: the subset of
+``paddle_tpu/layers/tensor.py`` that the decoder LM builds with."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..layer_helper import LayerHelper
+
+__all__ = ["cast", "assign", "fill_constant", "reshape", "transpose",
+           "unsqueeze", "gather", "one_hot", "argmax", "range", "slice"]
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
+    helper.append_op(type="cast", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"out_dtype": dtype})
+    return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    if not isinstance(input, np.ndarray):
+        raise NotImplementedError(
+            "assign of a Variable needs the assign op, which is not "
+            "ported yet; pass a numpy array")
+    output = output or helper.create_tmp_variable(str(input.dtype))
+    helper.append_op(type="assign_value", outputs={"Out": output},
+                     attrs={"shape": list(input.shape),
+                            "dtype": str(input.dtype),
+                            "values": input.reshape(-1).tolist()})
+    return output
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    out = out or helper.create_tmp_variable(dtype, shape=list(shape))
+    helper.append_op(type="fill_constant", outputs={"Out": out},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def reshape(x, shape, inplace=False, name=None, act=None):
+    helper = LayerHelper("reshape", name=name, act=act)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="reshape", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"axis": list(perm)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="unsqueeze", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axes": axes})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_tmp_variable("float32")
+    helper.append_op(type="one_hot", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"depth": depth})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("argmax")
+    out = helper.create_tmp_variable("int64")
+    helper.append_op(type="arg_max", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def range(start, end, step, dtype="int64"):  # noqa: A001 — reference name
+    helper = LayerHelper("range")
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="range", outputs={"Out": out},
+                     attrs={"start": start, "end": end, "step": step})
+    return out
+
+
+def slice(input, axes, starts, ends):  # noqa: A001 — reference name
+    helper = LayerHelper("slice")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": input},
+                     outputs={"Out": out},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out

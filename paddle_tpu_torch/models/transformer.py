@@ -1,0 +1,295 @@
+"""Decoder-only LM: the program set behind the token-serving engine.
+
+The port's copy of the decoder-LM part of ``paddle_tpu/models/
+transformer.py``. Three modes share one parameter set:
+
+  "full"     [b, S]  causal forward over whole (padded) sequences,
+             greedy next-token at each row's last real position — the
+             re-forward baseline, and the bit-identity reference
+  "prefill"  [1, S]  same forward for one request, but every layer
+             also writes its K/V rows into that request's cache slot
+  "decode"   [slots, 1]  one-token step: append K/V at each slot's
+             position, attend over the first L cached rows (L = the
+             cache-length bucket), emit the greedy next token
+
+Weight sharing works by name: each program is built under
+framework.isolated_name_scope() and makes the IDENTICAL sequence of
+parameter-creating calls, so auto-generated param names line up and
+every program reads the same scope tensors. KV caches are persistable
+vars OUTSIDE the parameter set (kv_cache.* prefix), zero-filled by each
+program's startup. The programs serialize to the same JSON as the JAX
+package's. The encoder-decoder NMT model is not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .. import framework, layers
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+
+#: name prefix of the persistable KV-cache state vars — the ONLY
+#: persistable names a generation program may write
+KV_CACHE_PREFIX = "kv_cache."
+
+
+def ffn(x, d_model, d_inner):
+    hidden = layers.fc(x, size=d_inner, num_flatten_dims=2, act="relu",
+                       name="tp_col_ffn")
+    return layers.fc(hidden, size=d_model, num_flatten_dims=2,
+                     name="tp_row_ffn")
+
+
+def _add_norm(x, y, d_model):
+    return layers.layer_norm(layers.elementwise_add(x, y),
+                             begin_norm_axis=2)
+
+
+def _position_encoding_table(max_len, d_model):
+    pos = np.arange(max_len)[:, None].astype(np.float64)
+    dim = np.arange(d_model)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, 2 * (dim // 2) / d_model)
+    table = np.zeros((max_len, d_model), np.float32)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table
+
+
+class LMProgram:
+    """One program of the generation set: a (main, startup) pair plus
+    feed names and the greedy next-token fetch name."""
+
+    __slots__ = ("main", "startup", "feed_names", "fetch_name")
+
+    def __init__(self, main, startup, feed_names, fetch_name):
+        self.main = main
+        self.startup = startup
+        self.feed_names = list(feed_names)
+        self.fetch_name = fetch_name
+
+
+def kv_cache_names(n_layer):
+    """The persistable cache var names of an n_layer decoder LM."""
+    out = []
+    for i in range(n_layer):
+        out += [f"{KV_CACHE_PREFIX}l{i}.k", f"{KV_CACHE_PREFIX}l{i}.v"]
+    return out
+
+
+def _create_kv_caches(n_layer, slots, n_head, max_seq_len, d_key):
+    """Create the [slots, h, max_seq, d_key] cache vars (persistable,
+    zero-filled by startup)."""
+    helper = LayerHelper("kv_cache")
+    caches = []
+    for i in range(n_layer):
+        pair = []
+        for kind in ("k", "v"):
+            v = helper.create_global_variable(
+                [slots, n_head, max_seq_len, d_key], "float32",
+                name=f"{KV_CACHE_PREFIX}l{i}.{kind}", persistable=True)
+            helper.set_variable_initializer(v, ConstantInitializer(0.0))
+            pair.append(v)
+        caches.append(tuple(pair))
+    return caches
+
+
+def _lm_embed(token_ids, positions, vocab_size, d_model, max_seq_len):
+    """Word + positional embedding. token_ids: [b, t, 1] int64;
+    positions: [t] (shared across rows) or [b] (decode: one position
+    per slot, t == 1) int64."""
+    word = layers.embedding(token_ids, size=[vocab_size, d_model])
+    pe = layers.assign(_position_encoding_table(max_seq_len, d_model))
+    pos = layers.gather(pe, positions)
+    if word.shape[1] == 1 and len(pos.shape) == 2 \
+            and pos.shape[0] == word.shape[0]:
+        # decode: per-row positions -> [b, 1, d_model]
+        pos = layers.unsqueeze(pos, [1])
+    return layers.elementwise_add(word, pos, axis=-1)
+
+
+def _lm_blocks(x, n_layer, d_model, n_head, d_inner, attn_fn):
+    """Decoder blocks over embedded input [b, t, d_model]. attn_fn(i,
+    qh, kh, vh) -> context heads [b, h, t, d_key]. The parameter-call
+    SEQUENCE here (q/k/v/proj fc, post-attn LN, ffn pair, post-ffn LN,
+    per layer) is the weight-sharing contract across modes."""
+    d_key = d_model // n_head
+
+    def split_heads(t):
+        r = layers.reshape(t, [0, 0, n_head, d_key])
+        return layers.transpose(r, [0, 2, 1, 3])
+
+    for i in range(n_layer):
+        q = layers.fc(x, size=d_model, num_flatten_dims=2,
+                      bias_attr=False, name="tp_col_qkv")
+        k = layers.fc(x, size=d_model, num_flatten_dims=2,
+                      bias_attr=False, name="tp_col_qkv")
+        v = layers.fc(x, size=d_model, num_flatten_dims=2,
+                      bias_attr=False, name="tp_col_qkv")
+        heads = attn_fn(i, split_heads(q), split_heads(k), split_heads(v))
+        merged = layers.reshape(layers.transpose(heads, [0, 2, 1, 3]),
+                                [0, 0, d_model])
+        o = layers.fc(merged, size=d_model, num_flatten_dims=2,
+                      bias_attr=False, name="tp_row_proj")
+        x = _add_norm(x, o, d_model)
+        x = _add_norm(x, ffn(x, d_model, d_inner), d_model)
+    return x
+
+
+def _sdpa_op(qh, kh, vh, mask, causal):
+    helper = LayerHelper("mha")
+    out = helper.create_tmp_variable(qh.dtype)
+    inputs = {"Q": qh, "K": kh, "V": vh}
+    if mask is not None:
+        inputs["Mask"] = mask
+    helper.append_op(type="scaled_dot_product_attention", inputs=inputs,
+                     outputs={"Out": out}, attrs={"causal": causal})
+    return out
+
+
+def _cache_update(op_type, cache, new, index, index_slot):
+    """Append a kv_cache_* op whose output IS its cache input: the
+    executor classifies the cache read-write persistable state, and the
+    op updates the scope's tensor in place."""
+    helper = LayerHelper("kv_cache")
+    helper.append_op(type=op_type,
+                     inputs={"Cache": cache, "New": new,
+                             index_slot: index},
+                     outputs={"Out": cache}, attrs={})
+    return cache
+
+
+def _key_row_mask(valid, big=1e9):
+    """bool [b, Sk] 'key row is live' -> additive [b, 1, 1, Sk]."""
+    ok = layers.cast(valid, "float32")
+    m = layers.scale(ok, scale=big, bias=-1.0, bias_after_scale=False)
+    return layers.unsqueeze(m, [1, 2])
+
+
+def _greedy_last_token(logits, lengths, seq_len):
+    """logits [b, S, V], lengths [b] -> [b, 1] int64 argmax token at
+    each row's last real position (one-hot select: no host round-trip
+    per row)."""
+    one = layers.fill_constant([1], "int64", 1)
+    last = layers.elementwise_sub(layers.unsqueeze(lengths, [1]), one)
+    oh = layers.one_hot(last, seq_len)                       # [b, S]
+    sel = layers.elementwise_mul(logits, layers.unsqueeze(oh, [2]))
+    rows = layers.reduce_sum(sel, dim=1)                     # [b, V]
+    return layers.unsqueeze(layers.argmax(rows, axis=-1), [1])
+
+
+def _build_lm_program(mode, seq_len, vocab_size, max_seq_len, slots,
+                      n_layer, n_head, d_model, d_inner, seed):
+    """Build one (main, startup) pair for `mode` at bucket `seq_len`
+    (prompt bucket for full/prefill, cache-length bucket for decode)."""
+    d_key = d_model // n_head
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = seed
+    with framework.program_guard(main, startup), \
+            framework.isolated_name_scope():
+        if mode == "decode":
+            ids = layers.data("token_ids", [slots, 1, 1], dtype="int64",
+                              append_batch_size=False)
+            positions = layers.data("positions", [slots], dtype="int64",
+                                    append_batch_size=False)
+            feeds = ["token_ids", "positions"]
+        else:
+            b = 1 if mode == "prefill" else slots
+            ids = layers.data("token_ids", [b, seq_len, 1], dtype="int64",
+                              append_batch_size=False)
+            lengths = layers.data("lengths", [b], dtype="int64",
+                                  append_batch_size=False)
+            feeds = ["token_ids", "lengths"]
+            if mode == "prefill":
+                slot = layers.data("slot", [1], dtype="int64",
+                                   append_batch_size=False)
+                feeds.append("slot")
+        caches = None
+        if mode in ("prefill", "decode"):
+            caches = _create_kv_caches(n_layer, slots, n_head,
+                                       max_seq_len, d_key)
+
+        if mode == "decode":
+            # embed the single new token at each slot's own position
+            x = _lm_embed(ids, positions, vocab_size, d_model, max_seq_len)
+            ar = layers.unsqueeze(layers.range(0, seq_len, 1, "int64"),
+                                  [0])                       # [1, L]
+            pos2 = layers.unsqueeze(positions, [1])          # [slots, 1]
+            mask = _key_row_mask(layers.less_equal(ar, pos2))
+
+            def attn(i, qh, kh, vh):
+                kc, vc = caches[i]
+                _cache_update("kv_cache_append", kc, kh, positions, "Pos")
+                _cache_update("kv_cache_append", vc, vh, positions, "Pos")
+                k_l = layers.slice(kc, axes=[2], starts=[0],
+                                   ends=[seq_len])
+                v_l = layers.slice(vc, axes=[2], starts=[0],
+                                   ends=[seq_len])
+                return _sdpa_op(qh, k_l, v_l, mask, causal=False)
+        else:
+            pos_ids = layers.assign(
+                np.arange(seq_len).astype(np.int64))
+            x = _lm_embed(ids, pos_ids, vocab_size, d_model, max_seq_len)
+            ar = layers.unsqueeze(layers.range(0, seq_len, 1, "int64"),
+                                  [0])                       # [1, S]
+            len2 = layers.unsqueeze(lengths, [1])            # [b, 1]
+            pad_mask = _key_row_mask(layers.less_than(ar, len2))
+
+            def attn(i, qh, kh, vh):
+                if mode == "prefill":
+                    kc, vc = caches[i]
+                    _cache_update("kv_cache_write", kc, kh, slot, "Slot")
+                    _cache_update("kv_cache_write", vc, vh, slot, "Slot")
+                return _sdpa_op(qh, kh, vh, pad_mask, causal=True)
+
+        x = _lm_blocks(x, n_layer, d_model, n_head, d_inner, attn)
+        logits = layers.fc(x, size=vocab_size, num_flatten_dims=2,
+                           name="lm_head")
+        if mode == "decode":
+            next_tok = layers.argmax(logits, axis=-1)        # [slots, 1]
+        else:
+            next_tok = _greedy_last_token(logits, lengths, seq_len)
+    return LMProgram(main, startup, feeds, next_tok.name)
+
+
+def build_decoder_lm(vocab_size=1000, max_seq_len=64, slots=4,
+                     prompt_buckets=(16, 32, 64),
+                     cache_buckets=(16, 32, 64), n_layer=2, n_head=4,
+                     d_model=64, d_inner=128, seed=0):
+    """Build the full generation program set. Returns a dict:
+
+      {"prefill": {S: LMProgram}, "decode": {L: LMProgram},
+       "full": {S: LMProgram}, "startup": Program,
+       "cache_names": [...], "spec": {...}}
+
+    Every LMProgram creates the same parameters under the same names,
+    so running ANY single startup initializes weights (and caches) for
+    all of them; "startup" is the canonical one. "full" programs carry
+    no cache ops."""
+    prompt_buckets = sorted(set(int(s) for s in prompt_buckets))
+    cache_buckets = sorted(set(int(c) for c in cache_buckets))
+    if prompt_buckets[-1] > max_seq_len or cache_buckets[-1] > max_seq_len:
+        raise ValueError(
+            f"bucket exceeds max_seq_len={max_seq_len}: prompt "
+            f"{prompt_buckets}, cache {cache_buckets}")
+    if d_model % n_head:
+        raise ValueError(f"d_model={d_model} not divisible by "
+                         f"n_head={n_head}")
+    args = (vocab_size, max_seq_len, slots, n_layer, n_head, d_model,
+            d_inner, seed)
+    out = {"prefill": {}, "decode": {}, "full": {}}
+    for s in prompt_buckets:
+        out["prefill"][s] = _build_lm_program("prefill", s, *args)
+        out["full"][s] = _build_lm_program("full", s, *args)
+    for c in cache_buckets:
+        out["decode"][c] = _build_lm_program("decode", c, *args)
+    out["startup"] = out["prefill"][prompt_buckets[0]].startup
+    out["cache_names"] = kv_cache_names(n_layer)
+    out["spec"] = {
+        "vocab_size": vocab_size, "max_seq_len": max_seq_len,
+        "slots": slots, "prompt_buckets": list(prompt_buckets),
+        "cache_buckets": list(cache_buckets), "n_layer": n_layer,
+        "n_head": n_head, "d_model": d_model, "d_inner": d_inner,
+        "seed": seed,
+        "kv_cache_layout": "[slots, n_head, max_seq_len, d_key]",
+    }
+    return out

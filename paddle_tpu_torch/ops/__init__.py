@@ -1,0 +1,6 @@
+"""Op compute rules: importing this package registers every ported op."""
+from . import core_ops  # noqa: F401
+from . import math_ops  # noqa: F401
+from . import tensor_ops  # noqa: F401
+from . import nn_ops  # noqa: F401
+from . import cache_ops  # noqa: F401

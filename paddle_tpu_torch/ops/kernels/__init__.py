@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain torch twin.
+
+One module per kernel, named after the TPU kernel it replaces in
+``paddle_tpu/ops/pallas/``; the CUDA sources live in
+``paddle_tpu_torch/csrc/`` and are built at first use (build.py).
+"""
+from .flash_attention import (flash_attention_fwd,  # noqa: F401
+                              flash_attention_fwd_plain)
+
+#: every kernel wrapper of the port, for launch accounting
+KERNELS = {"flash_attention_fwd": flash_attention_fwd}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,93 @@
+"""Math ops: elementwise (with the reference's axis broadcast), mul,
+reduce_sum, relu, comparisons, arg_max.
+
+The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops the
+decoder LM runs. The matrix products stay torch.matmul: the JAX package
+left them to XLA and wrote no kernel for them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_op
+
+
+def _broadcast_y(x, y, axis: int):
+    """Reference elementwise broadcast: align y's dims starting at `axis`
+    of x. axis=-1 means trailing alignment."""
+    xnd, ynd = x.ndim, y.ndim
+    if xnd == ynd:
+        return y
+    if axis == -1 or axis is None:
+        axis = xnd - ynd
+    shape = [1] * axis + list(y.shape) + [1] * (xnd - axis - ynd)
+    return y.reshape(shape)
+
+
+def _register_elementwise(name, fn):
+    @register_op(name)
+    def _op(ctx, _fn=fn):
+        x = ctx.input("X")
+        y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        ctx.set_output("Out", _fn(x, y))
+
+
+_register_elementwise("elementwise_add", lambda x, y: x + y)
+_register_elementwise("elementwise_sub", lambda x, y: x - y)
+_register_elementwise("elementwise_mul", lambda x, y: x * y)
+
+
+def _prod(dims):
+    p = 1
+    for d in dims:
+        p *= int(d)
+    return p
+
+
+@register_op("mul")
+def _mul(ctx):
+    """The reference's `mul` op: flatten X to 2-D at x_num_col_dims, Y at
+    y_num_col_dims, matmul, restore shape (mul_op.cc)."""
+    x = ctx.input("X")
+    y = ctx.input("Y")
+    xn = ctx.attr("x_num_col_dims", 1)
+    yn = ctx.attr("y_num_col_dims", 1)
+    x2 = x.reshape(_prod(x.shape[:xn]), _prod(x.shape[xn:]))
+    y2 = y.reshape(_prod(y.shape[:yn]), _prod(y.shape[yn:]))
+    out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
+    ctx.set_output("Out", torch.matmul(x2, y2).reshape(out_shape))
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx):
+    x = ctx.input("X")
+    dim = ctx.attr("dim", None)
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False) or dim is None:
+        axis = tuple(range(x.ndim))
+    else:
+        axis = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+    ctx.set_output("Out", torch.sum(x, dim=axis, keepdim=keep))
+
+
+@register_op("relu")
+def _relu(ctx):
+    ctx.set_output("Out", torch.relu(ctx.input("X")))
+
+
+def _register_cmp(name, fn):
+    @register_op(name)
+    def _op(ctx, _fn=fn):
+        x, y = ctx.input("X"), ctx.input("Y")
+        y = _broadcast_y(x, y, ctx.attr("axis", -1))
+        ctx.set_output("Out", _fn(x, y))
+
+
+_register_cmp("less_than", lambda x, y: x < y)
+_register_cmp("less_equal", lambda x, y: x <= y)
+
+
+@register_op("arg_max")
+def _arg_max(ctx):
+    ctx.set_output("Out", torch.argmax(ctx.input("X"),
+                                       dim=ctx.attr("axis", -1)))

@@ -1,0 +1,115 @@
+"""NN ops: layer_norm, lookup_table, one_hot, scaled_dot_product_attention.
+
+The port's compute rules for the ``paddle_tpu/ops/nn_ops.py`` ops the
+decoder LM runs. scaled_dot_product_attention keeps the reference's
+routing: the `use_flash` attr when stamped, else the min-seq auto policy
+— with "the tensor lies on a CUDA card" in place of "the backend is a
+TPU". The flash route runs the hand-written CUDA kernel
+(ops/kernels/flash_attention.py); the naive route is the einsum/softmax
+composition. The sequence-parallel branch waits for a mesh.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import flags
+from ..core.registry import register_op
+from .kernels.flash_attention import NEG_INF, flash_attention_fwd
+
+
+@register_op("layer_norm")
+def _layer_norm(ctx):
+    x = ctx.input("X")
+    scale = ctx.input("Scale")
+    bias = ctx.input("Bias")
+    eps = ctx.attr("epsilon", 1e-5)
+    begin = ctx.attr("begin_norm_axis", 1)
+    axes = tuple(range(begin, x.ndim))
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes, keepdim=True)
+    var = torch.var(xf, dim=axes, keepdim=True, correction=0)
+    y = (xf - mean) / torch.sqrt(var + eps)
+    norm_shape = (1,) * begin + tuple(x.shape[begin:])
+    if scale is not None:
+        y = y * scale.reshape(norm_shape)
+    if bias is not None:
+        y = y + bias.reshape(norm_shape)
+    ctx.set_output("Y", y.to(x.dtype))
+    ctx.set_output("Mean", mean.reshape(x.shape[:begin]))
+    ctx.set_output("Variance", var.reshape(x.shape[:begin]))
+
+
+@register_op("lookup_table")
+def _lookup_table(ctx):
+    """Embedding lookup. Ids may carry a trailing [.., 1] dim. Out-of-range
+    ids clamp to the table's edge rows, as the reference's explicit clip
+    does."""
+    w = ctx.input("W")
+    ids = ctx.input("Ids")
+    if ids.ndim and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    padding_idx = ctx.attr("padding_idx", -1)
+    idx = ids.long().clamp(0, w.shape[0] - 1)
+    out = w[idx]
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    ctx.set_output("Out", out)
+
+
+@register_op("one_hot")
+def _one_hot(ctx):
+    """float32 one-hot; an index outside [0, depth) gives an all-zero row,
+    as jax.nn.one_hot does."""
+    x = ctx.input("X")
+    depth = ctx.attr("depth")
+    if x.ndim and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    classes = torch.arange(depth, device=x.device)
+    ctx.set_output("Out", (x.long().unsqueeze(-1) == classes).float())
+
+
+def _naive_attention(q, k, v, mask, causal, sm_scale):
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + mask
+    if causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(qpos >= kpos, scores,
+                             torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, v)
+
+
+@register_op("scaled_dot_product_attention")
+def _sdpa(ctx):
+    """Fused attention. The Mask input is an additive bias broadcastable
+    to [B, H, Sq, Sk]; attr `causal` adds the qpos >= kpos mask; attr
+    `scale` overrides 1/sqrt(d_key). `seq_axis` (context parallelism)
+    needs a mesh, which the port does not have yet, so the op computes
+    on one device as the reference does without a mesh."""
+    q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
+    mask = ctx.input("Mask")
+    causal = bool(ctx.attr("causal", False))
+    sm_scale = ctx.attr("scale", None)
+    sm_scale = None if sm_scale is None else float(sm_scale)
+
+    use_flash = ctx.attr("use_flash", None)
+    if use_flash and q.ndim != 4:
+        use_flash = False
+    if use_flash is None:
+        min_seq = int(flags.get("PADDLE_TPU_FLASH_MIN_SEQ"))
+        use_flash = (q.is_cuda and q.ndim == 4
+                     and q.shape[2] >= min_seq and k.shape[2] >= min_seq)
+    if use_flash:
+        out, _lse = flash_attention_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), mask,
+            causal=causal, sm_scale=sm_scale)
+        ctx.set_output("Out", out)
+        return
+    ctx.set_output("Out", _naive_attention(q, k, v, mask, causal, sm_scale))
