@@ -8,9 +8,11 @@ CUDA toolkit:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit (nvidia-smi); build every CUDA kernel of
-     the port from the sources in the checkout.
+     the port from the sources in the checkout (one nvcc per source, all
+     started together).
   2. each kernel against its plain torch version on the card, at the
-     shapes the serving path gives it, with times: kernel, plain,
+     shapes the serving and training paths give it and over a sweep of
+     head dims, lengths, biases and causal, with times: kernel, plain,
      library (one PyTorch call computing the same function, a yardstick
      the port never calls) and the card's lower bound for the work.
   3. serve the decoder LM at Transformer-base width through the port's
@@ -19,7 +21,18 @@ Phases (any failure exits non-zero; nothing is caught):
      counts are set to 0 just before and read just after; every token
      stream must equal the same port model's on the CPU (same weights,
      plain path) or differ only at a near tie of the CPU logits.
-  4. a JSON line of the kernels, then, last, the JSON result line.
+  4. train Transformer-base NMT (models.transformer.build_train at
+     B4 x S2048, 6+6 layers, d512, vocabulary 32000, Adam) through
+     Executor.run for 5 steps from seeded weights: once as built (every
+     attention takes the flash kernels: S >= PADDLE_TPU_FLASH_MIN_SEQ),
+     with the launch counts set to 0 just before and read just after,
+     and once with use_flash=False stamped on every attention op and
+     fwd_op copy (the naive route, same card, same weights). Losses and
+     step-1 gradients must agree: every parameter's gradient per element
+     against one more naive step whose ReLUs take the flash arm's masks,
+     and by 2-norm against the free naive arm (see TRAIN_GRAD_NORM_RTOL).
+  5. JSON lines of the kernels, serving and training, then, last, the
+     JSON result line.
 
 Without a CUDA card, or outside a checkout, it exits non-zero before
 printing any result.
@@ -61,6 +74,8 @@ MAX_NEW_TOKENS = 32
 # (label, S, live key rows): B=1, H=8, D=64, causal, key-row mask
 ATTN_CASES = [("S512", 512, 450), ("S1024", 1024, 900), ("S777", 777, 700)]
 MAIN_CASE = "S1024"
+# the kernels each path runs (the training path runs all of them)
+SERVING_KERNELS = ("flash_attention_fwd",)
 # (B, H, Sq, Sk, D, bias shape or None, causal)
 COVERAGE_CASES = [
     (2, 3, 100, 130, 16, (2, 3, 100, 130), False),
@@ -68,6 +83,49 @@ COVERAGE_CASES = [
     (1, 2, 200, 200, 128, None, True),
     (4, 8, 1, 300, 64, (4, 1, 1, 300), False),
 ]
+
+# the training path's attention: B4 H8 S2048 D64, non-causal, with the
+# encoder/cross key-row mask [4,1,1,S] (no pads in the feeds) or the
+# decoder self-attention bias [4,1,S,S] (pad mask + assigned triu(-1e9))
+TRAIN_ATTN = (4, 8, 2048, 64)
+BWD_MAIN_CASE = "keyrow"
+# backward sweep: (B, H, Sq, Sk, D, bias shape or None, causal, bias_grad)
+BWD_COVERAGE_CASES = [
+    (2, 3, 100, 130, 16, (2, 3, 100, 130), False, True),
+    (2, 3, 130, 100, 32, (2, 1, 130, 100), True, True),
+    (2, 2, 77, 77, 64, (1, 2, 77, 77), True, True),
+    (1, 2, 200, 200, 128, None, True, False),
+    (4, 8, 1, 300, 64, (4, 1, 1, 300), False, True),
+    (2, 4, 96, 96, 32, (2, 1, 96, 96), False, False),
+]
+
+TRAIN_CFG = dict(src_vocab=32000, trg_vocab=32000, max_len=2048, n_layer=6,
+                 n_head=8, d_model=512, d_inner=2048, lr=1e-3)
+TRAIN_BATCH = 4
+TRAIN_STEPS = 5
+# flash vs naive route on the card, float32. The losses of 5 Adam steps
+# agree to rtol 1e-4. The two routes round the forward differently (sums
+# in another order, ~1e-6 relative), which flips the ReLU mask of the few
+# FFN pre-activations lying within that noise of 0; each flip passes or
+# stops one unit's whole gradient for one token, and so moves every
+# gradient upstream of it by ~5e-4 of its 2-norm (an H100 run of this
+# script: 2-11 flips per FFN of 16.8M inputs, 2-norm gap up to 9.6e-4).
+# So every parameter's step-1 gradient is held per element against a
+# naive step whose ReLUs are pinned to the flash arm's masks, which takes
+# the flips out and leaves only rounding: rtol 1e-4, atol 1e-5 * max|g|.
+# The weights of the Q and K projections get the larger of that atol and
+# TRAIN_GRAD_NOISE_FACTOR times how far a one-ulp nudge of every weight
+# moves their gradient (the same pinned step from nudged weights): their
+# gradients pass through ds = p * (dp - delta), a difference of nearly
+# equal terms wherever a row's values are alike, which amplifies the
+# routes' rounding (an H100 run: up to 4.4e-4 * max|g| in the decoder,
+# 8.7x the nudge's effect). The free naive arm's gradients are held by
+# |g_flash - g_naive| / |g_naive| (2-norms) <= 2e-3, about 2x the gap the
+# flips made. A fault in a kernel moves either by O(1).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_FRAC = 1e-4, 1e-5
+TRAIN_GRAD_NOISE_FACTOR = 30.0
+TRAIN_GRAD_NORM_RTOL = 2e-3
 
 
 def card_line() -> str:
@@ -93,17 +151,41 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, s, d, live, bias_numel):
+def attention_bound(b, h, sq, sk, d, pairs, bias_numel):
     """Least time for the forward on this card: bytes (q, k, v, bias read
     once; O, lse written once) over HBM rate vs the (q, k) pairs this
-    data needs (k <= q and k < live: masked pairs contribute exp(-1e9)
-    = 0) times 4*D flops, over the fp32 rate."""
-    pairs = sum(min(q + 1, live) for q in range(s))
-    flops = 4.0 * d * pairs * b * h
-    nbytes = 4.0 * (4 * b * h * s * d + bias_numel + b * h * s)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    data leaves in (see live_pairs) times 4*D flops, over the fp32
+    rate."""
+    nbytes = 4.0 * (2 * b * h * sq * d + 2 * b * h * sk * d + bias_numel
+                    + b * h * sq)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * d * pairs / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_pairs(bias, b, h, sq, sk, causal):
+    """(q, k) pairs the bias and causal mask leave in (masked pairs
+    carry -1e9 or less: exp gives 0)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.flash_attention import _bias_4d
+    live = torch.ones(1, 1, sq, sk, dtype=torch.bool, device="cuda")
+    if bias is not None:
+        live = live & (_bias_4d(bias) > -1e8)
+    if causal:
+        live = live & torch.ones(sq, sk, dtype=torch.bool,
+                                 device="cuda").tril()
+    return int(live.expand(b, h, sq, sk).sum().item())
+
+
+def _fwd_err(got, want):
+    """Largest |got - want| over (O, lse), and whether both are within
+    allclose(rtol=KERNEL_RTOL, atol=KERNEL_ATOL)."""
+    import torch
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+             for g, w in zip(got, want))
+    return err, ok
 
 
 def check_attention(card):
@@ -119,14 +201,9 @@ def check_attention(card):
                    for _ in range(3))
         bias = torch.zeros(b, 1, 1, s, device="cuda")
         bias[..., live:] = -1e9
-        o_k, lse_k = flash_attention_fwd(q, k, v, bias, causal=True)
-        o_p, lse_p = flash_attention_fwd_plain(q, k, v, bias, causal=True)
-        torch.cuda.synchronize()
-        err = max((o_k - o_p).abs().max().item(),
-                  (lse_k - lse_p).abs().max().item())
-        ok = (torch.allclose(o_k, o_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-              and torch.allclose(lse_k, lse_p, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL))
+        err, ok = _fwd_err(flash_attention_fwd(q, k, v, bias, causal=True),
+                           flash_attention_fwd_plain(q, k, v, bias,
+                                                     causal=True))
         if not ok:
             raise SystemExit(f"flash_attention_fwd disagrees with its plain "
                              f"version at {label}: max abs err {err:.3e}")
@@ -137,7 +214,8 @@ def check_attention(card):
             q, k, v, bias, causal=True))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask))
-        bound_ms, bound_by = attention_bound(b, h, s, d, live, bias.numel())
+        bound_ms, bound_by = attention_bound(
+            b, h, s, s, d, live_pairs(bias, b, h, s, s, True), bias.numel())
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
@@ -155,13 +233,10 @@ def check_attention(card):
                 for _ in range(2))
         bias = None if bias_shape is None else torch.randn(
             bias_shape, device="cuda", generator=gen)
-        o_k, lse_k = flash_attention_fwd(q, k, v, bias, causal=causal)
-        o_p, lse_p = flash_attention_fwd_plain(q, k, v, bias, causal=causal)
-        err = max((o_k - o_p).abs().max().item(),
-                  (lse_k - lse_p).abs().max().item())
-        if not (torch.allclose(o_k, o_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-                and torch.allclose(lse_k, lse_p, rtol=KERNEL_RTOL,
-                                   atol=KERNEL_ATOL)):
+        err, ok = _fwd_err(
+            flash_attention_fwd(q, k, v, bias, causal=causal),
+            flash_attention_fwd_plain(q, k, v, bias, causal=causal))
+        if not ok:
             raise SystemExit(f"flash_attention_fwd disagrees with its plain "
                              f"version at B={b} H={h} Sq={sq} Sk={sk} D={d} "
                              f"bias={bias_shape} causal={causal}: {err:.3e}")
@@ -172,12 +247,147 @@ def check_attention(card):
     return rows, coverage_err
 
 
-def seeded_weights(model, seed):
-    """numpy weights for every parameter, drawn from `seed` with the
-    distribution the startup program's init op names."""
+def attention_bwd_bound(b, h, sq, sk, d, pairs, bias_numel, n_out,
+                        flops_per_pair):
+    """Least time for one backward kernel on this card: bytes (q, k, v,
+    dO, the bias, lse and delta read once; `n_out` [.., S, D] gradients
+    written once) over HBM rate vs the (q, k) pairs this data leaves in
+    times `flops_per_pair` (6*D for dq, 8*D for dk/dv) over the fp32
+    rate."""
+    nbytes = 4.0 * (2 * b * h * sq * d + 2 * b * h * sk * d + bias_numel
+                    + 2 * b * h * sq + n_out * b * h * sk * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops_per_pair * pairs / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(got, want):
+    """Largest |got - want| over paired tensors, and whether every pair
+    is within allclose(rtol=1e-4, atol=1e-4 * max|want|)."""
+    import torch
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        err = max(err, (g - w).abs().max().item())
+        ok = ok and torch.allclose(
+            g, w, rtol=KERNEL_RTOL,
+            atol=KERNEL_ATOL * max(w.abs().max().item(), 1e-30))
+    return err, ok
+
+
+def check_attention_bwd(card):
+    """The forward, dq and dk/dv kernels against their plain twins on
+    the card at the training shapes (key-row mask and dense decoder
+    bias), timed there; the backward kernels also over
+    BWD_COVERAGE_CASES."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, s, d = TRAIN_ATTN
+    rows = {}
+    for label in ("keyrow", "dense"):
+        q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                       for _ in range(4))
+        if label == "keyrow":
+            bias = torch.zeros(b, 1, 1, s, device="cuda")
+        else:
+            bias = torch.full((s, s), -1e9, device="cuda").triu(1)
+            bias = bias.expand(b, 1, s, s).contiguous()
+        pairs = live_pairs(bias, b, h, s, s, False)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias)
+        err, ok = _fwd_err((o, lse), fa.flash_attention_fwd_plain(
+            q, k, v, bias))
+        if not ok:
+            raise SystemExit(f"flash_attention_fwd disagrees with its plain "
+                             f"version at B={b} H={h} S={s} D={d} {label} "
+                             f"bias: max abs err {err:.3e}")
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, bias), iters=5)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias), iters=10)
+        bound_ms, bound_by = attention_bound(b, h, s, s, d, pairs,
+                                             bias.numel())
+        rows[("flash_attention_fwd", label)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[{card}] flash_attention_fwd B={b} H={h} S={s} D={d} "
+              f"{label} bias {tuple(bias.shape)}: max_abs_err={err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+              f"{pairs} live pairs)", flush=True)
+        delta = fa._delta(o, do).contiguous()
+        args = (q, k, v, bias, do, lse, delta)
+        dq_k, _ = fa.flash_attention_bwd_dq(*args)
+        dq_p, _ = fa.flash_attention_bwd_dq_plain(*args)
+        dkv_k = fa.flash_attention_bwd_dkv(*args)
+        dkv_p = fa.flash_attention_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+        for kname, got, want, plain_fn, kernel_fn, wrt, n_out, fpp in (
+                ("flash_attention_bwd_dq", [dq_k], [dq_p],
+                 fa.flash_attention_bwd_dq_plain,
+                 fa.flash_attention_bwd_dq, (lq,), 1, 6 * d),
+                ("flash_attention_bwd_dkv", list(dkv_k), list(dkv_p),
+                 fa.flash_attention_bwd_dkv_plain,
+                 fa.flash_attention_bwd_dkv, (lk, lv), 2, 8 * d)):
+            err, ok = _max_err(got, want)
+            if not ok:
+                raise SystemExit(f"{kname} disagrees with its plain version "
+                                 f"at B={b} H={h} S={s} D={d} {label} "
+                                 f"bias: max abs err {err:.3e}")
+            ms = cuda_ms(lambda: kernel_fn(*args), iters=10)
+            plain_ms = cuda_ms(lambda: plain_fn(*args), iters=5)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, wrt, do, retain_graph=True), iters=10)
+            bound_ms, bound_by = attention_bwd_bound(
+                b, h, s, s, d, pairs, bias.numel(), n_out, fpp)
+            rows[(kname, label)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[{card}] {kname} B={b} H={h} S={s} D={d} {label} bias "
+                  f"{tuple(bias.shape)}: max_abs_err={err:.3e} kernel_ms="
+                  f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                  f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+                  f"{pairs} live pairs)", flush=True)
+        del lib_out, lq, lk, lv
+    coverage_err = 0.0
+    for b, h, sq, sk, d, bias_shape, causal, bias_grad in BWD_COVERAGE_CASES:
+        q, do = (torch.randn(b, h, sq, d, device="cuda", generator=gen)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, sk, d, device="cuda", generator=gen)
+                for _ in range(2))
+        bias = None if bias_shape is None else torch.randn(
+            bias_shape, device="cuda", generator=gen)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal,
+                                     None, bias_grad)
+        want = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
+                                            causal, None, bias_grad)
+        err, ok = _max_err(got, want)
+        if not ok or (got[3] is None) != (want[3] is None):
+            raise SystemExit(
+                f"flash_attention_bwd disagrees with its plain version at "
+                f"B={b} H={h} Sq={sq} Sk={sk} D={d} bias={bias_shape} "
+                f"causal={causal} bias_grad={bias_grad}: {err:.3e}")
+        coverage_err = max(coverage_err, err)
+        print(f"flash_attention_bwd B={b} H={h} Sq={sq} Sk={sk} D={d} "
+              f"bias={bias_shape} causal={causal} bias_grad={bias_grad}: "
+              f"max_abs_err={err:.3e}", flush=True)
+    return rows, coverage_err
+
+
+def seeded_weights(startup, seed):
+    """numpy values for every variable a startup program initializes
+    (KV caches aside), drawn from `seed` with the distribution its init
+    op names."""
     rng = np.random.RandomState(seed)
     out = {}
-    for op in model.programs["startup"].desc.global_block.ops:
+    for op in startup.desc.global_block.ops:
         name = op.output("Out")[0]
         if name.startswith("kv_cache."):
             continue
@@ -277,6 +487,289 @@ def time_serving(model, card):
     return out
 
 
+def _stamp_naive(main):
+    """use_flash=False on every attention op and on the fwd_op copy each
+    __vjp__ took at append_backward time."""
+    for op in main.desc.global_block.ops:
+        if op.type == "scaled_dot_product_attention":
+            op.attrs["use_flash"] = False
+        elif op.type == "__vjp__" and \
+                op.attrs["fwd_op"]["type"] == "scaled_dot_product_attention":
+            op.attrs["fwd_op"]["attrs"]["use_flash"] = False
+    main.desc._bump_version()
+
+
+def train_arm(main, startup, loss, weights, feed, params, card, label):
+    """TRAIN_STEPS Adam steps from `weights` in a fresh scope; the first
+    also fetches every parameter's gradient and the sign of every ReLU
+    input. Each step's time is a host clock around Executor.run, which
+    ends synchronized (it returns the fetches as numpy)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_params
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    relu_in = [op.input("X")[0] for op in main.desc.global_block.ops
+               if op.type == "relu"]
+    losses, step_ms, peaks, grads, signs = [], [], [], None, None
+    for step in range(TRAIN_STEPS):
+        fetch = [loss.name] + ([p + "@GRAD" for p in params] + relu_in
+                               if step == 0 else [])
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(out[0].reshape(-1)[0]))
+        if step == 0:
+            grads = dict(zip(params, out[1:1 + len(params)]))
+            signs = {n: x > 0 for n, x in zip(relu_in,
+                                               out[1 + len(params):])}
+        if not np.isfinite(losses[-1]):
+            raise SystemExit(f"{label} arm: loss {losses[-1]} at step {step}")
+        print(f"[{card}] train {label} step {step}: loss {losses[-1]:.6f} "
+              f"{step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.2f} GiB",
+              flush=True)
+    return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
+                grads=grads, relu_signs=signs)
+
+
+def pinned_relu_grads(main, startup, loss, weights, feed, params, signs):
+    """One step from `weights` whose ReLUs pass exactly where `signs`
+    (ReLU input name -> bool array) says, in the forward and in its
+    __vjp__ replay alike; returns every parameter's gradient."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_params
+    from paddle_tpu_torch.core.registry import OpRegistry
+    masks = {n: torch.from_numpy(m).cuda() for n, m in signs.items()}
+
+    def pinned_relu(ctx):
+        x = ctx.input("X")
+        ctx.set_output("Out", torch.where(masks[ctx.op.input("X")[0]], x,
+                                          torch.zeros_like(x)))
+
+    relu = OpRegistry.get("relu")
+    free_relu = relu.compute
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, weights)
+    relu.compute = pinned_relu
+    try:
+        out = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=[loss.name] + [p + "@GRAD" for p in params])
+    finally:
+        relu.compute = free_relu
+    return dict(zip(params, out[1:]))
+
+
+def qk_projection_params(main):
+    """The weights of the fc ops that feed an attention's Q or K slot."""
+    ops = main.desc.global_block.ops
+    producer = {n: op for op in ops if op.type != "__vjp__"
+                for n in op.output_names()}
+    out = set()
+    for op in ops:
+        if op.type != "scaled_dot_product_attention":
+            continue
+        for slot in ("Q", "K"):
+            src = producer[op.input(slot)[0]]
+            while src.type != "mul":
+                src = producer[src.input("X")[0]]
+            out.add(src.input("Y")[0])
+    return out
+
+
+def hold_step1_grads(main, startup, loss, weights, feed, params, flash,
+                     card):
+    """The witness for the flash arm's step-1 gradients: the naive route
+    again (`main` stamped naive), its ReLUs pinned to the flash arm's
+    masks, held per element for every parameter (see
+    TRAIN_GRAD_NOISE_FACTOR); and once more from weights nudged by one
+    ulp, for how far rounding alone moves each gradient. Returns the
+    worst 2-norm |diff|/|g| and, for the Q/K projection weights whose
+    atol the nudge set, (max |diff|, nudge) / max|g| and their ratio."""
+    pinned = pinned_relu_grads(main, startup, loss, weights, feed, params,
+                               flash["relu_signs"])
+    rng = np.random.RandomState(1)
+    nudged_w = dict(weights)
+    for p in params:
+        w = weights[p]
+        away = np.where(rng.rand(*w.shape) < 0.5, -np.inf, np.inf)
+        nudged_w[p] = np.nextafter(w, away.astype(np.float32))
+    nudged = pinned_relu_grads(main, startup, loss, nudged_w, feed, params,
+                               flash["relu_signs"])
+    qk = qk_projection_params(main)
+    rel, by_noise, lines, fails = {}, {}, {}, []
+    for p in params:
+        g, r = flash["grads"][p], pinned[p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        noise = float(np.abs(r - nudged[p]).max())
+        diff = float(np.abs(g - r).max())
+        rel[p] = float(np.linalg.norm(g - r)) / max(
+            float(np.linalg.norm(r)), 1e-30)
+        atol = TRAIN_GRAD_ATOL_FRAC * scale
+        if p in qk:
+            atol = max(atol, TRAIN_GRAD_NOISE_FACTOR * noise)
+        if atol > TRAIN_GRAD_ATOL_FRAC * scale:
+            by_noise[p] = (diff / scale, noise / scale, diff / noise)
+        lines[p] = (f"  {p}@GRAD: max |diff| {diff / scale:.3e} * max|g|, "
+                    f"one-ulp nudge {noise / scale:.3e} * max|g|, "
+                    f"|diff|/|g| {rel[p]:.3e}")
+        if not np.allclose(g, r, rtol=TRAIN_GRAD_RTOL, atol=atol):
+            fails.append(p)
+        if p in by_noise or p in fails:
+            print(lines.pop(p), flush=True)
+    for p in sorted(lines, key=rel.get, reverse=True)[:5]:
+        print(lines[p], flush=True)
+    if fails:
+        raise SystemExit(f"flash vs naive with the flash ReLU masks: "
+                         f"step-1 gradients of {fails} differ per element")
+    worst = max(rel.values())
+    print(f"[{card}] flash vs naive with the flash arm's ReLU masks: "
+          f"step-1 gradients of all {len(params)} parameters equal per "
+          f"element; |diff|/|g| (2-norms) up to {worst:.3e}; "
+          f"{len(params) - len(by_noise)} held at rtol {TRAIN_GRAD_RTOL}, "
+          f"atol {TRAIN_GRAD_ATOL_FRAC} * max|g|; {len(by_noise)} of the "
+          f"{len(qk)} Q/K projection weights at atol "
+          f"{TRAIN_GRAD_NOISE_FACTOR} x their one-ulp nudge (max |diff| / "
+          f"nudge: {max([v[2] for v in by_noise.values()] or [0]):.2f})",
+          flush=True)
+    return worst, by_noise
+
+
+def profile_step(main, startup, loss, weights, feed, card):
+    """One more flash-route step under torch.profiler (after a warm-up
+    step), for where its device time goes: the kernels by total device
+    time, and the device-busy share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import Executor, Scope, load_params
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, weights)
+    exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device_time_total is the newer name of cuda_time_total
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if getattr(e, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    busy_ms = sum(r[1] for r in rows)
+    print(f"[{card}] profiled flash step: {wall_ms:.1f} ms wall, "
+          f"{busy_ms:.1f} ms of device kernels "
+          f"({100 * busy_ms / wall_ms:.1f}% busy, overlap not removed)",
+          flush=True)
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {ms:9.2f} ms {n:5d}x  {key[:90]}", flush=True)
+    # the forward alone: the ops before append_backward's seed. Each
+    # __vjp__ replays its forward op, so a step runs this much twice.
+    blk = main.desc.global_block
+    ops = blk.ops
+    seed = [loss.name + "@GRAD"]
+    blk.ops = ops[:next(i for i, op in enumerate(ops)
+                        if op.output("Out") == seed)]
+    main.desc._bump_version()
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        fwd_ms = (time.perf_counter() - t0) / 3 * 1e3
+    finally:
+        blk.ops = ops
+        main.desc._bump_version()
+    print(f"[{card}] forward alone (flash route): {fwd_ms:.1f} ms — what "
+          f"the __vjp__ replays add to each step", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, forward_ms=fwd_ms)
+
+
+def train(card):
+    """Phase 4: the NMT train step at Transformer-base width, flash route
+    (as built) against the naive route on the same card."""
+    import torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    with framework.isolated_name_scope():
+        main, startup, f = transformer.build_train(**TRAIN_CFG)
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    n_params = sum(weights[p].size for p in params)
+    ln, vocab = TRAIN_CFG["max_len"], TRAIN_CFG["trg_vocab"]
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randint(1, vocab, (TRAIN_BATCH, ln, 1)).astype(np.int64)
+            for n in ("src_ids", "trg_ids", "trg_labels")}
+    feed["pos_ids"] = np.arange(ln).astype(np.int64)
+    print(f"train program built: {time.perf_counter() - t0:.2f} s, "
+          f"{len(main.desc.global_block.ops)} ops, {n_params} parameters",
+          flush=True)
+
+    kernels.reset_launch_counts()
+    flash = train_arm(main, startup, f["loss"], weights, feed, params,
+                      card, "flash")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was not launched on the "
+                             "training path")
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    print(f"[{card}] training kernel launches {launches} "
+          f"({per_step} per step)", flush=True)
+    profiled = profile_step(main, startup, f["loss"], weights, feed, card)
+
+    _stamp_naive(main)
+    naive = train_arm(main, startup, f["loss"], weights, feed, params,
+                      card, "naive")
+    np.testing.assert_allclose(flash["losses"], naive["losses"],
+                               rtol=TRAIN_LOSS_RTOL,
+                               err_msg="flash vs naive losses")
+    rel = {p: float(np.linalg.norm(flash["grads"][p] - naive["grads"][p]))
+           / max(float(np.linalg.norm(naive["grads"][p])), 1e-30)
+           for p in params}
+    flips = [int((flash["relu_signs"][n] != naive["relu_signs"][n]).sum())
+             for n in flash["relu_signs"]]
+    worst = max(rel.values())
+    n_relu = next(iter(flash["relu_signs"].values())).size
+    print(f"[{card}] flash vs naive: losses {flash['losses']} vs "
+          f"{naive['losses']}; step-1 gradients |diff|/|g| (2-norms) "
+          f"{min(rel.values()):.3e} to {worst:.3e}; ReLU inputs of "
+          f"another sign per FFN (encoder, then decoder): {flips} of "
+          f"{n_relu} each", flush=True)
+    for p in sorted(rel, key=rel.get, reverse=True)[:3] + \
+            sorted(rel, key=rel.get)[:3]:
+        print(f"  {p}@GRAD: |diff|/|g| {rel[p]:.3e}", flush=True)
+    for p in params:
+        if not rel[p] <= TRAIN_GRAD_NORM_RTOL:
+            raise SystemExit(f"flash vs naive {p}@GRAD: |diff|/|g| "
+                             f"{rel[p]:.3e} > {TRAIN_GRAD_NORM_RTOL}")
+    worst_pinned, by_noise = hold_step1_grads(
+        main, startup, f["loss"], weights, feed, params, flash, card)
+    summary = {"card": card, "config": dict(TRAIN_CFG, batch=TRAIN_BATCH),
+               "parameters": n_params, "steps": TRAIN_STEPS,
+               "launches_per_step": per_step,
+               "grad_norm_rel_diff_max": worst, "relu_sign_flips": flips,
+               "pinned_relu_grad_norm_rel_diff_max": worst_pinned,
+               "grads_held_by_nudge": {p: dict(zip(
+                   ("max_diff_frac", "nudge_frac", "ratio"), v))
+                   for p, v in by_noise.items()},
+               "profiled_step": profiled}
+    for label, arm in (("flash", flash), ("naive", naive)):
+        summary[label] = {k: arm[k] for k in ("losses", "step_ms",
+                                              "peak_bytes")}
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -309,12 +802,13 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ---------------------------
     attn, coverage_err = check_attention(card)
+    attn_bwd, bwd_coverage_err = check_attention_bwd(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
     spec = GenerationSpec(**SERVE_SPEC)
     t0 = time.perf_counter()
     gpu = GenerationModel.build(spec)
-    weights = seeded_weights(gpu, seed=0)
+    weights = seeded_weights(gpu.programs["startup"], seed=0)
     load_params(gpu, weights)
     cpu = GenerationModel(gpu.programs, spec, device="cpu")
     load_params(cpu, weights)
@@ -335,8 +829,8 @@ def main() -> int:
     print(f"[{card}] served {len(prompts)} requests, {n_tokens} tokens in "
           f"{serve_s:.3f} s on the card; kernel launches {launches}",
           flush=True)
-    for name, n in launches.items():
-        if n == 0:
+    for name in SERVING_KERNELS:
+        if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched on the "
                              "serving path")
     t0 = time.perf_counter()
@@ -348,23 +842,52 @@ def main() -> int:
               f"tokens, {r.finish_reason}", flush=True)
     compare_streams(prompts, gpu_res, cpu_res, cpu)
     timing = time_serving(gpu, card)
+    del gpu, cpu
 
-    # -- 4. result lines -----------------------------------------------------
+    # -- 4. train at Transformer-base width ----------------------------------
+    training, train_launches = train(card)
+
+    # -- 5. result lines -----------------------------------------------------
     main_case = attn[MAIN_CASE]
-    print(json.dumps({"kernels": [{
+    train_shapes = {name: {label: r for (n, label), r in attn_bwd.items()
+                           if n == name}
+                    for name in launches}
+    by_path = {name: {"serving": launches[name],
+                      "training": train_launches[name]}
+               for name in launches}
+    rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:61",
-        "launches": launches["flash_attention_fwd"],
         "max_abs_err": max([coverage_err]
-                           + [r["max_abs_err"] for r in attn.values()]),
+                           + [r["max_abs_err"] for r in attn.values()]
+                           + [r["max_abs_err"] for r in
+                              train_shapes["flash_attention_fwd"].values()]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]}))
+        "library_ms": main_case["library_ms"]}]
+    for name, line in (("flash_attention_bwd_dq", 213),
+                       ("flash_attention_bwd_dkv", 265)):
+        case = attn_bwd[(name, BWD_MAIN_CASE)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "max_abs_err": max([bwd_coverage_err]
+                               + [r["max_abs_err"] for r in
+                                  train_shapes[name].values()]),
+            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}})
+    for row in rows:
+        row["launches"] = sum(by_path[row["name"]].values())
+        row["launches_by_path"] = by_path[row["name"]]
+        row["training_shapes"] = train_shapes[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"serving": {
         "card": card, "requests": len(prompts), "tokens": n_tokens,
         "serve_s": serve_s, **timing}}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

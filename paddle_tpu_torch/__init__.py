@@ -5,9 +5,11 @@ Same ProgramDesc IR, op types, slot names and attrs as the JAX package
 card by default. Kernels that the JAX package wrote in Pallas for the
 TPU are hand-written CUDA for Hopper here (ops/kernels/, csrc/).
 
-The port goes slice by slice; this one serves the decoder LM
-(models/transformer.py build_decoder_lm) through
-serving/generation. It imports neither jax nor paddle_tpu.
+The port goes slice by slice: it serves the decoder LM
+(models/transformer.py build_decoder_lm) through serving/generation,
+and trains the Transformer NMT model (models/transformer.py
+build_train: core/backward.py autodiff, optimizer.py Adam) through
+Executor.run. It imports neither jax nor paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every ported op)
 from . import layers  # noqa: F401

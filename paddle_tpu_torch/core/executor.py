@@ -5,7 +5,12 @@ runs eagerly, so this executor walks the block and calls each op's
 compute rule (core/registry.py) in order: feeds and persistable state go
 in, fetches and written state come out. Read-write persistable state
 (the KV caches of the generation programs) is updated IN PLACE by its
-ops, which is what the JAX executor gets from buffer donation.
+ops, which is what the JAX executor gets from buffer donation. Every op
+runs under torch.no_grad(); a training program's gradients come from
+its ``__vjp__`` grad ops (core/backward.py), each of which replays its
+forward op under autograd by itself. Every forward value stays in the
+run's environment until the run ends, as the JAX trace keeps it live
+for the grad ops.
 
 Not ported yet: the compile cache, While probing, stacked multi-step
 runs, async StepResult, and the cost/memory reports.
@@ -102,6 +107,9 @@ class Executor:
         # (program uid, version, op index): the position table's
         # assign_value alone is a list of max_seq_len * d_model floats
         self._const_cache: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+        # runs so far: random ops that must draw anew each step (dropout)
+        # fold it into their seed, as the JAX executor folds its step
+        self._runs = 0
 
     def run(self, program, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -122,7 +130,8 @@ class Executor:
         env: Dict[str, Any] = {n: scope.get(n) for n in read_names}
         for k, v in (feed or {}).items():
             env[k] = to_tensor(v, self.device)
-        extra = {"device": self.device}
+        extra = {"device": self.device, "step": self._runs}
+        self._runs += 1
         with torch.no_grad():
             for i, op in enumerate(block.ops):
                 opdef = OpRegistry.get(op.type)

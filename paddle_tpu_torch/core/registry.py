@@ -1,24 +1,38 @@
-"""Operator registry: one compute rule per op type.
+"""Operator registry: one compute rule per op type, and gradient makers.
 
 Each op type has ONE compute rule, a plain function over torch tensors
 that reads its inputs and attrs from an ExecutionContext and writes its
 outputs there. The executor runs the rules eagerly, op by op, on the
-tensors' own device. The port is forward only, so no gradient makers
-are registered yet.
+tensors' own device. Gradients are desc-level, as in the JAX package
+(core/backward.py): an op may register a grad maker that appends grad
+OpDescs; every other op gets the generic ``__vjp__`` grad op, which
+replays the compute rule under torch autograd.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 class OpDef:
     """Everything the runtime knows about one op type."""
 
     def __init__(self, type: str, compute: Callable,
+                 grad_maker: Optional[Callable] = None,
+                 no_grad_slots: Optional[List[str]] = None,
                  constant: bool = False):
         self.type = type
         # compute(ctx) -> None; reads ctx.input/attr, writes ctx.set_output.
         self.compute = compute
+        # grad_maker(op, block, acc, no_grad) -> List[OpDesc]
+        self.grad_maker = grad_maker
+        # input slots that never need gradients (e.g. integer indices)
+        self.no_grad_slots = set(no_grad_slots or [])
         # constant ops take no inputs and produce the same tensor from
         # their attrs on every run; the executor materializes them once
         # per (program, device) instead of once per run
@@ -49,10 +63,13 @@ class OpRegistry:
         return type in cls._ops
 
 
-def register_op(type: str, constant=False):
+def register_op(type: str, grad_maker=None, no_grad_slots=None,
+                constant=False):
     """Decorator: register `fn(ctx)` as the compute rule for op `type`."""
     def deco(fn):
-        OpRegistry.register(OpDef(type, fn, constant=constant))
+        OpRegistry.register(OpDef(type, fn, grad_maker=grad_maker,
+                                  no_grad_slots=no_grad_slots,
+                                  constant=constant))
         return fn
     return deco
 
@@ -69,7 +86,9 @@ class ExecutionContext:
     """Per-op view of the environment during execution.
 
     `extra` carries run-wide values: "device", the torch.device that
-    constant and random ops create their outputs on.
+    constant and random ops create their outputs on, and "step", the
+    executor's run count, which per-step random ops fold into their
+    seed.
     """
 
     __slots__ = ("op", "env", "_outputs", "extra")
@@ -91,6 +110,9 @@ class ExecutionContext:
         if not names:
             return None
         return self.env[names[0]]
+
+    def inputs(self, slot: str) -> List[Any]:
+        return [self.env[n] for n in self.op.input(slot)]
 
     # attrs --------------------------------------------------------------
     def attr(self, name: str, default=None):

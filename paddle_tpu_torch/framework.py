@@ -175,6 +175,18 @@ _DUMMY_BATCH = 97
 #: OpDesc attr recording that shape inference could not cover this op
 #: (and why) — the same attr the JAX package stamps.
 SHAPE_INFER_SKIPPED_ATTR = "__shape_infer_skipped__"
+#: OpDesc attr recording declared-vs-inferred conflicts found at build
+#: time — the same attr, and the same conflict dicts, as the JAX
+#: package's (its analysis/passes.py ShapeDtypePass.compare).
+SHAPE_INFER_CONFLICT_ATTR = "__shape_infer_conflict__"
+
+_DTYPE_FAMILY = {
+    "float16": "float", "bfloat16": "float", "float32": "float",
+    "float64": "float",
+    "int8": "int", "int16": "int", "int32": "int", "int64": "int",
+    "uint8": "int",
+    "bool": "bool",
+}
 
 
 class _SkipInference(Exception):
@@ -189,14 +201,46 @@ def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
     if outs is None:
         op.attrs[SHAPE_INFER_SKIPPED_ATTR] = str(skip)[:200]
         return
+    conflicts = []
     for name, spec in outs.items():
         v = block_desc.find_var_recursive(name)
         if v is None:
             continue
+        conflicts.extend(_conflicts(name, v, spec))
         if v.shape is None and spec.get("shape") is not None:
             v.shape = list(spec["shape"])
         if v.dtype is None and spec.get("dtype") is not None:
             v.dtype = spec["dtype"]
+    if conflicts:
+        op.attrs[SHAPE_INFER_CONFLICT_ATTR] = conflicts
+
+
+def _conflicts(name, v, spec):
+    """Declared VarDesc vs inferred spec: a list of conflict dicts (a
+    dtype of another family, another rank, or two concrete extents that
+    differ); empty when they agree."""
+    out = []
+    fam_d = _DTYPE_FAMILY.get(v.dtype)
+    fam_i = _DTYPE_FAMILY.get(spec.get("dtype"))
+    if fam_d and fam_i and fam_d != fam_i:
+        out.append({"kind": "dtype", "var": name, "declared": v.dtype,
+                    "inferred": spec["dtype"]})
+    inferred = spec.get("shape")
+    if v.shape is None or inferred is None or \
+            spec.get("lod_level", 0) != v.lod_level:
+        return out
+    if len(v.shape) != len(inferred):
+        out.append({"kind": "rank", "var": name, "declared": list(v.shape),
+                    "inferred": list(inferred)})
+        return out
+    for d, (a, b) in enumerate(zip(v.shape, inferred)):
+        if isinstance(a, int) and isinstance(b, int) and \
+                a != -1 and b != -1 and a != b:
+            out.append({"kind": "dim", "var": name, "dim": d,
+                        "declared": list(v.shape),
+                        "inferred": list(inferred)})
+            break
+    return out
 
 
 def infer_op_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc):

@@ -2,10 +2,12 @@
 
 The port's startup draws its random weights from torch generators, not
 from JAX's PRNG, so a port model and a JAX model built from one spec
-start from different weights. ``load_params`` sets a model's parameters
+start from different weights. ``load_params`` sets a model's state
 from arrays keyed by their reference names — for example the JAX
 model's scope converted to numpy — after which both packages compute
-the same function.
+the same function. For a training program's scope the state is every
+value its startup wrote: the parameters, the optimizer's accumulators
+(Adam's moments and beta powers) and the learning rate.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ from .models.transformer import KV_CACHE_PREFIX
 
 def load_params(model_or_scope, arrays: Dict[str, np.ndarray]) -> None:
     """Set every persistable non-``kv_cache.*`` variable of a
-    GenerationModel (or every non-cache tensor of an initialized Scope)
-    from ``arrays``, on the device and in the dtype the variable already
-    has. Raises KeyError on a missing or an extra name and ValueError on
-    a shape or dtype mismatch, before anything is written."""
+    GenerationModel (or every non-cache tensor of an initialized Scope,
+    such as a train step's scope after its startup ran) from ``arrays``,
+    on the device and in the dtype the variable already has. Raises
+    KeyError on a missing or an extra name and ValueError on a shape or
+    dtype mismatch, before anything is written."""
     scope = model_or_scope if isinstance(model_or_scope, Scope) \
         else model_or_scope.scope
     names = sorted(n for n in scope.local_names()

@@ -1,15 +1,18 @@
 """Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
-that the decoder LM builds with (fc, embedding, layer_norm, reduce_sum,
-elementwise_add/sub/mul, scale). Each function appends the same ops,
-with the same attrs and var names, as its JAX-package counterpart."""
+that the decoder LM and the Transformer NMT model build with (fc,
+embedding, layer_norm, dropout, softmax_with_cross_entropy, reduce_sum,
+elementwise_add/sub/mul/div/max, scale). Each
+function appends the same ops, with the same attrs and var names, as its
+JAX-package counterpart."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "reduce_sum",
+__all__ = ["fc", "embedding", "layer_norm", "dropout",
+           "softmax_with_cross_entropy", "reduce_sum",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "scale"]
+           "elementwise_div", "elementwise_max", "scale"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -37,11 +40,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                                 if inp.lod_level == 0 else inp.lod_level + 1,
                                 "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the sum op, which is not "
-            "ported yet")
-    pre_act = helper.append_bias_op(mul_results[0], size=size)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": pre_bias})
+    pre_act = helper.append_bias_op(pre_bias, size=size)
     return helper.append_activation(pre_act)
 
 
@@ -94,6 +99,32 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="dropout", inputs={"X": x},
+                     outputs={"Out": out, "Mask": mask},
+                     attrs={"dropout_prob": dropout_prob,
+                            "is_test": is_test,
+                            "seed": seed
+                            or helper.main_program.desc.next_seed(),
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_tmp_variable(logits.dtype)
+    loss = helper.create_tmp_variable(logits.dtype)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": logits, "Label": label},
+                     outputs={"Softmax": softmax, "Loss": loss},
+                     attrs={"soft_label": soft_label})
+    return loss
+
+
 def _reduce(op_type):
     def fn(input, dim=None, keep_dim=False, name=None):
         helper = LayerHelper(op_type, name=name)
@@ -124,6 +155,8 @@ def _binary(op_type):
 elementwise_add = _binary("elementwise_add")
 elementwise_sub = _binary("elementwise_sub")
 elementwise_mul = _binary("elementwise_mul")
+elementwise_div = _binary("elementwise_div")
+elementwise_max = _binary("elementwise_max")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,12 +1,12 @@
-"""Comparison layers: the subset of ``paddle_tpu/layers/ops.py`` that the
-decoder LM builds with."""
+"""Comparison and logical layers: the subset of ``paddle_tpu/layers/ops.py``
+that the decoder LM and the Transformer NMT model build with."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_CMP_OPS = ["less_than", "less_equal"]
+_CMP_OPS = ["equal", "less_than", "less_equal"]
 
-__all__ = list(_CMP_OPS)
+__all__ = list(_CMP_OPS) + ["logical_not"]
 
 
 def _make_cmp(op_type):
@@ -21,5 +21,15 @@ def _make_cmp(op_type):
     return fn
 
 
+equal = _make_cmp("equal")
 less_than = _make_cmp("less_than")
 less_equal = _make_cmp("less_equal")
+
+
+def logical_not(x, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = helper.create_tmp_variable("bool", lod_level=x.lod_level)
+    out.stop_gradient = True
+    helper.append_op(type="logical_not", inputs={"X": x},
+                     outputs={"Out": out})
+    return out

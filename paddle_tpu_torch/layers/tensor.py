@@ -1,13 +1,15 @@
 """Tensor-construction and manipulation layers: the subset of
-``paddle_tpu/layers/tensor.py`` that the decoder LM builds with."""
+``paddle_tpu/layers/tensor.py`` that the decoder LM and the Transformer
+NMT model build with."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign", "fill_constant", "reshape", "transpose",
-           "unsqueeze", "gather", "one_hot", "argmax", "range", "slice"]
+__all__ = ["cast", "assign", "fill_constant", "ones_like", "reshape",
+           "transpose", "unsqueeze", "gather", "one_hot", "argmax", "range",
+           "slice"]
 
 
 def cast(x, dtype):
@@ -20,15 +22,16 @@ def cast(x, dtype):
 
 def assign(input, output=None):
     helper = LayerHelper("assign")
-    if not isinstance(input, np.ndarray):
-        raise NotImplementedError(
-            "assign of a Variable needs the assign op, which is not "
-            "ported yet; pass a numpy array")
-    output = output or helper.create_tmp_variable(str(input.dtype))
-    helper.append_op(type="assign_value", outputs={"Out": output},
-                     attrs={"shape": list(input.shape),
-                            "dtype": str(input.dtype),
-                            "values": input.reshape(-1).tolist()})
+    if isinstance(input, np.ndarray):
+        output = output or helper.create_tmp_variable(str(input.dtype))
+        helper.append_op(type="assign_value", outputs={"Out": output},
+                         attrs={"shape": list(input.shape),
+                                "dtype": str(input.dtype),
+                                "values": input.reshape(-1).tolist()})
+    else:
+        output = output or helper.create_tmp_variable(input.dtype)
+        helper.append_op(type="assign", inputs={"X": input},
+                         outputs={"Out": output})
     return output
 
 
@@ -39,6 +42,14 @@ def fill_constant(shape, dtype, value, out=None, name=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    out = out or helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="fill_constant_like", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"value": 1.0})
     return out
 
 

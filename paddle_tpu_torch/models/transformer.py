@@ -1,7 +1,16 @@
-"""Decoder-only LM: the program set behind the token-serving engine.
+"""Transformer encoder-decoder NMT, and the decoder-only LM behind the
+token-serving engine.
 
-The port's copy of the decoder-LM part of ``paddle_tpu/models/
-transformer.py``. Three modes share one parameter set:
+The port's copy of ``paddle_tpu/models/transformer.py`` (reference model:
+python/paddle/fluid/tests/unittests/transformer_model.py). ``build_train``
+builds the NMT train step — forward, backward and Adam — with the same
+ops, attrs and var names as the JAX package; multi-head attention runs
+through the fused scaled_dot_product_attention op. The JAX package's
+"composed" matmul/softmax chain and distributed embedding are not
+ported; context parallelism (``seq_axis``) and ``tp_param_specs`` need
+a mesh and are not ported either.
+
+The decoder LM's three modes share one parameter set:
 
   "full"     [b, S]  causal forward over whole (padded) sequences,
              greedy next-token at each row's last real position — the
@@ -18,13 +27,14 @@ parameter-creating calls, so auto-generated param names line up and
 every program reads the same scope tensors. KV caches are persistable
 vars OUTSIDE the parameter set (kv_cache.* prefix), zero-filled by each
 program's startup. The programs serialize to the same JSON as the JAX
-package's. The encoder-decoder NMT model is not ported yet.
+package's.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .. import framework, layers
+from .. import optimizer as opt
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
@@ -33,9 +43,41 @@ from ..layer_helper import LayerHelper
 KV_CACHE_PREFIX = "kv_cache."
 
 
-def ffn(x, d_model, d_inner):
+def multi_head_attention(q_in, k_in, v_in, d_model, n_head, mask=None,
+                         dropout_rate=0.0, causal=False):
+    """Appends the single scaled_dot_product_attention op (the JAX
+    package's "fused" impl). The "tp_col_*"/"tp_row_*" name prefixes are
+    the JAX package's Megatron pairing marks; the port keeps them so
+    parameter names agree."""
+    d_key = d_model // n_head
+    q = layers.fc(q_in, size=d_model, num_flatten_dims=2,
+                  bias_attr=False, name="tp_col_qkv")
+    k = layers.fc(k_in, size=d_model, num_flatten_dims=2,
+                  bias_attr=False, name="tp_col_qkv")
+    v = layers.fc(v_in, size=d_model, num_flatten_dims=2,
+                  bias_attr=False, name="tp_col_qkv")
+
+    def split_heads(x):
+        # [b, t, d_model] -> [b, n_head, t, d_key]
+        reshaped = layers.reshape(x, [0, 0, n_head, d_key])
+        return layers.transpose(reshaped, [0, 2, 1, 3])
+
+    ctx_v = _sdpa_op(split_heads(q), split_heads(k), split_heads(v), mask,
+                     causal)
+    merged = layers.transpose(ctx_v, [0, 2, 1, 3])
+    merged = layers.reshape(merged, [0, 0, d_model])
+    out = layers.fc(merged, size=d_model, num_flatten_dims=2,
+                    bias_attr=False, name="tp_row_proj")
+    if dropout_rate:
+        out = layers.dropout(out, dropout_rate)
+    return out
+
+
+def ffn(x, d_model, d_inner, dropout_rate=0.0):
     hidden = layers.fc(x, size=d_inner, num_flatten_dims=2, act="relu",
                        name="tp_col_ffn")
+    if dropout_rate:
+        hidden = layers.dropout(hidden, dropout_rate)
     return layers.fc(hidden, size=d_model, num_flatten_dims=2,
                      name="tp_row_ffn")
 
@@ -43,6 +85,25 @@ def ffn(x, d_model, d_inner):
 def _add_norm(x, y, d_model):
     return layers.layer_norm(layers.elementwise_add(x, y),
                              begin_norm_axis=2)
+
+
+def encoder_layer(x, d_model, n_head, d_inner, mask=None, dropout=0.0):
+    attn = multi_head_attention(x, x, x, d_model, n_head, mask, dropout)
+    x = _add_norm(x, attn, d_model)
+    f = ffn(x, d_model, d_inner, dropout)
+    return _add_norm(x, f, d_model)
+
+
+def decoder_layer(x, enc_out, d_model, n_head, d_inner, self_mask=None,
+                  cross_mask=None, dropout=0.0, self_causal=False):
+    self_attn = multi_head_attention(x, x, x, d_model, n_head, self_mask,
+                                     dropout, causal=self_causal)
+    x = _add_norm(x, self_attn, d_model)
+    cross = multi_head_attention(x, enc_out, enc_out, d_model, n_head,
+                                 cross_mask, dropout)
+    x = _add_norm(x, cross, d_model)
+    f = ffn(x, d_model, d_inner, dropout)
+    return _add_norm(x, f, d_model)
 
 
 def _position_encoding_table(max_len, d_model):
@@ -53,6 +114,77 @@ def _position_encoding_table(max_len, d_model):
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table
+
+
+def embed(ids, vocab_size, d_model, max_len, pos_ids):
+    word = layers.embedding(ids, size=[vocab_size, d_model])
+    pe = layers.assign(_position_encoding_table(max_len, d_model))
+    pos = layers.gather(pe, pos_ids)  # [t, d_model]
+    return layers.elementwise_add(word, pos, axis=-1)
+
+
+def _pad_attn_mask(ids, pad_id=0):
+    """[b, t, 1] int ids -> additive mask [b, 1, 1, t]: -1e9 at pads."""
+    is_pad = layers.cast(layers.equal(ids, pad_id * layers.ones_like(ids)),
+                         "float32")                       # [b, t, 1]
+    neg = layers.scale(is_pad, scale=-1e9)
+    m = layers.transpose(neg, [0, 2, 1])                  # [b, 1, t]
+    return layers.unsqueeze(m, [1])                       # [b, 1, 1, t]
+
+
+def transformer(src_ids, trg_ids, trg_labels, pos_src, pos_trg,
+                src_vocab=10000, trg_vocab=10000, max_len=64, n_layer=2,
+                n_head=8, d_model=512, d_inner=2048, dropout=0.0,
+                causal_mask=None, pad_id=0):
+    """Encoder-decoder forward and the pad-masked mean token loss.
+    Returns (loss [1], logits [b, t, trg_vocab])."""
+    src_mask = _pad_attn_mask(src_ids, pad_id)
+    enc = embed(src_ids, src_vocab, d_model, max_len, pos_src)
+    for _ in range(n_layer):
+        enc = encoder_layer(enc, d_model, n_head, d_inner, src_mask,
+                            dropout)
+    dec = embed(trg_ids, trg_vocab, d_model, max_len, pos_trg)
+    self_mask = causal_mask
+    if causal_mask is not None:
+        trg_mask = _pad_attn_mask(trg_ids, pad_id)
+        self_mask = layers.elementwise_add(trg_mask, causal_mask)
+    for _ in range(n_layer):
+        dec = decoder_layer(dec, enc, d_model, n_head, d_inner,
+                            self_mask, src_mask, dropout)
+    logits = layers.fc(dec, size=trg_vocab, num_flatten_dims=2)
+    tok_loss = layers.softmax_with_cross_entropy(logits, trg_labels)
+    # Average only over non-pad target positions.
+    nonpad = layers.cast(
+        layers.logical_not(layers.equal(
+            trg_labels, pad_id * layers.ones_like(trg_labels))), "float32")
+    total = layers.reduce_sum(layers.elementwise_mul(tok_loss, nonpad))
+    count = layers.elementwise_max(
+        layers.reduce_sum(nonpad),
+        layers.fill_constant([1], "float32", 1.0))
+    loss = layers.elementwise_div(total, count)
+    return loss, logits
+
+
+def build_train(src_vocab=10000, trg_vocab=10000, max_len=64, n_layer=2,
+                n_head=8, d_model=512, d_inner=2048, lr=1e-3):
+    """The NMT train step: (main, startup, {"loss": loss}). Feeds:
+    src_ids, trg_ids, trg_labels [b, max_len, 1] int64 (0 is the pad
+    id) and pos_ids [max_len] int64. The decoder's self-attention mask
+    is the target pad mask plus an assigned triu(-1e9) causal bias."""
+    main, startup = framework.Program(), framework.Program()
+    with framework.program_guard(main, startup):
+        src = layers.data("src_ids", [max_len, 1], dtype="int64")
+        trg = layers.data("trg_ids", [max_len, 1], dtype="int64")
+        lbl = layers.data("trg_labels", [max_len, 1], dtype="int64")
+        pos = layers.data("pos_ids", [max_len], dtype="int64",
+                          append_batch_size=False)
+        causal = layers.assign(
+            np.triu(np.full((max_len, max_len), -1e9, np.float32), k=1))
+        loss, _logits = transformer(src, trg, lbl, pos, pos, src_vocab,
+                                    trg_vocab, max_len, n_layer, n_head,
+                                    d_model, d_inner, causal_mask=causal)
+        opt.AdamOptimizer(learning_rate=lr).minimize(loss)
+    return main, startup, {"loss": loss}
 
 
 class LMProgram:

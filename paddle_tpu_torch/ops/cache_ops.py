@@ -28,7 +28,7 @@ def _dus_start(index, dim: int, size: int):
     return index.clamp(0, dim - size)
 
 
-@register_op("kv_cache_write")
+@register_op("kv_cache_write", no_grad_slots=["Slot"])
 def _kv_cache_write(ctx):
     """Prefill path: write one request's full-prompt K or V rows into
     its cache slot.
@@ -49,7 +49,7 @@ def _kv_cache_write(ctx):
     ctx.set_output("Out", cache)
 
 
-@register_op("kv_cache_append")
+@register_op("kv_cache_append", no_grad_slots=["Pos"])
 def _kv_cache_append(ctx):
     """Decode path: append one token's K or V row per slot, at each
     slot's own position.

@@ -1,16 +1,17 @@
-"""Core ops: constants, random init, cast, scale.
+"""Core ops: constants, random init, sum, cast, scale, and the generic
+``__vjp__`` grad op that powers desc-level autodiff.
 
 The port's compute rules for the ``paddle_tpu/ops/core_ops.py`` ops the
-decoder LM runs (fill_constant, uniform_random, assign_value, cast,
-scale). The feed/fetch plumbing, sum, the other random ops and the
-generic ``__vjp__`` grad op wait for later slices.
+decoder LM and the Transformer NMT train step run. The feed/fetch
+plumbing and the other random ops wait for later slices.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.registry import register_op
+from ..core.ir import OpDesc
+from ..core.registry import register_op, run_op
 
 _TORCH_DTYPE = {
     "float32": torch.float32, "float64": torch.float64,
@@ -38,6 +39,12 @@ def _fill_constant(ctx):
         value = int(value)
     ctx.set_output("Out", torch.full(list(ctx.attr("shape")), value,
                                      dtype=dtype, device=ctx.device))
+
+
+@register_op("fill_constant_like")
+def _fill_constant_like(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.full_like(x, ctx.attr("value", 0.0)))
 
 
 def _generator(ctx) -> torch.Generator:
@@ -79,6 +86,20 @@ def _assign_value(ctx):
 
 # -- basic transforms -------------------------------------------------------
 
+@register_op("assign")
+def _assign(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_op("sum")
+def _sum(ctx):
+    xs = ctx.inputs("X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_output("Out", out)
+
+
 @register_op("cast")
 def _cast(ctx):
     x = ctx.input("X")
@@ -95,3 +116,47 @@ def _scale(ctx):
         ctx.set_output("Out", x * scale + bias)
     else:
         ctx.set_output("Out", (x + bias) * scale)
+
+
+# -- the generic grad op ----------------------------------------------------
+
+@register_op("__vjp__")
+def _vjp(ctx):
+    """Gradient of an arbitrary forward op: replay its compute rule under
+    torch autograd. See core/backward.py for how this op is built.
+
+    The inputs that need a gradient enter the replay as detached leaf
+    copies; torch.autograd.grad then pulls the output cotangents back to
+    them. An input the outputs do not depend on gets zeros, as jax.vjp
+    gives. The executor runs every other op under torch.no_grad(); only
+    this replay records a graph, and it is dropped when the op returns.
+    Eager torch has no CSE: the forward op runs a second time here (for
+    scaled_dot_product_attention on the flash route that is a second
+    forward-kernel launch before the backward kernels)."""
+    fwd = OpDesc.from_dict(ctx.attr("fwd_op"))
+    fwd_out_names = fwd.output_names()
+    in_vals = ctx.inputs("FwdIn")
+    out_grads = ctx.inputs("OutGrad")
+    in_need_grad = ctx.attr("in_need_grad")
+    grad_out_names = [n for n, h in zip(fwd_out_names,
+                                        ctx.attr("out_has_grad")) if h]
+    replay_names = fwd.input_names() + list(ctx.attr("closure_names", [])
+                                            or [])
+    leaves = []
+    env = {}
+    for n, v, need in zip(replay_names, in_vals, in_need_grad):
+        if need:
+            v = v.detach().requires_grad_(True)
+            leaves.append(v)
+        env[n] = v
+    with torch.enable_grad():
+        outs = run_op(fwd, env, ctx.extra)
+        pairs = [(outs[n], g) for n, g in zip(grad_out_names, out_grads)
+                 if outs[n].requires_grad]
+        grads = [None] * len(leaves)
+        if pairs:
+            ys, cts = zip(*pairs)
+            grads = torch.autograd.grad(ys, leaves, cts, allow_unused=True)
+    for i, (g, leaf) in enumerate(zip(grads, leaves)):
+        ctx.set_output("InGrad", torch.zeros_like(leaf) if g is None
+                       else g.detach(), index=i)

@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch twin.
 
-One module per kernel, named after the TPU kernel it replaces in
+One module per kernel family, named after the TPU kernels it replaces in
 ``paddle_tpu/ops/pallas/``; the CUDA sources live in
 ``paddle_tpu_torch/csrc/`` and are built at first use (build.py).
 """
-from .flash_attention import (flash_attention_fwd,  # noqa: F401
+from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
+                              flash_attention_bwd_dq, flash_attention_fwd,
                               flash_attention_fwd_plain)
 
 #: every kernel wrapper of the port, for launch accounting
-KERNELS = {"flash_attention_fwd": flash_attention_fwd}
+KERNELS = {"flash_attention_fwd": flash_attention_fwd,
+           "flash_attention_bwd_dq": flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
 def reset_launch_counts():

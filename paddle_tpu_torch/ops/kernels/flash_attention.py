@@ -1,16 +1,27 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain twin.
+"""Flash attention: the hand-written CUDA kernels and their plain twins.
 
-Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas/flash_attention.py``
-(``_fwd`` / ``_fwd_kernel``). The CUDA source is
-``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; its header says what
-bounds it on an H100 and how the design answers that. The backward
-kernels (``_dq_kernel``, ``_dkv_kernel``) are not ported yet: the port
-serves, it does not train.
+Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/
+flash_attention.py``:
 
-``flash_attention_fwd`` takes the kernel for CUDA tensors — there is no
-fallback: a CUDA input it cannot take raises — and the plain torch
-composition ``flash_attention_fwd_plain`` for tensors that do not lie on
-a card (the CPU tests, and the build-time shape trace on "meta").
+  ``flash_attention_fwd``       ``_fwd`` / ``_fwd_kernel``
+                                (csrc/flash_attention_fwd.cu)
+  ``flash_attention_bwd_dq``    ``_bwd`` / ``_dq_kernel``, with the
+                                optional exact bias gradient
+                                (csrc/flash_attention_bwd.cu)
+  ``flash_attention_bwd_dkv``   ``_bwd`` / ``_dkv_kernel``
+                                (csrc/flash_attention_bwd.cu)
+
+Each CUDA source's header says what bounds it on an H100 and how the
+design answers that. ``flash_attention_bwd`` runs the whole backward
+(delta = rowsum(dO * O) in torch, as the JAX package computes it outside
+its kernels, then both kernels); ``FlashAttention`` is the
+torch.autograd.Function over the pair, the counterpart of the JAX
+package's ``jax.custom_vjp``, and ``flash_attention`` applies it.
+
+Every wrapper takes its kernel for CUDA tensors — there is no fallback:
+a CUDA input a kernel cannot take raises, and so does a failed build or
+launch — and its plain torch twin for tensors that do not lie on a card
+(the CPU tests, and the build-time shape trace on "meta").
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from . import build
 NEG_INF = -1e30   # the reference's masked-score value
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _SOURCE = "flash_attention_fwd.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 
 
 def _bias_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -39,25 +51,35 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
                               sm_scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Straightforward torch composition with the kernel's semantics:
-    returns (O [B,H,Sq,D], lse [B,H,Sq]) in float32. bias is additive and
-    broadcastable to [B,H,Sq,Sk]; causal masks kpos > qpos with NEG_INF;
-    a row whose probabilities all vanish gives O = 0."""
+    returns (O [B,H,Sq,D], lse [B,H,Sq]) in float32 (float64 for float64
+    inputs). bias is additive and broadcastable to [B,H,Sq,Sk]; causal
+    masks kpos > qpos with NEG_INF; a row whose probabilities all vanish
+    gives O = 0."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = _scores(q, k, bias, causal, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v.to(s.dtype)) / torch.where(
+        l == 0, torch.ones_like(l), l)
+    lse = (m + torch.log(torch.clamp(l, min=1e-37))).squeeze(-1)
+    return o.to(q.dtype), lse
+
+
+def _scores(q, k, bias, causal, sm_scale):
+    """Masked scaled scores [B,H,Sq,Sk], in the reference's order: scale,
+    add the bias, then NEG_INF where kpos > qpos under causal."""
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * sm_scale
     if bias is not None:
-        s = s + _bias_4d(bias).float()
+        s = s + _bias_4d(bias).to(ct)
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
         qpos = torch.arange(sq, device=s.device)[:, None]
         kpos = torch.arange(sk, device=s.device)[None, :]
         s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, v.float()) / torch.where(l == 0, torch.ones_like(l), l)
-    lse = (m + torch.log(torch.clamp(l, min=1e-37))).squeeze(-1)
-    return o.to(q.dtype), lse
+    return s
 
 
 def _library() -> ctypes.CDLL:
@@ -74,37 +96,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(q, k, v, bias):
+def _check_inputs(q, k, v, bias, who="flash_attention_fwd"):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} on {t.device}, "
+            raise ValueError(f"{who}: {name} on {t.device}, "
                              f"q on {q.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention_fwd: {name} is {t.dtype}; "
+            raise TypeError(f"{who}: {name} is {t.dtype}; "
                             "the kernel takes float32 only")
         if t.ndim != 4:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
+            raise ValueError(f"{who}: {name} must be "
                              f"[B,H,S,D], got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} must be "
+            raise ValueError(f"{who}: {name} must be "
                              "contiguous")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if tuple(k.shape) != (b, h, sk, d) or tuple(v.shape) != (b, h, sk, d):
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
+        raise ValueError(f"{who}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} not in "
+        raise ValueError(f"{who}: head dim {d} not in "
                          f"{SUPPORTED_HEAD_DIMS}")
     if sq < 1 or sk < 1 or b * h > 65535:
-        raise ValueError(f"flash_attention_fwd: unsupported sizes B*H="
+        raise ValueError(f"{who}: unsupported sizes B*H="
                          f"{b * h}, Sq={sq}, Sk={sk}")
     if bias is not None:
         if bias.device != q.device or bias.dtype != torch.float32:
-            raise TypeError("flash_attention_fwd: bias must be float32 on "
+            raise TypeError(f"{who}: bias must be float32 on "
                             f"{q.device}, got {bias.dtype} on {bias.device}")
         if bias.ndim not in (2, 3, 4):
-            raise ValueError("flash_attention_fwd: bias must have 2-4 dims")
+            raise ValueError(f"{who}: bias must have 2-4 dims")
+
+
+def _bias_strides(bias, shape, who):
+    """The bias as a [B,H,Sq,Sk] view with stride 0 on its broadcast dims
+    (never expanded in memory), and its four strides; (None, zeros)
+    without a bias."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    bias4 = _bias_4d(bias)
+    try:
+        bias = bias4.expand(*shape)
+    except RuntimeError as e:
+        raise ValueError(f"{who}: bias {tuple(bias4.shape)} does not "
+                         f"broadcast to {tuple(shape)}") from e
+    return bias, bias.stride()
 
 
 def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
@@ -124,15 +161,8 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
     sk = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    strides = (0, 0, 0, 0)
-    if bias is not None:
-        bias4 = _bias_4d(bias)
-        try:
-            bias = bias4.expand(b, h, sq, sk)
-        except RuntimeError as e:
-            raise ValueError(f"flash_attention_fwd: bias {tuple(bias4.shape)} "
-                             f"does not broadcast to {(b, h, sq, sk)}") from e
-        strides = bias.stride()
+    bias, strides = _bias_strides(bias, (b, h, sq, sk),
+                                  "flash_attention_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -154,3 +184,236 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
 #: kernel launches since the count was last set to 0 (the wrapper adds
 #: one per launch and nowhere else; the plain path does not count)
 flash_attention_fwd.launches = 0
+
+
+# -- backward ---------------------------------------------------------------
+
+def _delta(o, do):
+    """rowsum(dO * O) [B,H,Sq]: the reference computes it outside its
+    kernels too (flash_attention.py _bwd), and so does the port."""
+    ct = torch.float64 if o.dtype == torch.float64 else torch.float32
+    return (do.to(ct) * o.to(ct)).sum(-1)
+
+
+def _probs(q, k, bias, lse, causal, sm_scale):
+    """p = exp(s - lse), the softmax rebuilt from the forward's lse."""
+    s = _scores(q, k, bias, causal, sm_scale)
+    return torch.exp(s - lse.to(s.dtype)[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
+                                 causal: bool = False,
+                                 sm_scale: Optional[float] = None,
+                                 bias_grad: bool = False):
+    """Dense twin of the dq kernel: (dq [B,H,Sq,D], ds [B,H,Sq,Sk] or
+    None). ds = p * (dO v^T - delta) is the exact gradient of a full
+    [B,H,Sq,Sk] bias; it is returned only with bias_grad."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _probs(q, k, bias, lse, causal, sm_scale)
+    dp = torch.matmul(do.to(p.dtype), v.to(p.dtype).transpose(-1, -2))
+    ds = p * (dp - delta.to(p.dtype)[..., None])
+    dq = sm_scale * torch.matmul(ds, k.to(p.dtype))
+    return dq.to(q.dtype), (ds if bias_grad else None)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
+                                  causal: bool = False,
+                                  sm_scale: Optional[float] = None):
+    """Dense twin of the dk/dv kernel: dv = p^T dO, dk = scale ds^T q."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _probs(q, k, bias, lse, causal, sm_scale)
+    dof = do.to(p.dtype)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.to(p.dtype).transpose(-1, -2))
+    ds = p * (dp - delta.to(p.dtype)[..., None])
+    dk = sm_scale * torch.matmul(ds.transpose(-1, -2), q.to(p.dtype))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _reduce_dbias(ds, bias):
+    """Sum the full-shape bias gradient over every broadcast dim of the
+    original bias, back to its shape and dtype (reference _bwd:386-393)."""
+    bias4 = _bias_4d(bias)
+    for ax in range(4):
+        if bias4.shape[ax] == 1 and ds.shape[ax] != 1:
+            ds = ds.sum(dim=ax, keepdim=True)
+    return ds.reshape(bias.shape).to(bias.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              bias_grad: bool = False):
+    """The dense flash-attention-2 backward in torch: p = exp(s - lse),
+    dv = p^T dO, dp = dO v^T, ds = p (dp - delta), dq = scale ds k,
+    dk = scale ds^T q. Returns (dq, dk, dv, dbias or None); dbias is the
+    exact bias gradient, summed over its broadcast dims, with bias_grad
+    and a bias."""
+    delta = _delta(o, do)
+    want = bias_grad and bias is not None
+    dq, ds = flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
+                                          causal, sm_scale, want)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
+                                           causal, sm_scale)
+    return dq, dk, dv, (_reduce_dbias(ds, bias) if want else None)
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.library(_BWD_SOURCE)
+    if not getattr(lib, "_paddle_bound", False):
+        for fn in (lib.flash_attention_bwd_dq_f32,
+                   lib.flash_attention_bwd_dkv_f32):
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 4
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib._paddle_bound = True
+    return lib
+
+
+def _check_bwd_inputs(q, k, v, bias, do, lse, delta, who):
+    _check_inputs(q, k, v, bias, who)
+    if do.shape != q.shape or do.dtype != q.dtype or \
+            do.device != q.device or not do.is_contiguous():
+        raise ValueError(f"{who}: dO must be a contiguous {q.dtype} "
+                         f"{tuple(q.shape)} tensor on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != tuple(q.shape[:3]) or \
+                t.dtype != torch.float32 or t.device != q.device or \
+                not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be a contiguous float32 "
+                             f"{tuple(q.shape[:3])} tensor on {q.device}")
+
+
+def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
+                sm_scale):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias, strides = _bias_strides(bias, (b, h, sq, sk), name)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, name + "_f32")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if bias is not None else None, do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), out1.data_ptr(),
+            out2.data_ptr() if out2 is not None else None,
+            b, h, sq, sk, d, *strides, int(bool(causal)), float(sm_scale),
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.flash_attention_bwd_error_string(err).decode()}")
+
+
+def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
+                           causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           bias_grad: bool = False):
+    """dq [B,H,Sq,D] and, with bias_grad and a bias, the full-shape bias
+    gradient ds [B,H,Sq,Sk] (zero on causally skipped tiles), from the
+    forward's lse and delta = rowsum(dO * O), both [B,H,Sq] float32.
+    CUDA tensors run the dq kernel (float32, contiguous, D in
+    SUPPORTED_HEAD_DIMS — anything else raises); other tensors run
+    flash_attention_bwd_dq_plain."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
+                                            causal, sm_scale, bias_grad)
+    _check_bwd_inputs(q, k, v, bias, do, lse, delta,
+                      "flash_attention_bwd_dq")
+    b, h, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dq = torch.empty_like(q)
+    ds = None
+    if bias_grad and bias is not None:
+        ds = torch.zeros((b, h, sq, k.shape[2]), dtype=torch.float32,
+                         device=q.device)
+    _launch_bwd("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta, dq,
+                ds, causal, sm_scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq, ds
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None):
+    """(dk, dv) [B,H,Sk,D] from the forward's lse and delta. CUDA tensors
+    run the dk/dv kernel (same conditions as flash_attention_bwd_dq);
+    other tensors run flash_attention_bwd_dkv_plain."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
+                                             causal, sm_scale)
+    _check_bwd_inputs(q, k, v, bias, do, lse, delta,
+                      "flash_attention_bwd_dkv")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_attention_bwd_dkv", q, k, v, bias, do, lse, delta,
+                dk, dv, causal, sm_scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        bias_grad: bool = False):
+    """The flash-attention backward: (dq, dk, dv, dbias or None) for the
+    forward (q, k, v, bias) -> (o, lse) and the output cotangent do.
+    delta = rowsum(dO * O) is a torch reduction; the dq and dk/dv
+    kernels do the rest. With bias_grad and a bias, dbias is the exact
+    gradient, summed over the bias's broadcast dims; otherwise None.
+    Tensors that do not lie on a card take flash_attention_bwd_plain."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, bias, o, lse, do, causal,
+                                         sm_scale, bias_grad)
+    delta = _delta(o, do).contiguous()
+    want = bias_grad and bias is not None
+    dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal,
+                                    sm_scale, want)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
+                                     sm_scale)
+    return dq, dk, dv, (_reduce_dbias(ds, bias) if want else None)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward kernels — the counterpart of the
+    reference's ``jax.custom_vjp`` around ``_flash``. forward saves q, k,
+    v, bias, O and lse; backward returns dq, dk, dv and, for a bias that
+    needs a gradient, its exact gradient with bias_grad, else zeros (a
+    constant mask, as the reference treats it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale, bias_grad):
+        o, lse = flash_attention_fwd(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.sm_scale, ctx.bias_grad = causal, sm_scale, bias_grad
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        want_bias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, bias, o, lse, do.contiguous(), ctx.causal,
+            ctx.sm_scale, ctx.bias_grad and want_bias)
+        if want_bias and dbias is None:
+            dbias = torch.zeros_like(bias)
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention(q, k, v, bias=None, causal: bool = False,
+                    sm_scale: Optional[float] = None,
+                    bias_grad: bool = False):
+    """Differentiable flash attention [B,H,Sq,D] (see FlashAttention).
+    q, k, v must be contiguous for the CUDA kernels."""
+    return FlashAttention.apply(q, k, v, bias, bool(causal), sm_scale,
+                                bool(bias_grad))
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

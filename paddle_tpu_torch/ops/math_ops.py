@@ -1,9 +1,11 @@
 """Math ops: elementwise (with the reference's axis broadcast), mul,
-reduce_sum, relu, comparisons, arg_max.
+reduce_sum, activations, clipping, comparisons and logical ops, arg_max.
 
 The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops the
-decoder LM runs. The matrix products stay torch.matmul: the JAX package
-left them to XLA and wrote no kernel for them.
+decoder LM and the Transformer NMT train step run, plus the few that
+the gradient clippers and regularizers (clip.py, regularizer.py) append.
+The matrix products stay torch.matmul: the JAX package left them to XLA
+and wrote no kernel for them.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ def _register_elementwise(name, fn):
 _register_elementwise("elementwise_add", lambda x, y: x + y)
 _register_elementwise("elementwise_sub", lambda x, y: x - y)
 _register_elementwise("elementwise_mul", lambda x, y: x * y)
+_register_elementwise("elementwise_div", lambda x, y: x / y)
+_register_elementwise("elementwise_max", torch.maximum)
 
 
 def _prod(dims):
@@ -70,24 +74,58 @@ def _reduce_sum(ctx):
     ctx.set_output("Out", torch.sum(x, dim=axis, keepdim=keep))
 
 
-@register_op("relu")
-def _relu(ctx):
-    ctx.set_output("Out", torch.relu(ctx.input("X")))
+def _register_act(name, fn):
+    @register_op(name)
+    def _op(ctx, _fn=fn):
+        ctx.set_output("Out", _fn(ctx.input("X")))
 
+
+_register_act("relu", torch.relu)
+_register_act("sqrt", torch.sqrt)
+_register_act("sign", torch.sign)
+
+
+@register_op("clip")
+def _clip(ctx):
+    ctx.set_output("Out", torch.clamp(ctx.input("X"), ctx.attr("min", -1.0),
+                                      ctx.attr("max", 1.0)))
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx):
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    ctx.set_output("Out", x * scale)
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx):
+    ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))))
+
+
+# -- comparisons / logical --------------------------------------------------
 
 def _register_cmp(name, fn):
-    @register_op(name)
+    @register_op(name, no_grad_slots=["X", "Y"])
     def _op(ctx, _fn=fn):
         x, y = ctx.input("X"), ctx.input("Y")
         y = _broadcast_y(x, y, ctx.attr("axis", -1))
         ctx.set_output("Out", _fn(x, y))
 
 
+_register_cmp("equal", lambda x, y: x == y)
 _register_cmp("less_than", lambda x, y: x < y)
 _register_cmp("less_equal", lambda x, y: x <= y)
 
 
-@register_op("arg_max")
+@register_op("logical_not", no_grad_slots=["X"])
+def _logical_not(ctx):
+    ctx.set_output("Out", torch.logical_not(ctx.input("X")))
+
+
+@register_op("arg_max", no_grad_slots=["X"])
 def _arg_max(ctx):
     ctx.set_output("Out", torch.argmax(ctx.input("X"),
                                        dim=ctx.attr("axis", -1)))

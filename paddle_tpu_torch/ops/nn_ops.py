@@ -1,12 +1,17 @@
-"""NN ops: layer_norm, lookup_table, one_hot, scaled_dot_product_attention.
+"""NN ops: layer_norm, dropout, softmax_with_cross_entropy, lookup_table,
+one_hot, scaled_dot_product_attention.
 
 The port's compute rules for the ``paddle_tpu/ops/nn_ops.py`` ops the
-decoder LM runs. scaled_dot_product_attention keeps the reference's
-routing: the `use_flash` attr when stamped, else the min-seq auto policy
-— with "the tensor lies on a CUDA card" in place of "the backend is a
-TPU". The flash route runs the hand-written CUDA kernel
-(ops/kernels/flash_attention.py); the naive route is the einsum/softmax
-composition. The sequence-parallel branch waits for a mesh.
+decoder LM and the Transformer NMT train step run.
+scaled_dot_product_attention keeps the reference's routing: the
+`use_flash` attr when stamped, else the min-seq auto policy — with "the
+tensor lies on a CUDA card" in place of "the backend is a TPU". The
+flash route runs the hand-written CUDA kernels through their
+torch.autograd.Function (ops/kernels/flash_attention.py), so a
+``__vjp__`` replay of the op reaches the backward kernels; the naive
+route is the matmul/softmax composition. The sequence-parallel branch
+waits for a mesh. softmax_with_cross_entropy ports the reference's
+default path; its PADDLE_TPU_FUSED_XENT streaming variant is not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 
 from .. import flags
 from ..core.registry import register_op
-from .kernels.flash_attention import NEG_INF, flash_attention_fwd
+from .kernels.flash_attention import NEG_INF, flash_attention
 
 
 @register_op("layer_norm")
@@ -41,7 +46,57 @@ def _layer_norm(ctx):
     ctx.set_output("Variance", var.reshape(x.shape[:begin]))
 
 
-@register_op("lookup_table")
+@register_op("dropout")
+def _dropout(ctx):
+    """Reference dropout_op: keep each element with probability 1 - p.
+    The mask comes from an explicit torch.Generator seeded from the op's
+    seed attr and the executor's run count, so a ``__vjp__`` replay in
+    the same run draws the same mask. It draws torch's bits, not
+    JAX's."""
+    x = ctx.input("X")
+    prob = ctx.attr("dropout_prob", 0.5)
+    if ctx.attr("is_test", False) or prob == 0.0:
+        ctx.set_output("Out", x)
+        ctx.set_output("Mask", torch.ones_like(x))
+        return
+    if x.device.type == "meta":
+        ctx.set_output("Out", torch.empty_like(x))
+        ctx.set_output("Mask", torch.empty_like(x))
+        return
+    keep = 1.0 - prob
+    g = torch.Generator(device=x.device)
+    g.manual_seed(int(ctx.attr("seed", 0) or 0) * 1000003
+                  + int(ctx.extra.get("step", 0)))
+    mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+    if ctx.attr("dropout_implementation",
+                "downgrade_in_infer") == "upscale_in_train":
+        out = torch.where(mask, x / keep, torch.zeros_like(x))
+    else:  # reference default: scale at inference instead
+        out = torch.where(mask, x, torch.zeros_like(x))
+    ctx.set_output("Out", out.to(x.dtype))
+    ctx.set_output("Mask", mask.to(x.dtype))
+
+
+@register_op("softmax_with_cross_entropy", no_grad_slots=["Label"])
+def _softmax_with_cross_entropy(ctx):
+    """Loss [.., 1] = -log softmax(logits)[label], computed in float32
+    through log_softmax and a gather, and the Softmax output."""
+    logits = ctx.input("Logits").float()
+    label = ctx.input("Label")
+    logp = torch.log_softmax(logits, dim=-1)
+    if ctx.attr("soft_label", False):
+        ctx.set_output("Softmax", torch.exp(logp))
+        ctx.set_output("Loss", -torch.sum(label * logp, dim=-1,
+                                          keepdim=True))
+        return
+    lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+        else label
+    loss = -torch.gather(logp, -1, lab.long().unsqueeze(-1))
+    ctx.set_output("Softmax", torch.softmax(logits, dim=-1))
+    ctx.set_output("Loss", loss)
+
+
+@register_op("lookup_table", no_grad_slots=["Ids"])
 def _lookup_table(ctx):
     """Embedding lookup. Ids may carry a trailing [.., 1] dim. Out-of-range
     ids clamp to the table's edge rows, as the reference's explicit clip
@@ -58,7 +113,7 @@ def _lookup_table(ctx):
     ctx.set_output("Out", out)
 
 
-@register_op("one_hot")
+@register_op("one_hot", no_grad_slots=["X"])
 def _one_hot(ctx):
     """float32 one-hot; an index outside [0, depth) gives an all-zero row,
     as jax.nn.one_hot does."""
@@ -86,13 +141,14 @@ def _naive_attention(q, k, v, mask, causal, sm_scale):
     return torch.matmul(probs, v)
 
 
-@register_op("scaled_dot_product_attention")
+@register_op("scaled_dot_product_attention", no_grad_slots=["Mask"])
 def _sdpa(ctx):
     """Fused attention. The Mask input is an additive bias broadcastable
     to [B, H, Sq, Sk]; attr `causal` adds the qpos >= kpos mask; attr
     `scale` overrides 1/sqrt(d_key). `seq_axis` (context parallelism)
     needs a mesh, which the port does not have yet, so the op computes
-    on one device as the reference does without a mesh."""
+    on one device as the reference does without a mesh. Mask is a
+    constant (no_grad_slots) on both routes."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     mask = ctx.input("Mask")
     causal = bool(ctx.attr("causal", False))
@@ -107,9 +163,8 @@ def _sdpa(ctx):
         use_flash = (q.is_cuda and q.ndim == 4
                      and q.shape[2] >= min_seq and k.shape[2] >= min_seq)
     if use_flash:
-        out, _lse = flash_attention_fwd(
+        ctx.set_output("Out", flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), mask,
-            causal=causal, sm_scale=sm_scale)
-        ctx.set_output("Out", out)
+            causal=causal, sm_scale=sm_scale))
         return
     ctx.set_output("Out", _naive_attention(q, k, v, mask, causal, sm_scale))

@@ -41,7 +41,7 @@ def _slice(ctx):
     ctx.set_output("Out", x[tuple(idx)])
 
 
-@register_op("gather")
+@register_op("gather", no_grad_slots=["Index"])
 def _gather(ctx):
     x = ctx.input("X")
     index = ctx.input("Index").long()
@@ -50,7 +50,8 @@ def _gather(ctx):
     ctx.set_output("Out", torch.index_select(x, 0, index))
 
 
-@register_op("range", constant=True)
+@register_op("range", no_grad_slots=["Start", "End", "Step"],
+             constant=True)
 def _range(ctx):
     start = ctx.attr("start", 0)
     dtype = torch.int64 if isinstance(start, int) else torch.float32
