@@ -11,8 +11,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the port from the sources in the checkout (one nvcc per source, all
      started together).
   2. each kernel against its plain torch version on the card, at the
-     shapes the serving and training paths give it and over a sweep of
-     head dims, lengths, biases and causal, with times: kernel, plain,
+     shapes the serving and training paths give it and over a sweep (of
+     head dims, lengths, biases and causal for attention; of H, B, T,
+     zero-length rows, initial states and last-state cotangents for the
+     fused LSTM), with times: kernel, plain,
      library (one PyTorch call computing the same function, a yardstick
      the port never calls) and the card's lower bound for the work.
   3. serve the decoder LM at Transformer-base width through the port's
@@ -31,8 +33,16 @@ Phases (any failure exits non-zero; nothing is caught):
      step-1 gradients must agree: every parameter's gradient per element
      against one more naive step whose ReLUs take the flash arm's masks,
      and by 2-norm against the free naive arm (see TRAIN_GRAD_NORM_RTOL).
-  5. JSON lines of the kernels, serving and training, then, last, the
-     JSON result line.
+  5. train the stacked-LSTM LM (models.lstm_lm.build_train as bench.py:668
+     measures it: vocabulary 10000, emb 256, hidden 512, 2 layers, SGD lr
+     1.0, B64 x T64 with the bench's ragged lengths in [32, 64]) through
+     Executor.run for 5 steps from seeded weights: once as built (every
+     lstm op takes the fused-LSTM kernels), with the launch counts set to
+     0 just before and read just after, and once with __pallas__="0"
+     stamped on every lstm op and fwd_op copy (the scan route). Losses and
+     every parameter's step-1 gradient must agree per element.
+  6. JSON lines of the kernels, serving and both trainings, then, last,
+     the JSON result line.
 
 Without a CUDA card, or outside a checkout, it exits non-zero before
 printing any result.
@@ -48,6 +58,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# where the LSTM phases put their tensors: the card (a CPU rehearsal of
+# the script's control flow may set "cpu"; it proves nothing about the
+# kernels, whose wrappers then take their plain twins)
+DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -74,8 +88,10 @@ MAX_NEW_TOKENS = 32
 # (label, S, live key rows): B=1, H=8, D=64, causal, key-row mask
 ATTN_CASES = [("S512", 512, 450), ("S1024", 1024, 900), ("S777", 777, 700)]
 MAIN_CASE = "S1024"
-# the kernels each path runs (the training path runs all of them)
+# the kernels each path runs
 SERVING_KERNELS = ("flash_attention_fwd",)
+NMT_TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv")
 # (B, H, Sq, Sk, D, bias shape or None, causal)
 COVERAGE_CASES = [
     (2, 3, 100, 130, 16, (2, 3, 100, 130), False),
@@ -126,6 +142,37 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_FRAC = 1e-4, 1e-5
 TRAIN_GRAD_NOISE_FACTOR = 30.0
 TRAIN_GRAD_NORM_RTOL = 2e-3
+
+# the stacked-LSTM LM as bench.py:668 measures it (BASELINE config 3)
+LSTM_CFG = dict(vocab_size=10000, emb_dim=256, hid_dim=512, num_layers=2,
+                lr=1.0)
+LSTM_BATCH, LSTM_T = 64, 64
+LSTM_STEPS = 5
+# the kernel table's row: the LM's shape with the bench's ragged lengths
+LSTM_MAIN_CASE = "ragged"
+# fused-LSTM sweep: (T, B, H, lengths, nonzero h0/c0, nonzero dc_all and
+# last-state cotangents): H 16/128/1024, B=1, T=1, zero-length rows, and
+# an H and B off every tile edge
+LSTM_COVERAGE_CASES = [
+    (8, 4, 16, [0, 3, 8, 1], True, True),
+    (5, 3, 128, [5, 2, 4], True, True),
+    (6, 2, 1024, [6, 3], True, True),
+    (7, 1, 128, [7], False, True),
+    (1, 5, 128, [1, 0, 1, 1, 0], True, True),
+    (16, 40, 100, [i % 17 for i in range(40)], True, True),
+]
+# kernel vs scan route of the LM on the card, float32. The routes compute
+# the same function with the recurrent products summed in another order
+# (the kernels' tiles vs cuBLAS); the model has no ReLU, so nothing turns
+# rounding into a discrete change. An H100 run of this script: the 5
+# losses equal bit for bit, the step-1 gradients within 2.4e-6 * max|g|
+# (the LSTM weights; the rest within 3.4e-7). The limits leave 4x room
+# over that; a wrong mask, carry or gate moves both by O(1).
+LSTM_LOSS_RTOL = 1e-4
+LSTM_GRAD_RTOL, LSTM_GRAD_ATOL_FRAC = 1e-4, 1e-5
+# the cuDNN yardstick must compute the kernel's function: its h_all
+# agrees to float32 rounding (a gate-order slip gives O(0.1))
+LSTM_LIBRARY_ATOL = 1e-4
 
 
 def card_line() -> str:
@@ -378,6 +425,182 @@ def check_attention_bwd(card):
         print(f"flash_attention_bwd B={b} H={h} Sq={sq} Sk={sk} D={d} "
               f"bias={bias_shape} causal={causal} bias_grad={bias_grad}: "
               f"max_abs_err={err:.3e}", flush=True)
+    return rows, coverage_err
+
+
+def lm_lengths(seed=0):
+    """The ragged lengths bench.py's varlen LSTM-LM feed draws: ids first,
+    then LSTM_BATCH lengths in [T/2, T], from RandomState(seed)."""
+    b, t = LSTM_BATCH, LSTM_T
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, LSTM_CFG["vocab_size"], (b, t, 1)).astype(np.int64)
+    lens = rng.randint(t // 2, t + 1, (b,)).astype(np.int32)
+    return ids, lens
+
+
+def lstm_bound(t, b, h, lengths_sum, backward):
+    """Least time for one fused-LSTM call on this card: 2*L*H*4H FLOP
+    forward, 3x that backward (recompute, dh_prev, dW), L the sum of the
+    lengths, over the fp32 rate; vs the bytes of its inputs read once and
+    outputs written once over HBM rate."""
+    fwd = 2.0 * lengths_sum * h * 4 * h
+    bwd = 3.0 * fwd
+    seq, state, x, w = t * b * h, b * h, t * b * 4 * h, h * 4 * h + 4 * h
+    if backward:
+        # in: x, w, b, h0, c0, lengths, h_all, c_all, dh_all, dc_all,
+        # dh_last, dc_last; out: dx, dw, db, dh0, dc0
+        nbytes, flops = 4.0 * (2 * x + 2 * w + 6 * state + b + 4 * seq), bwd
+    else:
+        # in: x, w, b, h0, c0, lengths; out: h_all, c_all, h_last, c_last
+        nbytes, flops = 4.0 * (x + w + 4 * state + b + 2 * seq), fwd
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lstm_inputs(gen, t, b, h, lens, state, cotangents):
+    """Random fused-LSTM inputs on the card: x ~ 0.5 N(0,1), w ~ U(+-1/
+    sqrt(H)); h0/c0 zero unless `state`; dh_all random, and dc_all,
+    dh_last, dc_last random with `cotangents`, else None (the LM's
+    Hidden-only cotangent)."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=DEVICE, generator=gen) * scale
+    x = rnd(t, b, 4 * h, scale=0.5)
+    w = (torch.rand(h, 4 * h, device=DEVICE, generator=gen) * 2 - 1) \
+        / h ** 0.5
+    bias = rnd(4 * h, scale=0.1)
+    h0 = rnd(b, h, scale=0.5) if state else torch.zeros(b, h, device=DEVICE)
+    c0 = rnd(b, h, scale=0.5) if state else torch.zeros(b, h, device=DEVICE)
+    lengths = torch.as_tensor(np.asarray(lens, np.int32), device=DEVICE)
+    dh_all = rnd(t, b, h)
+    more = (rnd(t, b, h), rnd(b, h), rnd(b, h)) if cotangents else \
+        (None, None, None)
+    return (x, w, bias, h0, c0, lengths), (dh_all,) + more
+
+
+def _lstm_errs(inputs, cts):
+    """Kernel vs plain twin, forward and backward: (forward err, backward
+    err, ok, forward outputs, {backward output: (max |err|, max |plain|)})."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    fwd_k = fl.fused_lstm_fwd(*inputs)
+    fwd_p = fl.fused_lstm_fwd_plain(*inputs)
+    bwd_k = fl.fused_lstm_bwd(*inputs, *fwd_k[:2], *cts)
+    bwd_p = fl.fused_lstm_bwd_plain(*inputs, *fwd_p[:2], *cts)
+    torch.cuda.synchronize()
+    ferr, fok = _max_err(fwd_k, fwd_p)
+    berr, bok = _max_err(bwd_k, bwd_p)
+    per_grad = {n: ((k - p).abs().max().item(), p.abs().max().item())
+                for n, k, p in zip(("dx", "dw", "db", "dh0", "dc0"), bwd_k,
+                                   bwd_p)}
+    return ferr, berr, fok and bok, fwd_k, per_grad
+
+
+def lstm_library(inputs, cts):
+    """The yardstick: torch.nn.LSTM (cuDNN) on the packed sequence, with
+    W_ih the permutation of the identity that reorders the gates i, c_hat,
+    f, o into PyTorch's i, f, g, o (so it also runs a 4H x 4H input
+    product the kernel does not), W_hh and b_ih the reordered w and b,
+    b_hh 0. Returns (forward fn, backward fn, max |h_all - kernel's|)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+    from paddle_tpu_torch.ops.kernels.fused_lstm import fused_lstm_fwd
+    x, w, bias, h0, c0, lengths = inputs
+    t, b, g = x.shape
+    h = g // 4
+    order = torch.cat([torch.arange(0, h), torch.arange(2 * h, 3 * h),
+                       torch.arange(h, 2 * h), torch.arange(3 * h, 4 * h)]
+                      ).to(DEVICE)
+    lstm = torch.nn.LSTM(g, h).to(DEVICE)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(g, device=DEVICE)[order])
+        lstm.weight_hh_l0.copy_(w.t()[order])
+        lstm.bias_ih_l0.copy_(bias[order])
+        lstm.bias_hh_l0.zero_()
+    xl = x.clone().requires_grad_(True)
+    lens_cpu = lengths.cpu().long()
+
+    def fwd():
+        packed = pack_padded_sequence(xl, lens_cpu, enforce_sorted=False)
+        out, _ = lstm(packed, (h0[None], c0[None]))
+        return pad_packed_sequence(out, total_length=t)[0]
+
+    out = fwd()
+    err = (out - fused_lstm_fwd(*inputs)[0]).abs().max().item()
+    wrt = (xl,) + tuple(lstm.parameters())
+
+    def bwd():
+        return torch.autograd.grad(out, wrt, cts[0], retain_graph=True)
+    return fwd, bwd, err
+
+
+def check_lstm(card):
+    """The fused-LSTM forward and backward kernels against their plain
+    twins on the card at the LM's shape (T64 B64 H512, the bench.py
+    ragged lengths and full lengths), timed there with the cuDNN
+    yardstick and the bound; then over LSTM_COVERAGE_CASES."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    t, b, h = LSTM_T, LSTM_BATCH, LSTM_CFG["hid_dim"]
+    rows = {}
+    for label in ("ragged", "full"):
+        lens = lm_lengths()[1] if label == "ragged" else np.full(b, t)
+        inputs, cts = _lstm_inputs(gen, t, b, h, lens, False, False)
+        ferr, berr, ok, outs, per_grad = _lstm_errs(inputs, cts)
+        if not ok:
+            raise SystemExit(f"fused LSTM kernels disagree with their plain "
+                             f"twins at T={t} B={b} H={h} {label}: forward "
+                             f"{ferr:.3e}, backward {berr:.3e}")
+        print("fused_lstm_bwd vs plain, max |err| (max |plain|): " + ", ".join(
+            f"{n} {e:.3e} ({m:.3e})" for n, (e, m) in per_grad.items()),
+            flush=True)
+        lib_fwd, lib_bwd, lib_err = lstm_library(inputs, cts)
+        if lib_err > LSTM_LIBRARY_ATOL:
+            raise SystemExit(f"the cuDNN yardstick computes another function"
+                             f": max |h_all diff| {lib_err:.3e}")
+        l_sum = int(np.sum(lens))
+        fwd_args = inputs
+        bwd_args = inputs + tuple(outs[:2]) + cts
+        times = {
+            "fused_lstm_fwd": (
+                cuda_ms(lambda: fl.fused_lstm_fwd(*fwd_args), iters=10),
+                cuda_ms(lambda: fl.fused_lstm_fwd_plain(*fwd_args), iters=5),
+                cuda_ms(lib_fwd, iters=10), ferr, False),
+            "fused_lstm_bwd": (
+                cuda_ms(lambda: fl.fused_lstm_bwd(*bwd_args), iters=10),
+                cuda_ms(lambda: fl.fused_lstm_bwd_plain(*bwd_args), iters=5),
+                cuda_ms(lib_bwd, iters=10), berr, True)}
+        for name, (ms, plain_ms, library_ms, err, bwd) in times.items():
+            bound_ms, bound_by = lstm_bound(t, b, h, l_sum, bwd)
+            rows[(name, label)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[{card}] {name} T={t} B={b} H={h} {label} lengths (sum "
+                  f"{l_sum}): max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        print(f"cuDNN yardstick vs kernel h_all: max_abs_err={lib_err:.3e}",
+              flush=True)
+    coverage_err = {"fused_lstm_fwd": 0.0, "fused_lstm_bwd": 0.0}
+    for t, b, h, lens, state, cotangents in LSTM_COVERAGE_CASES:
+        inputs, cts = _lstm_inputs(gen, t, b, h, lens, state, cotangents)
+        ferr, berr, ok, _, _ = _lstm_errs(inputs, cts)
+        if not ok:
+            raise SystemExit(f"fused LSTM kernels disagree with their plain "
+                             f"twins at T={t} B={b} H={h} lengths={lens} "
+                             f"h0/c0={state} last-state cotangents="
+                             f"{cotangents}: {ferr:.3e} / {berr:.3e}")
+        coverage_err["fused_lstm_fwd"] = max(coverage_err["fused_lstm_fwd"],
+                                             ferr)
+        coverage_err["fused_lstm_bwd"] = max(coverage_err["fused_lstm_bwd"],
+                                             berr)
+        print(f"fused_lstm T={t} B={b} H={h} lengths={list(lens)} h0/c0="
+              f"{state} cotangents={cotangents}: max_abs_err forward "
+              f"{ferr:.3e}, backward {berr:.3e}", flush=True)
     return rows, coverage_err
 
 
@@ -638,14 +861,15 @@ def hold_step1_grads(main, startup, loss, weights, feed, params, flash,
     return worst, by_noise
 
 
-def profile_step(main, startup, loss, weights, feed, card):
-    """One more flash-route step under torch.profiler (after a warm-up
-    step), for where its device time goes: the kernels by total device
-    time, and the device-busy share of the step's wall time."""
+def profile_step(main, startup, loss, weights, feed, card, label="flash"):
+    """One more step of `main` (the `label` route) under torch.profiler
+    (after a warm-up step), for where its device time goes: the kernels
+    by total device time, and the device-busy share of the step's wall
+    time; then the forward alone (see below)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import Executor, Scope, load_params
-    exe, scope = Executor(), Scope()
+    exe, scope = Executor(DEVICE), Scope()
     exe.run(startup, scope=scope)
     load_params(scope, weights)
     exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
@@ -664,7 +888,7 @@ def profile_step(main, startup, loss, weights, feed, card):
                 torch.autograd.DeviceType.CUDA and us > 0:
             rows.append((e.key, us / 1e3, e.count))
     busy_ms = sum(r[1] for r in rows)
-    print(f"[{card}] profiled flash step: {wall_ms:.1f} ms wall, "
+    print(f"[{card}] profiled {label} step: {wall_ms:.1f} ms wall, "
           f"{busy_ms:.1f} ms of device kernels "
           f"({100 * busy_ms / wall_ms:.1f}% busy, overlap not removed)",
           flush=True)
@@ -687,9 +911,11 @@ def profile_step(main, startup, loss, weights, feed, card):
     finally:
         blk.ops = ops
         main.desc._bump_version()
-    print(f"[{card}] forward alone (flash route): {fwd_ms:.1f} ms — what "
+    print(f"[{card}] forward alone ({label} route): {fwd_ms:.1f} ms — what "
           f"the __vjp__ replays add to each step", flush=True)
-    return dict(wall_ms=wall_ms, device_ms=busy_ms, forward_ms=fwd_ms)
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, forward_ms=fwd_ms,
+                top_kernels=[dict(name=k[:120], ms=ms, count=n) for k, ms, n
+                             in sorted(rows, key=lambda r: -r[1])[:12]])
 
 
 def train(card):
@@ -719,8 +945,8 @@ def train(card):
                       card, "flash")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    for name, n in launches.items():
-        if n == 0:
+    for name in NMT_TRAINING_KERNELS:
+        if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched on the "
                              "training path")
     per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
@@ -770,6 +996,141 @@ def train(card):
     return summary, launches
 
 
+def _stamp_lstm(main, value):
+    """__pallas__=value on every lstm op and on the fwd_op copy each
+    __vjp__ took at append_backward time (a stamp that misses the copies
+    leaves the backward on the other route)."""
+    for op in main.desc.global_block.ops:
+        if op.type == "lstm":
+            op.attrs["__pallas__"] = value
+        elif op.type == "__vjp__" and op.attrs["fwd_op"]["type"] == "lstm":
+            op.attrs["fwd_op"]["attrs"]["__pallas__"] = value
+    main.desc._bump_version()
+
+
+def lstm_arm(main, startup, loss, weights, feed, params, card, label):
+    """LSTM_STEPS SGD steps from `weights` in a fresh scope; the first also
+    fetches every parameter's gradient (its grad var). Each step's time is
+    a host clock around Executor.run, which ends synchronized (it returns
+    the fetches as numpy)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_params
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, peaks, grads = [], [], [], None
+    for step in range(LSTM_STEPS):
+        fetch = [loss.name] + ([p + "@GRAD" for p in params]
+                               if step == 0 else [])
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        if step == 0:
+            grads = dict(zip(params, out[1:]))
+        if not np.isfinite(losses[-1]):
+            raise SystemExit(f"LSTM LM {label} arm: loss {losses[-1]} at "
+                             f"step {step}")
+        print(f"[{card}] LSTM LM {label} step {step}: loss {losses[-1]:.6f}"
+              f" {step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.3f} GiB",
+              flush=True)
+    return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
+                grads=grads)
+
+
+def train_lstm(card):
+    """Phase 5: the stacked-LSTM LM train step at the bench.py:668
+    configuration (vocabulary 10000, emb 256, hidden 512, 2 layers, SGD
+    lr 1.0, B64 x T64, the bench's ragged lengths), kernel route (as
+    built: every lstm op takes the fused-LSTM kernels) against the scan
+    route (__pallas__="0" on every lstm op and fwd_op copy) on the same
+    card from the same numpy-seeded weights."""
+    import torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core.lod import RaggedPair
+    from paddle_tpu_torch.models import lstm_lm
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    with framework.isolated_name_scope():
+        main, startup, f = lstm_lm.build_train(**LSTM_CFG)
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    n_params = sum(weights[p].size for p in params)
+    ids, lens = lm_lengths()
+    feed = {"words": RaggedPair(ids, lens), "targets": RaggedPair(ids, lens)}
+    print(f"LSTM LM program built: {time.perf_counter() - t0:.2f} s, "
+          f"{len(main.desc.global_block.ops)} ops, {n_params} parameters, "
+          f"{int(lens.sum())} of {ids.shape[0] * ids.shape[1]} tokens live",
+          flush=True)
+
+    kernels.reset_launch_counts()
+    fused = lstm_arm(main, startup, f["loss"], weights, feed, params, card,
+                     "kernel")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    per_step = {n: c / LSTM_STEPS for n, c in launches.items()}
+    print(f"[{card}] LSTM LM kernel launches {launches} ({per_step} per "
+          f"step)", flush=True)
+    for name in ("fused_lstm_fwd", "fused_lstm_bwd"):
+        if launches[name] == 0:
+            raise SystemExit(f"kernel {name} was not launched on the LSTM "
+                             "training path")
+    # per step: each lstm op's forward and its __vjp__ replay, and one
+    # backward per op
+    want = {"fused_lstm_fwd": 2 * LSTM_CFG["num_layers"] * LSTM_STEPS,
+            "fused_lstm_bwd": LSTM_CFG["num_layers"] * LSTM_STEPS}
+    if any(launches[n] != c for n, c in want.items()):
+        raise SystemExit(f"LSTM launches {launches}, expected {want}")
+    profiled = profile_step(main, startup, f["loss"], weights, feed, card,
+                            "LSTM kernel")
+
+    _stamp_lstm(main, "0")
+    kernels.reset_launch_counts()
+    scan = lstm_arm(main, startup, f["loss"], weights, feed, params, card,
+                    "scan")
+    if kernels.launch_counts()["fused_lstm_fwd"]:
+        raise SystemExit("the scan route launched the fused-LSTM kernel")
+    loss_rel = float(np.max(np.abs(np.subtract(fused["losses"],
+                                               scan["losses"]))
+                            / np.abs(scan["losses"])))
+    print(f"[{card}] LSTM LM kernel vs scan: losses {fused['losses']} vs "
+          f"{scan['losses']} (max rel diff {loss_rel:.3e})", flush=True)
+    if not loss_rel <= LSTM_LOSS_RTOL:
+        raise SystemExit(f"LSTM LM kernel vs scan losses differ by "
+                         f"{loss_rel:.3e} > {LSTM_LOSS_RTOL}")
+    worst, fails = {}, []
+    for p in params:
+        g, r = fused["grads"][p], scan["grads"][p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        worst[p] = float(np.abs(g - r).max()) / scale
+        if not np.allclose(g, r, rtol=LSTM_GRAD_RTOL,
+                           atol=LSTM_GRAD_ATOL_FRAC * scale):
+            fails.append(p)
+    for p in sorted(worst, key=worst.get, reverse=True):
+        print(f"  {p}@GRAD: max |diff| {worst[p]:.3e} * max|g|", flush=True)
+    if fails:
+        raise SystemExit(f"LSTM LM kernel vs scan: step-1 gradients of "
+                         f"{fails} differ per element")
+    print(f"[{card}] LSTM LM kernel vs scan: step-1 gradients of all "
+          f"{len(params)} parameters equal per element (rtol "
+          f"{LSTM_GRAD_RTOL}, atol {LSTM_GRAD_ATOL_FRAC} * max|g|; worst "
+          f"max |diff| {max(worst.values()):.3e} * max|g|)", flush=True)
+    summary = {"card": card, "config": dict(LSTM_CFG, batch=LSTM_BATCH,
+                                            t=LSTM_T),
+               "parameters": n_params, "live_tokens": int(lens.sum()),
+               "steps": LSTM_STEPS, "launches_per_step": per_step,
+               "loss_rel_diff_max": loss_rel,
+               "grad_max_diff_frac": max(worst.values()),
+               "profiled_step": profiled}
+    for label, arm in (("kernel", fused), ("scan", scan)):
+        summary[label] = {k: arm[k] for k in ("losses", "step_ms",
+                                              "peak_bytes")}
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -803,6 +1164,7 @@ def main() -> int:
     # -- 2. kernels against their plain versions ---------------------------
     attn, coverage_err = check_attention(card)
     attn_bwd, bwd_coverage_err = check_attention_bwd(card)
+    lstm_rows, lstm_coverage_err = check_lstm(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
     spec = GenerationSpec(**SERVE_SPEC)
@@ -847,13 +1209,18 @@ def main() -> int:
     # -- 4. train at Transformer-base width ----------------------------------
     training, train_launches = train(card)
 
-    # -- 5. result lines -----------------------------------------------------
+    # -- 5. train the stacked-LSTM LM ----------------------------------------
+    lstm_training, lstm_launches = train_lstm(card)
+
+    # -- 6. result lines -----------------------------------------------------
     main_case = attn[MAIN_CASE]
-    train_shapes = {name: {label: r for (n, label), r in attn_bwd.items()
+    train_shapes = {name: {label: r for (n, label), r in
+                           list(attn_bwd.items()) + list(lstm_rows.items())
                            if n == name}
                     for name in launches}
     by_path = {name: {"serving": launches[name],
-                      "training": train_launches[name]}
+                      "training": train_launches[name],
+                      "lstm_training": lstm_launches[name]}
                for name in launches}
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -879,6 +1246,17 @@ def main() -> int:
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}})
+    for name, line in (("fused_lstm_fwd", 35), ("fused_lstm_bwd", 66)):
+        case = lstm_rows[(name, LSTM_MAIN_CASE)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_lstm.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_lstm.py:{line}",
+            "max_abs_err": max([lstm_coverage_err[name]]
+                               + [r["max_abs_err"] for r in
+                                  train_shapes[name].values()]),
+            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}})
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())
         row["launches_by_path"] = by_path[row["name"]]
@@ -888,6 +1266,7 @@ def main() -> int:
         "card": card, "requests": len(prompts), "tokens": n_tokens,
         "serve_s": serve_s, **timing}}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"lstm_training": lstm_training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .ir import BlockDesc, Program, SUB_BLOCK_ATTRS
+from .lod import LoDTensor, RaggedPair
 from .registry import OpRegistry, run_op
 from .scope import Scope, global_scope
 
@@ -49,6 +50,35 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
         return value.to(device)
     arr = np.ascontiguousarray(np.asarray(value))
     return torch.from_numpy(arr).to(device)
+
+
+def to_device_value(value, device: torch.device):
+    """A feed value in its in-graph form on `device`: a LoDTensor with one
+    LoD level, or a RaggedPair of arrays, becomes a RaggedPair of the
+    padded data and int32 lengths (paddle_tpu/core/executor.py
+    _to_device_value); anything else goes through to_tensor. Deeper LoD
+    is not ported yet."""
+    if isinstance(value, LoDTensor):
+        if len(value.lod) > 1:
+            raise NotImplementedError(
+                "the port feeds level-1 LoD only; nested LoD (RaggedNested"
+                "/RaggedTree) is not ported yet")
+        if not value.lod:
+            return to_tensor(value.data, device)
+        value = RaggedPair(*value.to_padded())
+    if isinstance(value, RaggedPair):
+        return RaggedPair(to_tensor(value.data, device),
+                          to_tensor(value.lengths, device).to(torch.int32))
+    return to_tensor(value, device)
+
+
+def to_host_value(value):
+    """A fetched value on the host: a RaggedPair comes back as a LoDTensor
+    of its valid rows, anything else as a numpy array."""
+    if isinstance(value, RaggedPair):
+        return LoDTensor.from_padded(to_numpy(value.data),
+                                     value.lengths.cpu().numpy())
+    return to_numpy(value)
 
 
 def to_numpy(value) -> np.ndarray:
@@ -117,8 +147,10 @@ class Executor:
         """Execute the global block of `program` with `feed`; return the
         fetches as numpy arrays.
 
-        feed values: numpy arrays, python scalars or tensors.
-        fetch_list entries: var names or objects with a `.name`."""
+        feed values: numpy arrays, python scalars, tensors, or ragged
+        values (LoDTensor, RaggedPair). fetch_list entries: var names or
+        objects with a `.name`; a ragged fetch comes back as a
+        LoDTensor."""
         if hasattr(program, "desc"):  # accept the python builder wrapper
             program = program.desc
         scope = global_scope() if scope is None else scope
@@ -129,7 +161,7 @@ class Executor:
 
         env: Dict[str, Any] = {n: scope.get(n) for n in read_names}
         for k, v in (feed or {}).items():
-            env[k] = to_tensor(v, self.device)
+            env[k] = to_device_value(v, self.device)
         extra = {"device": self.device, "step": self._runs}
         self._runs += 1
         with torch.no_grad():
@@ -148,4 +180,4 @@ class Executor:
         for n in write_names:
             if n in env:
                 scope.set(n, env[n])
-        return [to_numpy(env[n]) for n in fetch_names]
+        return [to_host_value(env[n]) for n in fetch_names]

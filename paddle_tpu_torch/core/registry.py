@@ -7,10 +7,16 @@ tensors' own device. Gradients are desc-level, as in the JAX package
 (core/backward.py): an op may register a grad maker that appends grad
 OpDescs; every other op gets the generic ``__vjp__`` grad op, which
 replays the compute rule under torch autograd.
+
+Ragged values (core/lod.py RaggedPair) reach only the ops registered
+``ragged_aware``; every other op sees their dense data, and its outputs
+are re-wrapped with the first ragged input's lengths (run_op).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
+
+from .lod import RaggedPair
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -25,8 +31,11 @@ class OpDef:
     def __init__(self, type: str, compute: Callable,
                  grad_maker: Optional[Callable] = None,
                  no_grad_slots: Optional[List[str]] = None,
-                 constant: bool = False):
+                 constant: bool = False, ragged_aware: bool = False):
         self.type = type
+        # ragged_aware ops receive RaggedPair values as-is; other ops get
+        # dense .data views and their outputs are re-wrapped (see run_op).
+        self.ragged_aware = ragged_aware
         # compute(ctx) -> None; reads ctx.input/attr, writes ctx.set_output.
         self.compute = compute
         # grad_maker(op, block, acc, no_grad) -> List[OpDesc]
@@ -64,22 +73,50 @@ class OpRegistry:
 
 
 def register_op(type: str, grad_maker=None, no_grad_slots=None,
-                constant=False):
+                constant=False, ragged_aware=False):
     """Decorator: register `fn(ctx)` as the compute rule for op `type`."""
     def deco(fn):
         OpRegistry.register(OpDef(type, fn, grad_maker=grad_maker,
                                   no_grad_slots=no_grad_slots,
-                                  constant=constant))
+                                  constant=constant,
+                                  ragged_aware=ragged_aware))
         return fn
     return deco
 
 
 def run_op(op, env: Dict[str, Any], extra: Optional[Dict] = None
            ) -> Dict[str, Any]:
-    """Run one op's compute rule against env; returns {name: tensor}."""
-    ctx = ExecutionContext(op, env, extra)
-    OpRegistry.get(op.type).compute(ctx)
-    return ctx.outputs
+    """Run one op's compute rule against env; returns {name: value}.
+
+    A ragged-aware op sees RaggedPair values as they are. Any other op
+    sees their dense padded data, and each of its outputs whose leading
+    (batch, time) dims match the first ragged input's comes back as a
+    RaggedPair with that input's lengths: the reference's LoD rule
+    "output lod = input lod" on the padded representation
+    (paddle_tpu/core/registry.py run_op)."""
+    opdef = OpRegistry.get(op.type)
+    if opdef.ragged_aware:
+        ctx = ExecutionContext(op, env, extra)
+        opdef.compute(ctx)
+        return ctx.outputs
+    ragged_src = None
+    local = env
+    for name in op.input_names():
+        v = env.get(name)
+        if isinstance(v, RaggedPair):
+            if ragged_src is None:
+                ragged_src = v
+                local = dict(env)
+            local[name] = v.data
+    ctx = ExecutionContext(op, local, extra)
+    opdef.compute(ctx)
+    if ragged_src is None:
+        return ctx.outputs
+    lead = tuple(ragged_src.data.shape[:2])
+    return {k: RaggedPair(v, ragged_src.lengths)
+            if hasattr(v, "ndim") and v.ndim >= 2
+            and tuple(v.shape[:2]) == lead else v
+            for k, v in ctx.outputs.items()}
 
 
 class ExecutionContext:

@@ -16,6 +16,11 @@ FLAGS: Dict[str, tuple] = {
         "minimum query and key length at which scaled_dot_product_attention "
         "on a CUDA tensor auto-routes to the flash-attention kernel; below "
         "it the naive composition runs"),
+    "PADDLE_TPU_PALLAS_LSTM": (
+        "1", "ops/sequence_ops.py",
+        "lstm op route when the op carries no __pallas__ attr: \"1\" or "
+        "\"force\" take the fused-LSTM kernel (its plain twin on CPU "
+        "tensors), \"0\" the masked torch scan"),
     "PADDLE_TPU_DECODE_SLOTS": (
         "4", "serving/generation/model.py",
         "default in-flight slot count of a generation model's "

@@ -169,8 +169,12 @@ class Block:
 # Build-time shape inference: run the op's compute rule on tensors of the
 # "meta" device (shapes and dtypes, no data, no FLOPs) — the PyTorch
 # counterpart of the JAX package's jax.eval_shape trace. The dynamic
-# batch dim (-1) maps to a distinctive dummy extent and back.
+# batch dim (-1) maps to a distinctive dummy extent and back; a level-1
+# ragged input is a RaggedPair whose data has a dummy time dim after the
+# batch dim, and a ragged output drops that dim and keeps lod_level 1,
+# as in the JAX package.
 _DUMMY_BATCH = 97
+_DUMMY_TIME = 13
 
 #: OpDesc attr recording that shape inference could not cover this op
 #: (and why) — the same attr the JAX package stamps.
@@ -209,6 +213,8 @@ def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
         conflicts.extend(_conflicts(name, v, spec))
         if v.shape is None and spec.get("shape") is not None:
             v.shape = list(spec["shape"])
+        if spec.get("lod_level"):
+            v.lod_level = max(v.lod_level, spec["lod_level"])
         if v.dtype is None and spec.get("dtype") is not None:
             v.dtype = spec["dtype"]
     if conflicts:
@@ -246,10 +252,11 @@ def _conflicts(name, v, spec):
 def infer_op_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc):
     """Abstractly evaluate one op's compute rule: ``(outputs, skip)``.
 
-    ``outputs`` is {name: {"shape": [...], "dtype": str, "lod_level": 0}}
-    with dummy extents mapped back to -1, or None when inference could
-    not run — then ``skip`` carries the reason."""
+    ``outputs`` is {name: {"shape": [...], "dtype": str, "lod_level":
+    int}} with dummy extents mapped back to -1, or None when inference
+    could not run — then ``skip`` carries the reason."""
     import torch
+    from .core.lod import RaggedPair
     from .core.registry import run_op
     from .ops.core_ops import torch_dtype
 
@@ -258,18 +265,32 @@ def infer_op_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc):
         v = block_desc.find_var_recursive(name)
         if v is None or v.shape is None or v.dtype is None:
             return None, f"input {name!r} has no declared shape/dtype"
+        if v.lod_level > 1:
+            return None, f"input {name!r} has nested LoD (not ported)"
         shape = [(_DUMMY_BATCH if d == -1 else int(d)) for d in v.shape]
-        env[name] = torch.empty(shape, dtype=torch_dtype(v.dtype),
-                                device="meta")
+        dt = torch_dtype(v.dtype)
+        if v.lod_level == 1:
+            env[name] = RaggedPair(
+                torch.empty([shape[0], _DUMMY_TIME] + shape[1:], dtype=dt,
+                            device="meta"),
+                torch.empty([shape[0]], dtype=torch.int32, device="meta"))
+        else:
+            env[name] = torch.empty(shape, dtype=dt, device="meta")
     try:
         outs = run_op(op, env, extra={"device": torch.device("meta")})
     except Exception as e:  # noqa: BLE001 — any rule failure means "skip"
         return None, f"trace failed: {type(e).__name__}: {e}"
     from .core.ir import canon_dtype
-    return {name: {"shape": [(-1 if d == _DUMMY_BATCH else int(d))
-                             for d in t.shape],
-                   "dtype": canon_dtype(t.dtype), "lod_level": 0}
-            for name, t in outs.items()}, None
+    result = {}
+    for name, t in outs.items():
+        lod = 1 if isinstance(t, RaggedPair) else 0
+        if lod:
+            t = t.data
+        dims = [d for i, d in enumerate(t.shape) if not (lod and i == 1)]
+        result[name] = {"shape": [(-1 if d == _DUMMY_BATCH else int(d))
+                                  for d in dims],
+                        "dtype": canon_dtype(t.dtype), "lod_level": lod}
+    return result, None
 
 
 def _names(slot_map: Optional[Dict]) -> Dict[str, List[str]]:

@@ -1,6 +1,7 @@
 """Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
-that the decoder LM and the Transformer NMT model build with (fc,
-embedding, layer_norm, dropout, softmax_with_cross_entropy, reduce_sum,
+that the decoder LM, the Transformer NMT model and the LSTM LM build
+with (fc, embedding, dynamic_lstm, layer_norm, dropout,
+softmax_with_cross_entropy, sequence_pool, mean, reduce_sum,
 elementwise_add/sub/mul/div/max, scale). Each
 function appends the same ops, with the same attrs and var names, as its
 JAX-package counterpart."""
@@ -9,8 +10,9 @@ from __future__ import annotations
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout",
-           "softmax_with_cross_entropy", "reduce_sum",
+__all__ = ["fc", "embedding", "dynamic_lstm", "layer_norm", "dropout",
+           "softmax_with_cross_entropy", "sequence_pool", "mean",
+           "reduce_sum",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "scale"]
 
@@ -69,6 +71,43 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=False, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """Dynamic-length LSTM over a ragged input of gate pre-activations
+    [*, 4*hidden] (reference: layers/nn.py:277 / lstm_op.cc)."""
+    helper = LayerHelper("dynamic_lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    hidden_size = size // 4
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[hidden_size, 4 * hidden_size],
+                                dtype=dtype)
+    bias_size = 4 * hidden_size if not use_peepholes else 7 * hidden_size
+    b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                shape=[1, bias_size], dtype=dtype,
+                                is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=1,
+                                        shape=[-1, hidden_size])
+    cell = helper.create_tmp_variable(dtype, lod_level=1,
+                                      shape=[-1, hidden_size])
+    last_h = helper.create_tmp_variable(dtype, shape=[-1, hidden_size])
+    last_c = helper.create_tmp_variable(dtype, shape=[-1, hidden_size])
+    inputs = {"Input": input, "Weight": w, "Bias": b}
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    if c_0 is not None:
+        inputs["C0"] = c_0
+    helper.append_op(type="lstm", inputs=inputs,
+                     outputs={"Hidden": hidden, "Cell": cell,
+                              "LastH": last_h, "LastC": last_c},
+                     attrs={"is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -123,6 +162,26 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      outputs={"Softmax": softmax, "Loss": loss},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper("sequence_pool")
+    # reduction keeps the per-step feature shape
+    out = helper.create_tmp_variable(
+        input.dtype, shape=list(input.shape) if input.shape else None)
+    # both spellings circulate: fluid pool2d-style "avg", v2 "average"
+    ptype = {"AVG": "AVERAGE"}.get(pool_type.upper(), pool_type.upper())
+    helper.append_op(type="sequence_pool", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"pooltype": ptype})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=[1])
+    helper.append_op(type="mean", inputs={"X": x}, outputs={"Out": out})
+    return out
 
 
 def _reduce(op_type):

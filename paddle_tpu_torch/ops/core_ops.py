@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..core.ir import OpDesc
+from ..core.lod import RaggedPair
 from ..core.registry import register_op, run_op
 
 _TORCH_DTYPE = {
@@ -120,7 +121,11 @@ def _scale(ctx):
 
 # -- the generic grad op ----------------------------------------------------
 
-@register_op("__vjp__")
+def _dense(v):
+    return v.data if isinstance(v, RaggedPair) else v
+
+
+@register_op("__vjp__", ragged_aware=True)
 def _vjp(ctx):
     """Gradient of an arbitrary forward op: replay its compute rule under
     torch autograd. See core/backward.py for how this op is built.
@@ -132,7 +137,14 @@ def _vjp(ctx):
     this replay records a graph, and it is dropped when the op returns.
     Eager torch has no CSE: the forward op runs a second time here (for
     scaled_dot_product_attention on the flash route that is a second
-    forward-kernel launch before the backward kernels)."""
+    forward-kernel launch before the backward kernels, for lstm on the
+    kernel route a second fused-LSTM forward).
+
+    Ragged values, as the JAX package's op treats them: a ragged input's
+    leaf is its dense data, re-wrapped with the same lengths before the
+    forward rule runs (so a sequence op still sees every row's length);
+    ragged outputs and cotangents enter autograd as their data; the
+    gradient of a ragged input comes back ragged with its lengths."""
     fwd = OpDesc.from_dict(ctx.attr("fwd_op"))
     fwd_out_names = fwd.output_names()
     in_vals = ctx.inputs("FwdIn")
@@ -142,21 +154,27 @@ def _vjp(ctx):
                                         ctx.attr("out_has_grad")) if h]
     replay_names = fwd.input_names() + list(ctx.attr("closure_names", [])
                                             or [])
-    leaves = []
+    leaves, wrapped = [], []
     env = {}
     for n, v, need in zip(replay_names, in_vals, in_need_grad):
         if need:
-            v = v.detach().requires_grad_(True)
-            leaves.append(v)
+            leaf = _dense(v).detach().requires_grad_(True)
+            leaves.append(leaf)
+            wrapped.append(v)
+            v = RaggedPair(leaf, v.lengths) if isinstance(v, RaggedPair) \
+                else leaf
         env[n] = v
     with torch.enable_grad():
         outs = run_op(fwd, env, ctx.extra)
-        pairs = [(outs[n], g) for n, g in zip(grad_out_names, out_grads)
-                 if outs[n].requires_grad]
+        pairs = [(_dense(outs[n]), _dense(g))
+                 for n, g in zip(grad_out_names, out_grads)
+                 if _dense(outs[n]).requires_grad]
         grads = [None] * len(leaves)
         if pairs:
             ys, cts = zip(*pairs)
             grads = torch.autograd.grad(ys, leaves, cts, allow_unused=True)
-    for i, (g, leaf) in enumerate(zip(grads, leaves)):
-        ctx.set_output("InGrad", torch.zeros_like(leaf) if g is None
-                       else g.detach(), index=i)
+    for i, (g, leaf, v) in enumerate(zip(grads, leaves, wrapped)):
+        g = torch.zeros_like(leaf) if g is None else g.detach()
+        if isinstance(v, RaggedPair):
+            g = RaggedPair(g, v.lengths)
+        ctx.set_output("InGrad", g, index=i)

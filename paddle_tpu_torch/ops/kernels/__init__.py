@@ -7,11 +7,14 @@ One module per kernel family, named after the TPU kernels it replaces in
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd,
                               flash_attention_fwd_plain)
+from .fused_lstm import fused_lstm_bwd, fused_lstm_fwd  # noqa: F401
 
 #: every kernel wrapper of the port, for launch accounting
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
-           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+           "fused_lstm_fwd": fused_lstm_fwd,
+           "fused_lstm_bwd": fused_lstm_bwd}
 
 
 def reset_launch_counts():

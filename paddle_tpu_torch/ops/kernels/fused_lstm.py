@@ -1,0 +1,295 @@
+"""Fused LSTM time loop: the hand-written CUDA kernels and their plain twins.
+
+Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/fused_lstm.py``:
+
+  ``fused_lstm_fwd``   ``_run_fwd`` / ``_fwd_kernel``   (csrc/fused_lstm.cu)
+  ``fused_lstm_bwd``   ``_fused_lstm_bwd`` / ``_bwd_kernel``
+
+Layout, as the reference's: x [T, B, 4H] pre-projected gates, time-major,
+gate order i, c_hat, f, o; w [H, 4H]; b [4H]; h0, c0 [B, H]; lengths [B]
+int32. A row freezes past its length and its h_all/c_all there are 0;
+h_last/c_last are the state at length-1 (h0/c0 for a zero-length row).
+The CUDA source's header says what bounds the kernels on an H100 and how
+the design answers that. ``FusedLSTM`` is the torch.autograd.Function
+over the pair, the counterpart of the reference's ``jax.custom_vjp``,
+and ``fused_lstm`` applies it.
+
+Every wrapper takes its kernel for CUDA tensors — there is no fallback:
+a CUDA input the kernel cannot take raises, and so does a failed build or
+launch — its plain torch twin for CPU tensors, and a shape-only path for
+tensors on the "meta" device (build-time shape inference), which would
+otherwise trace the twin's time loop.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import build
+
+_SOURCE = "fused_lstm.cu"
+
+
+# -- plain twins ------------------------------------------------------------
+
+def _gates(x_t, h_prev, w, b, hidden):
+    """The four activated gates of one step, in the kernels' order:
+    (x_t + h_prev w) + b, then sigmoid/tanh/sigmoid/sigmoid."""
+    g = (x_t + h_prev @ w) + b
+    return (torch.sigmoid(g[:, :hidden]), torch.tanh(g[:, hidden:2 * hidden]),
+            torch.sigmoid(g[:, 2 * hidden:3 * hidden]),
+            torch.sigmoid(g[:, 3 * hidden:]))
+
+
+def _alive(lengths, t_max):
+    """[T, B, 1] bool: step t lies inside row b's length."""
+    t = torch.arange(t_max, device=lengths.device, dtype=torch.int32)
+    return (t[:, None] < lengths[None, :])[..., None]
+
+
+def fused_lstm_fwd_plain(x, w, b, h0, c0, lengths):
+    """A torch loop over t with the forward kernel's arithmetic:
+    (h_all, c_all [T,B,H], h_last, c_last [B,H])."""
+    t_max, hidden = x.shape[0], w.shape[0]
+    alive = _alive(lengths, t_max)
+    h, c = h0, c0
+    h_all, c_all = [], []
+    for t in range(t_max):
+        i, cand, f, o = _gates(x[t], h, w, b, hidden)
+        c_new = f * c + i * cand
+        h_new = o * torch.tanh(c_new)
+        h_all.append(torch.where(alive[t], h_new, torch.zeros_like(h_new)))
+        c_all.append(torch.where(alive[t], c_new, torch.zeros_like(c_new)))
+        h = torch.where(alive[t], h_new, h)
+        c = torch.where(alive[t], c_new, c)
+    return torch.stack(h_all), torch.stack(c_all), h, c
+
+
+def fold_last(dh_all, dc_all, dh_last, dc_last, lengths):
+    """Add the h_last/c_last cotangents into the per-step streams at
+    max(len-1, 0), as the reference's _fused_lstm_bwd does; a None
+    cotangent is zero."""
+    idx = torch.clamp(lengths.long() - 1, min=0)
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    out = []
+    for stream, last in ((dh_all, dh_last), (dc_all, dc_last)):
+        stream = stream.clone()
+        if last is not None:
+            stream[idx, rows] = stream[idx, rows] + last
+        out.append(stream)
+    return out[0], out[1]
+
+
+def fused_lstm_bwd_plain(x, w, b, h0, c0, lengths, h_all, c_all, dh_all,
+                         dc_all, dh_last=None, dc_last=None):
+    """A reverse torch loop with the backward kernels' arithmetic:
+    (dx [T,B,4H], dw [H,4H], db [4H], dh0, dc0 [B,H]). It recomputes the
+    gates from (x_t, h_{t-1}), takes dh_prev = dgates w^T per step, and
+    sums dw and db over all T*B rows after the loop, as the kernels do.
+    A None cotangent is zero."""
+    dh_all = torch.zeros_like(h_all) if dh_all is None else dh_all
+    dc_all = torch.zeros_like(c_all) if dc_all is None else dc_all
+    dh_all, dc_all = fold_last(dh_all, dc_all, dh_last, dc_last, lengths)
+    t_max, bsz, g4 = x.shape
+    hidden = g4 // 4
+    alive = _alive(lengths, t_max)
+    dh_c = torch.zeros_like(h0)
+    dc_c = torch.zeros_like(c0)
+    dx = torch.empty_like(x)
+    zero = torch.zeros_like(h0)
+    for t in range(t_max - 1, -1, -1):
+        h_prev = h_all[t - 1] if t else h0
+        c_prev = c_all[t - 1] if t else c0
+        i, cand, f, o = _gates(x[t], h_prev, w, b, hidden)
+        c = f * c_prev + i * cand
+        tc = torch.tanh(c)
+        a = alive[t]
+        dh = torch.where(a, dh_all[t] + dh_c, zero)
+        dc = torch.where(a, dh * o * (1.0 - tc * tc) + dc_c + dc_all[t], dc_c)
+        dg = torch.cat([torch.where(a, dc * cand * i * (1.0 - i), zero),
+                        torch.where(a, dc * i * (1.0 - cand * cand), zero),
+                        torch.where(a, dc * c_prev * f * (1.0 - f), zero),
+                        torch.where(a, dh * tc * o * (1.0 - o), zero)], 1)
+        dx[t] = dg
+        dc_c = torch.where(a, dc * f, dc_c)
+        dh_c = torch.where(a, dg @ w.t(), dh_c)
+    h_prev = torch.cat([h0[None], h_all[:-1]]).reshape(t_max * bsz, hidden)
+    dx2 = dx.reshape(t_max * bsz, g4)
+    return dx, h_prev.t() @ dx2, dx2.sum(0), dh_c, dc_c
+
+
+# -- the kernels ------------------------------------------------------------
+
+def _library() -> ctypes.CDLL:
+    lib = build.library(_SOURCE)
+    if not getattr(lib, "_paddle_bound", False):
+        lib.fused_lstm_fwd_f32.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.fused_lstm_fwd_f32.restype = ctypes.c_int
+        lib.fused_lstm_bwd_f32.argtypes = (
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.fused_lstm_bwd_f32.restype = ctypes.c_int
+        lib.fused_lstm_error_string.argtypes = [ctypes.c_int]
+        lib.fused_lstm_error_string.restype = ctypes.c_char_p
+        lib._paddle_bound = True
+    return lib
+
+
+def _check(who, x, w, b, h0, c0, lengths, **more):
+    """Raise unless every tensor is what the kernels take: float32 (int32
+    lengths), contiguous, on x's device, with the layout's shapes."""
+    if x.ndim != 3 or x.shape[2] % 4 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{who}: x must be [T>=1, B>=1, 4H], got "
+                         f"{tuple(x.shape)}")
+    t_max, bsz, g4 = x.shape
+    hidden = g4 // 4
+    shapes = dict(x=(t_max, bsz, g4), w=(hidden, g4), b=(g4,),
+                  h0=(bsz, hidden), c0=(bsz, hidden))
+    tensors = dict(x=x, w=w, b=b, h0=h0, c0=c0)
+    for name, t in more.items():
+        shapes[name] = (t_max, bsz, hidden)
+        tensors[name] = t
+    for name, t in tensors.items():
+        if t.device != x.device or t.dtype != torch.float32 or \
+                not t.is_contiguous() or tuple(t.shape) != shapes[name]:
+            raise ValueError(
+                f"{who}: {name} must be a contiguous float32 "
+                f"{shapes[name]} tensor on {x.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} (contiguous: "
+                f"{t.is_contiguous()})")
+    if lengths.device != x.device or lengths.dtype != torch.int32 or \
+            tuple(lengths.shape) != (bsz,) or not lengths.is_contiguous():
+        raise ValueError(f"{who}: lengths must be a contiguous int32 "
+                         f"({bsz},) tensor on {x.device}")
+    if bsz > 65535 * 16:
+        raise ValueError(f"{who}: batch {bsz} exceeds the grid")
+
+
+def _raise_on(lib, err, who):
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: "
+                           f"{lib.fused_lstm_error_string(err).decode()}")
+
+
+def fused_lstm_fwd(x, w, b, h0, c0, lengths
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """LSTM over T steps: (h_all, c_all [T,B,H], h_last, c_last [B,H]).
+    CUDA tensors run the forward kernel (float32, contiguous, int32
+    lengths — anything else raises); CPU tensors run
+    fused_lstm_fwd_plain; meta tensors get outputs of the right shape."""
+    if x.device.type == "meta":
+        t_max, bsz, g4 = x.shape
+        seq = x.new_empty((t_max, bsz, g4 // 4))
+        return seq, seq.clone(), h0.new_empty(h0.shape), \
+            c0.new_empty(c0.shape)
+    if not x.is_cuda:
+        return fused_lstm_fwd_plain(x, w, b, h0, c0, lengths)
+    _check("fused_lstm_fwd", x, w, b, h0, c0, lengths)
+    t_max, bsz, g4 = x.shape
+    hidden = g4 // 4
+    h_all = torch.empty((t_max, bsz, hidden), dtype=x.dtype, device=x.device)
+    c_all = torch.empty_like(h_all)
+    h_last, c_last, h_scratch = (torch.empty_like(h0) for _ in range(3))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_lstm_fwd_f32(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), lengths.data_ptr(), h_all.data_ptr(),
+            c_all.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
+            h_scratch.data_ptr(), t_max, bsz, hidden, stream)
+    _raise_on(lib, err, "fused_lstm_fwd")
+    fused_lstm_fwd.launches += 1
+    return h_all, c_all, h_last, c_last
+
+
+#: kernel launches since the count was last set to 0 (one per call of the
+#: C function, which launches the T step kernels; the plain and meta
+#: paths do not count)
+fused_lstm_fwd.launches = 0
+
+
+def fused_lstm_bwd(x, w, b, h0, c0, lengths, h_all, c_all, dh_all, dc_all,
+                   dh_last=None, dc_last=None):
+    """The backward of fused_lstm_fwd for the output cotangents dh_all,
+    dc_all [T,B,H] and dh_last, dc_last [B,H] (None is zero; dh_all or
+    dc_all None too): (dx [T,B,4H], dw [H,4H], db [4H], dh0, dc0 [B,H]).
+    The last-state cotangents are folded into the streams in torch; CUDA
+    tensors then run the backward kernels (same conditions as
+    fused_lstm_fwd), CPU tensors fused_lstm_bwd_plain."""
+    if x.device.type == "meta":
+        return (x.new_empty(x.shape), w.new_empty(w.shape),
+                b.new_empty(b.shape), h0.new_empty(h0.shape),
+                c0.new_empty(c0.shape))
+    if not x.is_cuda:
+        return fused_lstm_bwd_plain(x, w, b, h0, c0, lengths, h_all, c_all,
+                                    dh_all, dc_all, dh_last, dc_last)
+    dh_all = torch.zeros_like(h_all) if dh_all is None else dh_all
+    dc_all = torch.zeros_like(c_all) if dc_all is None else dc_all
+    dh_all, dc_all = fold_last(dh_all.contiguous(), dc_all.contiguous(),
+                               dh_last, dc_last, lengths)
+    _check("fused_lstm_bwd", x, w, b, h0, c0, lengths, h_all=h_all,
+           c_all=c_all, dh_all=dh_all, dc_all=dc_all)
+    t_max, bsz, g4 = x.shape
+    hidden = g4 // 4
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(b)
+    dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
+    # W^T for the per-step dh_prev = dgates W^T product (a copy, once)
+    wt = w.t().contiguous()
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_lstm_bwd_f32(
+            x.data_ptr(), w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+            h0.data_ptr(),
+            c0.data_ptr(), lengths.data_ptr(), h_all.data_ptr(),
+            c_all.data_ptr(), dh_all.data_ptr(), dc_all.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), t_max, bsz, hidden, stream)
+    _raise_on(lib, err, "fused_lstm_bwd")
+    fused_lstm_bwd.launches += 1
+    return dx, dw, db, dh0, dc0
+
+
+fused_lstm_bwd.launches = 0
+
+
+class FusedLSTM(torch.autograd.Function):
+    """The fused LSTM with its backward kernel — the counterpart of the
+    reference's ``jax.custom_vjp`` around ``fused_lstm``. forward saves
+    the inputs, h_all and c_all; backward recomputes the gates (no
+    [T,B,4H] activations are kept). An output that gets no cotangent
+    counts as zeros; lengths gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, h0, c0, lengths):
+        h_all, c_all, h_last, c_last = fused_lstm_fwd(x, w, b, h0, c0,
+                                                      lengths)
+        ctx.save_for_backward(x, w, b, h0, c0, lengths, h_all, c_all)
+        ctx.set_materialize_grads(False)
+        return h_all, c_all, h_last, c_last
+
+    @staticmethod
+    def backward(ctx, dh_all, dc_all, dh_last, dc_last):
+        x, w, b, h0, c0, lengths, h_all, c_all = ctx.saved_tensors
+        dx, dw, db, dh0, dc0 = fused_lstm_bwd(
+            x, w, b, h0, c0, lengths, h_all, c_all,
+            None if dh_all is None else dh_all.contiguous(),
+            None if dc_all is None else dc_all.contiguous(),
+            dh_last, dc_last)
+        return dx, dw, db, dh0, dc0, None
+
+
+def fused_lstm(x, w, b, h0, c0, lengths
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Differentiable fused LSTM: (h_all, c_all, h_last, c_last) for
+    x [T,B,4H], w [H,4H], b [4H], h0/c0 [B,H] and int32 lengths [B]
+    (see FusedLSTM). The CUDA kernels need contiguous float32 tensors."""
+    return FusedLSTM.apply(x, w, b, h0, c0, lengths)
+

@@ -1,9 +1,11 @@
 """Math ops: elementwise (with the reference's axis broadcast), mul,
-reduce_sum, activations, clipping, comparisons and logical ops, arg_max.
+reduce_sum, mean, activations, clipping, comparisons and logical ops,
+arg_max.
 
 The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops the
-decoder LM and the Transformer NMT train step run, plus the few that
-the gradient clippers and regularizers (clip.py, regularizer.py) append.
+decoder LM, the Transformer NMT and the LSTM LM train steps run, plus
+the few that the gradient clippers and regularizers (clip.py,
+regularizer.py) append.
 The matrix products stay torch.matmul: the JAX package left them to XLA
 and wrote no kernel for them.
 """
@@ -72,6 +74,12 @@ def _reduce_sum(ctx):
     else:
         axis = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
     ctx.set_output("Out", torch.sum(x, dim=axis, keepdim=keep))
+
+
+@register_op("mean")
+def _mean(ctx):
+    """Mean of every element, a 0-d tensor (jnp.mean's shape)."""
+    ctx.set_output("Out", torch.mean(ctx.input("X")))
 
 
 def _register_act(name, fn):
