@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes the serving and training paths give it and over a sweep (of
      head dims, lengths, biases and causal for attention; of H, B, T,
      zero-length rows, initial states and last-state cotangents for the
-     fused LSTM), with times: kernel, plain,
+     fused LSTM and the fused GRU), with times: kernel, plain,
      library (one PyTorch call computing the same function, a yardstick
-     the port never calls) and the card's lower bound for the work.
+     the port never calls; for the GRU, which no PyTorch call computes,
+     torch.nn.GRU at the same shape as a same-FLOP yardstick) and the
+     card's lower bound for the work.
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -41,8 +43,25 @@ Phases (any failure exits non-zero; nothing is caught):
      0 just before and read just after, and once with __pallas__="0"
      stamped on every lstm op and fwd_op copy (the scan route). Losses and
      every parameter's step-1 gradient must agree per element.
-  6. JSON lines of the kernels, serving and both trainings, then, last,
-     the JSON result line.
+  6. train the GRU encoder-decoder of the book's machine-translation
+     chapter (tests/test_book.py: embedding -> fc(3H) -> dynamic_gru for
+     source and target, scaled_dot_product_attention(dec, enc, enc),
+     concat, fc(V), softmax_with_cross_entropy, sequence_pool average,
+     mean, Adam lr 3e-3) at the chapter's published width (dictionary
+     30000, word vectors 512, encoder and decoder 512), B64 x T80 with
+     ragged source and target lengths in [10, 80], through Executor.run
+     for 5 steps from seeded weights: once as built (every gru op takes
+     the fused-GRU kernels), with the launch counts set to 0 just before
+     and read just after, and once with __pallas__="0" stamped on every
+     gru op and fwd_op copy (the scan route). Losses and every
+     parameter's step-1 gradient must agree per element.
+  7. the inference entry point: the kernel-route model of phase 6 saved
+     with io.save_inference_model, loaded with io.load_inference_model
+     into a fresh Executor and scope and run on one feed; its logits must
+     equal, bit for bit, those that one more run of the trained program
+     fetches (whose forward reads the saved weights).
+  8. JSON lines of the kernels, serving and the three trainings, then,
+     last, the JSON result line.
 
 Without a CUDA card, or outside a checkout, it exits non-zero before
 printing any result.
@@ -50,6 +69,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -161,18 +181,46 @@ LSTM_COVERAGE_CASES = [
     (1, 5, 128, [1, 0, 1, 1, 0], True, True),
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
 ]
-# kernel vs scan route of the LM on the card, float32. The routes compute
-# the same function with the recurrent products summed in another order
-# (the kernels' tiles vs cuBLAS); the model has no ReLU, so nothing turns
-# rounding into a discrete change. An H100 run of this script: the 5
-# losses equal bit for bit, the step-1 gradients within 2.4e-6 * max|g|
-# (the LSTM weights; the rest within 3.4e-7). The limits leave 4x room
-# over that; a wrong mask, carry or gate moves both by O(1).
-LSTM_LOSS_RTOL = 1e-4
-LSTM_GRAD_RTOL, LSTM_GRAD_ATOL_FRAC = 1e-4, 1e-5
+# kernel vs scan route of the LSTM LM and of the GRU NMT model on the
+# card, float32. The routes compute the same function with the recurrent
+# products summed in another order (the kernels' tiles vs cuBLAS); neither
+# model has a ReLU, so nothing turns rounding into a discrete change. H100
+# runs of this script: the 5 losses equal bit for bit, the step-1
+# gradients within 2.4e-6 (LSTM) and 2.2e-6 (GRU) * max|g| (the recurrent
+# weights; the rest within 3.4e-7). The limits leave 4x room over that; a
+# wrong mask, carry or gate moves both by O(1).
+RNN_LOSS_RTOL = 1e-4
+RNN_GRAD_RTOL, RNN_GRAD_ATOL_FRAC = 1e-4, 1e-5
 # the cuDNN yardstick must compute the kernel's function: its h_all
 # agrees to float32 rounding (a gate-order slip gives O(0.1))
 LSTM_LIBRARY_ATOL = 1e-4
+
+# the book's machine-translation chapter at its published width
+# (PaddlePaddle book ch. 8: dict_size 30000, word_vector_dim 512,
+# encoder_size = decoder_size 512), Adam as tests/test_book.py trains it
+GRU_NMT_CFG = dict(dict_size=30000, emb_dim=512, hid_dim=512, lr=3e-3)
+# batch 64; source and target lengths uniform in [10, 80] from
+# RandomState(0), padded to the wmt14 reader's 80-token cut
+GRU_BATCH, GRU_T, GRU_MIN_LEN = 64, 80, 10
+GRU_STEPS = 5
+# fused GRU vs its plain twins: the forward within 1e-6 absolute (the same
+# products summed in another order, 80 steps of a contracting recurrence);
+# the backward as _max_err holds it
+GRU_FWD_ATOL = 1e-6
+# the kernel table's row: the book model's shape with its source lengths
+GRU_MAIN_CASE = "ragged"
+# fused-GRU sweep: (T, B, H, lengths, nonzero h0, h_last cotangent): H
+# 64/256/512 and one off every tile edge, B 1/7/64, T 1/5/80, zero-length
+# and full rows
+GRU_COVERAGE_CASES = [
+    (5, 7, 64, [5, 0, 3, 1, 5, 2, 0], True, True),
+    (1, 7, 256, [1, 0, 1, 1, 0, 1, 1], True, True),
+    (80, 1, 512, [80], True, True),
+    (80, 64, 64, [(7 * i) % 81 for i in range(64)], True, True),
+    (5, 64, 256, [i % 6 for i in range(64)], False, True),
+    (80, 7, 512, [80, 0, 40, 79, 1, 80, 13], True, False),
+    (16, 40, 100, [i % 17 for i in range(40)], True, True),
+]
 
 
 def card_line() -> str:
@@ -604,6 +652,179 @@ def check_lstm(card):
     return rows, coverage_err
 
 
+def gru_lengths(seed=0):
+    """The book model's feed as phase 6 draws it from RandomState(seed):
+    source ids, target ids, label ids [GRU_BATCH, GRU_T, 1] (ids in
+    [1, dict)), then source and target lengths in [GRU_MIN_LEN, GRU_T]."""
+    b, t, v = GRU_BATCH, GRU_T, GRU_NMT_CFG["dict_size"]
+    rng = np.random.RandomState(seed)
+    ids = [rng.randint(1, v, (b, t, 1)).astype(np.int64) for _ in range(3)]
+    src_lens = rng.randint(GRU_MIN_LEN, t + 1, (b,)).astype(np.int32)
+    trg_lens = rng.randint(GRU_MIN_LEN, t + 1, (b,)).astype(np.int32)
+    return ids, src_lens, trg_lens
+
+
+def gru_bound(t, b, h, lengths_sum, backward):
+    """Least time for one fused-GRU call on this card: 2*L*H*3H FLOP
+    forward; 2x that backward, which reads the forward's saved gates and
+    so recomputes nothing (d_rh = dc W_c^T, [du, dr] W_ur^T, dW_ur, dW_c:
+    2*L*H*6H), L the sum of the lengths, over the fp32 rate; vs the bytes
+    of the function's inputs read once and outputs written once over HBM
+    rate."""
+    fwd = 2.0 * lengths_sum * h * 3 * h
+    seq, state, g3, w = t * b * h, b * h, t * b * 3 * h, h * 3 * h
+    if backward:
+        # in: gates, w, h0, lengths, h_all, dh_all, dh_last;
+        # out: dx, dw, dh0
+        nbytes, flops = 4.0 * (2 * g3 + 2 * w + 3 * state + b + 2 * seq), \
+            2.0 * fwd
+    else:
+        # in: x, w, h0, lengths; out: h_all, h_last
+        nbytes, flops = 4.0 * (g3 + w + 2 * state + b + seq), fwd
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _gru_inputs(gen, t, b, h, lens, state, last_cotangent):
+    """Random fused-GRU inputs on the card: x ~ 0.5 N(0,1), w ~ U(+-1/
+    sqrt(H)); h0 zero unless `state`; dh_all random, dh_last random with
+    `last_cotangent`, else None (the book model's Hidden-only
+    cotangent)."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=DEVICE, generator=gen) * scale
+    x = rnd(t, b, 3 * h, scale=0.5)
+    w = (torch.rand(h, 3 * h, device=DEVICE, generator=gen) * 2 - 1) \
+        / h ** 0.5
+    h0 = rnd(b, h, scale=0.5) if state else torch.zeros(b, h, device=DEVICE)
+    lengths = torch.as_tensor(np.asarray(lens, np.int32), device=DEVICE)
+    return (x, w, h0, lengths), (rnd(t, b, h),
+                                 rnd(b, h) if last_cotangent else None)
+
+
+def _gru_errs(inputs, cts):
+    """Kernel vs plain twin, forward and backward: (forward max |err|,
+    backward max |err|, ok, kernel forward outputs, {backward output:
+    (max |err|, max |plain|)}). The forward is held at GRU_FWD_ATOL
+    absolute (h_all, h_last, gates); the backward per output at rtol
+    KERNEL_RTOL, atol KERNEL_ATOL * max|plain|. Each backward reads the
+    kernel forward's h_all and gates."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_gru as fg
+    fwd_k = fg.fused_gru_fwd(*inputs)
+    fwd_p = fg.fused_gru_fwd_plain(*inputs)
+    saved = (fwd_k[0], fwd_k[2])
+    bwd_k = fg.fused_gru_bwd(*inputs[1:], *saved, *cts)
+    bwd_p = fg.fused_gru_bwd_plain(*inputs[1:], *saved, *cts)
+    torch.cuda.synchronize()
+    ferr = max((k - p).abs().max().item() for k, p in zip(fwd_k, fwd_p))
+    berr, bok = _max_err(bwd_k, bwd_p)
+    per_grad = {n: ((k - p).abs().max().item(), p.abs().max().item())
+                for n, k, p in zip(("dx", "dw", "dh0"), bwd_k, bwd_p)}
+    return ferr, berr, ferr <= GRU_FWD_ATOL and bok, fwd_k, per_grad
+
+
+def gru_yardstick(inputs, cts):
+    """torch.nn.GRU (cuDNN) at the kernel's shape, as a same-FLOP
+    yardstick only: no PyTorch call computes the kernel's function,
+    because torch.nn.GRU applies the reset gate after the recurrent
+    product (r * (W_hn h + b_hn)), where the reference's GRU multiplies
+    (r * h) by W_c. Input size 1, so that its recurrent products (2 H 3H
+    FLOP a row and step, as the kernel's) carry the work, on the packed
+    sequence with the kernel's lengths and h0. Returns (forward fn,
+    backward fn)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+    x, w, h0, lengths = inputs
+    t, b, g = x.shape
+    h = g // 3
+    gru = torch.nn.GRU(1, h).to(DEVICE)
+    xl = torch.zeros(t, b, 1, device=DEVICE).normal_().requires_grad_(True)
+    lens_cpu = lengths.cpu().long().clamp(min=1)
+
+    def fwd():
+        packed = pack_padded_sequence(xl, lens_cpu, enforce_sorted=False)
+        out, _ = gru(packed, h0[None])
+        return pad_packed_sequence(out, total_length=t)[0]
+
+    out = fwd()
+    wrt = (xl,) + tuple(gru.parameters())
+
+    def bwd():
+        return torch.autograd.grad(out, wrt, cts[0], retain_graph=True)
+    return fwd, bwd
+
+
+def check_gru(card):
+    """The fused-GRU forward and backward kernels against their plain
+    twins on the card at the book model's shape (T80 B64 H512, the phase-6
+    source lengths, and full lengths), timed there with the nn.GRU
+    yardstick and the bound; then over GRU_COVERAGE_CASES."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_gru as fg
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    t, b, h = GRU_T, GRU_BATCH, GRU_NMT_CFG["hid_dim"]
+    rows = {}
+    for label in ("ragged", "full"):
+        lens = gru_lengths()[1] if label == "ragged" else np.full(b, t)
+        inputs, cts = _gru_inputs(gen, t, b, h, lens, False, False)
+        ferr, berr, ok, outs, per_grad = _gru_errs(inputs, cts)
+        print("fused_gru vs plain, forward max |err| " + f"{ferr:.3e}; "
+              "backward max |err| (max |plain|): " + ", ".join(
+                  f"{n} {e:.3e} ({m:.3e})" for n, (e, m) in per_grad.items()),
+              flush=True)
+        if not ok:
+            raise SystemExit(f"fused GRU kernels disagree with their plain "
+                             f"twins at T={t} B={b} H={h} {label}: forward "
+                             f"{ferr:.3e}, backward {berr:.3e}")
+        yard_fwd, yard_bwd = gru_yardstick(inputs, cts)
+        l_sum = int(np.sum(lens))
+        bwd_args = inputs[1:] + (outs[0], outs[2]) + cts
+        times = {
+            "fused_gru_fwd": (
+                cuda_ms(lambda: fg.fused_gru_fwd(*inputs), iters=10),
+                cuda_ms(lambda: fg.fused_gru_fwd_plain(*inputs), iters=5),
+                cuda_ms(yard_fwd, iters=10), ferr, False),
+            "fused_gru_bwd": (
+                cuda_ms(lambda: fg.fused_gru_bwd(*bwd_args), iters=10),
+                cuda_ms(lambda: fg.fused_gru_bwd_plain(*bwd_args), iters=5),
+                cuda_ms(yard_bwd, iters=10), berr, True)}
+        for name, (ms, plain_ms, yard_ms, err, bwd) in times.items():
+            bound_ms, bound_by = gru_bound(t, b, h, l_sum, bwd)
+            rows[(name, label)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                yardstick_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[{card}] {name} T={t} B={b} H={h} {label} lengths (sum "
+                  f"{l_sum}): max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} nn.GRU yardstick_ms="
+                  f"{yard_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+                  flush=True)
+    coverage_err = {"fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
+    for t, b, h, lens, state, last in GRU_COVERAGE_CASES:
+        inputs, cts = _gru_inputs(gen, t, b, h, lens, state, last)
+        ferr, berr, ok, outs, _ = _gru_errs(inputs, cts)
+        zero = [i for i, n in enumerate(lens) if n == 0]
+        if zero and not torch.equal(outs[1][zero], inputs[2][zero]):
+            raise SystemExit(f"fused_gru_fwd: h_last of a zero-length row "
+                             f"is not its h0 at T={t} B={b} H={h}")
+        if not ok:
+            raise SystemExit(f"fused GRU kernels disagree with their plain "
+                             f"twins at T={t} B={b} H={h} lengths={lens} "
+                             f"h0={state} h_last cotangent={last}: "
+                             f"{ferr:.3e} / {berr:.3e}")
+        coverage_err["fused_gru_fwd"] = max(coverage_err["fused_gru_fwd"],
+                                            ferr)
+        coverage_err["fused_gru_bwd"] = max(coverage_err["fused_gru_bwd"],
+                                            berr)
+        print(f"fused_gru T={t} B={b} H={h} lengths={list(lens)[:8]}... "
+              f"h0={state} h_last cotangent={last}: max_abs_err forward "
+              f"{ferr:.3e}, backward {berr:.3e}", flush=True)
+    return rows, coverage_err
+
+
 def seeded_weights(startup, seed):
     """numpy values for every variable a startup program initializes
     (KV caches aside), drawn from `seed` with the distribution its init
@@ -728,10 +949,10 @@ def train_arm(main, startup, loss, weights, feed, params, card, label):
     input. Each step's time is a host clock around Executor.run, which
     ends synchronized (it returns the fetches as numpy)."""
     import torch
-    from paddle_tpu_torch import Executor, Scope, load_params
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
     exe, scope = Executor(), Scope()
     exe.run(startup, scope=scope)
-    load_params(scope, weights)
+    load_param_arrays(scope, weights)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     relu_in = [op.input("X")[0] for op in main.desc.global_block.ops
@@ -763,7 +984,7 @@ def pinned_relu_grads(main, startup, loss, weights, feed, params, signs):
     (ReLU input name -> bool array) says, in the forward and in its
     __vjp__ replay alike; returns every parameter's gradient."""
     import torch
-    from paddle_tpu_torch import Executor, Scope, load_params
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
     from paddle_tpu_torch.core.registry import OpRegistry
     masks = {n: torch.from_numpy(m).cuda() for n, m in signs.items()}
 
@@ -776,7 +997,7 @@ def pinned_relu_grads(main, startup, loss, weights, feed, params, signs):
     free_relu = relu.compute
     exe, scope = Executor(), Scope()
     exe.run(startup, scope=scope)
-    load_params(scope, weights)
+    load_param_arrays(scope, weights)
     relu.compute = pinned_relu
     try:
         out = exe.run(main, feed=feed, scope=scope,
@@ -868,10 +1089,10 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
     time; then the forward alone (see below)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import Executor, Scope, load_params
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
     exe, scope = Executor(DEVICE), Scope()
     exe.run(startup, scope=scope)
-    load_params(scope, weights)
+    load_param_arrays(scope, weights)
     exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -996,32 +1217,33 @@ def train(card):
     return summary, launches
 
 
-def _stamp_lstm(main, value):
-    """__pallas__=value on every lstm op and on the fwd_op copy each
+def _stamp_pallas(main, op_type, value):
+    """__pallas__=value on every `op_type` op and on the fwd_op copy each
     __vjp__ took at append_backward time (a stamp that misses the copies
     leaves the backward on the other route)."""
     for op in main.desc.global_block.ops:
-        if op.type == "lstm":
+        if op.type == op_type:
             op.attrs["__pallas__"] = value
-        elif op.type == "__vjp__" and op.attrs["fwd_op"]["type"] == "lstm":
+        elif op.type == "__vjp__" and op.attrs["fwd_op"]["type"] == op_type:
             op.attrs["fwd_op"]["attrs"]["__pallas__"] = value
     main.desc._bump_version()
 
 
-def lstm_arm(main, startup, loss, weights, feed, params, card, label):
-    """LSTM_STEPS SGD steps from `weights` in a fresh scope; the first also
-    fetches every parameter's gradient (its grad var). Each step's time is
-    a host clock around Executor.run, which ends synchronized (it returns
-    the fetches as numpy)."""
+def rnn_arm(main, startup, loss, weights, feed, params, card, label, steps):
+    """`steps` optimizer steps from `weights` in a fresh scope; the first
+    also fetches every parameter's gradient (its grad var). Each step's
+    time is a host clock around Executor.run, which ends synchronized (it
+    returns the fetches as numpy). Returns the arm's numbers, its
+    executor and its scope."""
     import torch
-    from paddle_tpu_torch import Executor, Scope, load_params
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
     exe, scope = Executor(DEVICE), Scope()
     exe.run(startup, scope=scope)
-    load_params(scope, weights)
+    load_param_arrays(scope, weights)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, peaks, grads = [], [], [], None
-    for step in range(LSTM_STEPS):
+    for step in range(steps):
         fetch = [loss.name] + ([p + "@GRAD" for p in params]
                                if step == 0 else [])
         t0 = time.perf_counter()
@@ -1032,13 +1254,46 @@ def lstm_arm(main, startup, loss, weights, feed, params, card, label):
         if step == 0:
             grads = dict(zip(params, out[1:]))
         if not np.isfinite(losses[-1]):
-            raise SystemExit(f"LSTM LM {label} arm: loss {losses[-1]} at "
-                             f"step {step}")
-        print(f"[{card}] LSTM LM {label} step {step}: loss {losses[-1]:.6f}"
+            raise SystemExit(f"{label} arm: loss {losses[-1]} at step "
+                             f"{step}")
+        print(f"[{card}] {label} step {step}: loss {losses[-1]:.6f}"
               f" {step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.3f} GiB",
               flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
-                grads=grads)
+                grads=grads), exe, scope
+
+
+def hold_routes(fused, scan, params, card, what):
+    """Kernel vs scan route of one model: losses within RNN_LOSS_RTOL and
+    every parameter's step-1 gradient per element within RNN_GRAD_RTOL,
+    atol RNN_GRAD_ATOL_FRAC * max|g|. Returns (max relative loss
+    difference, worst max |diff| / max|g| over the parameters)."""
+    loss_rel = float(np.max(np.abs(np.subtract(fused["losses"],
+                                               scan["losses"]))
+                            / np.abs(scan["losses"])))
+    print(f"[{card}] {what} kernel vs scan: losses {fused['losses']} vs "
+          f"{scan['losses']} (max rel diff {loss_rel:.3e})", flush=True)
+    if not loss_rel <= RNN_LOSS_RTOL:
+        raise SystemExit(f"{what} kernel vs scan losses differ by "
+                         f"{loss_rel:.3e} > {RNN_LOSS_RTOL}")
+    worst, fails = {}, []
+    for p in params:
+        g, r = fused["grads"][p], scan["grads"][p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        worst[p] = float(np.abs(g - r).max()) / scale
+        if not np.allclose(g, r, rtol=RNN_GRAD_RTOL,
+                           atol=RNN_GRAD_ATOL_FRAC * scale):
+            fails.append(p)
+    for p in sorted(worst, key=worst.get, reverse=True):
+        print(f"  {p}@GRAD: max |diff| {worst[p]:.3e} * max|g|", flush=True)
+    if fails:
+        raise SystemExit(f"{what} kernel vs scan: step-1 gradients of "
+                         f"{fails} differ per element")
+    print(f"[{card}] {what} kernel vs scan: step-1 gradients of all "
+          f"{len(params)} parameters equal per element (rtol "
+          f"{RNN_GRAD_RTOL}, atol {RNN_GRAD_ATOL_FRAC} * max|g|; worst "
+          f"max |diff| {max(worst.values()):.3e} * max|g|)", flush=True)
+    return loss_rel, max(worst.values())
 
 
 def train_lstm(card):
@@ -1067,8 +1322,8 @@ def train_lstm(card):
           flush=True)
 
     kernels.reset_launch_counts()
-    fused = lstm_arm(main, startup, f["loss"], weights, feed, params, card,
-                     "kernel")
+    fused, _, _ = rnn_arm(main, startup, f["loss"], weights, feed, params,
+                          card, "LSTM LM kernel", LSTM_STEPS)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     per_step = {n: c / LSTM_STEPS for n, c in launches.items()}
@@ -1087,44 +1342,158 @@ def train_lstm(card):
     profiled = profile_step(main, startup, f["loss"], weights, feed, card,
                             "LSTM kernel")
 
-    _stamp_lstm(main, "0")
+    _stamp_pallas(main, "lstm", "0")
     kernels.reset_launch_counts()
-    scan = lstm_arm(main, startup, f["loss"], weights, feed, params, card,
-                    "scan")
+    scan, _, _ = rnn_arm(main, startup, f["loss"], weights, feed, params,
+                         card, "LSTM LM scan", LSTM_STEPS)
     if kernels.launch_counts()["fused_lstm_fwd"]:
         raise SystemExit("the scan route launched the fused-LSTM kernel")
-    loss_rel = float(np.max(np.abs(np.subtract(fused["losses"],
-                                               scan["losses"]))
-                            / np.abs(scan["losses"])))
-    print(f"[{card}] LSTM LM kernel vs scan: losses {fused['losses']} vs "
-          f"{scan['losses']} (max rel diff {loss_rel:.3e})", flush=True)
-    if not loss_rel <= LSTM_LOSS_RTOL:
-        raise SystemExit(f"LSTM LM kernel vs scan losses differ by "
-                         f"{loss_rel:.3e} > {LSTM_LOSS_RTOL}")
-    worst, fails = {}, []
-    for p in params:
-        g, r = fused["grads"][p], scan["grads"][p]
-        scale = max(float(np.abs(r).max()), 1e-30)
-        worst[p] = float(np.abs(g - r).max()) / scale
-        if not np.allclose(g, r, rtol=LSTM_GRAD_RTOL,
-                           atol=LSTM_GRAD_ATOL_FRAC * scale):
-            fails.append(p)
-    for p in sorted(worst, key=worst.get, reverse=True):
-        print(f"  {p}@GRAD: max |diff| {worst[p]:.3e} * max|g|", flush=True)
-    if fails:
-        raise SystemExit(f"LSTM LM kernel vs scan: step-1 gradients of "
-                         f"{fails} differ per element")
-    print(f"[{card}] LSTM LM kernel vs scan: step-1 gradients of all "
-          f"{len(params)} parameters equal per element (rtol "
-          f"{LSTM_GRAD_RTOL}, atol {LSTM_GRAD_ATOL_FRAC} * max|g|; worst "
-          f"max |diff| {max(worst.values()):.3e} * max|g|)", flush=True)
+    loss_rel, worst = hold_routes(fused, scan, params, card, "LSTM LM")
     summary = {"card": card, "config": dict(LSTM_CFG, batch=LSTM_BATCH,
                                             t=LSTM_T),
                "parameters": n_params, "live_tokens": int(lens.sum()),
                "steps": LSTM_STEPS, "launches_per_step": per_step,
                "loss_rel_diff_max": loss_rel,
-               "grad_max_diff_frac": max(worst.values()),
+               "grad_max_diff_frac": worst,
                "profiled_step": profiled}
+    for label, arm in (("kernel", fused), ("scan", scan)):
+        summary[label] = {k: arm[k] for k in ("losses", "step_ms",
+                                              "peak_bytes")}
+    return summary, launches
+
+
+def build_gru_nmt():
+    """The book chapter's program (tests/test_book.py:166-184) with the
+    port's layers at GRU_NMT_CFG: (main, startup, logits, loss)."""
+    from paddle_tpu_torch import framework, layers, optimizer
+    v, emb, hid = (GRU_NMT_CFG[k] for k in ("dict_size", "emb_dim",
+                                             "hid_dim"))
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        src = layers.data("src", [1], dtype="int64", lod_level=1)
+        trg = layers.data("trg", [1], dtype="int64", lod_level=1)
+        lbl = layers.data("lbl", [1], dtype="int64", lod_level=1)
+        enc = layers.dynamic_gru(layers.fc(layers.embedding(
+            src, size=[v, emb]), size=3 * hid), size=hid)
+        dec = layers.dynamic_gru(layers.fc(layers.embedding(
+            trg, size=[v, emb]), size=3 * hid), size=hid)
+        ctx = layers.scaled_dot_product_attention(dec, enc, enc)
+        logits = layers.fc(layers.concat([dec, ctx], axis=-1), size=v)
+        tok_loss = layers.softmax_with_cross_entropy(logits, lbl)
+        loss = layers.mean(layers.sequence_pool(tok_loss, "average"))
+        optimizer.AdamOptimizer(
+            learning_rate=GRU_NMT_CFG["lr"]).minimize(loss)
+    return main, startup, logits, loss
+
+
+def reload_inference(main, logits, exe, scope, feed, card):
+    """Phase 7: save the trained `main` (in `scope`) as an inference model,
+    fetch the logits of one more run of `main` (its forward reads the
+    saved weights, before its own Adam update), load the model into a
+    fresh Executor and scope on the card and run it on the same source
+    and target; the logits must be equal bit for bit. Launch counts are
+    set to 0 just before the reloaded run and read just after."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import Executor, Scope, io, scope_guard
+    from paddle_tpu_torch.ops import kernels
+    with tempfile.TemporaryDirectory(prefix="gru_nmt_model_") as d:
+        with scope_guard(scope):
+            io.save_inference_model(d, ["src", "trg"], [logits], exe,
+                                    main_program=main)
+        files = sorted(os.listdir(d))
+        (want,) = exe.run(main, feed=feed, fetch_list=[logits.name],
+                          scope=scope)
+        with scope_guard(Scope()):
+            fresh = Executor(DEVICE)
+            prog, feeds, fetches = io.load_inference_model(d, fresh)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            (got,) = fresh.run(prog, feed={k: feed[k] for k in feeds},
+                               fetch_list=fetches)
+            run_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+    n_ops = len(prog.desc.global_block.ops)
+    if got.lod != want.lod or got.data.shape != want.data.shape:
+        raise SystemExit(f"reloaded model: logits of shape {got.data.shape}"
+                         f" lod {got.lod[0][:4]}..., trained program "
+                         f"{want.data.shape} {want.lod[0][:4]}...")
+    if not np.all(np.isfinite(got.data)):
+        raise SystemExit("reloaded model: non-finite logits")
+    diff = float(np.abs(got.data - want.data).max())
+    if not np.array_equal(got.data, want.data):
+        raise SystemExit(f"reloaded model's logits differ from the trained "
+                         f"program's: max |diff| {diff:.3e}")
+    if launches["fused_gru_fwd"] != 2 or launches["fused_gru_bwd"]:
+        raise SystemExit(f"reloaded model launched {launches}; expected 2 "
+                         "fused_gru_fwd (encoder, decoder) and no backward")
+    print(f"[{card}] inference model ({', '.join(files)}; {n_ops} ops, "
+          f"feeds {feeds}) reloaded on the card: logits "
+          f"{tuple(got.data.shape)} equal the trained program's bit for bit"
+          f"; reloaded run {run_ms:.1f} ms, launches {launches}", flush=True)
+    return dict(files=files, ops=n_ops, logits_shape=list(got.data.shape),
+                bitwise_equal=True, run_ms=run_ms,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def train_gru_nmt(card):
+    """Phases 6 and 7: the book's GRU encoder-decoder at its published
+    width, kernel route (as built) against the scan route (__pallas__="0"
+    on every gru op and fwd_op copy) on the same card from the same
+    numpy-seeded weights; then the kernel-route model reloaded as an
+    inference model."""
+    import torch
+    from paddle_tpu_torch.core.lod import RaggedPair
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    main, startup, logits, loss = build_gru_nmt()
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    n_params = sum(weights[p].size for p in params)
+    (src, trg, lbl), src_lens, trg_lens = gru_lengths()
+    feed = {"src": RaggedPair(src, src_lens), "trg": RaggedPair(trg, trg_lens),
+            "lbl": RaggedPair(lbl, trg_lens)}
+    print(f"GRU NMT program built: {time.perf_counter() - t0:.2f} s, "
+          f"{len(main.desc.global_block.ops)} ops, {n_params} parameters, "
+          f"{int(src_lens.sum())} source and {int(trg_lens.sum())} target "
+          f"tokens live of {GRU_BATCH * GRU_T} each", flush=True)
+
+    kernels.reset_launch_counts()
+    fused, exe, scope = rnn_arm(main, startup, loss, weights, feed, params,
+                                card, "GRU NMT kernel", GRU_STEPS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    per_step = {n: c / GRU_STEPS for n, c in launches.items()}
+    print(f"[{card}] GRU NMT kernel launches {launches} ({per_step} per "
+          f"step)", flush=True)
+    # per step: each gru op's forward and its __vjp__ replay, and one
+    # backward per op
+    want = {"fused_gru_fwd": 4 * GRU_STEPS, "fused_gru_bwd": 2 * GRU_STEPS}
+    if any(launches[n] != c for n, c in want.items()):
+        raise SystemExit(f"GRU launches {launches}, expected {want}")
+    inference = reload_inference(main, logits, exe, scope, feed, card)
+    del exe, scope
+    profiled = profile_step(main, startup, loss, weights, feed, card,
+                            "GRU kernel")
+
+    _stamp_pallas(main, "gru", "0")
+    kernels.reset_launch_counts()
+    scan, _, _ = rnn_arm(main, startup, loss, weights, feed, params, card,
+                         "GRU NMT scan", GRU_STEPS)
+    if kernels.launch_counts()["fused_gru_fwd"]:
+        raise SystemExit("the scan route launched the fused-GRU kernel")
+    loss_rel, worst = hold_routes(fused, scan, params, card, "GRU NMT")
+    summary = {"card": card, "config": dict(GRU_NMT_CFG, batch=GRU_BATCH,
+                                            t=GRU_T),
+               "parameters": n_params,
+               "live_tokens": {"source": int(src_lens.sum()),
+                               "target": int(trg_lens.sum())},
+               "steps": GRU_STEPS, "launches_per_step": per_step,
+               "loss_rel_diff_max": loss_rel,
+               "grad_max_diff_frac": worst,
+               "profiled_step": profiled, "inference_reload": inference}
     for label, arm in (("kernel", fused), ("scan", scan)):
         summary[label] = {k: arm[k] for k in ("losses", "step_ms",
                                               "peak_bytes")}
@@ -1141,7 +1510,7 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from paddle_tpu_torch import load_params
+    from paddle_tpu_torch import load_param_arrays
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.serving.generation import (GenerationModel,
@@ -1165,15 +1534,16 @@ def main() -> int:
     attn, coverage_err = check_attention(card)
     attn_bwd, bwd_coverage_err = check_attention_bwd(card)
     lstm_rows, lstm_coverage_err = check_lstm(card)
+    gru_rows, gru_coverage_err = check_gru(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
     spec = GenerationSpec(**SERVE_SPEC)
     t0 = time.perf_counter()
     gpu = GenerationModel.build(spec)
     weights = seeded_weights(gpu.programs["startup"], seed=0)
-    load_params(gpu, weights)
+    load_param_arrays(gpu, weights)
     cpu = GenerationModel(gpu.programs, spec, device="cpu")
-    load_params(cpu, weights)
+    load_param_arrays(cpu, weights)
     print(f"models built: {time.perf_counter() - t0:.2f} s "
           f"({sum(w.size for w in weights.values())} parameters)",
           flush=True)
@@ -1212,15 +1582,19 @@ def main() -> int:
     # -- 5. train the stacked-LSTM LM ----------------------------------------
     lstm_training, lstm_launches = train_lstm(card)
 
-    # -- 6. result lines -----------------------------------------------------
+    # -- 6, 7. train the book's GRU encoder-decoder; reload it -------------
+    gru_training, gru_launches = train_gru_nmt(card)
+
+    # -- 8. result lines -----------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
-                           if n == name}
+                           + list(gru_rows.items()) if n == name}
                     for name in launches}
     by_path = {name: {"serving": launches[name],
                       "training": train_launches[name],
-                      "lstm_training": lstm_launches[name]}
+                      "lstm_training": lstm_launches[name],
+                      "gru_nmt_training": gru_launches[name]}
                for name in launches}
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1257,6 +1631,20 @@ def main() -> int:
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}})
+    # no PyTorch call computes the GRU's function (torch.nn.GRU resets
+    # after the recurrent product): library_ms is null, and the nn.GRU
+    # same-FLOP yardstick rides beside it
+    for name, line in (("fused_gru_fwd", 44), ("fused_gru_bwd", 63)):
+        case = gru_rows[(name, GRU_MAIN_CASE)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_gru.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_gru.py:{line}",
+            "max_abs_err": max([gru_coverage_err[name]]
+                               + [r["max_abs_err"] for r in
+                                  train_shapes[name].values()]),
+            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "yardstick_ms")}})
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())
         row["launches_by_path"] = by_path[row["name"]]
@@ -1267,6 +1655,7 @@ def main() -> int:
         "serve_s": serve_s, **timing}}))
     print(json.dumps({"training": training}))
     print(json.dumps({"lstm_training": lstm_training}))
+    print(json.dumps({"gru_nmt_training": gru_training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,24 @@
-"""Top-level Executor + places. A place names the torch device an
-Executor runs on: CUDAPlace (the default when no place is given) or
-CPUPlace, which the caller must ask for explicitly."""
+"""Top-level Executor + places, and scope_guard. A place names the torch
+device an Executor runs on: CUDAPlace (the default when no place is
+given) or CPUPlace, which the caller must ask for explicitly."""
 from __future__ import annotations
 
+import contextlib
+
+from .core import scope as scope_mod
 from .core.executor import Executor  # noqa: F401 — public re-export
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    """Make `scope` the global scope inside the block (io's save/load
+    functions and Executor.run without a scope read it)."""
+    old = scope_mod._global_scope
+    scope_mod._global_scope = scope
+    try:
+        yield
+    finally:
+        scope_mod._global_scope = old
 
 
 class CPUPlace:

@@ -21,6 +21,11 @@ FLAGS: Dict[str, tuple] = {
         "lstm op route when the op carries no __pallas__ attr: \"1\" or "
         "\"force\" take the fused-LSTM kernel (its plain twin on CPU "
         "tensors), \"0\" the masked torch scan"),
+    "PADDLE_TPU_PALLAS_GRU": (
+        "1", "ops/sequence_ops.py",
+        "gru op route when the op carries no __pallas__ attr: \"1\" or "
+        "\"force\" take the fused-GRU kernel (its plain twin on CPU "
+        "tensors), \"0\" the masked torch scan"),
     "PADDLE_TPU_DECODE_SLOTS": (
         "4", "serving/generation/model.py",
         "default in-flight slot count of a generation model's "

@@ -352,12 +352,33 @@ class Program:
                     out.append(blk.var(name))
         return out
 
+    def clone(self, for_test: bool = False) -> "Program":
+        p = Program()
+        p.desc = self.desc.clone()
+        p._blocks = [Block(p, bd) for bd in p.desc.blocks]
+        if for_test:
+            for bd in p.desc.blocks:
+                for op in bd.ops:
+                    if "is_test" in _TEST_ATTR_OPS.get(op.type, ()):
+                        op.attrs["is_test"] = True
+        return p
+
+    def inference_optimize(self) -> "Program":
+        """Flip train-mode attrs (BN batch stats, dropout) to inference,
+        as save_inference_model does on the pruned program."""
+        return self.clone(for_test=True)
+
     def to_string(self) -> str:
         return str(self.desc)
 
     def __str__(self):
         return self.to_string()
 
+
+_TEST_ATTR_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+}
 
 # -- default programs -------------------------------------------------------
 

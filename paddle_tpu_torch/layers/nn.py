@@ -1,20 +1,22 @@
 """Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
-that the decoder LM, the Transformer NMT model and the LSTM LM build
-with (fc, embedding, dynamic_lstm, layer_norm, dropout,
+that the decoder LM, the Transformer NMT model, the LSTM LM and the GRU
+encoder-decoder of the book's machine-translation chapter build with
+(fc, embedding, dynamic_lstm, dynamic_gru, layer_norm, dropout,
 softmax_with_cross_entropy, sequence_pool, mean, reduce_sum,
-elementwise_add/sub/mul/div/max, scale). Each
-function appends the same ops, with the same attrs and var names, as its
-JAX-package counterpart."""
+elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention).
+Each function appends the same ops, with the same attrs and var names,
+as its JAX-package counterpart."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["fc", "embedding", "dynamic_lstm", "layer_norm", "dropout",
-           "softmax_with_cross_entropy", "sequence_pool", "mean",
+__all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "layer_norm",
+           "dropout", "softmax_with_cross_entropy", "sequence_pool", "mean",
            "reduce_sum",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_max", "scale"]
+           "elementwise_div", "elementwise_max", "scale",
+           "scaled_dot_product_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -106,6 +108,33 @@ def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
                             "cell_activation": cell_activation,
                             "candidate_activation": candidate_activation})
     return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None, h_0=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", dtype="float32"):
+    """Dynamic-length GRU over a ragged input of gate pre-activations
+    [*, 3*size] (reference: gru_op.cc): weight [size, 3*size], bias
+    [1, 3*size]; returns the ragged hidden states."""
+    helper = LayerHelper("dynamic_gru", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    w = helper.create_parameter(helper.param_attr, shape=[size, 3 * size],
+                                dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                shape=[1, 3 * size], dtype=dtype,
+                                is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=1,
+                                        shape=[-1, size])
+    last_h = helper.create_tmp_variable(dtype, shape=[-1, size])
+    inputs = {"Input": input, "Weight": w, "Bias": b}
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    helper.append_op(type="gru", inputs=inputs,
+                     outputs={"Hidden": hidden, "LastH": last_h},
+                     attrs={"is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "activation": candidate_activation})
+    return hidden
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -226,3 +255,22 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Attention over [B, Sq, D] queries and [B, Sk, D] keys/values (or
+    [B, H, S, D]); the output keeps the queries' lod_level.
+    num_heads and dropout_rate are accepted for the reference's API and
+    not recorded, as in the JAX package."""
+    helper = LayerHelper("scaled_dot_product_attention")
+    shape = None
+    if queries.shape is not None and values.shape is not None:
+        shape = list(queries.shape[:-1]) + [values.shape[-1]]
+    out = helper.create_tmp_variable(queries.dtype,
+                                     lod_level=queries.lod_level,
+                                     shape=shape)
+    helper.append_op(type="scaled_dot_product_attention",
+                     inputs={"Q": queries, "K": keys, "V": values},
+                     outputs={"Out": out})
+    return out

@@ -1,15 +1,15 @@
 """Tensor-construction and manipulation layers: the subset of
-``paddle_tpu/layers/tensor.py`` that the decoder LM and the Transformer
-NMT model build with."""
+``paddle_tpu/layers/tensor.py`` that the decoder LM, the Transformer
+NMT model and the GRU encoder-decoder build with."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign", "fill_constant", "ones_like", "reshape",
-           "transpose", "unsqueeze", "gather", "one_hot", "argmax", "range",
-           "slice"]
+__all__ = ["cast", "concat", "assign", "fill_constant", "ones_like",
+           "reshape", "transpose", "unsqueeze", "gather", "one_hot",
+           "argmax", "range", "slice"]
 
 
 def cast(x, dtype):
@@ -17,6 +17,31 @@ def cast(x, dtype):
     out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
     helper.append_op(type="cast", inputs={"X": x}, outputs={"Out": out},
                      attrs={"out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """Concatenate along `axis`. The declared shape sums the axis' extents
+    when every input has a known shape of one rank (-1 if any extent is
+    unknown); an axis outside the declared rank (ragged vars declare their
+    feature dims only) leaves the shape to the runtime op."""
+    helper = LayerHelper("concat", name=name)
+    shape = None
+    ranks = {len(v.shape) for v in input if v.shape is not None}
+    if len(ranks) == 1 and all(v.shape is not None for v in input):
+        shape = list(input[0].shape)
+        ax = axis if axis >= 0 else len(shape) + axis
+        if 0 <= ax < len(shape):
+            dims = [v.shape[ax] for v in input]
+            shape[ax] = -1 if any(d is None or d < 0 for d in dims) \
+                else sum(dims)
+        else:
+            shape = None
+    out = helper.create_tmp_variable(input[0].dtype,
+                                     lod_level=input[0].lod_level,
+                                     shape=shape)
+    helper.append_op(type="concat", inputs={"X": list(input)},
+                     outputs={"Out": out}, attrs={"axis": axis})
     return out
 
 

@@ -52,7 +52,7 @@ def _generator(ctx) -> torch.Generator:
     """An explicit generator for one random op, seeded from the op's
     `seed` attr — which Program.next_seed derives from the program's
     random_seed at build time. It draws torch's numbers, not JAX's: a
-    port model gets the JAX model's weights through io.load_params."""
+    port model gets the JAX model's weights through io.load_param_arrays."""
     g = torch.Generator(device=ctx.device)
     g.manual_seed(int(ctx.attr("seed", 0) or 0))
     return g

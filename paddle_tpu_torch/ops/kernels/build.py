@@ -8,8 +8,9 @@ Binding through ``torch.utils.cpp_extension`` would include PyTorch's
 headers and take minutes per build, and every fresh machine builds anew.
 
 The build goes to ``build/torch_kernels/`` at the repository root (listed
-in .gitignore). Library names carry a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused. All
+in .gitignore). Library names carry a hash of the source, the shared
+``*.cuh`` headers beside it and the flags, so an edited source is rebuilt
+and an unchanged one is reused. All
 sources compile in parallel: one nvcc process each, started together.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "fused_lstm.cu")
+           "fused_lstm.cu", "fused_gru.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,6 +50,9 @@ def nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    # the shared headers a source may include
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -1,8 +1,9 @@
-"""Variable-length sequence ops over ragged batches, and the LSTM.
+"""Variable-length sequence ops over ragged batches, the LSTM and the GRU.
 
 The port's copy of the part of ``paddle_tpu/ops/sequence_ops.py`` the
-LSTM LM runs: ``sequence_pool`` (level 1, all six pool types) and
-``lstm``, with ``_as_ragged``, ``_pool_padded`` and ``_masked_scan_rnn``.
+LSTM LM and the GRU encoder-decoder run: ``sequence_pool`` (level 1, all
+six pool types), ``lstm`` and ``gru``, with ``_as_ragged``,
+``_pool_padded`` and ``_masked_scan_rnn``.
 Ragged data is (padded [n, maxlen, ...], int32 lengths), see
 core/lod.py; every op here is registered ragged-aware and masks by the
 lengths itself.
@@ -15,8 +16,10 @@ tensors, their plain twins on CPU tensors. It is taken when the
 "1" or "force" — the JAX package takes it for "1" only on a TPU and runs
 "force" interpreted elsewhere. "0" (or any other value) takes the scan
 route, a torch loop over time, which also serves peepholes and the other
-activations. The other sequence ops, gru and the nested levels wait for
-later slices.
+activations. ``gru`` has the same two routes, over ``FusedGRU``
+(ops/kernels/fused_gru.py) and PADDLE_TPU_PALLAS_GRU, with the bias
+folded into the input before the kernel as the reference does. The other
+sequence ops and the nested levels wait for later slices.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from .. import flags
 from ..core.lod import RaggedPair
 from ..core.registry import register_op
+from .kernels.fused_gru import fused_gru
 from .kernels.fused_lstm import fused_lstm
 
 # Every op in this module consumes/produces RaggedPair values natively.
@@ -109,10 +113,11 @@ _ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
         "identity": lambda x: x}
 
 
-def kernel_route(attr) -> bool:
-    """Whether lstm takes its kernel route: the op's `__pallas__` attr,
-    else PADDLE_TPU_PALLAS_LSTM, is "1" or "force"."""
-    knob = attr if attr is not None else flags.get("PADDLE_TPU_PALLAS_LSTM")
+def kernel_route(attr, knob_env="PADDLE_TPU_PALLAS_LSTM") -> bool:
+    """Whether an RNN op takes its kernel route: the op's `__pallas__`
+    attr, else its knob (PADDLE_TPU_PALLAS_LSTM or _GRU), is "1" or
+    "force"."""
+    knob = attr if attr is not None else flags.get(knob_env)
     return knob in ("1", "force")
 
 
@@ -208,3 +213,63 @@ def _lstm(ctx):
     ctx.set_output("Cell", RaggedPair(cells, x.lengths))
     ctx.set_output("LastH", h_last)
     ctx.set_output("LastC", c_last)
+
+
+@register_op_SEQ("gru")
+def _gru(ctx):
+    """Dynamic GRU over ragged input (reference: gru_op.cc).
+
+    Input: ragged [n, t, 3h] (already projected by a mul op), Weight
+    [h, 3h] packing the [h, 2h] update/reset and [h, h] candidate
+    weights, Bias [1, 3h], optional H0 [n, h]. Gate order u, r, c.
+    Outputs Hidden (ragged) and LastH, the state after each row's last
+    step (H0 for a zero-length row).
+    """
+    x = _as_ragged(ctx.input("Input"))
+    w = ctx.input("Weight")
+    b = ctx.input("Bias")
+    h_dim = w.shape[0]
+    n = x.data.shape[0]
+    gate_act = _ACT[ctx.attr("gate_activation", "sigmoid")]
+    cand_act = _ACT[ctx.attr("activation", "tanh")]
+    w_ur = w[:, :2 * h_dim]
+    w_c = w[:, 2 * h_dim:]
+
+    h0 = ctx.input("H0")
+    h0 = h0 if h0 is not None else torch.zeros(
+        (n, h_dim), dtype=x.data.dtype, device=x.data.device)
+
+    data = x.data
+    is_reverse = ctx.attr("is_reverse", False)
+    if is_reverse:
+        # reverse each sequence's valid prefix (as the lstm op does)
+        idx = _reverse_index(x.lengths, data.shape[1])
+        data = _take_time(data, idx)
+
+    eligible = (ctx.attr("gate_activation", "sigmoid") == "sigmoid"
+                and ctx.attr("activation", "tanh") == "tanh")
+    if eligible and kernel_route(ctx.attr("__pallas__"),
+                                 "PADDLE_TPU_PALLAS_GRU"):
+        gdata = data if b is None else data + b.reshape(1, 1, -1)
+        h_tm, h_last = fused_gru(gdata.transpose(0, 1).contiguous(),
+                                 w.contiguous(), h0.contiguous(), x.lengths)
+        hidden = h_tm.transpose(0, 1)
+    else:
+        def step(carry, x_t):
+            (h_prev,) = carry
+            if b is not None:
+                x_t = x_t + b.reshape(1, -1)
+            xu, xr, xc = torch.split(x_t, h_dim, dim=-1)
+            ur = h_prev @ w_ur
+            hu, hr = torch.split(ur, h_dim, dim=-1)
+            u = gate_act(xu + hu)
+            r = gate_act(xr + hr)
+            c = cand_act(xc + (r * h_prev) @ w_c)
+            h = u * h_prev + (1 - u) * c
+            return (h,), h
+
+        (h_last,), hidden = _masked_scan_rnn(step, data, (h0,), x.lengths)
+    if is_reverse:
+        hidden = _take_time(hidden, idx)
+    ctx.set_output("Hidden", RaggedPair(hidden, x.lengths))
+    ctx.set_output("LastH", h_last)

@@ -1,6 +1,7 @@
 """Tensor-manipulation ops: reshape, transpose, unsqueeze, slice, gather,
-range — the port's compute rules for the ``paddle_tpu/ops/tensor_ops.py``
-ops the decoder LM runs. transpose and slice return views, as XLA would
+range, concat — the port's compute rules for the
+``paddle_tpu/ops/tensor_ops.py`` ops the decoder LM and the GRU
+encoder-decoder run. transpose and slice return views, as XLA would
 fuse them away; the ops that need contiguous memory ask for it."""
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ def _unsqueeze(ctx):
     for ax in sorted(ctx.attr("axes")):
         x = x.unsqueeze(ax)
     ctx.set_output("Out", x)
+
+
+@register_op("concat")
+def _concat(ctx):
+    ctx.set_output("Out", torch.cat(ctx.inputs("X"),
+                                    dim=ctx.attr("axis", 0)))
 
 
 @register_op("slice")

@@ -106,7 +106,8 @@ def lib(tmp_path_factory):
     (out / "fused_lstm.cpp").write_text(src)
     so = out / "libfused_lstm.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-I", str(out), "-o", str(so), str(out / "fused_lstm.cpp")],
+                    "-I", str(out), "-I", str(SOURCE.parent), "-o",
+                    str(so), str(out / "fused_lstm.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     lib.fused_lstm_fwd_f32.argtypes = ([ctypes.c_void_p] * 11

@@ -2,8 +2,8 @@
 
 The JAX model and the port model are built from one tiny spec (that of
 tests/test_generation.py); the port takes the JAX model's weights with
-io.load_params. Then prefill, decode and full programs give equal next
-tokens and KV-cache rows, and logits fetched by var name agree at
+io.load_param_arrays. Then prefill, decode and full programs give equal
+next tokens and KV-cache rows, and logits fetched by var name agree at
 float32 tolerance (rtol=1e-4, atol=1e-5) — with the naive attention, and
 with use_flash=True stamped on every attention op (JAX interprets its
 Pallas kernel, the port takes its plain flash path). The port's engine
@@ -58,7 +58,7 @@ def _pair(use_flash):
     if use_flash:
         _stamp_flash(ref.programs, bump=True)
         _stamp_flash(port.programs, bump=False)
-    ptt.load_params(port, _weights(ref))
+    ptt.load_param_arrays(port, _weights(ref))
     return ref, port
 
 
@@ -229,15 +229,16 @@ def test_load_params_rejects_mismatch(pair):
     missing = dict(good)
     del missing[name]
     with pytest.raises(KeyError):
-        ptt.load_params(port, missing)
+        ptt.load_param_arrays(port, missing)
     with pytest.raises(KeyError):
-        ptt.load_params(port, dict(good, extra_param=np.zeros(3, np.float32)))
+        ptt.load_param_arrays(port, dict(good,
+                                         extra_param=np.zeros(3, np.float32)))
     with pytest.raises(ValueError):
-        ptt.load_params(port, dict(good, **{name: good[name][:, :-1]}))
+        ptt.load_param_arrays(port, dict(good, **{name: good[name][:, :-1]}))
     with pytest.raises(ValueError):
-        ptt.load_params(port, dict(good, **{
+        ptt.load_param_arrays(port, dict(good, **{
             name: good[name].astype(np.float64)}))
     before = port.scope.get(name).clone()
-    ptt.load_params(port, good)
+    ptt.load_param_arrays(port, good)
     assert not torch.equal(before, port.scope.get(name))
     np.testing.assert_array_equal(port.scope.get(name).numpy(), good[name])

@@ -68,7 +68,7 @@ def test_reference_json_runs_in_port():
     exe = ptt.Executor(place="cpu")
     scope = ptt.Scope()
     exe.run(startup, scope=scope)
-    ptt.load_params(scope, {
+    ptt.load_param_arrays(scope, {
         n: np.asarray(ref.scope.get(n)) for n in scope.local_names()
         if not n.startswith("kv_cache.")})
     ids = np.zeros((1, 16, 1), np.int64)

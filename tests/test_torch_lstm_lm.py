@@ -3,8 +3,8 @@
 Both packages build ``models.lstm_lm.build_train`` at a tiny size (2
 layers, emb 16, hidden 16, vocabulary 50, SGD at lr 1.0); the train and
 startup programs serialize to equal JSON. With the JAX startup values
-copied into the port's scope (``load_params``), three SGD steps on the
-ragged LoDTensor feeds of tests/test_models.py (lengths 5, 3, 7, 2) give
+copied into the port's scope (``load_param_arrays``), three SGD steps on
+the ragged LoDTensor feeds of tests/test_models.py (lengths 5, 3, 7, 2) give
 the same losses, step-1 gradients and final parameters on every pair of
 routes: the JAX package's scan (its CPU default) and its interpreted
 Pallas kernels (``__pallas__="force"``), against the port's fused-LSTM
@@ -71,7 +71,8 @@ def _train(pkg, built, lod_cls, exe, init=None):
     scope = pkg.Scope()
     exe.run(startup, scope=scope)
     if init is not None:
-        ptt.load_params(scope, {n: init[n] for n in scope.local_names()})
+        ptt.load_param_arrays(scope, {n: init[n]
+                                      for n in scope.local_names()})
     params = [p.name for p in main.all_parameters()]
     seqs, tgts = _sequences()
     feed = {"words": lod_cls.from_sequences(seqs),

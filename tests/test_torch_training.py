@@ -4,8 +4,8 @@ Both packages build ``models.transformer.build_train`` at a tiny size
 (1+1 layers, d_model 32, 2 heads, vocabulary 50, max_len 16); the train
 programs (forward, backward, Adam) and the startup programs serialize to
 equal JSON. With the JAX startup values copied into the port's scope
-(``load_params``: parameters, Adam moments, beta powers, learning rate),
-three Adam steps on a batch of 2 with pad ids (so every mask bites) give
+(``load_param_arrays``: parameters, Adam moments, beta powers, learning
+rate), three Adam steps on a batch of 2 with pad ids (so every mask bites) give
 the same losses and step-1 gradients, and the same final parameters. It
 runs once on the naive attention route and once with ``use_flash=True``
 stamped on every attention op and every ``fwd_op`` copy in both
@@ -87,8 +87,8 @@ def _train(built, route):
     rexe.run(rstart, scope=rscope)
     pscope, pexe = ptt.Scope(), ptt.Executor(place="cpu")
     pexe.run(pstart, scope=pscope)
-    ptt.load_params(pscope, {n: np.asarray(rscope.get(n))
-                             for n in pscope.local_names()})
+    ptt.load_param_arrays(pscope, {n: np.asarray(rscope.get(n))
+                                   for n in pscope.local_names()})
     params = [p.name for p in pmain.all_parameters()]
     grads = [n + "@GRAD" for n in params]
     feed = _feed()
@@ -238,8 +238,8 @@ def test_two_fc_net_matches_reference(opt):
     rexe.run(rstart, scope=rscope)
     pscope, pexe = ptt.Scope(), ptt.Executor(place="cpu")
     pexe.run(pstart, scope=pscope)
-    ptt.load_params(pscope, {n: np.asarray(rscope.get(n))
-                             for n in pscope.local_names()})
+    ptt.load_param_arrays(pscope, {n: np.asarray(rscope.get(n))
+                                   for n in pscope.local_names()})
     params = [p.name for p in pmain.all_parameters()]
     fetch = [ploss.name] + [n + "@GRAD" for n in params]
     feed = {"x": np.random.RandomState(1).randn(4, 6).astype(np.float32)}
