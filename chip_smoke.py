@@ -14,11 +14,13 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes the serving and training paths give it and over a sweep (of
      head dims, lengths, biases and causal for attention; of H, B, T,
      zero-length rows, initial states and last-state cotangents for the
-     fused LSTM and the fused GRU), with times: kernel, plain,
-     library (one PyTorch call computing the same function, a yardstick
-     the port never calls; for the GRU, which no PyTorch call computes,
-     torch.nn.GRU at the same shape as a same-FLOP yardstick) and the
-     card's lower bound for the work.
+     fused LSTM and the fused GRU; of the ResNet-50 bottleneck shapes,
+     ragged row tiles, 1x1 images, odd channel counts, the affine, ReLU
+     and statistics on and off for the fused convs), with times: kernel,
+     plain, library (one PyTorch call computing the same function, a
+     yardstick the port never calls; for the GRU, which no PyTorch call
+     computes, torch.nn.GRU at the same shape as a same-FLOP yardstick)
+     and the card's lower bound for the work.
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -41,7 +43,9 @@ Phases (any failure exits non-zero; nothing is caught):
      Executor.run for 5 steps from seeded weights: once as built (every
      lstm op takes the fused-LSTM kernels), with the launch counts set to
      0 just before and read just after, and once with __pallas__="0"
-     stamped on every lstm op and fwd_op copy (the scan route). Losses and
+     stamped on every lstm op and fwd_op copy under
+     PADDLE_TPU_PALLAS_LSTM=0 (the scan route: the executor stamps the
+     knob over an op's stamp when it is "1" or "force"). Losses and
      every parameter's step-1 gradient must agree per element.
   6. train the GRU encoder-decoder of the book's machine-translation
      chapter (tests/test_book.py: embedding -> fc(3H) -> dynamic_gru for
@@ -53,21 +57,43 @@ Phases (any failure exits non-zero; nothing is caught):
      for 5 steps from seeded weights: once as built (every gru op takes
      the fused-GRU kernels), with the launch counts set to 0 just before
      and read just after, and once with __pallas__="0" stamped on every
-     gru op and fwd_op copy (the scan route). Losses and every
-     parameter's step-1 gradient must agree per element.
+     gru op and fwd_op copy under PADDLE_TPU_PALLAS_GRU=0 (the scan
+     route). Losses and every parameter's step-1 gradient must agree per
+     element.
   7. the inference entry point: the kernel-route model of phase 6 saved
      with io.save_inference_model, loaded with io.load_inference_model
      into a fresh Executor and scope and run on one feed; its logits must
      equal, bit for bit, those that one more run of the trained program
      fetches (whose forward reads the saved weights).
-  8. JSON lines of the kernels, serving and the three trainings, then,
-     last, the JSON result line.
+  8. train MNIST conv (models.mnist.build_train(net="conv"), Adam) at
+     batch 64 for 5 steps on the card (every launch count must stay 0:
+     no op dispatches a kernel there) and on the port's CPU path; losses
+     and step-1 gradients must agree (see MNIST_LOSS_RTOL).
+  9. train ResNet-50 as bench.py:221-226 does (1000 classes, 3x224x224,
+     Momentum 0.9 at lr 0.1, batch 128, fp32 with TF32 off) for 5 steps:
+     step ms, peak memory, launch counts (all 0) and a profiled step;
+     then 2 steps at batch 4 on the card and on the CPU, held by losses,
+     gradients and every batch_norm's running statistics (see
+     RESNET_NOISE_FACTOR).
+ 10. the ResNet-50 bottleneck chain of benchmarks/conv_kernel_ab.py at
+     its four stages (batch 128, 8 blocks each): the fused conv kernels
+     against cuDNN convolutions with the port's batch_norm, held together
+     after one block and after all, timed per block; both kernels must
+     launch there.
+ 11. JSON lines of the kernels, serving, the three earlier trainings,
+     MNIST, ResNet-50 and the conv chain, then, last, the JSON result
+     line.
+
+cuDNN runs deterministic algorithms picked without timing
+(torch.backends.cudnn.deterministic, benchmark off); phases 8-10
+compare its convolutions with other summation orders.
 
 Without a CUDA card, or outside a checkout, it exits non-zero before
 printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -221,6 +247,77 @@ GRU_COVERAGE_CASES = [
     (80, 7, 512, [80, 0, 40, 79, 1, 80, 13], True, False),
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
 ]
+
+
+# the fused conv + BN kernels (paddle_tpu/ops/pallas/fused_conv.py) at the
+# ResNet-50 bottleneck chain of benchmarks/conv_kernel_ab.py:195-200,
+# batch 128: (label, images, C, c, side); each stage runs its 1x1 convs
+# C->c and c->C and its 3x3 c->c
+CONV_CHAIN = [("bneck1", 128, 256, 64, 56), ("bneck2", 128, 512, 128, 28),
+              ("bneck3", 128, 1024, 256, 14), ("bneck4", 128, 2048, 512, 7)]
+# the kernel table's rows: stage 1's first 1x1 (256->64) and its 3x3
+CONV_MAIN_CASE = "bneck1"
+# the sweep beyond the chain: (label, images, H, W, C, N) for the 3x3 (the
+# 1x1 takes M = images*H*W rows of C): M 2*7*7 = 98 (below one 128-row
+# tile), tiles crossing image boundaries (3x9x10), 1x1 images (every
+# off-centre tap masked), C 3, C 64 and an odd C
+CONV_COVERAGE_CASES = [("m98", 2, 7, 7, 64, 48), ("cross", 3, 9, 10, 3, 130),
+                       ("img1x1", 5, 1, 1, 65, 16),
+                       ("odd", 4, 6, 5, 37, 200)]
+# (affine, relu, stats): bare, stats only, ReLU without the affine, the
+# affine alone, the full prologue and epilogue, the prologue without stats
+CONV_VARIANTS = [(False, False, False), (False, False, True),
+                 (False, True, True), (True, False, True),
+                 (True, True, True), (True, True, False)]
+# fused conv kernel vs its plain twin on the card, float32: the same
+# products summed in another order (K' up to 4608 terms; an H100 run of
+# an early build: <= 2.1e-6 * max|plain| on the outputs, <= 4e-7 of the
+# sum of |terms| on the statistics); a wrong tap, mask or prologue gives
+# O(1e-1) or more
+CONV_OUT_RTOL = 1e-5
+CONV_STATS_RTOL = 1e-5
+# the ResNet-50 bottleneck chain, fused kernels vs composed cuDNN + the
+# port's batch_norm, float32: L blocks per stage
+CONV_CHAIN_BLOCKS = 8
+# fused vs composed: the same function in another summation order. After
+# one block the two agree to float rounding, amplified by the three
+# batch_norms' renormalization: max |diff| <= 1e-4 * max|composed|. After
+# L blocks a few ReLU inputs within rounding of 0 may have flipped: the
+# 2-norm of the difference stays <= 1e-3 of the output's. A wrong tap,
+# statistic or coefficient moves either by O(1).
+CHAIN_ONE_BLOCK_RTOL = 1e-4
+CHAIN_NORM_RTOL = 1e-3
+
+# MNIST conv (models/mnist.py build_train(net="conv"), Adam lr 1e-3) at
+# batch 64, 5 steps, card against the port's CPU path
+MNIST_BATCH, MNIST_STEPS = 64, 5
+# card vs CPU, float32: cuDNN and the CPU's convolutions sum in another
+# order (~1e-6 relative). Losses within rtol 1e-4. Step-1 gradients are
+# held per element (rtol 1e-4, atol 1e-5 * max|g|) against a CPU step
+# whose ReLUs take the card's masks, which takes out the flips of ReLU
+# inputs within rounding of 0 (each flips one unit's whole gradient for
+# one image), and by 2-norm (TRAIN_GRAD_NORM_RTOL) against the free CPU
+# step.
+MNIST_LOSS_RTOL = 1e-4
+
+# ResNet-50 as bench.py:221-226 runs it (BASELINE config 2): 1000 classes,
+# 3x224x224, Momentum 0.9 at lr 0.1, batch 128 (bench.py:81), fp32 with
+# TF32 off; 5 steps from seeded weights
+RESNET_CFG = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224),
+                  lr=0.1)
+RESNET_BATCH, RESNET_STEPS = 128, 5
+# then 2 steps of the same program at batch 4 on the card and on the
+# port's CPU path. Any two runs that round differently flip the ReLU
+# inputs that lie within rounding of 0, and each flip moves the
+# gradients upstream of it (an H100 run of this script: card vs free CPU
+# step-1 gradients up to 3.5e-2 apart by 2-norm). So the step-1
+# gradients are held by 2-norm (TRAIN_GRAD_NORM_RTOL) against a CPU step
+# whose ReLUs take the card's masks; what the flips carry into the second
+# step (its loss, every batch_norm's running statistics, the free CPU
+# step's gradients) is held at RESNET_NOISE_FACTOR times how far the CPU
+# arm moves from parameters one ulp away.
+RESNET_CHECK_BATCH, RESNET_CHECK_STEPS = 4, 2
+RESNET_NOISE_FACTOR = 10.0
 
 
 def card_line() -> str:
@@ -825,6 +922,163 @@ def check_gru(card):
     return rows, coverage_err
 
 
+def conv_bound(m, k_rows, c, n):
+    """Least time of one fused conv on this card: bytes (x [M, C], w
+    [K', N] and the stats [2, N] read or written once, out [M, N] written
+    once) over HBM rate vs 2*M*K'*N flops over the fp32 rate."""
+    t_bytes = (m * c + m * n + k_rows * n + 2 * n) * 4.0 / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * k_rows * n / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _conv_case(gen, kind, m, c, n, img, variant):
+    """Inputs of one fused-conv call: x [M, C], w [K', N] (scaled to keep
+    outputs O(1)), and a, b [C] when the variant has the affine."""
+    import torch
+    affine = variant[0]
+    k_rows = c if kind == "1x1" else 9 * c
+    x = torch.randn(m, c, device=DEVICE, generator=gen)
+    w = torch.randn(k_rows, n, device=DEVICE, generator=gen) / k_rows ** 0.5
+    a = b = None
+    if affine:
+        a = torch.rand(c, device=DEVICE, generator=gen) + 0.5
+        b = torch.randn(c, device=DEVICE, generator=gen) * 0.5
+    return x, w, a, b
+
+
+def _conv_errs(kind, args, img, variant):
+    """(max |kernel - plain| of the outputs, that over max|plain|, that of
+    the statistics over their sum of |terms|, ok) for one call."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    x, w, a, b = args
+    _, relu, stats = variant
+    if kind == "1x1":
+        got = fc.conv1x1_bn_act(x, w, a, b, relu, stats)
+        want = fc.conv1x1_bn_act_plain(x, w, a, b, relu, stats)
+    else:
+        got = fc.conv3x3_bn_act(x, w, *img, a, b, relu, stats)
+        want = fc.conv3x3_bn_act_plain(x, w, *img, a, b, relu, stats)
+    torch.cuda.synchronize()
+    scale = max(float(want[0].abs().max()), 1.0)
+    abs_err = float((got[0] - want[0]).abs().max())
+    out_err = abs_err / scale
+    ok = out_err <= CONV_OUT_RTOL
+    stats_err = 0.0
+    if stats:
+        terms = torch.stack([want[0].abs().sum(0),
+                             (want[0] * want[0]).sum(0)])
+        stats_err = float((got[1] - want[1]).abs().max()) / float(
+            terms.max())
+        ok = ok and stats_err <= CONV_STATS_RTOL
+    elif got[1] is not None:
+        ok = False
+    return abs_err, out_err, stats_err, ok
+
+
+def check_fused_conv(card):
+    """The fused conv + BN kernels against their plain twins on the card:
+    at the eight 1x1 and four 3x3 shapes of the ResNet-50 bottleneck
+    chain (batch 128) and CONV_COVERAGE_CASES, each over CONV_VARIANTS;
+    timed at every chain shape in the bare variant (kernel, plain, the
+    one PyTorch call computing the same function: torch.matmul for 1x1,
+    F.conv2d on the channels_last view with padding 1 for 3x3) and in
+    the full variant (kernel), with the bound."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    cases = []
+    for label, imgs, big, small, side in CONV_CHAIN:
+        m = imgs * side * side
+        cases += [("1x1", f"{label} {big}->{small}", m, big, small, None),
+                  ("1x1", f"{label} {small}->{big}", m, small, big, None),
+                  ("3x3", f"{label} {small}->{small}", m, small, small,
+                   (imgs, side, side))]
+    for label, imgs, h, w_, c, n in CONV_COVERAGE_CASES:
+        cases += [("1x1", f"{label} {c}->{n}", imgs * h * w_, c, n, None),
+                  ("3x3", f"{label} {c}->{n} @{h}x{w_}", imgs * h * w_, c,
+                   n, (imgs, h, w_))]
+    # per kernel: worst absolute output error, relative output error,
+    # relative statistics error
+    rows, worst = {}, {"fused_conv1x1": [0.0, 0.0, 0.0],
+                       "fused_conv3x3": [0.0, 0.0, 0.0]}
+    for kind, label, m, c, n, img in cases:
+        name = "fused_conv1x1" if kind == "1x1" else "fused_conv3x3"
+        hw = None if img is None else img[1:]
+        for variant in CONV_VARIANTS:
+            args = _conv_case(gen, kind, m, c, n, img, variant)
+            errs = _conv_errs(kind, args, hw, variant)
+            worst[name] = [max(w, e) for w, e in zip(worst[name], errs)]
+            _, out_err, stats_err, ok = errs
+            if not ok:
+                raise SystemExit(
+                    f"{name} disagrees with its plain twin at {label} (M "
+                    f"{m}) affine/relu/stats {variant}: outputs "
+                    f"{out_err:.3e} * max|plain|, statistics "
+                    f"{stats_err:.3e} of sum |terms|")
+        if not label.startswith("bneck"):
+            print(f"{name} {label} (M {m}): all {len(CONV_VARIANTS)} "
+                  f"variants equal the plain twin", flush=True)
+            continue
+        x, w, _, _ = _conv_case(gen, kind, m, c, n, img, (False,) * 3)
+        xa, wa, a, b = _conv_case(gen, kind, m, c, n, img, (True,) * 3)
+        if kind == "1x1":
+            def kern():
+                return fc.conv1x1_bn_act(x, w, stats=False)
+
+            def full():
+                return fc.conv1x1_bn_act(xa, wa, a, b, True, True)
+
+            def plain():
+                return fc.conv1x1_bn_act_plain(x, w, stats=False)
+
+            def library():
+                return torch.matmul(x, w)
+            k_rows = c
+        else:
+            w_oihw = w.reshape(3, 3, c, n).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_nhwc = x.reshape(img[0], img[1], img[2], c).permute(0, 3, 1, 2)
+
+            def kern():
+                return fc.conv3x3_bn_act(x, w, *hw, stats=False)
+
+            def full():
+                return fc.conv3x3_bn_act(xa, wa, *hw, a, b, True, True)
+
+            def plain():
+                return fc.conv3x3_bn_act_plain(x, w, *hw, stats=False)
+
+            def library():
+                return F.conv2d(x_nhwc, w_oihw, padding=1)
+            lib_out = library().permute(0, 2, 3, 1).reshape(m, n)
+            lib_err = float((lib_out - plain()[0]).abs().max())
+            if lib_err > CONV_OUT_RTOL * max(float(lib_out.abs().max()), 1):
+                raise SystemExit(f"the F.conv2d yardstick of {label} does "
+                                 f"not compute the kernel's function: "
+                                 f"{lib_err:.3e}")
+            k_rows = 9 * c
+        bound_ms, bound_by = conv_bound(m, k_rows, c, n)
+        row = dict(ms=cuda_ms(kern, iters=10), full_ms=cuda_ms(full, iters=10),
+                   plain_ms=cuda_ms(plain, iters=5),
+                   library_ms=cuda_ms(library, iters=10),
+                   bound_ms=bound_ms, bound_by=bound_by, m=m, c=c, n=n)
+        rows[(name, label)] = row
+        print(f"[{card}] {name} {label} (M {m}): kernel_ms={row['ms']:.4f} "
+              f"(with affine+ReLU+stats {row['full_ms']:.4f}) plain_ms="
+              f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; kernel at "
+              f"{100 * bound_ms / row['ms']:.1f}% of it)", flush=True)
+    print(f"fused conv kernels vs plain twins over {len(cases)} shapes x "
+          f"{len(CONV_VARIANTS)} variants: worst outputs (absolute, "
+          "relative to max|plain|) / statistics (relative to sum |terms|) "
+          + ", ".join(f"{n} {a:.3e}, {o:.3e} / {st:.3e}"
+                      for n, (a, o, st) in worst.items()), flush=True)
+    return rows, worst
+
+
 def seeded_weights(startup, seed):
     """numpy values for every variable a startup program initializes
     (KV caches aside), drawn from `seed` with the distribution its init
@@ -839,6 +1093,9 @@ def seeded_weights(startup, seed):
         if op.type == "uniform_random":
             out[name] = rng.uniform(op.attrs["min"], op.attrs["max"],
                                     shape).astype(np.float32)
+        elif op.type == "gaussian_random":
+            out[name] = rng.normal(op.attrs["mean"], op.attrs["std"],
+                                   shape).astype(np.float32)
         elif op.type == "fill_constant":
             out[name] = np.full(shape, op.attrs["value"], np.float32)
         else:
@@ -979,14 +1236,16 @@ def train_arm(main, startup, loss, weights, feed, params, card, label):
                 grads=grads, relu_signs=signs)
 
 
-def pinned_relu_grads(main, startup, loss, weights, feed, params, signs):
-    """One step from `weights` whose ReLUs pass exactly where `signs`
-    (ReLU input name -> bool array) says, in the forward and in its
-    __vjp__ replay alike; returns every parameter's gradient."""
+def pinned_relu_grads(main, startup, loss, weights, feed, params, signs,
+                      device=None):
+    """One step from `weights` on `device` whose ReLUs pass exactly where
+    `signs` (ReLU input name -> bool array) says, in the forward and in
+    its __vjp__ replay alike; returns every parameter's gradient."""
     import torch
     from paddle_tpu_torch import Executor, Scope, load_param_arrays
     from paddle_tpu_torch.core.registry import OpRegistry
-    masks = {n: torch.from_numpy(m).cuda() for n, m in signs.items()}
+    device = DEVICE if device is None else device
+    masks = {n: torch.from_numpy(m).to(device) for n, m in signs.items()}
 
     def pinned_relu(ctx):
         x = ctx.input("X")
@@ -995,7 +1254,7 @@ def pinned_relu_grads(main, startup, loss, weights, feed, params, signs):
 
     relu = OpRegistry.get("relu")
     free_relu = relu.compute
-    exe, scope = Executor(), Scope()
+    exe, scope = Executor(device), Scope()
     exe.run(startup, scope=scope)
     load_param_arrays(scope, weights)
     relu.compute = pinned_relu
@@ -1229,38 +1488,61 @@ def _stamp_pallas(main, op_type, value):
     main.desc._bump_version()
 
 
-def rnn_arm(main, startup, loss, weights, feed, params, card, label, steps):
-    """`steps` optimizer steps from `weights` in a fresh scope; the first
-    also fetches every parameter's gradient (its grad var). Each step's
-    time is a host clock around Executor.run, which ends synchronized (it
-    returns the fetches as numpy). Returns the arm's numbers, its
-    executor and its scope."""
+def steps_arm(main, startup, loss, weights, feed, params, card, label,
+              steps, device=None, extra=()):
+    """`steps` optimizer steps from `weights` in a fresh scope on `device`
+    (DEVICE when None); the first also fetches every parameter's gradient
+    (its grad var) and the vars named in `extra`. Each step's time is a
+    host clock around Executor.run, which ends synchronized (it returns
+    the fetches as numpy). Returns the arm's numbers, its executor and its
+    scope."""
     import torch
     from paddle_tpu_torch import Executor, Scope, load_param_arrays
-    exe, scope = Executor(DEVICE), Scope()
+    device = DEVICE if device is None else device
+    on_card = torch.device(device).type == "cuda"
+    exe, scope = Executor(device), Scope()
     exe.run(startup, scope=scope)
     load_param_arrays(scope, weights)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, peaks, grads = [], [], [], None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, peaks, grads, firsts = [], [], [], None, None
     for step in range(steps):
-        fetch = [loss.name] + ([p + "@GRAD" for p in params]
+        fetch = [loss.name] + ([p + "@GRAD" for p in params] + list(extra)
                                if step == 0 else [])
         t0 = time.perf_counter()
         out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        peaks.append(torch.cuda.max_memory_allocated())
+        peaks.append(torch.cuda.max_memory_allocated() if on_card else 0)
         losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
         if step == 0:
-            grads = dict(zip(params, out[1:]))
+            grads = dict(zip(params, out[1:1 + len(params)]))
+            firsts = dict(zip(extra, out[1 + len(params):]))
         if not np.isfinite(losses[-1]):
             raise SystemExit(f"{label} arm: loss {losses[-1]} at step "
                              f"{step}")
         print(f"[{card}] {label} step {step}: loss {losses[-1]:.6f}"
-              f" {step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.3f} GiB",
+              f" {step_ms[-1]:.1f} ms" + (f" peak {peaks[-1] / 2**30:.3f} "
+                                         "GiB" if on_card else ""),
               flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
-                grads=grads), exe, scope
+                grads=grads, first_step=firsts), exe, scope
+
+
+@contextlib.contextmanager
+def knob(name, value):
+    """Environment flag `name` set to `value` inside the block: both
+    executors stamp the kernel-dispatch knobs onto the program before a
+    run, over the stamps its ops carry (paddle_tpu_torch/core/dispatch.py)."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def hold_routes(fused, scan, params, card, what):
@@ -1322,8 +1604,8 @@ def train_lstm(card):
           flush=True)
 
     kernels.reset_launch_counts()
-    fused, _, _ = rnn_arm(main, startup, f["loss"], weights, feed, params,
-                          card, "LSTM LM kernel", LSTM_STEPS)
+    fused, _, _ = steps_arm(main, startup, f["loss"], weights, feed, params,
+                            card, "LSTM LM kernel", LSTM_STEPS)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     per_step = {n: c / LSTM_STEPS for n, c in launches.items()}
@@ -1344,8 +1626,9 @@ def train_lstm(card):
 
     _stamp_pallas(main, "lstm", "0")
     kernels.reset_launch_counts()
-    scan, _, _ = rnn_arm(main, startup, f["loss"], weights, feed, params,
-                         card, "LSTM LM scan", LSTM_STEPS)
+    with knob("PADDLE_TPU_PALLAS_LSTM", "0"):
+        scan, _, _ = steps_arm(main, startup, f["loss"], weights, feed,
+                               params, card, "LSTM LM scan", LSTM_STEPS)
     if kernels.launch_counts()["fused_lstm_fwd"]:
         raise SystemExit("the scan route launched the fused-LSTM kernel")
     loss_rel, worst = hold_routes(fused, scan, params, card, "LSTM LM")
@@ -1461,8 +1744,8 @@ def train_gru_nmt(card):
           f"tokens live of {GRU_BATCH * GRU_T} each", flush=True)
 
     kernels.reset_launch_counts()
-    fused, exe, scope = rnn_arm(main, startup, loss, weights, feed, params,
-                                card, "GRU NMT kernel", GRU_STEPS)
+    fused, exe, scope = steps_arm(main, startup, loss, weights, feed,
+                                  params, card, "GRU NMT kernel", GRU_STEPS)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     per_step = {n: c / GRU_STEPS for n, c in launches.items()}
@@ -1480,8 +1763,9 @@ def train_gru_nmt(card):
 
     _stamp_pallas(main, "gru", "0")
     kernels.reset_launch_counts()
-    scan, _, _ = rnn_arm(main, startup, loss, weights, feed, params, card,
-                         "GRU NMT scan", GRU_STEPS)
+    with knob("PADDLE_TPU_PALLAS_GRU", "0"):
+        scan, _, _ = steps_arm(main, startup, loss, weights, feed, params,
+                               card, "GRU NMT scan", GRU_STEPS)
     if kernels.launch_counts()["fused_gru_fwd"]:
         raise SystemExit("the scan route launched the fused-GRU kernel")
     loss_rel, worst = hold_routes(fused, scan, params, card, "GRU NMT")
@@ -1498,6 +1782,400 @@ def train_gru_nmt(card):
         summary[label] = {k: arm[k] for k in ("losses", "step_ms",
                                               "peak_bytes")}
     return summary, launches
+
+
+def relu_inputs(main):
+    return [op.input("X")[0] for op in main.desc.global_block.ops
+            if op.type == "relu"]
+
+
+def _norm_gap(got, want):
+    """|got - want| / |want| (2-norms)."""
+    return float(np.linalg.norm(np.subtract(got, want))) / max(
+        float(np.linalg.norm(want)), 1e-30)
+
+
+def train_mnist(card):
+    """Phase 8: MNIST conv (models.mnist.build_train(net="conv"), Adam lr
+    1e-3) at batch 64 for MNIST_STEPS steps from seeded weights on the
+    card, launch counts set to 0 just before and read just after; then
+    the same steps on the port's CPU path. Losses within MNIST_LOSS_RTOL;
+    the card's step-1 gradients per element against a CPU step whose
+    ReLUs take the card's masks, and by 2-norm against the free CPU
+    step."""
+    import torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.ops import kernels
+    with framework.isolated_name_scope():
+        main, startup, f = mnist.build_train(net="conv")
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    rng = np.random.RandomState(2)
+    feed = {"img": rng.rand(MNIST_BATCH, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (MNIST_BATCH, 1)).astype(np.int64)}
+    relu_in = relu_inputs(main)
+    kernels.reset_launch_counts()
+    gpu, _, _ = steps_arm(main, startup, f["loss"], weights, feed, params,
+                          card, "MNIST conv card", MNIST_STEPS,
+                          device=DEVICE, extra=relu_in)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise SystemExit(f"the MNIST path launched {launches}; no op of "
+                         "either package dispatches a kernel there")
+    cpu, _, _ = steps_arm(main, startup, f["loss"], weights, feed, params,
+                          card, "MNIST conv CPU", MNIST_STEPS, device="cpu")
+    loss_rel = float(np.max(np.abs(np.subtract(gpu["losses"],
+                                               cpu["losses"]))
+                            / np.abs(cpu["losses"])))
+    if not loss_rel <= MNIST_LOSS_RTOL:
+        raise SystemExit(f"MNIST card vs CPU losses differ by {loss_rel:.3e}"
+                         f": {gpu['losses']} vs {cpu['losses']}")
+    signs = {n: v > 0 for n, v in gpu["first_step"].items()}
+    pinned = pinned_relu_grads(main, startup, f["loss"], weights, feed,
+                               params, signs, device="cpu")
+    worst, norm_gap, fails = 0.0, 0.0, []
+    for p in params:
+        g, r = gpu["grads"][p], pinned[p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        worst = max(worst, float(np.abs(g - r).max()) / scale)
+        norm_gap = max(norm_gap, _norm_gap(g, cpu["grads"][p]))
+        if not np.allclose(g, r, rtol=TRAIN_GRAD_RTOL,
+                           atol=TRAIN_GRAD_ATOL_FRAC * scale):
+            fails.append(p)
+    if fails or not norm_gap <= TRAIN_GRAD_NORM_RTOL:
+        raise SystemExit(f"MNIST card vs CPU step-1 gradients: {fails} "
+                         f"differ per element (worst {worst:.3e} * max|g|),"
+                         f" 2-norm gap to the free CPU step {norm_gap:.3e}")
+    print(f"[{card}] MNIST conv card vs CPU: losses {gpu['losses']} vs "
+          f"{cpu['losses']} (max rel diff {loss_rel:.3e}); step-1 "
+          f"gradients of all {len(params)} parameters equal per element to "
+          f"the CPU step with the card's ReLU masks (worst {worst:.3e} * "
+          f"max|g|), 2-norm gap to the free CPU step {norm_gap:.3e}",
+          flush=True)
+    return {"card": card, "config": {"net": "conv", "lr": 1e-3,
+                                     "batch": MNIST_BATCH},
+            "steps": MNIST_STEPS, "losses": gpu["losses"],
+            "cpu_losses": cpu["losses"], "step_ms": gpu["step_ms"],
+            "peak_bytes": gpu["peak_bytes"], "loss_rel_diff_max": loss_rel,
+            "grad_max_diff_frac_pinned": worst,
+            "grad_norm_gap_free": norm_gap}, launches
+
+
+def _bn_stats(main, scope):
+    """numpy values of every batch_norm's running mean and variance."""
+    names = [n for op in main.desc.global_block.ops
+             if op.type == "batch_norm"
+             for n in op.input("Mean") + op.input("Variance")]
+    return {n: scope.get(n).detach().cpu().numpy() for n in names}
+
+
+def _nudged(weights, names):
+    """`weights` with every entry of `names` one ulp away (up or down at
+    random, a fixed draw)."""
+    rng = np.random.RandomState(1)
+    out = dict(weights)
+    for n in names:
+        away = np.where(rng.rand(*weights[n].shape) < 0.5, -np.inf, np.inf)
+        out[n] = np.nextafter(weights[n], away.astype(np.float32))
+    return out
+
+
+def check_resnet_small_batch(main, startup, loss, weights, feed, params,
+                             card):
+    """RESNET_CHECK_STEPS steps of the ResNet-50 program at batch
+    RESNET_CHECK_BATCH on the card and on the port's CPU path, once more
+    on the CPU from parameters one ulp away, and one CPU step whose ReLUs
+    take the card's step-1 masks. The first losses within 1e-4; every
+    parameter's step-1 gradient within TRAIN_GRAD_NORM_RTOL (2-norm) of
+    the pinned CPU step's; the later losses, the free CPU step's
+    gradients and every batch_norm's running statistics after the steps
+    within RESNET_NOISE_FACTOR times how far the nudge moved the CPU arm
+    (ReLU inputs within rounding of 0 flip between any two runs that
+    round differently, and lr 0.1 on 4 images carries each flip into
+    the next step). Returns the gaps and limits."""
+    relu_in = relu_inputs(main)
+    arms = {}
+    for label, device, w, extra in (
+            ("card", DEVICE, weights, relu_in),
+            ("cpu", "cpu", weights, relu_in),
+            ("cpu_nudged", "cpu", _nudged(weights, params), ())):
+        arm, _, scope = steps_arm(main, startup, loss, w, feed, params, card,
+                                  f"ResNet-50 batch {RESNET_CHECK_BATCH} "
+                                  f"{label}", RESNET_CHECK_STEPS,
+                                  device=device, extra=extra)
+        arm["stats"] = _bn_stats(main, scope)
+        arms[label] = arm
+    gpu, cpu, nudged = arms["card"], arms["cpu"], arms["cpu_nudged"]
+    signs = {n: v > 0 for n, v in gpu.pop("first_step").items()}
+    flips = sum(int(np.sum((v > 0) != signs[n]))
+                for n, v in cpu.pop("first_step").items())
+    pinned = pinned_relu_grads(main, startup, loss, weights, feed, params,
+                               signs, device="cpu")
+    out, fails = {}, []
+
+    def hold(what, gap, noise, base):
+        limit = max(base, RESNET_NOISE_FACTOR * noise)
+        out[what] = {"gap": gap, "nudge": noise, "limit": limit}
+        if not gap <= limit:
+            fails.append(f"{what}: {gap:.3e} > {limit:.3e}")
+
+    loss_scale = np.maximum(np.abs(cpu["losses"]), 1e-30)
+    rel = np.abs(np.subtract(gpu["losses"], cpu["losses"])) / loss_scale
+    rel_nudge = np.abs(np.subtract(nudged["losses"], cpu["losses"])) \
+        / loss_scale
+    hold("first loss", float(rel[0]), 0.0, 1e-4)
+    hold("later losses", float(np.max(rel[1:])), float(np.max(rel_nudge[1:])),
+         1e-5)
+    pinned_gap = {p: _norm_gap(gpu["grads"][p], pinned[p]) for p in params}
+    for p in params:
+        hold(f"pinned grad {p}", pinned_gap[p], 0.0, TRAIN_GRAD_NORM_RTOL)
+        hold(f"free grad {p}", _norm_gap(gpu["grads"][p], cpu["grads"][p]),
+             _norm_gap(nudged["grads"][p], cpu["grads"][p]),
+             TRAIN_GRAD_NORM_RTOL)
+    for n, r in cpu["stats"].items():
+        scale = max(float(np.abs(r).max()), 1e-30)
+        hold(f"stat {n}", float(np.abs(gpu["stats"][n] - r).max()) / scale,
+             float(np.abs(nudged["stats"][n] - r).max()) / scale, 1e-5)
+
+    def worst(prefix):
+        keys = [k for k in out if k.startswith(prefix)]
+        return max(out[k]["gap"] for k in keys), max(out[k]["nudge"]
+                                                     for k in keys)
+    summary = {"losses": {k: a["losses"] for k, a in arms.items()},
+               "first_loss_rel_gap": float(rel[0]),
+               "pinned_grad_gap_max": worst("pinned grad ")[0],
+               "free_grad_gap_max": worst("free grad ")[0],
+               "free_grad_nudge_max": worst("free grad ")[1],
+               "stat_gap_max": worst("stat ")[0],
+               "stat_nudge_max": worst("stat ")[1],
+               "later_losses": out["later losses"],
+               "relu_sign_flips": flips}
+    print(f"[{card}] ResNet-50 batch {RESNET_CHECK_BATCH} card vs CPU: "
+          f"losses {gpu['losses']} vs {cpu['losses']} (nudged CPU "
+          f"{nudged['losses']}); {flips} ReLU inputs of another sign in "
+          f"step 1; step-1 gradients vs the CPU step with the card's ReLU "
+          f"masks: 2-norm gap <= {summary['pinned_grad_gap_max']:.3e} "
+          f"(limit {TRAIN_GRAD_NORM_RTOL}); vs the free CPU step <= "
+          f"{summary['free_grad_gap_max']:.3e} (the nudge: "
+          f"{summary['free_grad_nudge_max']:.3e}); running statistics "
+          f"<= {summary['stat_gap_max']:.3e} * max (the nudge: "
+          f"{summary['stat_nudge_max']:.3e})", flush=True)
+    if fails:
+        raise SystemExit("ResNet-50 card vs CPU: " + "; ".join(fails[:8]))
+    return summary
+
+
+def train_resnet(card):
+    """Phase 9: ResNet-50 as bench.py:221-226 trains it (RESNET_CFG,
+    batch RESNET_BATCH, fp32, TF32 off) for RESNET_STEPS steps from seeded
+    weights through Executor.run, launch counts set to 0 just before and
+    read just after (no op dispatches a kernel on this path: every count
+    must stay 0); a profiled step; then the small-batch card-vs-CPU
+    check."""
+    import torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    # the earlier phases' blocks go back to the card: this step keeps
+    # every value of its forward and backward (~52 GiB at batch 128)
+    torch.cuda.empty_cache()
+    with framework.isolated_name_scope():
+        main, startup, f = resnet.build_train(**RESNET_CFG)
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    n_params = sum(weights[p].size for p in params)
+    rng = np.random.RandomState(3)
+    img = rng.rand(RESNET_BATCH, *RESNET_CFG["image_shape"]).astype(
+        np.float32)
+    label = rng.randint(0, RESNET_CFG["class_dim"],
+                        (RESNET_BATCH, 1)).astype(np.int64)
+    feed = {"img": img, "label": label}
+    print(f"ResNet-50 program built: {time.perf_counter() - t0:.2f} s, "
+          f"{len(main.desc.global_block.ops)} ops, {n_params} parameters",
+          flush=True)
+    kernels.reset_launch_counts()
+    arm, exe, scope = steps_arm(main, startup, f["loss"], weights, feed,
+                                params, card, f"ResNet-50 batch "
+                                f"{RESNET_BATCH}", RESNET_STEPS,
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise SystemExit(f"the ResNet-50 path launched {launches}; no op of "
+                         "either package dispatches a kernel there")
+    del exe, scope
+    profiled = profile_step(main, startup, f["loss"], weights, feed, card,
+                            "ResNet-50")
+    small = check_resnet_small_batch(
+        main, startup, f["loss"], weights,
+        {k: v[:RESNET_CHECK_BATCH] for k, v in feed.items()}, params, card)
+    steady = arm["step_ms"][1:]
+    print(f"[{card}] ResNet-50 batch {RESNET_BATCH}: step ms {arm['step_ms']}"
+          f" (steady median {float(np.median(steady)):.1f}, "
+          f"{RESNET_BATCH * 1e3 / float(np.median(steady)):.1f} images/s), "
+          f"peak {arm['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    return {"card": card, "config": dict(RESNET_CFG, batch=RESNET_BATCH,
+                                         momentum=0.9),
+            "parameters": n_params, "steps": RESNET_STEPS,
+            "losses": arm["losses"], "step_ms": arm["step_ms"],
+            "peak_bytes": arm["peak_bytes"],
+            "images_per_s": RESNET_BATCH * 1e3 / float(np.median(steady)),
+            "profiled_step": profiled, "small_batch_check": small}, launches
+
+
+def _chain_params(gen, big, small, blocks):
+    """Per block: NCHW weights (w1 [c,C,1,1], w2 [c,c,3,3], w3 [C,c,1,1],
+    randn / sqrt(fan in)), their NHWC-flat forms for the kernels, and the
+    three batch_norms' scale 1 and bias 0, as conv_kernel_ab.py draws
+    them."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.fused_conv import pack_w3x3
+    out = []
+    for _ in range(blocks):
+        w1 = torch.randn(small, big, 1, 1, device=DEVICE,
+                         generator=gen) / big ** 0.5
+        w2 = torch.randn(small, small, 3, 3, device=DEVICE,
+                         generator=gen) / (9 * small) ** 0.5
+        w3 = torch.randn(big, small, 1, 1, device=DEVICE,
+                         generator=gen) / small ** 0.5
+        bns = [torch.ones(c, device=DEVICE) if i % 2 == 0 else
+               torch.zeros(c, device=DEVICE)
+               for i, c in enumerate((small, small, small, small, big,
+                                      big))]
+        flat = (w1.reshape(small, big).t().contiguous(),
+                pack_w3x3(w2).contiguous(),
+                w3.reshape(big, small).t().contiguous())
+        out.append(((w1, w2, w3), flat, bns))
+    return out
+
+
+def composed_chain(x, params):
+    """The bottleneck blocks in NCHW: cuDNN F.conv2d, then the port's
+    batch_norm op (train mode: single-pass statistics, the affine), ReLU,
+    and the residual join."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.core.ir import OpDesc
+    from paddle_tpu_torch.core.registry import run_op
+    bn_op = OpDesc(type="batch_norm",
+                   inputs={"X": ["x"], "Scale": ["s"], "Bias": ["b"],
+                           "Mean": ["m"], "Variance": ["v"]},
+                   outputs={"Y": ["y"], "MeanOut": ["m"],
+                            "VarianceOut": ["v"], "SavedMean": ["sm"],
+                            "SavedVariance": ["sv"]},
+                   attrs={"momentum": 0.9, "epsilon": 1e-5,
+                          "is_test": False, "data_layout": "NCHW"})
+
+    def bn(t, scale, bias):
+        zeros = torch.zeros_like(scale)
+        return run_op(bn_op, {"x": t, "s": scale, "b": bias, "m": zeros,
+                              "v": zeros})["y"]
+
+    for (w1, w2, w3), _, bns in params:
+        t = torch.relu(bn(F.conv2d(x, w1), bns[0], bns[1]))
+        t = torch.relu(bn(F.conv2d(t, w2, padding=1), bns[2], bns[3]))
+        x = torch.relu(bn(F.conv2d(t, w3), bns[4], bns[5]) + x)
+    return x
+
+
+def fused_chain(x, params, side):
+    """The same blocks on NHWC-flat rows through the fused kernels, as
+    conv_kernel_ab.py pallas_bottleneck_chain runs them: the statistics
+    ride each conv's epilogue, each batch_norm's affine and ReLU the next
+    conv's prologue, and only the residual join is a separate pass."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.fused_conv import (conv1x1_bn_act,
+                                                         conv3x3_bn_act)
+    m = x.shape[0]
+
+    def coefs(st, scale, bias):
+        mean = st[0] / m
+        var = st[1] / m - mean * mean
+        a = scale * torch.rsqrt(var + 1e-5)
+        return a, bias - mean * a
+
+    for _, (w1, w2, w3), bns in params:
+        t1, st1 = conv1x1_bn_act(x, w1, stats=True)
+        a1, b1 = coefs(st1, bns[0], bns[1])
+        t2, st2 = conv3x3_bn_act(t1, w2, side, side, a=a1, b=b1, relu=True,
+                                 stats=True)
+        a2, b2 = coefs(st2, bns[2], bns[3])
+        t3, st3 = conv1x1_bn_act(t2, w3, a=a2, b=b2, relu=True, stats=True)
+        a3, b3 = coefs(st3, bns[4], bns[5])
+        x = torch.relu(t3 * a3[None, :] + b3[None, :] + x)
+    return x
+
+
+def conv_chain(card):
+    """Phase 10: the ResNet-50 bottleneck chain of conv_kernel_ab.py at
+    each CONV_CHAIN stage (batch 128, float32), CONV_CHAIN_BLOCKS blocks,
+    as two arms on the same input and weights: composed (cuDNN + the
+    port's batch_norm, NCHW) and fused (the conv kernels, NHWC-flat).
+    Held together after one block and after all; each arm timed per
+    block. Launch counts are set to 0 before the first stage's runs and
+    read after the last one's checks."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    kernels.reset_launch_counts()
+    rows, timed = {}, []
+    for label, imgs, big, small, side in CONV_CHAIN:
+        m = imgs * side * side
+        params = _chain_params(gen, big, small, CONV_CHAIN_BLOCKS)
+        x = torch.randn(imgs, big, side, side, device=DEVICE, generator=gen)
+        x_flat = x.permute(0, 2, 3, 1).reshape(m, big).contiguous()
+
+        def flat(t):
+            return t.permute(0, 2, 3, 1).reshape(m, big)
+
+        gaps = {}
+        for depth in (1, CONV_CHAIN_BLOCKS):
+            want = flat(composed_chain(x, params[:depth]))
+            got = fused_chain(x_flat, params[:depth], side)
+            gaps[depth] = (float((got - want).abs().max())
+                           / float(want.abs().max()),
+                           float(torch.linalg.vector_norm(got - want))
+                           / float(torch.linalg.vector_norm(want)))
+        if not (gaps[1][0] <= CHAIN_ONE_BLOCK_RTOL
+                and gaps[CONV_CHAIN_BLOCKS][1] <= CHAIN_NORM_RTOL):
+            raise SystemExit(f"conv chain {label}: fused vs composed after "
+                             f"1 block max |diff| {gaps[1][0]:.3e} * max, "
+                             f"after {CONV_CHAIN_BLOCKS} 2-norm gap "
+                             f"{gaps[CONV_CHAIN_BLOCKS][1]:.3e}")
+        timed.append((label, m, big, small, side, params, x, x_flat, gaps))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for name in ("fused_conv1x1", "fused_conv3x3"):
+        if launches[name] == 0:
+            raise SystemExit(f"kernel {name} was not launched on the conv "
+                             "chain")
+    for label, m, big, small, side, params, x, x_flat, gaps in timed:
+        comp = cuda_ms(lambda: composed_chain(x, params), iters=5) \
+            / CONV_CHAIN_BLOCKS
+        fused = cuda_ms(lambda: fused_chain(x_flat, params, side), iters=5) \
+            / CONV_CHAIN_BLOCKS
+        flops = 2.0 * m * (2 * big * small + 9 * small * small)
+        rows[label] = dict(m=m, big_c=big, small_c=small, side=side,
+                           blocks=CONV_CHAIN_BLOCKS,
+                           composed_ms_per_block=comp,
+                           fused_ms_per_block=fused,
+                           flop_per_block=flops,
+                           one_block_max_diff_frac=gaps[1][0],
+                           all_blocks_norm_gap=gaps[CONV_CHAIN_BLOCKS][1])
+        print(f"[{card}] conv chain {label} (M {m}, {big}->{small}->{big} @ "
+              f"{side}x{side}, {CONV_CHAIN_BLOCKS} blocks): composed "
+              f"{comp:.3f} ms/block ({flops / comp / 1e9:.1f} TFLOP/s), "
+              f"fused {fused:.3f} ms/block ({flops / fused / 1e9:.1f} "
+              f"TFLOP/s); fused vs composed after 1 block max |diff| "
+              f"{gaps[1][0]:.3e} * max, after {CONV_CHAIN_BLOCKS} 2-norm gap "
+              f"{gaps[CONV_CHAIN_BLOCKS][1]:.3e}", flush=True)
+        del params, x, x_flat
+    del timed
+    print(f"[{card}] conv chain kernel launches {launches}", flush=True)
+    return {"card": card, "stages": rows}, launches
 
 
 def main() -> int:
@@ -1517,6 +2195,11 @@ def main() -> int:
                                                      GenerationSpec)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the conv parity checks (phases 8-10) compare cuDNN's convolutions
+    # with other summation orders: a deterministic algorithm, picked
+    # without timing, gives the same sums on every run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
     # -- 1. card and build ---------------------------------------------------
     card = card_line()
@@ -1535,6 +2218,7 @@ def main() -> int:
     attn_bwd, bwd_coverage_err = check_attention_bwd(card)
     lstm_rows, lstm_coverage_err = check_lstm(card)
     gru_rows, gru_coverage_err = check_gru(card)
+    conv_rows, conv_coverage_err = check_fused_conv(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
     spec = GenerationSpec(**SERVE_SPEC)
@@ -1585,16 +2269,29 @@ def main() -> int:
     # -- 6, 7. train the book's GRU encoder-decoder; reload it -------------
     gru_training, gru_launches = train_gru_nmt(card)
 
-    # -- 8. result lines -----------------------------------------------------
+    # -- 8. train MNIST conv on the card and on the CPU ----------------------
+    mnist_training, mnist_launches = train_mnist(card)
+
+    # -- 9. train ResNet-50 ----------------------------------------------------
+    resnet_training, resnet_launches = train_resnet(card)
+
+    # -- 10. the bottleneck chain: fused conv kernels vs composed --------------
+    chain, chain_launches = conv_chain(card)
+
+    # -- 11. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
-                           + list(gru_rows.items()) if n == name}
+                           + list(gru_rows.items())
+                           + list(conv_rows.items()) if n == name}
                     for name in launches}
     by_path = {name: {"serving": launches[name],
                       "training": train_launches[name],
                       "lstm_training": lstm_launches[name],
-                      "gru_nmt_training": gru_launches[name]}
+                      "gru_nmt_training": gru_launches[name],
+                      "mnist_training": mnist_launches[name],
+                      "resnet_training": resnet_launches[name],
+                      "conv_chain": chain_launches[name]}
                for name in launches}
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1645,6 +2342,22 @@ def main() -> int:
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "yardstick_ms")}})
+    # the fused conv kernels at stage 1 of the chain; ms, plain_ms and
+    # library_ms in the bare variant (no affine, ReLU or statistics: the
+    # function one PyTorch call computes), full_ms with all three
+    for name, line, label in (
+            ("fused_conv1x1", 44, f"{CONV_MAIN_CASE} 256->64"),
+            ("fused_conv3x3", 128, f"{CONV_MAIN_CASE} 64->64")):
+        case = conv_rows[(name, label)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_conv.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_conv.py:{line}",
+            "max_abs_err": conv_coverage_err[name][0],
+            "max_rel_err": conv_coverage_err[name][1],
+            "max_stats_err": conv_coverage_err[name][2], "shape": label,
+            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "full_ms")}})
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())
         row["launches_by_path"] = by_path[row["name"]]
@@ -1656,6 +2369,9 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"lstm_training": lstm_training}))
     print(json.dumps({"gru_nmt_training": gru_training}))
+    print(json.dumps({"mnist_training": mnist_training}))
+    print(json.dumps({"resnet_training": resnet_training}))
+    print(json.dumps({"conv_chain": chain}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

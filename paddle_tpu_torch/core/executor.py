@@ -10,7 +10,9 @@ runs under torch.no_grad(); a training program's gradients come from
 its ``__vjp__`` grad ops (core/backward.py), each of which replays its
 forward op under autograd by itself. Every forward value stays in the
 run's environment until the run ends, as the JAX trace keeps it live
-for the grad ops.
+for the grad ops. Before a run, the kernel-dispatch stamps of the JAX
+executor's rewrite are applied to a copy of the program (core/dispatch.py),
+cached per program, program version and knob values.
 
 Not ported yet: the compile cache, While probing, stacked multi-step
 runs, async StepResult, and the cost/memory reports.
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import dispatch
 from .ir import BlockDesc, Program, SUB_BLOCK_ATTRS
 from .lod import LoDTensor, RaggedPair
 from .registry import OpRegistry, run_op
@@ -140,6 +143,19 @@ class Executor:
         # runs so far: random ops that must draw anew each step (dropout)
         # fold it into their seed, as the JAX executor folds its step
         self._runs = 0
+        # program uid -> (version, knob values, dispatch-stamped program)
+        self._stamped: Dict[int, Tuple[int, Tuple, Program]] = {}
+
+    def _dispatched(self, program: Program) -> Program:
+        """`program` with the kernel-dispatch stamps of the knobs in force
+        (core/dispatch.py): itself, or a stamped copy made once per
+        program version and knob values."""
+        knob = dispatch.knobs()
+        hit = self._stamped.get(program.uid)
+        if hit is None or hit[0] != program.version or hit[1] != knob:
+            hit = (program.version, knob, dispatch.stamped(program, knob))
+            self._stamped[program.uid] = hit
+        return hit[2]
 
     def run(self, program, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -153,6 +169,7 @@ class Executor:
         LoDTensor."""
         if hasattr(program, "desc"):  # accept the python builder wrapper
             program = program.desc
+        source, program = program, self._dispatched(program)
         scope = global_scope() if scope is None else scope
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
@@ -169,7 +186,7 @@ class Executor:
                 opdef = OpRegistry.get(op.type)
                 if opdef.constant and not any(
                         n in write_names for n in op.output_names()):
-                    key = (program.uid, program.version, i)
+                    key = (source.uid, source.version, i)
                     outs = self._const_cache.get(key)
                     if outs is None:
                         outs = run_op(op, env, extra)

@@ -17,15 +17,27 @@ FLAGS: Dict[str, tuple] = {
         "on a CUDA tensor auto-routes to the flash-attention kernel; below "
         "it the naive composition runs"),
     "PADDLE_TPU_PALLAS_LSTM": (
-        "1", "ops/sequence_ops.py",
-        "lstm op route when the op carries no __pallas__ attr: \"1\" or "
-        "\"force\" take the fused-LSTM kernel (its plain twin on CPU "
-        "tensors), \"0\" the masked torch scan"),
+        "1", "core/dispatch.py, ops/sequence_ops.py",
+        "lstm op route: \"1\" or \"force\" is stamped onto every eligible "
+        "lstm op before a run (over its __pallas__ attr); \"1\" takes the "
+        "fused-LSTM kernel on CUDA tensors and the masked torch scan "
+        "elsewhere, \"force\" the kernel anywhere (its plain twin on CPU "
+        "tensors), \"0\" the scan (a stamp an op carries is kept)"),
     "PADDLE_TPU_PALLAS_GRU": (
-        "1", "ops/sequence_ops.py",
-        "gru op route when the op carries no __pallas__ attr: \"1\" or "
-        "\"force\" take the fused-GRU kernel (its plain twin on CPU "
-        "tensors), \"0\" the masked torch scan"),
+        "1", "core/dispatch.py, ops/sequence_ops.py",
+        "gru op route, as PADDLE_TPU_PALLAS_LSTM for the lstm op, over the "
+        "fused-GRU kernel"),
+    "PADDLE_TPU_PALLAS_SDPA": (
+        "1", "core/dispatch.py",
+        "scaled_dot_product_attention route: \"force\" or \"0\" is stamped "
+        "onto every attention op without seq_axis before a run (use_flash "
+        "true or false); \"1\" leaves the op's use_flash attr, or else its "
+        "min-seq auto policy, in charge"),
+    "PADDLE_TPU_CONV_LAYOUT": (
+        "nchw", "ops/nn_ops.py",
+        "conv2d memory layout: \"nhwc\" runs each conv on channels_last "
+        "copies of its input and filter (the op's API stays NCHW); the "
+        "default \"nchw\" runs it as given"),
     "PADDLE_TPU_DECODE_SLOTS": (
         "4", "serving/generation/model.py",
         "default in-flight slot count of a generation model's "

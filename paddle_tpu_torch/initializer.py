@@ -1,7 +1,8 @@
 """Parameter initializers: append init ops to the startup program.
 
-The port's copy of the initializers the decoder LM's startup uses
-(``paddle_tpu/initializer.py``): Constant, Uniform, Xavier. Each appends
+The port's copy of the initializers its models' startups use
+(``paddle_tpu/initializer.py``): Constant, Uniform, Normal, Xavier (both
+forms). Each appends
 one op to the startup program; the op names and attrs are the JAX
 package's, so the startup programs serialize identically.
 """
@@ -36,6 +37,17 @@ class UniformInitializer(Initializer):
             "min": self.low, "max": self.high, "seed": seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        seed = self.seed or block.program.desc.next_seed()
+        block.append_op("gaussian_random", outputs={"Out": var}, attrs={
+            "shape": list(var.shape), "dtype": var.dtype,
+            "mean": self.loc, "std": self.scale, "seed": seed})
+
+
 def fan_in_out_from_shape(shape):
     if len(shape) < 2:
         return int(shape[0]), int(shape[0])
@@ -48,29 +60,33 @@ def fan_in_out_from_shape(shape):
 
 
 class XavierInitializer(Initializer):
-    """Glorot init, uniform form (the normal form needs gaussian_random,
-    which is not ported yet)."""
+    """Glorot init (reference: initializer.py XavierInitializer)."""
 
     def __init__(self, uniform: bool = True, fan_in=None, fan_out=None,
                  seed: int = 0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "which is not ported yet")
-        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+        self.uniform, self.fan_in, self.fan_out = uniform, fan_in, fan_out
+        self.seed = seed
 
     def __call__(self, var, block):
         f_in, f_out = fan_in_out_from_shape(var.shape)
         f_in = self.fan_in if self.fan_in is not None else f_in
         f_out = self.fan_out if self.fan_out is not None else f_out
         seed = self.seed or block.program.desc.next_seed()
-        limit = math.sqrt(6.0 / (f_in + f_out))
-        block.append_op("uniform_random", outputs={"Out": var}, attrs={
-            "shape": list(var.shape), "dtype": var.dtype,
-            "min": -limit, "max": limit, "seed": seed})
+        if self.uniform:
+            limit = math.sqrt(6.0 / (f_in + f_out))
+            block.append_op("uniform_random", outputs={"Out": var}, attrs={
+                "shape": list(var.shape), "dtype": var.dtype,
+                "min": -limit, "max": limit, "seed": seed})
+        else:
+            std = math.sqrt(2.0 / (f_in + f_out))
+            block.append_op("gaussian_random", outputs={"Out": var},
+                            attrs={"shape": list(var.shape),
+                                   "dtype": var.dtype, "mean": 0.0,
+                                   "std": std, "seed": seed})
 
 
 # Aliases matching the reference's public names.
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

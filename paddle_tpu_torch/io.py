@@ -9,10 +9,11 @@ reads (``__model__.json``: the program's blocks plus ``feed_names``,
 ``__generation__.json`` sidecars). Like the JAX package, the functions
 read and write the global scope (``scope_guard`` picks another).
 
-Not ported yet (ROADMAP A4a): the native PTIR binary ``__model__`` that
-the JAX package writes where its native IR library builds
-(``native/ir.cc``) — loading one raises — and ``verify_program`` at save
-time.
+``load_inference_model`` also reads the native PTIR binary ``__model__``
+that the JAX package writes where its native IR library builds
+(``native/ir.cc``), with a pure-Python decoder of that format
+(``decode_ptir``). Not ported yet (ROADMAP A2): writing PTIR, and
+``verify_program`` at save time.
 
 ``load_param_arrays`` is the port's own: the port's startup draws its
 random weights from torch generators, not from JAX's PRNG, so a port
@@ -27,7 +28,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+import struct
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,80 @@ PARAMS_FILE = "__params__.npz"
 MODEL_BINARY = "__model__"
 MODEL_JSON = "__model__.json"
 PTIR_MAGIC = b"PTIR"
+PTIR_VERSION = 1
+
+
+class PTIRError(ValueError):
+    """A PTIR file that is truncated, of another version or malformed."""
+
+
+def _varint(buf: bytes, pos: int) -> Tuple[int, int]:
+    value, shift = 0, 0
+    while pos < len(buf):
+        byte = buf[pos]
+        pos += 1
+        value |= (byte & 0x7F) << shift
+        if not byte & 0x80:
+            return value, pos
+        shift += 7
+        if shift > 63:
+            raise PTIRError("varint overflow")
+    raise PTIRError("truncated varint")
+
+
+def _ptir_value(buf: bytes, pos: int) -> Tuple[Any, int]:
+    """One tagged value at `pos` (native/ir.cc ptir::Decoder::decode):
+    0 null, 1 false, 2 true, 3 int (zigzag varint), 4 double (8 bytes
+    little-endian), 5 str, 6 array, 7 object (varint count; a key is a
+    varint length and its bytes)."""
+    if pos >= len(buf):
+        raise PTIRError("truncated value")
+    tag = buf[pos]
+    pos += 1
+    if tag <= 2:
+        return (None, False, True)[tag], pos
+    if tag == 3:
+        z, pos = _varint(buf, pos)
+        return (z >> 1) ^ -(z & 1), pos
+    if tag == 4:
+        if len(buf) - pos < 8:
+            raise PTIRError("truncated double")
+        return struct.unpack_from("<d", buf, pos)[0], pos + 8
+    if tag == 5:
+        n, pos = _varint(buf, pos)
+        if len(buf) - pos < n:
+            raise PTIRError("truncated string")
+        return buf[pos:pos + n].decode("utf-8"), pos + n
+    if tag == 6:
+        n, pos = _varint(buf, pos)
+        items = []
+        for _ in range(n):
+            item, pos = _ptir_value(buf, pos)
+            items.append(item)
+        return items, pos
+    if tag == 7:
+        n, pos = _varint(buf, pos)
+        obj = {}
+        for _ in range(n):
+            klen, pos = _varint(buf, pos)
+            if len(buf) - pos < klen:
+                raise PTIRError("truncated key")
+            key = buf[pos:pos + klen].decode("utf-8")
+            obj[key], pos = _ptir_value(buf, pos + klen)
+        return obj, pos
+    raise PTIRError(f"unknown tag {tag} at byte {pos - 1}")
+
+
+def decode_ptir(data: bytes) -> Any:
+    """The JSON value a native PTIR file holds (native/ir.cc ir_load): the
+    magic b"PTIR", format-version byte 1, then one tagged value. Raises
+    PTIRError on any other magic or version, and on a truncated or
+    malformed value; bytes after the value are ignored, as there."""
+    if len(data) < 5 or data[:4] != PTIR_MAGIC:
+        raise PTIRError("not a PTIR file")
+    if data[4] != PTIR_VERSION:
+        raise PTIRError(f"unsupported PTIR version {data[4]}")
+    return _ptir_value(data, 5)[0]
 
 
 def inference_model_specs(program: Program, feed_names, fetch_names):
@@ -179,24 +255,28 @@ def load_inference_model(dirname, executor, model_filename=None,
     """Load a frozen model into the global scope. Returns (program,
     feed_names, fetch_vars); with return_meta=True a 4th element carries
     {"feed_specs", "fetch_specs", "model_version", "generation_spec"}.
-    Reads the JSON form; a native PTIR ``__model__`` raises."""
+    Reads a native PTIR ``__model__`` (decode_ptir) where there is one,
+    else the JSON form."""
     bin_path = os.path.join(dirname, model_filename or MODEL_BINARY)
     json_path = os.path.join(dirname, model_filename or MODEL_JSON)
+    meta = None
     if os.path.exists(bin_path):
         with open(bin_path, "rb") as f:
-            if f.read(4) == PTIR_MAGIC:
-                raise NotImplementedError(
-                    f"{bin_path} is a native PTIR binary program; the port "
-                    "reads the JSON form only (reading PTIR is ROADMAP "
-                    "A4a). Save the model without the native IR library "
-                    "to get __model__.json.")
-        json_path = bin_path  # a custom model_filename in the JSON form
-    with open(json_path) as f:
-        meta = json.load(f)
-    meta = meta.get("program", meta) | {
-        k: meta[k] for k in ("feed_names", "fetch_names", "feed_specs",
-                             "fetch_specs", "model_version",
-                             "generation_spec") if k in meta}
+            data = f.read()
+        if data[:4] == PTIR_MAGIC:
+            try:
+                meta = decode_ptir(data)
+            except PTIRError as e:
+                raise PTIRError(f"{bin_path}: {e}") from None
+        else:  # a custom model_filename in the JSON form
+            json_path = bin_path
+    if meta is None:
+        with open(json_path) as f:
+            meta = json.load(f)
+        meta = meta.get("program", meta) | {
+            k: meta[k] for k in ("feed_names", "fetch_names", "feed_specs",
+                                 "fetch_specs", "model_version",
+                                 "generation_spec") if k in meta}
     from .core import ir
     prog = Program()
     prog.desc = ir.Program.from_dict(meta)

@@ -1,18 +1,24 @@
 """Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
-that the decoder LM, the Transformer NMT model, the LSTM LM and the GRU
-encoder-decoder of the book's machine-translation chapter build with
-(fc, embedding, dynamic_lstm, dynamic_gru, layer_norm, dropout,
-softmax_with_cross_entropy, sequence_pool, mean, reduce_sum,
-elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention).
+that the port's models build with: the decoder LM, the Transformer NMT
+model, the LSTM LM, the GRU encoder-decoder of the book's
+machine-translation chapter, and the conv models (MNIST, ResNet, VGG):
+fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
+layer_norm, dropout, cross_entropy, softmax_with_cross_entropy, accuracy,
+topk, sequence_pool, relu, softmax, mean, reduce_sum,
+elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention.
 Each function appends the same ops, with the same attrs and var names,
 as its JAX-package counterpart."""
 from __future__ import annotations
 
-from ..initializer import ConstantInitializer
+import math
+
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "layer_norm",
-           "dropout", "softmax_with_cross_entropy", "sequence_pool", "mean",
+__all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "conv2d",
+           "pool2d", "batch_norm", "layer_norm", "dropout",
+           "cross_entropy", "softmax_with_cross_entropy", "accuracy",
+           "topk", "sequence_pool", "relu", "softmax", "mean",
            "reduce_sum",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "scale",
@@ -137,6 +143,110 @@ def dynamic_gru(input, size, param_attr=None, bias_attr=None, h_0=None,
     return hidden
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None):
+    """2-D convolution, NCHW; the filter's default init is
+    Normal(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = int(input.shape[1])
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, math.sqrt(2.0 / fan_in)))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(type="conv2d",
+                     inputs={"Input": input, "Filter": w},
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation),
+                            "groups": groups})
+    pre_act = _append_channel_bias(helper, pre_bias, num_filters)
+    return helper.append_activation(pre_act)
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _append_channel_bias(helper, pre_bias, channels=None):
+    bias_attr = helper.bias_attr
+    if bias_attr is None:
+        return pre_bias
+    if channels is None:
+        channels = int(pre_bias.shape[1]) if pre_bias.shape else None
+    b = helper.create_parameter(bias_attr, shape=[channels],
+                                dtype=pre_bias.dtype, is_bias=True)
+    out = helper.create_tmp_variable(pre_bias.dtype)
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": pre_bias, "Y": b},
+                     outputs={"Out": out}, attrs={"axis": 1})
+    return out
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=2,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="pool2d", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None):
+    """Batch normalization with persistable moving statistics (initialized
+    to 0 and 1), updated in place by the op."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    ch = int(input.shape[1] if data_layout == "NCHW" else input.shape[-1])
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[ch], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=[ch], dtype=dtype, is_bias=True)
+    mean = helper.create_global_variable(
+        shape=[ch], dtype=dtype, persistable=True,
+        name=moving_mean_name or None)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        shape=[ch], dtype=dtype, persistable=True,
+        name=moving_variance_name or None)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_tmp_variable(dtype)
+    saved_var = helper.create_tmp_variable(dtype)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="batch_norm",
+                     inputs={"X": input, "Scale": scale, "Bias": bias,
+                             "Mean": mean, "Variance": variance},
+                     outputs={"Y": out, "MeanOut": mean,
+                              "VarianceOut": variance,
+                              "SavedMean": saved_mean,
+                              "SavedVariance": saved_var},
+                     attrs={"momentum": momentum, "epsilon": epsilon,
+                            "is_test": is_test,
+                            "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -182,6 +292,15 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     return out
 
 
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": input, "Label": label},
+                     outputs={"Y": out}, attrs={"soft_label": soft_label})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False):
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax = helper.create_tmp_variable(logits.dtype)
@@ -191,6 +310,36 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      outputs={"Softmax": softmax, "Loss": loss},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Classification accuracy: top_k over `input`, then the accuracy op
+    against `label`."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_tmp_variable(input.dtype)
+    topk_indices = helper.create_tmp_variable("int64")
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": topk_out, "Indices": topk_indices},
+                     attrs={"k": k})
+    acc_out = helper.create_tmp_variable("float32")
+    correct = correct or helper.create_tmp_variable("int32")
+    total = total or helper.create_tmp_variable("int32")
+    helper.append_op(type="accuracy",
+                     inputs={"Out": topk_out, "Indices": topk_indices,
+                             "Label": label},
+                     outputs={"Accuracy": acc_out, "Correct": correct,
+                              "Total": total})
+    return acc_out
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(input.dtype)
+    indices = helper.create_tmp_variable("int64")
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
 
 
 def sequence_pool(input, pool_type):
@@ -203,6 +352,28 @@ def sequence_pool(input, pool_type):
     helper.append_op(type="sequence_pool", inputs={"X": input},
                      outputs={"Out": out},
                      attrs={"pooltype": ptype})
+    return out
+
+
+def _unary(op_type):
+    def fn(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+        helper.append_op(type=op_type, inputs={"X": x},
+                         outputs={"Out": out})
+        return out
+    fn.__name__ = op_type
+    return fn
+
+
+relu = _unary("relu")
+
+
+def softmax(input, axis=-1, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
     return out
 
 

@@ -5,9 +5,7 @@ The port's copy of ``language_model`` and ``build_train`` from
 ``paddle_tpu/models/lstm_lm.py``: the same ops, attrs and var names.
 Variable-length sequences ride the ragged (padded + lengths)
 representation; each ``lstm`` op runs the fused-LSTM kernels on the
-card (ops/sequence_ops.py). ``stacked_lstm_net`` needs a softmax
-activation on ``fc`` and the ``cross_entropy`` op, which are not ported
-yet.
+card (ops/sequence_ops.py). ``stacked_lstm_net`` is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Core ops: constants, random init, sum, cast, scale, and the generic
 ``__vjp__`` grad op that powers desc-level autodiff.
 
-The port's compute rules for the ``paddle_tpu/ops/core_ops.py`` ops the
-decoder LM and the Transformer NMT train step run. The feed/fetch
-plumbing and the other random ops wait for later slices.
+The port's compute rules for the ``paddle_tpu/ops/core_ops.py`` ops its
+models' startup and train programs run. The feed/fetch plumbing and the
+other random ops wait for later slices.
 """
 from __future__ import annotations
 
@@ -70,6 +70,22 @@ def _uniform_random(ctx):
     u = torch.rand(shape, generator=_generator(ctx), dtype=torch.float32,
                    device=ctx.device)
     ctx.set_output("Out", (u * (hi - lo) + lo).to(dtype))
+
+
+@register_op("gaussian_random")
+def _gaussian_random(ctx):
+    """mean + std * N(0, 1) of the attr shape, drawn from the op's seeded
+    generator in float32, then cast."""
+    shape = list(ctx.attr("shape"))
+    dtype = torch_dtype(ctx.attr("dtype", "float32"))
+    if _is_meta(ctx.device):
+        ctx.set_output("Out", torch.empty(shape, dtype=dtype,
+                                          device="meta"))
+        return
+    mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
+    z = torch.randn(shape, generator=_generator(ctx), dtype=torch.float32,
+                    device=ctx.device)
+    ctx.set_output("Out", (mean + std * z).to(dtype))
 
 
 @register_op("assign_value", constant=True)

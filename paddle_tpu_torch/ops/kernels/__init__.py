@@ -7,6 +7,7 @@ One module per kernel family, named after the TPU kernels it replaces in
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd,
                               flash_attention_fwd_plain)
+from .fused_conv import conv1x1_bn_act, conv3x3_bn_act  # noqa: F401
 from .fused_gru import fused_gru_bwd, fused_gru_fwd  # noqa: F401
 from .fused_lstm import fused_lstm_bwd, fused_lstm_fwd  # noqa: F401
 
@@ -17,7 +18,9 @@ KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "fused_lstm_fwd": fused_lstm_fwd,
            "fused_lstm_bwd": fused_lstm_bwd,
            "fused_gru_fwd": fused_gru_fwd,
-           "fused_gru_bwd": fused_gru_bwd}
+           "fused_gru_bwd": fused_gru_bwd,
+           "fused_conv1x1": conv1x1_bn_act,
+           "fused_conv3x3": conv3x3_bn_act}
 
 
 def reset_launch_counts():

@@ -2,10 +2,10 @@
 reduce_sum, mean, activations, clipping, comparisons and logical ops,
 arg_max.
 
-The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops the
-decoder LM, the Transformer NMT and the LSTM LM train steps run, plus
-the few that the gradient clippers and regularizers (clip.py,
-regularizer.py) append.
+The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops its
+models' train steps run (softmax and top_k included), plus the few that
+the gradient clippers and regularizers (clip.py, regularizer.py)
+append.
 The matrix products stay torch.matmul: the JAX package left them to XLA
 and wrote no kernel for them.
 """
@@ -89,6 +89,7 @@ def _register_act(name, fn):
 
 
 _register_act("relu", torch.relu)
+_register_act("tanh", torch.tanh)
 _register_act("sqrt", torch.sqrt)
 _register_act("sign", torch.sign)
 
@@ -111,6 +112,24 @@ def _clip_by_norm(ctx):
 @register_op("squared_l2_norm")
 def _squared_l2_norm(ctx):
     ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))))
+
+
+@register_op("softmax")
+def _softmax(ctx):
+    """Softmax over attr `axis` (bf16 computed in float32)."""
+    x = ctx.input("X")
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    ctx.set_output("Out", torch.softmax(xf, dim=ctx.attr("axis", -1))
+                   .to(x.dtype))
+
+
+@register_op("top_k", no_grad_slots=["X"])
+def _top_k(ctx):
+    """The k largest entries of the last axis, in descending order, and
+    their int64 indices (no gradient reaches X)."""
+    vals, idxs = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idxs.to(torch.int64))
 
 
 # -- comparisons / logical --------------------------------------------------

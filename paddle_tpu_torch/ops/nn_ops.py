@@ -1,8 +1,14 @@
-"""NN ops: layer_norm, dropout, softmax_with_cross_entropy, lookup_table,
-one_hot, scaled_dot_product_attention.
+"""NN ops: conv2d, pool2d, batch_norm, layer_norm, dropout,
+cross_entropy, softmax_with_cross_entropy, lookup_table, one_hot,
+scaled_dot_product_attention.
 
-The port's compute rules for the ``paddle_tpu/ops/nn_ops.py`` ops the
-decoder LM and the Transformer NMT train step run.
+The port's compute rules for the ``paddle_tpu/ops/nn_ops.py`` ops its
+models' train steps run. conv2d runs through torch's convolution (cuDNN
+on a card, TF32 off): the JAX package leaves conv to XLA and writes no
+kernel for it, and the fused conv + BN kernels of its Pallas library
+(ops/kernels/fused_conv.py here) are dispatched by no op, in either
+package. batch_norm keeps the reference's default path, left to
+autodiff; its PADDLE_TPU_BN_CUSTOM_VJP arm is not ported.
 scaled_dot_product_attention keeps the reference's routing: the
 `use_flash` attr when stamped, else the min-seq auto policy — with "the
 tensor lies on a CUDA card" in place of "the backend is a TPU". The
@@ -12,16 +18,139 @@ torch.autograd.Function (ops/kernels/flash_attention.py), so a
 route is the matmul/softmax composition. The sequence-parallel branch
 waits for a mesh. softmax_with_cross_entropy ports the reference's
 default path; its PADDLE_TPU_FUSED_XENT streaming variant is not ported.
+conv2d_transpose, depthwise and 3-D convs and the other pools wait for
+later slices.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import flags
 from ..core.registry import register_op
 from .kernels.flash_attention import NEG_INF, flash_attention
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+# -- convolution ------------------------------------------------------------
+
+def _conv2d_impl(x, w, strides, paddings, dilations, groups):
+    """NCHW conv, as the reference's _conv2d_impl: a strided 1x1 conv with
+    no padding slices its input first and convolves at stride 1 (the same
+    values; the gradient work then matches the reference's). Under
+    PADDLE_TPU_CONV_LAYOUT=nhwc it runs on channels_last copies."""
+    if (tuple(w.shape[2:]) == (1, 1) and tuple(paddings) == (0, 0)
+            and (strides[0] > 1 or strides[1] > 1) and groups == 1):
+        x = x[:, :, ::strides[0], ::strides[1]]
+        strides = (1, 1)
+    if flags.get("PADDLE_TPU_CONV_LAYOUT") == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = w.contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, w, stride=strides, padding=paddings,
+                    dilation=dilations, groups=groups)
+
+
+@register_op("conv2d")
+def _conv2d(ctx):
+    ctx.set_output("Output", _conv2d_impl(
+        ctx.input("Input"), ctx.input("Filter"),
+        _pair(ctx.attr("strides", [1, 1])),
+        _pair(ctx.attr("paddings", [0, 0])),
+        _pair(ctx.attr("dilations", [1, 1])), ctx.attr("groups", 1)))
+
+
+# -- pooling ----------------------------------------------------------------
+
+@register_op("pool2d")
+def _pool2d(ctx):
+    """Max or average pooling over NCHW windows with floor output sizes,
+    as the reference's reduce_window: max pads with -inf; avg sums over
+    zero padding and divides by the window's in-image count ("exclusive",
+    the default) or by its full size; global_pooling takes the whole
+    image."""
+    x = ctx.input("X")
+    k = _pair(ctx.attr("ksize", [2, 2]))
+    s = _pair(ctx.attr("strides", [2, 2]))
+    p = _pair(ctx.attr("paddings", [0, 0]))
+    if ctx.attr("global_pooling", False):
+        k = (x.shape[2], x.shape[3])
+        s = k
+        p = (0, 0)
+    pad = (p[1], p[1], p[0], p[0])
+    if ctx.attr("pooling_type", "max") == "max":
+        out = F.max_pool2d(F.pad(x, pad, value=-math.inf), k, s)
+    else:
+        xf = x.float() if x.dtype == torch.bfloat16 else x
+        summed = F.avg_pool2d(F.pad(xf, pad), k, s, divisor_override=1)
+        if ctx.attr("exclusive", True) and (p[0] or p[1]):
+            ones = torch.ones_like(xf[:1, :1])
+            counts = F.avg_pool2d(F.pad(ones, pad), k, s,
+                                  divisor_override=1)
+            out = (summed / counts).to(x.dtype)
+        else:
+            out = (summed / (k[0] * k[1])).to(x.dtype)
+    ctx.set_output("Out", out)
+
+
+# -- normalization ----------------------------------------------------------
+
+@register_op("batch_norm")
+def _batch_norm(ctx):
+    """Inputs X, Scale, Bias, Mean, Variance; outputs Y, MeanOut,
+    VarianceOut, SavedMean, SavedVariance (reference: batch_norm_op.cc),
+    with the reference's default train path: single-pass float32
+    statistics (var = E[x^2] - mean^2, biased — not torch.var, which
+    differs where a channel's mean is large), the normalize as the
+    per-channel affine x*a + b, running statistics
+    Mean*momentum + batch*(1 - momentum), SavedVariance = rsqrt(var +
+    eps). is_test normalizes with the running statistics and passes them
+    through. A ``__vjp__`` replay writes only its input gradients, so
+    the running statistics move once a step."""
+    x = ctx.input("X")
+    scale = ctx.input("Scale")
+    bias = ctx.input("Bias")
+    mean_in = ctx.input("Mean")
+    var_in = ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    ch_axis = 1 if ctx.attr("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    red_axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    bshape = [1] * x.ndim
+    bshape[ch_axis] = x.shape[ch_axis]
+    xf = x.float()
+
+    if ctx.attr("is_test", False):
+        a = scale * torch.rsqrt(var_in.float() + eps)
+        b = bias - mean_in * a
+        ctx.set_output("Y", (xf * a.reshape(bshape)
+                             + b.reshape(bshape)).to(x.dtype))
+        ctx.set_output("MeanOut", mean_in)
+        ctx.set_output("VarianceOut", var_in)
+        ctx.set_output("SavedMean", mean_in)
+        ctx.set_output("SavedVariance", var_in)
+        return
+
+    n = 1
+    for i in red_axes:
+        n *= x.shape[i]
+    mean = torch.sum(xf, dim=red_axes) / n
+    var = torch.sum(xf * xf, dim=red_axes) / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    a = scale * inv
+    b = bias - mean * a
+    ctx.set_output("Y", (xf * a.reshape(bshape)
+                         + b.reshape(bshape)).to(x.dtype))
+    ctx.set_output("MeanOut", mean_in * momentum + mean * (1 - momentum))
+    ctx.set_output("VarianceOut", var_in * momentum + var * (1 - momentum))
+    ctx.set_output("SavedMean", mean)
+    ctx.set_output("SavedVariance", inv)
 
 
 @register_op("layer_norm")
@@ -75,6 +204,26 @@ def _dropout(ctx):
         out = torch.where(mask, x, torch.zeros_like(x))
     ctx.set_output("Out", out.to(x.dtype))
     ctx.set_output("Mask", mask.to(x.dtype))
+
+
+# -- losses -----------------------------------------------------------------
+
+@register_op("cross_entropy", no_grad_slots=["Label"])
+def _cross_entropy(ctx):
+    """Y [.., 1] = -log(x[label] + 1e-8) of probabilities X (a softmax's
+    output), in float32; soft labels: -sum(label * log(x + 1e-8)). A
+    hard label may carry a trailing [.., 1] dim."""
+    x = ctx.input("X").float()
+    label = ctx.input("Label")
+    eps = 1e-8
+    if ctx.attr("soft_label", False):
+        ctx.set_output("Y", -torch.sum(label * torch.log(x + eps), dim=-1,
+                                       keepdim=True))
+        return
+    lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+        else label
+    picked = torch.gather(x, -1, lab.long().unsqueeze(-1))
+    ctx.set_output("Y", -torch.log(picked + eps))
 
 
 @register_op("softmax_with_cross_entropy", no_grad_slots=["Label"])

@@ -1,8 +1,9 @@
 """Optimizer ops: one op per parameter update, writing ParamOut (and the
 accumulator outs) back to persistable state.
 
-The port's compute rules for ``sgd`` and ``adam`` from
-``paddle_tpu/ops/optimizer_ops.py`` (reference: sgd_op.cc, adam_op.cc);
+The port's compute rules for ``sgd``, ``momentum`` and ``adam`` from
+``paddle_tpu/ops/optimizer_ops.py`` (reference: sgd_op.cc,
+momentum_op.cc, adam_op.cc);
 the other update rules and the sparse row-wise variants wait for later
 slices. Each rule returns new tensors and the executor writes them to
 the scope after the run, as the JAX executor threads them functionally.
@@ -20,6 +21,25 @@ def _sgd(ctx):
     g = ctx.input("Grad")
     lr = ctx.input("LearningRate")
     ctx.set_output("ParamOut", p - lr.reshape(()).to(p.dtype) * g)
+
+
+@register_op("momentum",
+             no_grad_slots=["Param", "Grad", "Velocity", "LearningRate"])
+def _momentum(ctx):
+    """v' = mu v + g; p' = p - lr v', or with use_nesterov
+    p' = p - (g + mu v') lr."""
+    p = ctx.input("Param")
+    g = ctx.input("Grad")
+    v = ctx.input("Velocity")
+    lr = ctx.input("LearningRate").reshape(())
+    mu = ctx.attr("mu", 0.9)
+    v_out = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    ctx.set_output("ParamOut", p_out)
+    ctx.set_output("VelocityOut", v_out)
 
 
 @register_op("adam", no_grad_slots=[

@@ -11,12 +11,14 @@ lengths itself.
 ``lstm`` keeps the reference's two routes. The kernel route, for the
 standard activations without peepholes, runs ``FusedLSTM``
 (ops/kernels/fused_lstm.py): the hand-written CUDA kernels on CUDA
-tensors, their plain twins on CPU tensors. It is taken when the
-``__pallas__`` attr, or else PADDLE_TPU_PALLAS_LSTM (default "1"), is
-"1" or "force" — the JAX package takes it for "1" only on a TPU and runs
-"force" interpreted elsewhere. "0" (or any other value) takes the scan
-route, a torch loop over time, which also serves peepholes and the other
-activations. ``gru`` has the same two routes, over ``FusedGRU``
+tensors, their plain twins on CPU tensors. The ``__pallas__`` attr, or
+else PADDLE_TPU_PALLAS_LSTM (default "1"), picks it as the reference's
+``pallas_dispatch`` does (``kernel_route``): "1" only where the op's
+tensors lie on a CUDA card (the reference: only on a TPU), "force"
+anywhere (the reference interprets its kernel off the TPU). "0" (or any
+other value) takes the scan route, a torch loop over time, which also
+serves peepholes and the other activations. The executor stamps the knob
+onto the op before a run, as the reference's does (core/dispatch.py). ``gru`` has the same two routes, over ``FusedGRU``
 (ops/kernels/fused_gru.py) and PADDLE_TPU_PALLAS_GRU, with the bias
 folded into the input before the kernel as the reference does. The other
 sequence ops and the nested levels wait for later slices.
@@ -113,12 +115,13 @@ _ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
         "identity": lambda x: x}
 
 
-def kernel_route(attr, knob_env="PADDLE_TPU_PALLAS_LSTM") -> bool:
-    """Whether an RNN op takes its kernel route: the op's `__pallas__`
-    attr, else its knob (PADDLE_TPU_PALLAS_LSTM or _GRU), is "1" or
-    "force"."""
+def kernel_route(attr, knob_env, x) -> bool:
+    """Whether an RNN op over tensor `x` takes its kernel route, by the
+    reference's ``pallas_dispatch`` policy on the op's `__pallas__` attr,
+    else its knob (PADDLE_TPU_PALLAS_LSTM or _GRU): "force" anywhere,
+    "1" where x lies on a CUDA card, anything else never."""
     knob = attr if attr is not None else flags.get(knob_env)
-    return knob in ("1", "force")
+    return knob == "force" or (knob == "1" and x.is_cuda)
 
 
 def _reverse_index(lengths, t):
@@ -177,7 +180,8 @@ def _lstm(ctx):
         and ctx.attr("gate_activation", "sigmoid") == "sigmoid"
         and ctx.attr("cell_activation", "tanh") == "tanh"
         and ctx.attr("candidate_activation", "tanh") == "tanh")
-    if eligible and kernel_route(ctx.attr("__pallas__")):
+    if eligible and kernel_route(ctx.attr("__pallas__"),
+                                 "PADDLE_TPU_PALLAS_LSTM", data):
         bias = b.reshape(-1)[:4 * h_dim] if b is not None else \
             torch.zeros((4 * h_dim,), **zeros)
         h_tm, c_tm, h_last, c_last = fused_lstm(
@@ -249,7 +253,7 @@ def _gru(ctx):
     eligible = (ctx.attr("gate_activation", "sigmoid") == "sigmoid"
                 and ctx.attr("activation", "tanh") == "tanh")
     if eligible and kernel_route(ctx.attr("__pallas__"),
-                                 "PADDLE_TPU_PALLAS_GRU"):
+                                 "PADDLE_TPU_PALLAS_GRU", data):
         gdata = data if b is None else data + b.reshape(1, 1, -1)
         h_tm, h_last = fused_gru(gdata.transpose(0, 1).contiguous(),
                                  w.contiguous(), h0.contiguous(), x.lengths)

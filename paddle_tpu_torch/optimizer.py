@@ -2,11 +2,11 @@
 
 The port's copy of ``paddle_tpu/optimizer.py`` (reference:
 python/paddle/fluid/optimizer.py — Optimizer:34, minimize:224, SGD:250,
-Adam:361): ``minimize`` appends the gradient ops (core/backward.py), the
-clip and regularization ops (none unless set), and an update op per
-parameter, with the same var names, ops and attrs as the JAX package.
-Momentum, Adagrad, Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl and
-LarsMomentum wait for later slices.
+Momentum:268, Adam:361): ``minimize`` appends the gradient ops
+(core/backward.py), the clip and regularization ops (none unless set),
+and an update op per parameter, with the same var names, ops and attrs
+as the JAX package. Adagrad, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+Ftrl and LarsMomentum wait for later slices.
 """
 from __future__ import annotations
 
@@ -130,6 +130,30 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": p})
 
 
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._lr_var},
+            outputs={"ParamOut": p, "VelocityOut": v},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     type = "adam"
 
@@ -166,4 +190,5 @@ class AdamOptimizer(Optimizer):
 
 # Aliases matching the reference's public names.
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

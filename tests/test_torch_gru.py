@@ -3,10 +3,12 @@ each package, and the fused-GRU plain twins against the JAX kernel.
 
 - The op, as a small program run in both executors: the JAX scan
   (``PADDLE_TPU_PALLAS_GRU=0``) and its interpreted Pallas kernel
-  (``force``) against the port's kernel route (``__pallas__="1"``: the
-  fused-GRU plain twins on CPU tensors) and its scan (``"0"``). Hidden,
-  LastH and the gradients of x (ragged), Weight, Bias and H0 under a
-  loss that weights both outputs with random cotangents; with and
+  (``force``) against the port's kernel route (``__pallas__="force"``:
+  the fused-GRU plain twins on CPU tensors) and its scan (``"0"``), each
+  run under the knob of its route (both executors stamp the knob onto
+  the op before a run). Hidden, LastH and the gradients of x (ragged),
+  Weight, Bias and H0 under a loss that weights both outputs with
+  random cotangents; with and
   without is_reverse and H0, over lengths with a zero-length and a
   full-length row. The unstamped programs serialize to equal JSON.
 - A zero-length row's LastH is its H0, and d sum(LastH) / d H0 is 1 for
@@ -93,9 +95,9 @@ def _program(pkg, state, attrs, wrt):
 
 
 def _run(pkg, main, feed, fetch, ref_route):
-    """One run in a fresh scope. A JAX run sets PADDLE_TPU_PALLAS_GRU to
-    `ref_route`: its executor's kernel_dispatch rewrite re-stamps every
-    gru op (and fwd_op copy) from that knob when it compiles."""
+    """One run in a fresh scope with PADDLE_TPU_PALLAS_GRU set to
+    `ref_route`: each package's executor re-stamps every gru op (and
+    fwd_op copy) from that knob before it runs the program."""
     mod, _, lod_mod, _ = pkg
     exe = mod.Executor() if mod is pt else mod.Executor(place="cpu")
     feed = {k: (lod_mod.LoDTensor.from_sequences(v) if isinstance(v, list)
@@ -133,7 +135,7 @@ def _feed(state):
     return feed
 
 
-ROUTES = (("ref", "0"), ("ref", "force"), ("port", "1"), ("port", "0"))
+ROUTES = (("ref", "0"), ("ref", "force"), ("port", "force"), ("port", "0"))
 _RUNS = {}
 
 
@@ -165,7 +167,7 @@ def test_gru_op_routes_match_reference(reverse, state):
     assert json.loads(plain["ref"].desc.to_json()) == \
         json.loads(plain["port"].desc.to_json())
     for ref_route in ("0", "force"):
-        for port_route in ("1", "0"):
+        for port_route in ("force", "0"):
             for name, g, r in zip(fetch, out[("port", port_route)],
                                   out[("ref", ref_route)]):
                 _assert_same(g, r, f"{name}: port {port_route} vs "
@@ -194,8 +196,8 @@ def test_gru_zero_length_row_passes_h0_through(reverse):
                                        ("sigmoid", "relu")])
 def test_gru_other_activations_take_scan_route(gate, cand):
     """Activations other than sigmoid/tanh are ineligible for the kernel
-    in both packages: the port's "1" stamp runs its scan, equal to the
-    reference's."""
+    in both packages: the port's "force" stamp runs its scan, equal to
+    the reference's."""
     attrs = {"gate_activation": gate, "activation": cand}
     calls = []
     fused = fg.FusedGRU.apply
@@ -203,7 +205,8 @@ def test_gru_other_activations_take_scan_route(gate, cand):
                            lambda *a: calls.append(1) or fused(*a)):
         fetch, out, _ = _all_routes(True, attrs)
     assert not calls
-    for name, g, r in zip(fetch, out[("port", "1")], out[("ref", "force")]):
+    for name, g, r in zip(fetch, out[("port", "force")],
+                          out[("ref", "force")]):
         _assert_same(g, r, f"{gate}/{cand} {name}")
 
 

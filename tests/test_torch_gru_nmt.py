@@ -15,12 +15,17 @@ every pair of routes: the JAX package's scan (``PADDLE_TPU_PALLAS_GRU=0``)
 and its interpreted Pallas kernels (``force``; its executor's
 kernel_dispatch rewrite re-stamps the gru ops and the ``fwd_op`` copies
 from the knob when it compiles), against the port's fused-GRU plain
-twins (its default on CPU tensors) and its scan (``__pallas__="0"`` on
-every gru op and ``fwd_op`` copy).
+twins (``PADDLE_TPU_PALLAS_GRU=force``, which its executor stamps the
+same way; under the default "1" a CPU tensor takes the scan) and its scan
+(``__pallas__="0"`` on every gru op and ``fwd_op`` copy, knob "0").
 
 Then the port saves its trained program with ``io.save_inference_model``;
 ``paddle_tpu.io.load_inference_model`` loads that directory and runs it
 to the port's logits, and the port's own reload gives them bit for bit.
+The other direction: paddle_tpu saves a small fc model, which its native
+IR library writes as a PTIR binary ``__model__``; the port decodes it
+(``io.decode_ptir``) and fetches the same values, and a truncated or
+malformed file raises.
 
 Tolerances (float32 on the CPU, sums in another order): losses rtol
 1e-5; step-1 gradients atol 1e-5 * max|g| per parameter; final
@@ -152,11 +157,13 @@ def runs(tmp_path_factory):
     sequence_ops.fused_gru = lambda *a: calls.append(1) or fused(*a)
     try:
         kscope = ptt.Scope()
-        out["port_kernel"] = _train(ptt, port, LoDTensor, pexe, kscope, init)
+        with mock.patch.dict(os.environ, {"PADDLE_TPU_PALLAS_GRU": "force"}):
+            out["port_kernel"] = _train(ptt, port, LoDTensor, pexe, kscope,
+                                        init)
         out["kernel_route_calls"] = len(calls)
         # the trained program's inference model, then the logits one more
-        # run of it fetches: its forward reads the saved weights, before
-        # its own Adam update
+        # run of it fetches (under the default knob, as the reloads run):
+        # its forward reads the saved weights, before its own Adam update
         model_dir = str(tmp_path_factory.mktemp("gru_nmt") / "model")
         with ptt.scope_guard(kscope):
             ptt.io.save_inference_model(model_dir, ["src", "trg"],
@@ -169,8 +176,9 @@ def runs(tmp_path_factory):
                                     fetch_list=[port[2]["logits"]])
         calls.clear()
         _stamp(port[0], "0")
-        out["port_scan"] = _train(ptt, port, LoDTensor, pexe, ptt.Scope(),
-                                  init)
+        with mock.patch.dict(os.environ, {"PADDLE_TPU_PALLAS_GRU": "0"}):
+            out["port_scan"] = _train(ptt, port, LoDTensor, pexe,
+                                      ptt.Scope(), init)
         out["scan_route_calls"] = len(calls)
     finally:
         sequence_ops.fused_gru = fused
@@ -226,7 +234,7 @@ def test_final_params_match(runs, ref, port):
 
 def test_routes_ran_as_stamped(runs):
     """The JAX kernel route traced the Pallas kernel and its scan route
-    did not; the port's default route called FusedGRU for both gru ops
+    did not; the port's "force" route called FusedGRU for both gru ops
     and both __vjp__ replays in every step, the "0" stamp never; the CPU
     run launched no CUDA kernel."""
     from paddle_tpu_torch.ops import kernels
@@ -285,10 +293,59 @@ def test_port_inference_model_reloads_bitwise(runs):
     np.testing.assert_array_equal(got, want)
 
 
-def test_ptir_model_raises_naming_the_roadmap_item(tmp_path):
-    """A native PTIR __model__ (what the JAX package writes where its
-    native IR library builds) is refused, not skipped."""
-    (tmp_path / "__model__").write_bytes(b"PTIR\x01rest")
-    with pytest.raises(NotImplementedError, match="A4a"):
+def _fc_model(tmp_path):
+    """A two-layer fc classifier that paddle_tpu builds, initializes and
+    saves as an inference model into tmp_path: (feed, its fetches)."""
+    main, startup = pt.Program(), pt.Program()
+    with ref_framework.isolated_name_scope(), \
+            pt.program_guard(main, startup):
+        x = pt.layers.data("x", [6], dtype="float32")
+        hidden = pt.layers.fc(x, size=5, act="relu")
+        prob = pt.layers.fc(hidden, size=3, act="softmax")
+    feed = {"x": np.random.RandomState(5).randn(4, 6).astype(np.float32)}
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor()
+        exe.run(startup)
+        pt.io.save_inference_model(str(tmp_path), ["x"], [hidden, prob],
+                                   exe, main_program=main,
+                                   model_version="v7")
+        want = [np.asarray(v) for v in exe.run(
+            main, feed=feed, fetch_list=[hidden, prob])]
+    return feed, want
+
+
+def test_ptir_model_from_paddle_tpu_loads_with_equal_fetches(tmp_path):
+    """The native PTIR __model__ that paddle_tpu writes (its native IR
+    library builds here) loads in the port: the same feeds, fetches and
+    version, and the same fetched values on one feed."""
+    feed, want = _fc_model(tmp_path)
+    with open(tmp_path / "__model__", "rb") as f:
+        assert f.read(4) == b"PTIR", "paddle_tpu wrote no PTIR __model__"
+    assert not (tmp_path / "__model__.json").exists()
+    with ptt.scope_guard(ptt.Scope()):
+        exe = ptt.Executor(place="cpu")
+        prog, feeds, fetches, meta = ptt.io.load_inference_model(
+            str(tmp_path), exe, return_meta=True)
+        got = exe.run(prog, feed=feed, fetch_list=fetches)
+    assert feeds == ["x"] and meta["model_version"] == "v7"
+    assert meta["feed_specs"]["x"]["shape"] == [-1, 6]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("cut,match", [
+    (lambda b: b[:-3], "truncated"),
+    (lambda b: b[:5] + b"\x09" + b[6:], "unknown tag 9"),
+    (lambda b: b[:4] + b"\x02" + b[5:], "unsupported PTIR version 2"),
+])
+def test_ptir_model_truncated_or_malformed_raises(tmp_path, cut, match):
+    """A PTIR __model__ cut short, with an unknown value tag or of
+    another format version raises PTIRError naming the file and the
+    fault."""
+    _fc_model(tmp_path)
+    path = tmp_path / "__model__"
+    path.write_bytes(cut(path.read_bytes()))
+    with pytest.raises(ptt.io.PTIRError, match=match) as err:
         ptt.io.load_inference_model(str(tmp_path),
                                     ptt.Executor(place="cpu"))
+    assert str(path) in str(err.value)

@@ -8,12 +8,13 @@ the ragged LoDTensor feeds of tests/test_models.py (lengths 5, 3, 7, 2) give
 the same losses, step-1 gradients and final parameters on every pair of
 routes: the JAX package's scan (its CPU default) and its interpreted
 Pallas kernels (``__pallas__="force"``), against the port's fused-LSTM
-plain twin (its default on CPU tensors) and its scan (``__pallas__="0"``).
-Each stamp reaches the lstm ops and the ``fwd_op`` copies of their
-``__vjp__`` ops. The JAX executor's kernel_dispatch rewrite re-stamps
-both from PADDLE_TPU_PALLAS_LSTM when it compiles, so its runs set that
-knob to the route as well, and the test checks that the kernel route
-traced the Pallas kernel and the scan route did not.
+plain twin (``PADDLE_TPU_PALLAS_LSTM=force``: under the default "1" a CPU
+tensor takes the scan, as the reference does off a TPU) and its scan
+(``__pallas__="0"`` under the knob "0"). Each stamp reaches the lstm ops
+and the ``fwd_op`` copies of their ``__vjp__`` ops. Both executors
+re-stamp both from PADDLE_TPU_PALLAS_LSTM before a run, so every run
+sets that knob to its route as well, and the test checks that the
+kernel route traced the Pallas kernel and the scan route did not.
 
 Tolerances (float32 on the CPU, sums in another order; measured gaps in
 parentheses): losses rtol 1e-5 (6.1e-8); step-1 gradients atol 1e-5 *
@@ -121,10 +122,13 @@ def runs():
     fused = sequence_ops.fused_lstm
     sequence_ops.fused_lstm = lambda *a: calls.append(1) or fused(*a)
     try:
-        out["port_kernel"] = _train(ptt, port, LoDTensor, pexe, init)
+        with mock.patch.dict(os.environ,
+                             {"PADDLE_TPU_PALLAS_LSTM": "force"}):
+            out["port_kernel"] = _train(ptt, port, LoDTensor, pexe, init)
         out["kernel_route_calls"] = len(calls)
         _stamp(port[0], "0")
-        out["port_scan"] = _train(ptt, port, LoDTensor, pexe, init)
+        with mock.patch.dict(os.environ, {"PADDLE_TPU_PALLAS_LSTM": "0"}):
+            out["port_scan"] = _train(ptt, port, LoDTensor, pexe, init)
         out["scan_route_calls"] = len(calls) - out["kernel_route_calls"]
     finally:
         sequence_ops.fused_lstm = fused
@@ -176,7 +180,7 @@ def test_final_params_match(runs, ref, port):
 
 def test_routes_ran_as_stamped(runs):
     """The JAX kernel route traced the Pallas kernel and its scan route
-    did not; the port's default route called FusedLSTM for both lstm
+    did not; the port's "force" route called FusedLSTM for both lstm
     ops and both __vjp__ replays in every step, the "0" stamp never; the
     CPU run launched no CUDA kernel."""
     from paddle_tpu_torch.ops import kernels

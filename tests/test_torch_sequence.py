@@ -10,8 +10,13 @@ against paddle_tpu, each as a small program run in both executors.
   lengths), over a batch with a zero-length row.
 - lstm on both of each package's routes: the JAX scan and interpreted
   Pallas kernel (``__pallas__="force"``) against the port's fused-LSTM
-  plain twin (``"1"``) and its scan (``"0"``), with is_reverse and
+  plain twin (``"force"``) and its scan (``"0"``), with is_reverse and
   H0/C0; peepholes on the scan route.
+- A stamp that the knob overrides (ROADMAP C4): an lstm op stamped "0"
+  takes the kernel route under PADDLE_TPU_PALLAS_LSTM=force in both
+  packages (both executors re-stamp it), the scan under "0", and the
+  scan under the default "1" on the CPU (the kernel needs a TPU in the
+  reference, a CUDA card in the port).
 - The zero-length-row discrepancy of the reference: on the kernel route
   a zero-length row's LastH cotangent does not reach H0 (the kernel
   zeroes dh where the row is not alive), on the scan route it passes
@@ -74,10 +79,9 @@ def _program(pkg, vars_, ops, loss=None, wrt=()):
 
 
 def _run(pkg, main, feed, fetch, ref_route="0"):
-    """Run `main` once in a fresh scope. A JAX run sets
-    PADDLE_TPU_PALLAS_LSTM to `ref_route`: its executor's kernel_dispatch
-    rewrite re-stamps every lstm op (and fwd_op copy) from that knob when
-    it compiles."""
+    """Run `main` once in a fresh scope with PADDLE_TPU_PALLAS_LSTM set to
+    `ref_route`: each package's executor re-stamps every lstm op (and
+    fwd_op copy) from that knob before it runs the program."""
     mod, _, lod_mod, _ = pkg
     exe = mod.Executor() if mod is pt else mod.Executor(place="cpu")
     feed = {k: (lod_mod.LoDTensor.from_sequences(v) if isinstance(v, list)
@@ -246,7 +250,8 @@ def test_lstm_op_routes_match_reference(reverse, state):
     the lengths); the unstamped programs serialize equally."""
     vars_, feed = _lstm_vars(state), _lstm_feed(state)
     out, mains = {}, {}
-    for pkg, routes in ((REF, (None, "force")), (PORT, (None, "1", "0"))):
+    for pkg, routes in ((REF, (None, "force")),
+                        (PORT, (None, "force", "0"))):
         for route in routes:
             attrs = {"is_reverse": reverse}
             if route is not None:
@@ -258,7 +263,7 @@ def test_lstm_op_routes_match_reference(reverse, state):
                                   ref_route=route or "0")
     _json_equal(mains[(False, None)], mains[(True, None)])
     for ref_route in (None, "force"):
-        for port_route in ("1", "0"):
+        for port_route in ("force", "0"):
             for name, g, r in zip(LSTM_FETCH, out[port_route],
                                   out[ref_route]):
                 _assert_same(g, r, f"{name}: port {port_route} vs "
@@ -272,9 +277,10 @@ def test_lstm_peepholes_take_scan_route():
     attrs = {"is_reverse": True, "use_peepholes": True}
     ref = _run(REF, _program(REF, vars_, [_lstm_op(True, attrs)]), feed,
                LSTM_FETCH)
-    for route in ("1", "0"):
+    for route in ("force", "0"):
         got = _run(PORT, _program(PORT, vars_, [_lstm_op(
-            True, dict(attrs, __pallas__=route))]), feed, LSTM_FETCH)
+            True, dict(attrs, __pallas__=route))]), feed, LSTM_FETCH,
+            ref_route=route)
         for name, g, r in zip(LSTM_FETCH, got, ref):
             _assert_same(g, r, f"peepholes {name} (port {route})")
 
@@ -286,21 +292,48 @@ def test_lstm_zero_length_row_last_state_gradient():
     each route of paddle_tpu (ROADMAP Queue C)."""
     vars_, feed = _lstm_vars(True), _lstm_feed(True)
     grads = {}
-    for pkg, routes in ((REF, ("0", "force")), (PORT, ("0", "1"))):
+    for pkg, routes in ((REF, ("0", "force")), (PORT, ("0", "force"))):
         for route in routes:
             main = _program(pkg, vars_, [_lstm_op(
                 True, {"__pallas__": route})], loss="last_h", wrt=["h0"])
             grads[(pkg is PORT, route)] = np.asarray(
                 _run(pkg, main, feed, ["h0@GRAD"], ref_route=route)[0])
     zero_row = LSTM_LENGTHS.index(0)
-    for port_route, ref_route in (("0", "0"), ("1", "force")):
+    for port_route, ref_route in (("0", "0"), ("force", "force")):
         np.testing.assert_allclose(grads[(True, port_route)],
                                    grads[(False, ref_route)], rtol=0,
                                    atol=ATOL)
     np.testing.assert_array_equal(grads[(True, "0")][zero_row],
                                   np.ones(H, np.float32))
-    np.testing.assert_array_equal(grads[(True, "1")][zero_row],
+    np.testing.assert_array_equal(grads[(True, "force")][zero_row],
                                   np.zeros(H, np.float32))
     live = [i for i, n in enumerate(LSTM_LENGTHS) if n]
-    np.testing.assert_allclose(grads[(True, "1")][live],
+    np.testing.assert_allclose(grads[(True, "force")][live],
                                grads[(True, "0")][live], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("knob,dh0", [("force", 0.0), ("0", 1.0),
+                                      ("1", 1.0)])
+def test_lstm_stamp_follows_the_knob_as_in_reference(knob, dh0):
+    """ROADMAP C4: an lstm op stamped __pallas__="0" (one zero-length row)
+    takes the route of PADDLE_TPU_PALLAS_LSTM in both packages, as the
+    reference's kernel_dispatch rewrite decides it: "force" re-stamps it
+    to the kernel route (the reference interprets its Pallas kernel, the
+    port runs the plain twin), so the zero-length row's d sum(LastH) /
+    d H0 is 0 (C2); "0" keeps the scan, where it is 1; the default "1"
+    re-stamps it, but on the CPU both take the scan (the reference's
+    kernel needs a TPU, the port's a CUDA card). The caller's program
+    keeps its "0" stamp."""
+    vars_, feed = _lstm_vars(True), _lstm_feed(True)
+    zero_row = LSTM_LENGTHS.index(0)
+    got = {}
+    for pkg in (REF, PORT):
+        main = _program(pkg, vars_, [_lstm_op(True, {"__pallas__": "0"})],
+                        loss="last_h", wrt=["h0"])
+        got[pkg is PORT] = np.asarray(
+            _run(pkg, main, feed, ["h0@GRAD"], ref_route=knob)[0])
+        assert [op.attrs.get("__pallas__") for op in main.desc.global_block
+                .ops if op.type == "lstm"] == ["0"]
+    np.testing.assert_allclose(got[True], got[False], rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got[True][zero_row],
+                                  np.full(H, dh0, np.float32))
