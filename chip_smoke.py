@@ -16,11 +16,14 @@ Phases (any failure exits non-zero; nothing is caught):
      zero-length rows, initial states and last-state cotangents for the
      fused LSTM and the fused GRU; of the ResNet-50 bottleneck shapes,
      ragged row tiles, 1x1 images, odd channel counts, the affine, ReLU
-     and statistics on and off for the fused convs), with times: kernel,
-     plain, library (one PyTorch call computing the same function, a
-     yardstick the port never calls; for the GRU, which no PyTorch call
-     computes, torch.nn.GRU at the same shape as a same-FLOP yardstick)
-     and the card's lower bound for the work.
+     and statistics on and off for the fused convs; of the ResNet-50
+     stages 2-4 at tiles 1, 2 and 4, 1x1 and 3x3 images, Cm 64, groups
+     off the row tile, float32 and bfloat16 and the four variants for the
+     ghost-BN bottleneck megakernel, which phases 11-12 time), with
+     times: kernel, plain, library (one PyTorch call computing the same
+     function, a yardstick the port never calls; for the GRU, which no
+     PyTorch call computes, torch.nn.GRU at the same shape as a same-FLOP
+     yardstick) and the card's lower bound for the work.
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -80,9 +83,21 @@ Phases (any failure exits non-zero; nothing is caught):
      against cuDNN convolutions with the port's batch_norm, held together
      after one block and after all, timed per block; both kernels must
      launch there.
- 11. JSON lines of the kernels, serving, the three earlier trainings,
-     MNIST, ResNet-50 and the conv chain, then, last, the JSON result
-     line.
+ 11. the megakernel chain of benchmarks/block_megakernel_ab.py: 8
+     stacked identity bottlenecks at ResNet-50 stages 2-4 (batch 128),
+     bfloat16 and float32, tiles 1, 2 and 4, as three arms: batch-BN
+     (cuDNN + the port's batch_norm in float32), ghost composed (the
+     plain twin) and the megakernel, held against the twin after one
+     block and after all (a rerun bitwise equal), and at tile = N = 4
+     against the batch-BN arm; timed per block; the megakernel must
+     launch there.
+ 12. the roll micro of benchmarks/megakernel_roll_micro.py: stage 2,
+     tile 2, bfloat16, 8 blocks of each variant (full, strided, nobn,
+     noroll) held against its twin and timed; full - noroll is the cost
+     of the shifts and masks, full - nobn that of the statistics.
+ 13. JSON lines of the kernels, serving, the three earlier trainings,
+     MNIST, ResNet-50, the conv chain, the megakernel chain and the roll
+     micro, then, last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -112,6 +127,7 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain, float32: the two sum the same terms in another order
 # (tiles of 64 keys, online rescaling), so they agree to ~1e-6; a wrong
@@ -287,6 +303,54 @@ CONV_CHAIN_BLOCKS = 8
 # statistic or coefficient moves either by O(1).
 CHAIN_ONE_BLOCK_RTOL = 1e-4
 CHAIN_NORM_RTOL = 1e-3
+
+# the ghost-BN bottleneck megakernel (paddle_tpu/ops/pallas/
+# block_megakernel.py) at the stages of benchmarks/block_megakernel_ab.py
+# :133-137, batch 128: (label, images, Cin, Cm, side), tiles of :81, L
+# blocks of :30; bfloat16 (the benchmark's dtype) and float32
+MEGA_STAGES = [("stage2", 128, 512, 128, 28), ("stage3", 128, 1024, 256, 14),
+               ("stage4", 128, 2048, 512, 7)]
+MEGA_TILES = (1, 2, 4)
+MEGA_BLOCKS = 8
+MEGA_DTYPES = ("bf16", "f32")
+# the kernel table's rows: stage 2 at the micro's tile 2, bfloat16
+MEGA_MAIN_CASE = ("stage2", 2, "bf16")
+# the sweep beyond the stages: (label, images, side, Cin, Cm, tile): the
+# CPU tests' 6x6 shape at tile 1 and 2, a 1x1 image (every off-centre tap
+# masked), 3x3 images, Cm 64 (which the reference's 128-lane rule cannot
+# build), and groups of 200 rows (not a multiple of the 128-row tile)
+# with an uneven Cm
+MEGA_COVERAGE_CASES = [("cpu6x6t1", 4, 6, 256, 128, 1),
+                       ("cpu6x6t2", 4, 6, 256, 128, 2),
+                       ("img1x1", 8, 1, 64, 64, 4),
+                       ("img3x3", 8, 3, 128, 64, 2),
+                       ("cm64", 16, 14, 256, 64, 1),
+                       ("g200", 4, 10, 96, 40, 2)]
+# megakernel vs its plain twin (and vs the composed arms), float32: the
+# same products summed in another order and renormalized by three ghost
+# BNs; after one block max |diff| <= 1e-4 * max|twin| (an H100 run of
+# this script: <= 1.72e-6, 7.8e-6 at 4-row groups), after L blocks the
+# 2-norm of the difference <= 1e-3 of the output's
+# (CHAIN_ONE_BLOCK_RTOL, CHAIN_NORM_RTOL). bfloat16, one block: both round the taps, h2 and y
+# at the same points, but a value the two summation orders put on either
+# side of a rounding boundary rounds one ulp apart, and the output's own
+# rounding adds one more: 2 ulps of max|twin| (2 * 2^-7 * max). A wrong
+# tap, mask or statistic moves either by O(1e-1) or more.
+MEGA_BF16_RTOL = 2 * 2.0 ** -7
+# bfloat16, after L blocks: each block's ghost BNs renormalize the
+# one-ulp flips of the blocks before, so the kernel-vs-twin gap grows
+# with depth, the more the smaller the group (an H100 run of this
+# script: 1.611e-2 of the 2-norm at stage 4, tile 1, 49-row groups).
+# Both are roundings of one float32 chain, so the kernel must sit closer
+# to the twin than the twin sits to that chain (the same bfloat16 inputs
+# and weights through the twin in float32): gap <= this factor times
+# the twin's own rounding noise (H100 runs: gaps 0.63-0.81 of it; the
+# two agree on most roundings, so they sit closer than two independent
+# roundings would).
+MEGA_BF16_NOISE_FACTOR = 1.0
+# ghost BN with tile = N is full-batch BN: the kernel at batch 4 and
+# stage-2 widths (tile 4, float32) against cuDNN + the port's batch_norm
+MEGA_BATCH_BN_CASE = (4, 512, 128, 28)
 
 # MNIST conv (models/mnist.py build_train(net="conv"), Adam lr 1e-3) at
 # batch 64, 5 steps, card against the port's CPU path
@@ -1341,6 +1405,22 @@ def hold_step1_grads(main, startup, loss, weights, feed, params, flash,
     return worst, by_noise
 
 
+def device_kernels(prof):
+    """(name, device ms, launches) of each device kernel a
+    torch.profiler run recorded."""
+    import torch
+    rows = []
+    for e in prof.key_averages():
+        # device_time_total is the newer name of cuda_time_total
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if getattr(e, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    return rows
+
+
 def profile_step(main, startup, loss, weights, feed, card, label="flash"):
     """One more step of `main` (the `label` route) under torch.profiler
     (after a warm-up step), for where its device time goes: the kernels
@@ -1358,15 +1438,7 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
         t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device_time_total is the newer name of cuda_time_total
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        if getattr(e, "device_type", None) == \
-                torch.autograd.DeviceType.CUDA and us > 0:
-            rows.append((e.key, us / 1e3, e.count))
+    rows = device_kernels(prof)
     busy_ms = sum(r[1] for r in rows)
     print(f"[{card}] profiled {label} step: {wall_ms:.1f} ms wall, "
           f"{busy_ms:.1f} ms of device kernels "
@@ -2053,9 +2125,11 @@ def _chain_params(gen, big, small, blocks):
 
 
 def composed_chain(x, params):
-    """The bottleneck blocks in NCHW: cuDNN F.conv2d, then the port's
-    batch_norm op (train mode: single-pass statistics, the affine), ReLU,
-    and the residual join."""
+    """The bottleneck blocks in NCHW: cuDNN F.conv2d in x's dtype, then
+    the port's batch_norm op in float32 (train mode: full-batch
+    single-pass statistics, the affine), ReLU, the residual join in
+    float32, and a cast back to x's dtype after each activation, as
+    block_megakernel_ab.py:39-58 does (no casts in float32)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.core.ir import OpDesc
@@ -2074,10 +2148,13 @@ def composed_chain(x, params):
         return run_op(bn_op, {"x": t, "s": scale, "b": bias, "m": zeros,
                               "v": zeros})["y"]
 
+    dt = x.dtype
     for (w1, w2, w3), _, bns in params:
-        t = torch.relu(bn(F.conv2d(x, w1), bns[0], bns[1]))
-        t = torch.relu(bn(F.conv2d(t, w2, padding=1), bns[2], bns[3]))
-        x = torch.relu(bn(F.conv2d(t, w3), bns[4], bns[5]) + x)
+        t = torch.relu(bn(F.conv2d(x, w1).float(), bns[0], bns[1])).to(dt)
+        t = torch.relu(bn(F.conv2d(t, w2, padding=1).float(), bns[2],
+                          bns[3])).to(dt)
+        x = torch.relu(bn(F.conv2d(t, w3).float(), bns[4], bns[5])
+                       + x.float()).to(dt)
     return x
 
 
@@ -2178,6 +2255,399 @@ def conv_chain(card):
     return {"card": card, "stages": rows}, launches
 
 
+def megakernel_bound(n, hw, cin, cm, dtype):
+    """Least time of one bottleneck block on this card: bytes (x read and
+    y written once, the weights in the data type, the three BNs' [2, C]
+    float32 rows read once) over HBM rate vs 2*N*H*W*Cm*(2*Cin + 9*Cm)
+    FLOP over the type's peak (bfloat16 tensor cores, float32 FMA)."""
+    size = 2 if dtype == "bf16" else 4
+    t_bytes = ((2 * n * hw * cin + 2 * cin * cm + 9 * cm * cm) * size
+               + 2 * (2 * cm + cin) * 4) / HBM_BYTES_PER_S
+    rate = BF16_FLOPS_PER_S if dtype == "bf16" else FP32_FLOPS_PER_S
+    t_ops = 2.0 * n * hw * cm * (2 * cin + 9 * cm) / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _torch_dtype(dtype):
+    import torch
+    return torch.bfloat16 if dtype == "bf16" else torch.float32
+
+
+def _mega_inputs(gen, n, side, cin, cm, blocks, random_bn):
+    """float32 x [N, side*side, Cin] (randn * 0.5) and `blocks` blocks of
+    (w1 [Cin, Cm], w3 [9, Cm, Cm], w2 [Cm, Cin]) drawn randn / sqrt(fan
+    in) as block_megakernel_ab.py:86-96 draws them, with the three BNs
+    [2, C]: (1, 0) rows as the benchmark's, or gamma in [0.5, 1.5) and
+    beta 0.1 * randn."""
+    import torch
+    x = torch.randn(n, side * side, cin, device=DEVICE, generator=gen) * 0.5
+    params = []
+    for _ in range(blocks):
+        ws = (torch.randn(cin, cm, device=DEVICE, generator=gen) / cin ** 0.5,
+              torch.randn(9, cm, cm, device=DEVICE, generator=gen)
+              / (9 * cm) ** 0.5,
+              torch.randn(cm, cin, device=DEVICE, generator=gen) / cm ** 0.5)
+        bns = []
+        for c in (cm, cm, cin):
+            if random_bn:
+                bns.append(torch.stack([
+                    torch.rand(c, device=DEVICE, generator=gen) + 0.5,
+                    torch.randn(c, device=DEVICE, generator=gen) * 0.1]))
+            else:
+                bns.append(torch.stack([torch.ones(c, device=DEVICE),
+                                        torch.zeros(c, device=DEVICE)]))
+        params.append((ws, bns))
+    return x, params
+
+
+def _cast(params, dtype):
+    """The weights of `params` in dtype (the BN rows stay float32)."""
+    dt = _torch_dtype(dtype)
+    return [(tuple(w.to(dt) for w in ws), bns) for ws, bns in params]
+
+
+def _gaps(got, want):
+    """(max |got - want|, that over max|want|, the 2-norm of got - want
+    over want's), in float32."""
+    import torch
+    d = got.float() - want.float()
+    return (float(d.abs().max()), float(d.abs().max())
+            / float(want.float().abs().max()),
+            float(torch.linalg.vector_norm(d))
+            / float(torch.linalg.vector_norm(want.float())))
+
+
+def _norm_limit(dtype, twin, float32_chain):
+    """The 2-norm gap a kernel chain may keep from its twin's output
+    `twin` after MEGA_BLOCKS blocks: CHAIN_NORM_RTOL in float32; in
+    bfloat16 MEGA_BF16_NOISE_FACTOR times the twin's own distance from
+    `float32_chain`, the same chain run by the twin in float32."""
+    if dtype == "f32":
+        return CHAIN_NORM_RTOL
+    return MEGA_BF16_NOISE_FACTOR * _gaps(twin, float32_chain)[2]
+
+
+def check_megakernel(card):
+    """Phase 2's rows of the megakernel: bottleneck_block (variant full)
+    and roll_micro_block (every variant) against their plain twins on the
+    card, in both dtypes, with random BN rows, over MEGA_STAGES x
+    MEGA_TILES and MEGA_COVERAGE_CASES (the variants at the coverage
+    shapes and at stage 2 tile 2). Returns the worst absolute error of
+    each kernel."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import block_megakernel as bm
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    cases = [(f"{label} t{tile}", n, side, cin, cm, tile)
+             for label, n, cin, cm, side in MEGA_STAGES
+             for tile in MEGA_TILES] + list(MEGA_COVERAGE_CASES)
+    worst = {"block_megakernel": 0.0, "megakernel_roll_micro": 0.0}
+    for label, n, side, cin, cm, tile in cases:
+        x32, params = _mega_inputs(gen, n, side, cin, cm, 1, True)
+        variants = bm.VARIANTS if not label.startswith("stage") or \
+            label == "stage2 t2" else ()
+        errs = {}
+        for dtype in MEGA_DTYPES:
+            (ws, bns), = _cast(params, dtype)
+            x = x32.to(_torch_dtype(dtype))
+            limit = MEGA_BF16_RTOL if dtype == "bf16" else \
+                CHAIN_ONE_BLOCK_RTOL
+            runs = [("block_megakernel", "full",
+                     bm.bottleneck_block(x, *ws, *bns, side, side, tile),
+                     bm.bottleneck_block_plain(x, *ws, *bns, side, side,
+                                               tile))]
+            flat = x.reshape(-1, cin)
+            for variant in variants:
+                runs.append(("megakernel_roll_micro", variant,
+                             bm.roll_micro_block(flat, *ws, *bns, variant,
+                                                 side, tile),
+                             bm.roll_micro_block_plain(flat, *ws, *bns,
+                                                       variant, side, tile)))
+            torch.cuda.synchronize()
+            for name, variant, got, want in runs:
+                if got.dtype != x.dtype or got.shape != want.shape:
+                    raise SystemExit(f"{name} {variant} {label} {dtype}: "
+                                     f"returned {got.dtype} "
+                                     f"{tuple(got.shape)}")
+                abs_err, rel, _ = _gaps(got, want)
+                worst[name] = max(worst[name], abs_err)
+                errs[dtype] = max(errs.get(dtype, 0.0), rel)
+                if not rel <= limit:
+                    raise SystemExit(
+                        f"{name} {variant} disagrees with its plain twin at "
+                        f"{label} (N {n}, {side}x{side}, Cin {cin}, Cm {cm}, "
+                        f"tile {tile}) in {dtype}: max |diff| {rel:.3e} * "
+                        f"max|twin| > {limit:.1e}")
+        print(f"[{card}] megakernel {label} (N {n}, {side}x{side}, {cin}->"
+              f"{cm}, tile {tile}): full"
+              + (f" and {len(variants)} variants" if variants else "")
+              + " equal the plain twins, worst max |diff| "
+              + ", ".join(f"{dt} {e:.3e}" for dt, e in errs.items())
+              + " * max|twin|", flush=True)
+    return worst
+
+
+def _mega_nchw(params):
+    """composed_chain's parameters for the same blocks: the NCHW/OIHW
+    views of the weights as block_megakernel_ab.py:98-103 takes them
+    (pack_w3x3 must undo the 3x3 view exactly) and the BN rows."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.fused_conv import pack_w3x3
+    out = []
+    for (w1, w3, w2), bns in params:
+        cin, cm = w1.shape
+        w3n = w3.reshape(3, 3, cm, cm).permute(3, 2, 0, 1).contiguous()
+        if not torch.equal(pack_w3x3(w3n), w3.reshape(9 * cm, cm)):
+            raise SystemExit("pack_w3x3 does not undo the OIHW view of w3")
+        out.append(((w1.t().reshape(cm, cin, 1, 1).contiguous(), w3n,
+                     w2.t().reshape(cin, cm, 1, 1).contiguous()), None,
+                    [bns[0][0], bns[0][1], bns[1][0], bns[1][1], bns[2][0],
+                     bns[2][1]]))
+    return out
+
+
+def _nchw(x, side):
+    return x.reshape(x.shape[0], side, side, -1).permute(0, 3, 1, 2) \
+        .contiguous()
+
+
+def mega_chain(x, params, side, tile, plain=False):
+    """The blocks through bottleneck_block (or its plain twin)."""
+    from paddle_tpu_torch.ops.kernels import block_megakernel as bm
+    fn = bm.bottleneck_block_plain if plain else bm.bottleneck_block
+    for ws, bns in params:
+        x = fn(x, *ws, *bns, side, side, tile)
+    return x
+
+
+def profile_chain(card, fn, blocks, label):
+    """One more call of fn (after a warm-up) under torch.profiler: each
+    device kernel's time and launches per block, and their sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((dict(name=key[:120], ms=ms / blocks, count=n / blocks)
+                   for key, ms, n in device_kernels(prof)),
+                  key=lambda r: -r["ms"])
+    total = sum(r["ms"] for r in rows)
+    print(f"[{card}] profiled {label}: {total:.4f} ms of device kernels a "
+          "block", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.4f} ms {r['count']:5.1f}x  {r['name'][:90]}",
+              flush=True)
+    return dict(device_ms_per_block=total, kernels=rows)
+
+
+def megakernel_chain(card):
+    """Phase 11: benchmarks/block_megakernel_ab.py's arms on
+    MEGA_BLOCKS stacked identity bottlenecks at each MEGA_STAGES stage
+    (batch 128), in each dtype, on the same seeded input and weights:
+    batch-BN (composed_chain: cuDNN in the dtype, the port's full-batch
+    batch_norm in float32), ghost composed (the plain twin on the card)
+    and the megakernel, at tiles MEGA_TILES. The megakernel is held
+    against the twin after 1 block and after all, and its rerun must be
+    bitwise equal; at MEGA_BATCH_BN_CASE (tile = N, float32) it is held
+    against the batch-BN arm. Launch counts are set to 0 before the
+    first check and read after the last; then each arm is timed per
+    block."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    kernels.reset_launch_counts()
+    stages = []
+    for label, n, cin, cm, side in MEGA_STAGES:
+        x32, params32 = _mega_inputs(gen, n, side, cin, cm, MEGA_BLOCKS,
+                                     False)
+        for dtype in MEGA_DTYPES:
+            x = x32.to(_torch_dtype(dtype))
+            params = _cast(params32, dtype)
+            one_rtol = MEGA_BF16_RTOL if dtype == "bf16" else \
+                CHAIN_ONE_BLOCK_RTOL
+            checks = {}
+            for tile in MEGA_TILES:
+                one = _gaps(mega_chain(x, params[:1], side, tile),
+                            mega_chain(x, params[:1], side, tile, True))
+                got = mega_chain(x, params, side, tile)
+                rerun = mega_chain(x, params, side, tile)
+                twin = mega_chain(x, params, side, tile, True)
+                every = _gaps(got, twin)
+                all_rtol = _norm_limit(dtype, twin, mega_chain(
+                    x.float(), _cast(params, "f32"), side, tile, True))
+                bitwise = bool(torch.equal(got, rerun))
+                if not (one[1] <= one_rtol and every[2] <= all_rtol
+                        and bitwise):
+                    raise SystemExit(
+                        f"megakernel chain {label} {dtype} tile {tile}: "
+                        f"after 1 block max |diff| {one[1]:.3e} * max "
+                        f"(limit {one_rtol:.1e}), after {MEGA_BLOCKS} "
+                        f"2-norm gap {every[2]:.3e} (limit {all_rtol:.3e}),"
+                        f" rerun bitwise equal: {bitwise}")
+                checks[tile] = dict(one_block_max_diff_frac=one[1],
+                                    all_blocks_norm_gap=every[2],
+                                    all_blocks_norm_limit=all_rtol,
+                                    bitwise_rerun=bitwise)
+            stages.append((label, n, cin, cm, side, dtype, x, params,
+                           checks))
+    # ghost BN at tile = N is full-batch BN: the kernel against cuDNN +
+    # the port's batch_norm
+    n, cin, cm, side = MEGA_BATCH_BN_CASE
+    x4, params4 = _mega_inputs(gen, n, side, cin, cm, MEGA_BLOCKS, False)
+    nchw4 = _mega_nchw(params4)
+    batch_bn = {}
+    for depth in (1, MEGA_BLOCKS):
+        want = composed_chain(_nchw(x4, side), nchw4[:depth]).permute(
+            0, 2, 3, 1).reshape(x4.shape)
+        batch_bn[depth] = _gaps(mega_chain(x4, params4[:depth], side, n),
+                                want)
+    if not (batch_bn[1][1] <= CHAIN_ONE_BLOCK_RTOL
+            and batch_bn[MEGA_BLOCKS][2] <= CHAIN_NORM_RTOL):
+        raise SystemExit(f"megakernel at tile = N = {n} vs full-batch BN: "
+                         f"after 1 block max |diff| {batch_bn[1][1]:.3e} * "
+                         f"max, after {MEGA_BLOCKS} 2-norm gap "
+                         f"{batch_bn[MEGA_BLOCKS][2]:.3e}")
+    print(f"[{card}] megakernel tile = N = {n} (Cin {cin}, Cm {cm}, {side}x"
+          f"{side}, float32) vs cuDNN + batch_norm: after 1 block max |diff|"
+          f" {batch_bn[1][1]:.3e} * max, after {MEGA_BLOCKS} 2-norm gap "
+          f"{batch_bn[MEGA_BLOCKS][2]:.3e}", flush=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["block_megakernel"] == 0:
+        raise SystemExit("kernel block_megakernel was not launched on the "
+                         "megakernel chain")
+    rows = {}
+    for label, n, cin, cm, side, dtype, x, params, checks in stages:
+        nchw = _mega_nchw(params)
+        xn = _nchw(x, side)
+        bound_ms, bound_by = megakernel_bound(n, side * side, cin, cm, dtype)
+        row = dict(images=n, cin=cin, cm=cm, side=side, blocks=MEGA_BLOCKS,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   batch_bn_ms=cuda_ms(lambda: composed_chain(xn, nchw),
+                                       iters=3, warmup=1) / MEGA_BLOCKS,
+                   tiles={})
+        for tile in MEGA_TILES:
+            mega = cuda_ms(lambda: mega_chain(x, params, side, tile),
+                           iters=3, warmup=1) / MEGA_BLOCKS
+            ghost = cuda_ms(lambda: mega_chain(x, params, side, tile, True),
+                            iters=3, warmup=1) / MEGA_BLOCKS
+            row["tiles"][tile] = dict(mega_ms=mega, ghost_ms=ghost,
+                                      **checks[tile])
+            print(f"[{card}] megakernel chain {label} {dtype} tile {tile} "
+                  f"(N {n}, {cin}->{cm}->{cin} @ {side}x{side}, "
+                  f"{MEGA_BLOCKS} blocks): megakernel {mega:.4f} ms/block, "
+                  f"ghost composed {ghost:.4f}, batch-BN "
+                  f"{row['batch_bn_ms']:.4f}, bound {bound_ms:.4f} "
+                  f"({bound_by}; kernel at {100 * bound_ms / mega:.1f}% of "
+                  f"it); vs twin after 1 block "
+                  f"{checks[tile]['one_block_max_diff_frac']:.3e} * max, "
+                  f"after {MEGA_BLOCKS} 2-norm gap "
+                  f"{checks[tile]['all_blocks_norm_gap']:.3e} (limit "
+                  f"{checks[tile]['all_blocks_norm_limit']:.3e}), rerun "
+                  f"bitwise equal", flush=True)
+        if (label, dtype) == (MEGA_MAIN_CASE[0], MEGA_MAIN_CASE[2]):
+            tile = MEGA_MAIN_CASE[1]
+            row["profiled"] = profile_chain(
+                card, lambda: mega_chain(x, params, side, tile), MEGA_BLOCKS,
+                f"megakernel chain {label} {dtype} tile {tile}")
+        rows.setdefault(label, {})[dtype] = row
+        del nchw, xn
+    del stages
+    print(f"[{card}] megakernel chain kernel launches {launches}",
+          flush=True)
+    return {"card": card, "stages": rows,
+            "batch_bn_check": {"images": n, "tile": n,
+                               "one_block_max_diff_frac": batch_bn[1][1],
+                               "all_blocks_norm_gap":
+                                   batch_bn[MEGA_BLOCKS][2]}}, launches
+
+
+def micro_chain(x, params, variant, side, tile, plain=False):
+    """The blocks of one micro variant through roll_micro_block (or its
+    plain twin), on x [N*side*side, Cin]."""
+    from paddle_tpu_torch.ops.kernels import block_megakernel as bm
+    fn = bm.roll_micro_block_plain if plain else bm.roll_micro_block
+    for ws, bns in params:
+        x = fn(x, *ws, *bns, variant, side, tile)
+    return x
+
+
+def roll_micro(card):
+    """Phase 12: benchmarks/megakernel_roll_micro.py at its shapes (stage
+    2, batch 128, tile 2, bfloat16, (1, 0) BN rows, MEGA_BLOCKS blocks):
+    each variant held against its own plain twin after 1 block and after
+    all, then timed per block (kernel and twin). The gaps split the cost:
+    full - noroll is the shifts and masks, full - nobn the statistics.
+    Launch counts are set to 0 before the first check and read after the
+    last."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.block_megakernel import VARIANTS
+    label, n, cin, cm, side = MEGA_STAGES[0]
+    tile, dtype = 2, "bf16"
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    x32, params32 = _mega_inputs(gen, n, side, cin, cm, MEGA_BLOCKS, False)
+    x = x32.to(_torch_dtype(dtype)).reshape(n * side * side, cin)
+    params = _cast(params32, dtype)
+    kernels.reset_launch_counts()
+    checks = {}
+    for variant in VARIANTS:
+        one = _gaps(micro_chain(x, params[:1], variant, side, tile),
+                    micro_chain(x, params[:1], variant, side, tile, True))
+        twin = micro_chain(x, params, variant, side, tile, True)
+        every = _gaps(micro_chain(x, params, variant, side, tile), twin)
+        limit = _norm_limit(dtype, twin, micro_chain(
+            x.float(), _cast(params, "f32"), variant, side, tile, True))
+        if not (one[1] <= MEGA_BF16_RTOL and every[2] <= limit):
+            raise SystemExit(f"roll micro {variant}: after 1 block max "
+                             f"|diff| {one[1]:.3e} * max (limit "
+                             f"{MEGA_BF16_RTOL:.1e}), after {MEGA_BLOCKS} "
+                             f"2-norm gap {every[2]:.3e} (limit "
+                             f"{limit:.3e})")
+        checks[variant] = (one, every, limit)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["megakernel_roll_micro"] == 0:
+        raise SystemExit("kernel megakernel_roll_micro was not launched on "
+                         "the roll micro")
+    bound_ms, bound_by = megakernel_bound(n, side * side, cin, cm, dtype)
+    rows = {}
+    for variant in VARIANTS:
+        ms = cuda_ms(lambda: micro_chain(x, params, variant, side, tile),
+                     iters=3, warmup=1) / MEGA_BLOCKS
+        plain_ms = cuda_ms(lambda: micro_chain(x, params, variant, side,
+                                               tile, True),
+                           iters=3, warmup=1) / MEGA_BLOCKS
+        one, every, limit = checks[variant]
+        rows[variant] = dict(ms=ms, plain_ms=plain_ms,
+                             one_block_max_diff_frac=one[1],
+                             one_block_max_abs_err=one[0],
+                             all_blocks_norm_gap=every[2],
+                             all_blocks_norm_limit=limit)
+        print(f"[{card}] roll micro {variant} ({label}, N {n}, {cin}->{cm} "
+              f"@ {side}x{side}, tile {tile}, {dtype}, {MEGA_BLOCKS} "
+              f"blocks): kernel {ms:.4f} ms/block, plain {plain_ms:.4f}; "
+              f"vs twin after 1 block {one[1]:.3e} * max, after "
+              f"{MEGA_BLOCKS} 2-norm gap {every[2]:.3e} (limit {limit:.3e})",
+              flush=True)
+    gaps = {"shifts_and_masks_ms": rows["full"]["ms"] - rows["noroll"]["ms"],
+            "statistics_ms": rows["full"]["ms"] - rows["nobn"]["ms"],
+            "full_minus_strided_ms": rows["full"]["ms"]
+            - rows["strided"]["ms"]}
+    print(f"[{card}] roll micro: full - noroll (shifts and masks) "
+          f"{gaps['shifts_and_masks_ms']:.4f} ms/block, full - nobn "
+          f"(statistics) {gaps['statistics_ms']:.4f}, full - strided "
+          f"{gaps['full_minus_strided_ms']:.4f}; bound {bound_ms:.4f} "
+          f"({bound_by}); launches {launches}", flush=True)
+    return {"card": card, "stage": label, "images": n, "cin": cin, "cm": cm,
+            "side": side, "tile": tile, "dtype": dtype,
+            "blocks": MEGA_BLOCKS, "bound_ms": bound_ms,
+            "bound_by": bound_by, "variants": rows, **gaps}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2219,6 +2689,7 @@ def main() -> int:
     lstm_rows, lstm_coverage_err = check_lstm(card)
     gru_rows, gru_coverage_err = check_gru(card)
     conv_rows, conv_coverage_err = check_fused_conv(card)
+    mega_coverage_err = check_megakernel(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
     spec = GenerationSpec(**SERVE_SPEC)
@@ -2278,7 +2749,13 @@ def main() -> int:
     # -- 10. the bottleneck chain: fused conv kernels vs composed --------------
     chain, chain_launches = conv_chain(card)
 
-    # -- 11. result lines ------------------------------------------------------
+    # -- 11. the megakernel chain: batch-BN vs ghost composed vs the kernel --
+    mega, mega_launches = megakernel_chain(card)
+
+    # -- 12. the roll micro: the megakernel's four variants ------------------
+    micro, micro_launches = roll_micro(card)
+
+    # -- 13. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -2291,8 +2768,17 @@ def main() -> int:
                       "gru_nmt_training": gru_launches[name],
                       "mnist_training": mnist_launches[name],
                       "resnet_training": resnet_launches[name],
-                      "conv_chain": chain_launches[name]}
+                      "conv_chain": chain_launches[name],
+                      "megakernel_chain": mega_launches[name],
+                      "roll_micro": micro_launches[name]}
                for name in launches}
+    # the megakernel launches on its two paths only, each on its own
+    for name, path in (("block_megakernel", "megakernel_chain"),
+                       ("megakernel_roll_micro", "roll_micro")):
+        stray = {p: k for p, k in by_path[name].items()
+                 if k and p != path}
+        if stray:
+            raise SystemExit(f"kernel {name} launched off its path: {stray}")
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -2358,6 +2844,38 @@ def main() -> int:
             "max_stats_err": conv_coverage_err[name][2], "shape": label,
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "full_ms")}})
+    # the megakernel at MEGA_MAIN_CASE, per block of phase 11's chain; no
+    # PyTorch call computes a ghost-BN bottleneck, so library_ms is null,
+    # and the batch-BN arm (cuDNN + batch_norm, another function) rides
+    # beside it as a yardstick, as the ghost composed arm does as plain_ms
+    label, tile, dtype = MEGA_MAIN_CASE
+    stage = mega["stages"][label][dtype]
+    rows.append({
+        "name": "block_megakernel", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/block_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas/block_megakernel.py:60",
+        "max_abs_err": mega_coverage_err["block_megakernel"],
+        "shape": f"{label} tile {tile} {dtype}",
+        "ms": stage["tiles"][tile]["mega_ms"],
+        "plain_ms": stage["tiles"][tile]["ghost_ms"],
+        "bound_ms": stage["bound_ms"], "bound_by": stage["bound_by"],
+        "library_ms": None, "yardstick_ms": stage["batch_bn_ms"]})
+    # the micro's full variant, and every variant's times beside it
+    rows.append({
+        "name": "megakernel_roll_micro", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/block_megakernel.cu",
+        "replaces": "benchmarks/megakernel_roll_micro.py:40",
+        "max_abs_err": max([mega_coverage_err["megakernel_roll_micro"]]
+                           + [r["one_block_max_abs_err"]
+                              for r in micro["variants"].values()]),
+        "shape": f"{micro['stage']} tile {micro['tile']} {micro['dtype']}",
+        "ms": micro["variants"]["full"]["ms"],
+        "plain_ms": micro["variants"]["full"]["plain_ms"],
+        "bound_ms": micro["bound_ms"], "bound_by": micro["bound_by"],
+        "library_ms": None,
+        "variant_ms": {v: r["ms"] for v, r in micro["variants"].items()},
+        "variant_plain_ms": {v: r["plain_ms"]
+                             for v, r in micro["variants"].items()}})
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())
         row["launches_by_path"] = by_path[row["name"]]
@@ -2372,6 +2890,8 @@ def main() -> int:
     print(json.dumps({"mnist_training": mnist_training}))
     print(json.dumps({"resnet_training": resnet_training}))
     print(json.dumps({"conv_chain": chain}))
+    print(json.dumps({"megakernel_chain": mega}))
+    print(json.dumps({"roll_micro": micro}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,7 @@ One module per kernel family, named after the TPU kernels it replaces in
 ``paddle_tpu/ops/pallas/``; the CUDA sources live in
 ``paddle_tpu_torch/csrc/`` and are built at first use (build.py).
 """
+from .block_megakernel import bottleneck_block, roll_micro_block  # noqa: F401
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd,
                               flash_attention_fwd_plain)
@@ -20,7 +21,9 @@ KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "fused_gru_fwd": fused_gru_fwd,
            "fused_gru_bwd": fused_gru_bwd,
            "fused_conv1x1": conv1x1_bn_act,
-           "fused_conv3x3": conv3x3_bn_act}
+           "fused_conv3x3": conv3x3_bn_act,
+           "block_megakernel": bottleneck_block,
+           "megakernel_roll_micro": roll_micro_block}
 
 
 def reset_launch_counts():

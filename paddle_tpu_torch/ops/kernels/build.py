@@ -28,7 +28,8 @@ from typing import Dict
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "fused_lstm.cu", "fused_gru.cu", "fused_conv.cu")
+           "fused_lstm.cu", "fused_gru.cu", "fused_conv.cu",
+           "block_megakernel.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
