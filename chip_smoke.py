@@ -128,6 +128,7 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 494.7e12
 
 # kernel vs plain, float32: the two sum the same terms in another order
 # (tiles of 64 keys, online rescaling), so they agree to ~1e-6; a wrong
@@ -285,16 +286,36 @@ CONV_COVERAGE_CASES = [("m98", 2, 7, 7, 64, 48), ("cross", 3, 9, 10, 3, 130),
 CONV_VARIANTS = [(False, False, False), (False, False, True),
                  (False, True, True), (True, False, True),
                  (True, True, True), (True, True, False)]
-# fused conv kernel vs its plain twin on the card, float32: the same
+# the kernels' two operand types: float32 (three TF32 passes on the tensor
+# cores) and bfloat16, as the reference runs them
+CONV_DTYPES = ("f32", "bf16")
+# fused conv kernel vs its plain twin on the card. float32: the same
 # products summed in another order (K' up to 4608 terms; an H100 run of
-# an early build: <= 2.1e-6 * max|plain| on the outputs, <= 4e-7 of the
-# sum of |terms| on the statistics); a wrong tap, mask or prologue gives
-# O(1e-1) or more
+# this kernel: <= 2.3e-6 * max|plain| on the outputs, <= 8e-7 of the sum
+# of |terms| on the statistics). bfloat16: both round float32 sums of the
+# same products, taken in another order, so each output element lies
+# within one bf16 ulp (at the larger of the two) plus this fraction of
+# its sum of |terms|; statistics as in float32. A wrong tap, mask or
+# prologue gives O(1e-1) or more.
 CONV_OUT_RTOL = 1e-5
 CONV_STATS_RTOL = 1e-5
 # the ResNet-50 bottleneck chain, fused kernels vs composed cuDNN + the
-# port's batch_norm, float32: L blocks per stage
+# port's batch_norm, float32 and bfloat16: L blocks per stage
 CONV_CHAIN_BLOCKS = 8
+# bfloat16, after L blocks, fused vs composed: the two arms are not
+# twins. The fused arm takes each batch_norm's statistics from the
+# float32 accumulator, the composed arm from its bf16-rounded conv
+# output (the variance then differs by ~1e-4 at M 6272, ~1/sqrt(M)), so
+# about 1% of the activations round to the other bf16 neighbour in one
+# arm and not the other, and the two arms' rounding noise is largely
+# independent: an H100 run read the fused-composed gap at 1.009 times
+# the composed arm's own distance from its float32 chain (stage 3), a
+# CPU run of the plain twins 0.945-1.20 (M 6272 to 72). Two equally noisy
+# roundings of one chain whose noise is at most uncorrelated sit at most
+# sqrt(2) times one's noise apart; a wrong tap or statistic moves the
+# gap by O(1). The kernels' correctness in bf16 is held against their
+# exact twin by phase 11's rule.
+CHAIN_BF16_ARMS_FACTOR = 2.0 ** 0.5
 # fused vs composed: the same function in another summation order. After
 # one block the two agree to float rounding, amplified by the three
 # batch_norms' renormalization: max |diff| <= 1e-4 * max|composed|. After
@@ -986,24 +1007,36 @@ def check_gru(card):
     return rows, coverage_err
 
 
-def conv_bound(m, k_rows, c, n):
+def conv_bound(m, k_rows, c, n, dtype, rate):
     """Least time of one fused conv on this card: bytes (x [M, C], w
-    [K', N] and the stats [2, N] read or written once, out [M, N] written
-    once) over HBM rate vs 2*M*K'*N flops over the fp32 rate."""
-    t_bytes = (m * c + m * n + k_rows * n + 2 * n) * 4.0 / HBM_BYTES_PER_S
-    t_ops = 2.0 * m * k_rows * n / FP32_FLOPS_PER_S
+    [K', N] in dtype, the stats [2, N] float32, each read or written once,
+    out [M, N] in dtype written once) over HBM rate vs 2*M*K'*N operations
+    at `rate` FLOP/s."""
+    size = 2 if dtype == "bf16" else 4
+    t_bytes = ((m * c + m * n + k_rows * n) * size + 2 * n * 4) \
+        / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * k_rows * n / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _conv_case(gen, kind, m, c, n, img, variant):
+def conv_path_rate(dtype):
+    """The FLOP/s of the kernels' products on the tensor cores: bfloat16
+    in one pass; float32 as three TF32 passes (3xTF32)."""
+    return BF16_FLOPS_PER_S if dtype == "bf16" else TF32_FLOPS_PER_S / 3
+
+
+def _conv_case(gen, kind, m, c, n, variant, dtype):
     """Inputs of one fused-conv call: x [M, C], w [K', N] (scaled to keep
-    outputs O(1)), and a, b [C] when the variant has the affine."""
+    outputs O(1)) in dtype, and a, b [C] float32 when the variant has the
+    affine."""
     import torch
     affine = variant[0]
     k_rows = c if kind == "1x1" else 9 * c
-    x = torch.randn(m, c, device=DEVICE, generator=gen)
-    w = torch.randn(k_rows, n, device=DEVICE, generator=gen) / k_rows ** 0.5
+    dt = _torch_dtype(dtype)
+    x = torch.randn(m, c, device=DEVICE, generator=gen).to(dt)
+    w = (torch.randn(k_rows, n, device=DEVICE, generator=gen)
+         / k_rows ** 0.5).to(dt)
     a = b = None
     if affine:
         a = torch.rand(c, device=DEVICE, generator=gen) + 0.5
@@ -1011,28 +1044,55 @@ def _conv_case(gen, kind, m, c, n, img, variant):
     return x, w, a, b
 
 
+def bf16_ulp(v):
+    """The spacing of bfloat16 values at |v| (0 at 0), float32."""
+    import torch
+    mant, exp = torch.frexp(v.float())
+    return torch.where(mant == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
 def _conv_errs(kind, args, img, variant):
-    """(max |kernel - plain| of the outputs, that over max|plain|, that of
-    the statistics over their sum of |terms|, ok) for one call."""
+    """(worst absolute output error, output error against the limit's
+    scale, statistics error over their sum of |terms|, ok) of one kernel
+    call against its plain twin. float32: outputs over max(|plain|, 1).
+    bfloat16: per element (|kernel - plain| - one bf16 ulp at the larger
+    of the two) over that element's sum of |terms|, since both round
+    float32 sums of the same products, taken in another order."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_conv as fc
     x, w, a, b = args
     _, relu, stats = variant
+    act = fc._prologue(x, a, b, relu)   # as the twin rounds it, float32
     if kind == "1x1":
         got = fc.conv1x1_bn_act(x, w, a, b, relu, stats)
         want = fc.conv1x1_bn_act_plain(x, w, a, b, relu, stats)
+        ref32 = act @ w.float()
     else:
         got = fc.conv3x3_bn_act(x, w, *img, a, b, relu, stats)
         want = fc.conv3x3_bn_act_plain(x, w, *img, a, b, relu, stats)
+        ref32 = fc.conv3x3_bn_act_plain(act, w.float(), *img,
+                                        stats=False)[0]
     torch.cuda.synchronize()
-    scale = max(float(want[0].abs().max()), 1.0)
-    abs_err = float((got[0] - want[0]).abs().max())
-    out_err = abs_err / scale
+    if got[0].dtype != x.dtype:
+        return float("inf"), float("inf"), float("inf"), False
+    diff = (got[0].float() - want[0].float()).abs()
+    abs_err = float(diff.max())
+    if x.dtype == torch.float32:
+        out_err = abs_err / max(float(want[0].abs().max()), 1.0)
+    else:
+        if kind == "1x1":
+            terms = act.abs() @ w.float().abs()
+        else:
+            terms = fc.conv3x3_bn_act_plain(act.abs(), w.float().abs(),
+                                            *img, stats=False)[0]
+        over = diff - bf16_ulp(torch.maximum(got[0].float().abs(),
+                                             want[0].float().abs()))
+        out_err = float((over / terms.clamp_min(1e-30)).max())
     ok = out_err <= CONV_OUT_RTOL
     stats_err = 0.0
     if stats:
-        terms = torch.stack([want[0].abs().sum(0),
-                             (want[0] * want[0]).sum(0)])
+        terms = torch.stack([ref32.abs().sum(0), (ref32 * ref32).sum(0)])
         stats_err = float((got[1] - want[1]).abs().max()) / float(
             terms.max())
         ok = ok and stats_err <= CONV_STATS_RTOL
@@ -1041,14 +1101,37 @@ def _conv_errs(kind, args, img, variant):
     return abs_err, out_err, stats_err, ok
 
 
+def conv_device_ms(fn, iters=5):
+    """Device ms per call of each kernel that fn launches (the weight
+    pack, the main kernel, the statistics reduction), from one
+    torch.profiler pass over `iters` calls after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, ms, _ in device_kernels(prof):
+        short = next((k for k in ("pack_w_kernel", "fused_conv_tc_kernel",
+                                  "stats_reduce_kernel") if k in name),
+                     name[:48])
+        out[short] = out.get(short, 0.0) + ms / iters
+    return out
+
+
 def check_fused_conv(card):
-    """The fused conv + BN kernels against their plain twins on the card:
-    at the eight 1x1 and four 3x3 shapes of the ResNet-50 bottleneck
-    chain (batch 128) and CONV_COVERAGE_CASES, each over CONV_VARIANTS;
-    timed at every chain shape in the bare variant (kernel, plain, the
-    one PyTorch call computing the same function: torch.matmul for 1x1,
-    F.conv2d on the channels_last view with padding 1 for 3x3) and in
-    the full variant (kernel), with the bound."""
+    """The fused conv + BN kernels against their plain twins on the card,
+    in float32 (3xTF32) and bfloat16: at the eight 1x1 and four 3x3
+    shapes of the ResNet-50 bottleneck chain (batch 128) and
+    CONV_COVERAGE_CASES, each over CONV_VARIANTS; timed at every chain
+    shape in the bare variant (kernel, plain, the one PyTorch call
+    computing the same function in the same dtype: torch.matmul for 1x1,
+    F.conv2d on the channels_last view with padding 1 for 3x3) and in the
+    full variant (kernel), with the bound on the kernels' own rate (the
+    tensor cores) and on the FMA rate of the earlier SIMT kernel."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import fused_conv as fc
@@ -1064,82 +1147,114 @@ def check_fused_conv(card):
         cases += [("1x1", f"{label} {c}->{n}", imgs * h * w_, c, n, None),
                   ("3x3", f"{label} {c}->{n} @{h}x{w_}", imgs * h * w_, c,
                    n, (imgs, h, w_))]
-    # per kernel: worst absolute output error, relative output error,
-    # relative statistics error
-    rows, worst = {}, {"fused_conv1x1": [0.0, 0.0, 0.0],
-                       "fused_conv3x3": [0.0, 0.0, 0.0]}
-    for kind, label, m, c, n, img in cases:
-        name = "fused_conv1x1" if kind == "1x1" else "fused_conv3x3"
-        hw = None if img is None else img[1:]
-        for variant in CONV_VARIANTS:
-            args = _conv_case(gen, kind, m, c, n, img, variant)
-            errs = _conv_errs(kind, args, hw, variant)
-            worst[name] = [max(w, e) for w, e in zip(worst[name], errs)]
-            _, out_err, stats_err, ok = errs
-            if not ok:
-                raise SystemExit(
-                    f"{name} disagrees with its plain twin at {label} (M "
-                    f"{m}) affine/relu/stats {variant}: outputs "
-                    f"{out_err:.3e} * max|plain|, statistics "
-                    f"{stats_err:.3e} of sum |terms|")
-        if not label.startswith("bneck"):
-            print(f"{name} {label} (M {m}): all {len(CONV_VARIANTS)} "
-                  f"variants equal the plain twin", flush=True)
-            continue
-        x, w, _, _ = _conv_case(gen, kind, m, c, n, img, (False,) * 3)
-        xa, wa, a, b = _conv_case(gen, kind, m, c, n, img, (True,) * 3)
-        if kind == "1x1":
-            def kern():
-                return fc.conv1x1_bn_act(x, w, stats=False)
+    # per kernel and dtype: worst absolute output error, output error
+    # against the limit's scale, relative statistics error
+    rows = {}
+    worst = {(name, dtype): [0.0, 0.0, 0.0]
+             for name in ("fused_conv1x1", "fused_conv3x3")
+             for dtype in CONV_DTYPES}
+    for dtype in CONV_DTYPES:
+        dt = _torch_dtype(dtype)
+        for kind, label, m, c, n, img in cases:
+            name = "fused_conv1x1" if kind == "1x1" else "fused_conv3x3"
+            hw = None if img is None else img[1:]
+            for variant in CONV_VARIANTS:
+                args = _conv_case(gen, kind, m, c, n, variant, dtype)
+                errs = _conv_errs(kind, args, hw, variant)
+                key = (name, dtype)
+                worst[key] = [max(w, e) for w, e in zip(worst[key], errs)]
+                _, out_err, stats_err, ok = errs
+                if not ok:
+                    raise SystemExit(
+                        f"{name} {dtype} disagrees with its plain twin at "
+                        f"{label} (M {m}) affine/relu/stats {variant}: "
+                        f"outputs {out_err:.3e}, statistics "
+                        f"{stats_err:.3e} of sum |terms| (limits "
+                        f"{CONV_OUT_RTOL:.0e}, {CONV_STATS_RTOL:.0e})")
+            if not label.startswith("bneck"):
+                print(f"{name} {dtype} {label} (M {m}): all "
+                      f"{len(CONV_VARIANTS)} variants equal the plain twin",
+                      flush=True)
+                continue
+            x, w, _, _ = _conv_case(gen, kind, m, c, n, (False,) * 3, dtype)
+            xa, wa, a, b = _conv_case(gen, kind, m, c, n, (True,) * 3,
+                                      dtype)
+            if kind == "1x1":
+                def kern():
+                    return fc.conv1x1_bn_act(x, w, stats=False)
 
-            def full():
-                return fc.conv1x1_bn_act(xa, wa, a, b, True, True)
+                def full():
+                    return fc.conv1x1_bn_act(xa, wa, a, b, True, True)
 
-            def plain():
-                return fc.conv1x1_bn_act_plain(x, w, stats=False)
+                def plain():
+                    return fc.conv1x1_bn_act_plain(x, w, stats=False)
 
-            def library():
-                return torch.matmul(x, w)
-            k_rows = c
-        else:
-            w_oihw = w.reshape(3, 3, c, n).permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            x_nhwc = x.reshape(img[0], img[1], img[2], c).permute(0, 3, 1, 2)
+                def library():
+                    return torch.matmul(x, w)
+                k_rows = c
+            else:
+                w_oihw = w.reshape(3, 3, c, n).permute(3, 2, 0, 1) \
+                    .contiguous(memory_format=torch.channels_last)
+                x_nhwc = x.reshape(img[0], img[1], img[2], c).permute(
+                    0, 3, 1, 2)
 
-            def kern():
-                return fc.conv3x3_bn_act(x, w, *hw, stats=False)
+                def kern():
+                    return fc.conv3x3_bn_act(x, w, *hw, stats=False)
 
-            def full():
-                return fc.conv3x3_bn_act(xa, wa, *hw, a, b, True, True)
+                def full():
+                    return fc.conv3x3_bn_act(xa, wa, *hw, a, b, True, True)
 
-            def plain():
-                return fc.conv3x3_bn_act_plain(x, w, *hw, stats=False)
+                def plain():
+                    return fc.conv3x3_bn_act_plain(x, w, *hw, stats=False)
 
-            def library():
-                return F.conv2d(x_nhwc, w_oihw, padding=1)
-            lib_out = library().permute(0, 2, 3, 1).reshape(m, n)
-            lib_err = float((lib_out - plain()[0]).abs().max())
-            if lib_err > CONV_OUT_RTOL * max(float(lib_out.abs().max()), 1):
-                raise SystemExit(f"the F.conv2d yardstick of {label} does "
+                def library():
+                    return F.conv2d(x_nhwc, w_oihw, padding=1)
+                k_rows = 9 * c
+            lib_out = library()
+            if kind == "3x3":
+                lib_out = lib_out.permute(0, 2, 3, 1).reshape(m, n)
+            ref = plain()[0].float()
+            lib_err = float((lib_out.float() - ref).abs().max())
+            # the yardstick rounds its output to dtype too
+            lib_tol = CONV_OUT_RTOL * max(float(ref.abs().max()), 1) + (
+                float(bf16_ulp(ref.abs().max())) if dt == torch.bfloat16
+                else 0.0)
+            if lib_err > lib_tol:
+                raise SystemExit(f"the {dtype} yardstick of {label} does "
                                  f"not compute the kernel's function: "
                                  f"{lib_err:.3e}")
-            k_rows = 9 * c
-        bound_ms, bound_by = conv_bound(m, k_rows, c, n)
-        row = dict(ms=cuda_ms(kern, iters=10), full_ms=cuda_ms(full, iters=10),
-                   plain_ms=cuda_ms(plain, iters=5),
-                   library_ms=cuda_ms(library, iters=10),
-                   bound_ms=bound_ms, bound_by=bound_by, m=m, c=c, n=n)
-        rows[(name, label)] = row
-        print(f"[{card}] {name} {label} (M {m}): kernel_ms={row['ms']:.4f} "
-              f"(with affine+ReLU+stats {row['full_ms']:.4f}) plain_ms="
-              f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}; kernel at "
-              f"{100 * bound_ms / row['ms']:.1f}% of it)", flush=True)
+            bound_ms, bound_by = conv_bound(m, k_rows, c, n, dtype,
+                                            conv_path_rate(dtype))
+            fma_ms, fma_by = conv_bound(m, k_rows, c, n, dtype,
+                                        FP32_FLOPS_PER_S)
+            row = dict(ms=cuda_ms(kern, iters=10),
+                       full_ms=cuda_ms(full, iters=10),
+                       plain_ms=cuda_ms(plain, iters=5),
+                       library_ms=cuda_ms(library, iters=10),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       fma_bound_ms=fma_ms, fma_bound_by=fma_by,
+                       device_ms=conv_device_ms(kern),
+                       full_device_ms=conv_device_ms(full),
+                       dtype=dtype, m=m, c=c, n=n)
+            rows[(name, f"{label} {dtype}")] = row
+            print(f"[{card}] {name} {dtype} {label} (M {m}): kernel_ms="
+                  f"{row['ms']:.4f} (with affine+ReLU+stats "
+                  f"{row['full_ms']:.4f}) plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} bound_ms="
+                  f"{bound_ms:.4f} ({bound_by} on the tensor cores; kernel "
+                  f"at {100 * bound_ms / row['ms']:.1f}% of it; FMA-rate "
+                  f"bound {fma_ms:.4f}, {fma_by}); device ms per kernel "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in
+                              row["device_ms"].items())
+                  + "; full " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in
+                      row["full_device_ms"].items()), flush=True)
     print(f"fused conv kernels vs plain twins over {len(cases)} shapes x "
-          f"{len(CONV_VARIANTS)} variants: worst outputs (absolute, "
-          "relative to max|plain|) / statistics (relative to sum |terms|) "
-          + ", ".join(f"{n} {a:.3e}, {o:.3e} / {st:.3e}"
-                      for n, (a, o, st) in worst.items()), flush=True)
+          f"{len(CONV_VARIANTS)} variants x {len(CONV_DTYPES)} dtypes: worst "
+          "outputs (absolute, against the limit's scale) / statistics "
+          "(relative to sum |terms|) "
+          + ", ".join(f"{n} {d} {a:.3e}, {o:.3e} / {st:.3e}"
+                      for (n, d), (a, o, st) in worst.items()), flush=True)
     return rows, worst
 
 
@@ -2158,14 +2273,17 @@ def composed_chain(x, params):
     return x
 
 
-def fused_chain(x, params, side):
-    """The same blocks on NHWC-flat rows through the fused kernels, as
-    conv_kernel_ab.py pallas_bottleneck_chain runs them: the statistics
-    ride each conv's epilogue, each batch_norm's affine and ReLU the next
-    conv's prologue, and only the residual join is a separate pass."""
+def fused_chain(x, params, side, plain=False):
+    """The same blocks on NHWC-flat rows through the fused kernels (their
+    plain twins with `plain`), as conv_kernel_ab.py
+    pallas_bottleneck_chain runs them: the statistics ride each conv's
+    epilogue, each batch_norm's affine and ReLU the next conv's prologue,
+    and only the residual join is a separate pass, in float32 with a cast
+    back to x's dtype (conv_kernel_ab.py:140-142; no casts in float32)."""
     import torch
-    from paddle_tpu_torch.ops.kernels.fused_conv import (conv1x1_bn_act,
-                                                         conv3x3_bn_act)
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    conv1x1_bn_act = fc.conv1x1_bn_act_plain if plain else fc.conv1x1_bn_act
+    conv3x3_bn_act = fc.conv3x3_bn_act_plain if plain else fc.conv3x3_bn_act
     m = x.shape[0]
 
     def coefs(st, scale, bias):
@@ -2182,77 +2300,140 @@ def fused_chain(x, params, side):
         a2, b2 = coefs(st2, bns[2], bns[3])
         t3, st3 = conv1x1_bn_act(t2, w3, a=a2, b=b2, relu=True, stats=True)
         a3, b3 = coefs(st3, bns[4], bns[5])
-        x = torch.relu(t3 * a3[None, :] + b3[None, :] + x)
+        x = torch.relu(t3.float() * a3[None, :] + b3[None, :]
+                       + x.float()).to(x.dtype)
     return x
+
+
+def _chain_cast(params, dt):
+    """`_chain_params` blocks with both weight forms in dt (the
+    batch_norms' rows stay float32)."""
+    return [(tuple(w.to(dt) for w in ws),
+             tuple(w.to(dt).contiguous() for w in flat), bns)
+            for ws, flat, bns in params]
 
 
 def conv_chain(card):
     """Phase 10: the ResNet-50 bottleneck chain of conv_kernel_ab.py at
-    each CONV_CHAIN stage (batch 128, float32), CONV_CHAIN_BLOCKS blocks,
-    as two arms on the same input and weights: composed (cuDNN + the
-    port's batch_norm, NCHW) and fused (the conv kernels, NHWC-flat).
-    Held together after one block and after all; each arm timed per
-    block. Launch counts are set to 0 before the first stage's runs and
-    read after the last one's checks."""
+    each CONV_CHAIN stage (batch 128), CONV_CHAIN_BLOCKS blocks, in
+    float32 and in bfloat16, as two arms on the same input and weights:
+    composed (cuDNN + the port's batch_norm, NCHW; in bfloat16 cast as
+    composed_chain casts) and fused (the conv kernels, NHWC-flat). float32:
+    held together after one block (CHAIN_ONE_BLOCK_RTOL of max) and after
+    all (CHAIN_NORM_RTOL of the 2-norm). bfloat16: after one block within
+    MEGA_BF16_RTOL of max; after all, phase 11's rule (_norm_limit): the
+    2-norm gap within MEGA_BF16_NOISE_FACTOR times the composed bfloat16
+    arm's own distance from the same chain run composed in float32. A
+    rerun of the fused arm must be bitwise equal. Each arm timed per
+    block. Launch counts are set to 0 before each dtype's first stage and
+    read after its last check; both kernels must launch in both dtypes.
+    bfloat16 after all blocks: phase 11's rule (_norm_limit) with the
+    kernels' exact twin: the fused arm's 2-norm gap from the same chain
+    through the plain twins (which round where the kernels round) within
+    MEGA_BF16_NOISE_FACTOR times the twins' own distance from that chain
+    in float32; and the gap from the composed arm within
+    CHAIN_BF16_ARMS_FACTOR times the composed arm's own distance from its
+    float32 chain."""
     import torch
     from paddle_tpu_torch.ops import kernels
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    kernels.reset_launch_counts()
-    rows, timed = {}, []
-    for label, imgs, big, small, side in CONV_CHAIN:
-        m = imgs * side * side
-        params = _chain_params(gen, big, small, CONV_CHAIN_BLOCKS)
-        x = torch.randn(imgs, big, side, side, device=DEVICE, generator=gen)
-        x_flat = x.permute(0, 2, 3, 1).reshape(m, big).contiguous()
+    rows = {dtype: {} for dtype in CONV_DTYPES}
+    launches, by_dtype = {}, {}
+    for dtype in CONV_DTYPES:
+        dt = _torch_dtype(dtype)
+        kernels.reset_launch_counts()
+        timed = []
+        for label, imgs, big, small, side in CONV_CHAIN:
+            m = imgs * side * side
+            params = _chain_cast(
+                _chain_params(gen, big, small, CONV_CHAIN_BLOCKS), dt)
+            x = torch.randn(imgs, big, side, side, device=DEVICE,
+                            generator=gen).to(dt)
+            x_flat = x.permute(0, 2, 3, 1).reshape(m, big).contiguous()
 
-        def flat(t):
-            return t.permute(0, 2, 3, 1).reshape(m, big)
+            def flat(t):
+                return t.permute(0, 2, 3, 1).reshape(m, big)
 
-        gaps = {}
-        for depth in (1, CONV_CHAIN_BLOCKS):
-            want = flat(composed_chain(x, params[:depth]))
-            got = fused_chain(x_flat, params[:depth], side)
-            gaps[depth] = (float((got - want).abs().max())
-                           / float(want.abs().max()),
-                           float(torch.linalg.vector_norm(got - want))
-                           / float(torch.linalg.vector_norm(want)))
-        if not (gaps[1][0] <= CHAIN_ONE_BLOCK_RTOL
-                and gaps[CONV_CHAIN_BLOCKS][1] <= CHAIN_NORM_RTOL):
-            raise SystemExit(f"conv chain {label}: fused vs composed after "
-                             f"1 block max |diff| {gaps[1][0]:.3e} * max, "
-                             f"after {CONV_CHAIN_BLOCKS} 2-norm gap "
-                             f"{gaps[CONV_CHAIN_BLOCKS][1]:.3e}")
-        timed.append((label, m, big, small, side, params, x, x_flat, gaps))
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    for name in ("fused_conv1x1", "fused_conv3x3"):
-        if launches[name] == 0:
-            raise SystemExit(f"kernel {name} was not launched on the conv "
-                             "chain")
-    for label, m, big, small, side, params, x, x_flat, gaps in timed:
-        comp = cuda_ms(lambda: composed_chain(x, params), iters=5) \
-            / CONV_CHAIN_BLOCKS
-        fused = cuda_ms(lambda: fused_chain(x_flat, params, side), iters=5) \
-            / CONV_CHAIN_BLOCKS
-        flops = 2.0 * m * (2 * big * small + 9 * small * small)
-        rows[label] = dict(m=m, big_c=big, small_c=small, side=side,
-                           blocks=CONV_CHAIN_BLOCKS,
-                           composed_ms_per_block=comp,
-                           fused_ms_per_block=fused,
-                           flop_per_block=flops,
-                           one_block_max_diff_frac=gaps[1][0],
-                           all_blocks_norm_gap=gaps[CONV_CHAIN_BLOCKS][1])
-        print(f"[{card}] conv chain {label} (M {m}, {big}->{small}->{big} @ "
-              f"{side}x{side}, {CONV_CHAIN_BLOCKS} blocks): composed "
-              f"{comp:.3f} ms/block ({flops / comp / 1e9:.1f} TFLOP/s), "
-              f"fused {fused:.3f} ms/block ({flops / fused / 1e9:.1f} "
-              f"TFLOP/s); fused vs composed after 1 block max |diff| "
-              f"{gaps[1][0]:.3e} * max, after {CONV_CHAIN_BLOCKS} 2-norm gap "
-              f"{gaps[CONV_CHAIN_BLOCKS][1]:.3e}", flush=True)
-        del params, x, x_flat
-    del timed
-    print(f"[{card}] conv chain kernel launches {launches}", flush=True)
-    return {"card": card, "stages": rows}, launches
+            one = _gaps(fused_chain(x_flat, params[:1], side),
+                        flat(composed_chain(x, params[:1])))[1]
+            want = flat(composed_chain(x, params))
+            got = fused_chain(x_flat, params, side)
+            rerun_equal = torch.equal(got, fused_chain(x_flat, params, side))
+            every = _gaps(got, want)[2]
+            twin_gap = twin_limit = None
+            if dtype == "f32":
+                one_limit, all_limit = CHAIN_ONE_BLOCK_RTOL, CHAIN_NORM_RTOL
+            else:
+                one_limit = MEGA_BF16_RTOL
+                composed_noise = _gaps(want, flat(composed_chain(
+                    x.float(), _chain_cast(params, torch.float32))))[2]
+                all_limit = CHAIN_BF16_ARMS_FACTOR * composed_noise
+                twin = fused_chain(x_flat, params, side, plain=True)
+                twin_gap = _gaps(got, twin)[2]
+                twin_limit = _norm_limit(dtype, twin, fused_chain(
+                    x_flat.float(), _chain_cast(params, torch.float32), side,
+                    plain=True))
+                print(f"conv chain {label} bf16 after {CONV_CHAIN_BLOCKS} "
+                      f"blocks: kernels vs twins 2-norm gap {twin_gap:.3e} "
+                      f"(limit {twin_limit:.3e}); fused vs composed "
+                      f"{every:.3e} = {every / composed_noise:.3f} x the "
+                      f"composed arm's own distance from float32 (limit "
+                      f"{CHAIN_BF16_ARMS_FACTOR:.3f} x)", flush=True)
+                del twin
+            if not (one <= one_limit and every <= all_limit
+                    and rerun_equal and (twin_gap is None
+                                         or twin_gap <= twin_limit)):
+                raise SystemExit(
+                    f"conv chain {label} {dtype}: fused vs composed after 1 "
+                    f"block max |diff| {one:.3e} * max (limit "
+                    f"{one_limit:.3e}), after {CONV_CHAIN_BLOCKS} 2-norm gap "
+                    f"{every:.3e} (limit {all_limit:.3e}); kernels vs twins "
+                    f"{twin_gap} (limit {twin_limit}); rerun bitwise equal "
+                    f"{rerun_equal}")
+            del want, got
+            timed.append((label, m, big, small, side, params, x, x_flat,
+                          (one, every, all_limit, twin_gap, twin_limit)))
+        torch.cuda.synchronize()
+        by_dtype[dtype] = kernels.launch_counts()
+        for name in ("fused_conv1x1", "fused_conv3x3"):
+            if by_dtype[dtype][name] == 0:
+                raise SystemExit(f"kernel {name} was not launched on the "
+                                 f"{dtype} conv chain")
+        for name, n in by_dtype[dtype].items():
+            launches[name] = launches.get(name, 0) + n
+        for label, m, big, small, side, params, x, x_flat, gaps in timed:
+            comp = cuda_ms(lambda: composed_chain(x, params), iters=5) \
+                / CONV_CHAIN_BLOCKS
+            fused = cuda_ms(lambda: fused_chain(x_flat, params, side),
+                            iters=5) / CONV_CHAIN_BLOCKS
+            flops = 2.0 * m * (2 * big * small + 9 * small * small)
+            rows[dtype][label] = dict(
+                m=m, big_c=big, small_c=small, side=side,
+                blocks=CONV_CHAIN_BLOCKS, composed_ms_per_block=comp,
+                fused_ms_per_block=fused, flop_per_block=flops,
+                one_block_max_diff_frac=gaps[0],
+                all_blocks_norm_gap=gaps[1],
+                all_blocks_norm_limit=gaps[2],
+                all_blocks_twin_norm_gap=gaps[3],
+                all_blocks_twin_norm_limit=gaps[4], rerun_bitwise_equal=True)
+            print(f"[{card}] conv chain {dtype} {label} (M {m}, "
+                  f"{big}->{small}->{big} @ {side}x{side}, "
+                  f"{CONV_CHAIN_BLOCKS} blocks): composed {comp:.3f} "
+                  f"ms/block ({flops / comp / 1e9:.1f} TFLOP/s), fused "
+                  f"{fused:.3f} ms/block ({flops / fused / 1e9:.1f} "
+                  f"TFLOP/s), fused {comp / fused:.2f}x; fused vs composed "
+                  f"after 1 block max |diff| {gaps[0]:.3e} * max, after "
+                  f"{CONV_CHAIN_BLOCKS} 2-norm gap {gaps[1]:.3e} (limit "
+                  f"{gaps[2]:.3e}); rerun bitwise equal", flush=True)
+            del params, x, x_flat
+        del timed
+        print(f"[{card}] conv chain {dtype} kernel launches "
+              f"{by_dtype[dtype]}", flush=True)
+    return {"card": card, "stages": rows["f32"],
+            "bf16_stages": rows["bf16"],
+            "launches_by_dtype": {d: {k: by_dtype[d][k] for k in
+                                      ("fused_conv1x1", "fused_conv3x3")}
+                                  for d in CONV_DTYPES}}, launches
 
 
 def megakernel_bound(n, hw, cin, cm, dtype):
@@ -2680,7 +2861,7 @@ def main() -> int:
           f"({', '.join(built)})", flush=True)
     for src, info in built.items():
         for line in (info["log"] or "").splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -2828,22 +3009,34 @@ def main() -> int:
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "yardstick_ms")}})
-    # the fused conv kernels at stage 1 of the chain; ms, plain_ms and
+    # the fused conv kernels at stage 1 of the chain, float32 (3xTF32),
+    # with the bfloat16 kernel's numbers beside them; ms, plain_ms and
     # library_ms in the bare variant (no affine, ReLU or statistics: the
-    # function one PyTorch call computes), full_ms with all three
+    # function one PyTorch call computes), full_ms with all three;
+    # bound_ms on the tensor cores' rate, fma_bound_ms on the FMA rate of
+    # the earlier SIMT kernel
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "full_ms", "fma_bound_ms", "fma_bound_by", "device_ms",
+                  "full_device_ms")
     for name, line, label in (
             ("fused_conv1x1", 44, f"{CONV_MAIN_CASE} 256->64"),
             ("fused_conv3x3", 128, f"{CONV_MAIN_CASE} 64->64")):
-        case = conv_rows[(name, label)]
+        case = conv_rows[(name, f"{label} f32")]
+        bf16 = conv_rows[(name, f"{label} bf16")]
+        errs = {d: conv_coverage_err[(name, d)] for d in CONV_DTYPES}
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_conv.cu",
             "replaces": f"paddle_tpu/ops/pallas/fused_conv.py:{line}",
-            "max_abs_err": conv_coverage_err[name][0],
-            "max_rel_err": conv_coverage_err[name][1],
-            "max_stats_err": conv_coverage_err[name][2], "shape": label,
-            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "full_ms")}})
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": errs["f32"][1],
+            "max_stats_err": max(e[2] for e in errs.values()),
+            "shape": f"{label} f32",
+            **{k: case[k] for k in timed_keys},
+            "bf16": {"max_abs_err": errs["bf16"][0],
+                     "max_out_err": errs["bf16"][1],
+                     "max_stats_err": errs["bf16"][2],
+                     **{k: bf16[k] for k in timed_keys}}})
     # the megakernel at MEGA_MAIN_CASE, per block of phase 11's chain; no
     # PyTorch call computes a ghost-BN bottleneck, so library_ms is null,
     # and the batch-BN arm (cuDNN + batch_norm, another function) rides
