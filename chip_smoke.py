@@ -23,7 +23,10 @@ Phases (any failure exits non-zero; nothing is caught):
      times: kernel, plain, library (one PyTorch call computing the same
      function, a yardstick the port never calls; for the GRU, which no
      PyTorch call computes, torch.nn.GRU at the same shape as a same-FLOP
-     yardstick) and the card's lower bound for the work.
+     yardstick) and the card's lower bound for the work (for the flash
+     kernels at the 3xTF32 rate of the tensor cores, with the FMA-rate
+     bound beside it, and the flash backward total, dq + dk/dv, against
+     the one PyTorch call that computes dq, dk and dv together).
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -428,15 +431,22 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, sq, sk, d, pairs, bias_numel):
+# the float32 products of the flash kernels on the tensor cores: three
+# TF32 passes (3xTF32)
+ATTN_PATH_RATE = TF32_FLOPS_PER_S / 3
+
+
+def attention_bound(b, h, sq, sk, d, pairs, bias_numel,
+                    rate=ATTN_PATH_RATE):
     """Least time for the forward on this card: bytes (q, k, v, bias read
     once; O, lse written once) over HBM rate vs the (q, k) pairs this
-    data leaves in (see live_pairs) times 4*D flops, over the fp32
-    rate."""
+    data leaves in (see live_pairs) times 4*D flops, at `rate` FLOP/s
+    (3xTF32 on the tensor cores by default; FP32_FLOPS_PER_S for the FMA
+    units)."""
     nbytes = 4.0 * (2 * b * h * sq * d + 2 * b * h * sk * d + bias_numel
                     + b * h * sq)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 4.0 * d * pairs / FP32_FLOPS_PER_S
+    t_ops = 4.0 * d * pairs / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -491,16 +501,20 @@ def check_attention(card):
             q, k, v, bias, causal=True))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask))
-        bound_ms, bound_by = attention_bound(
-            b, h, s, s, d, live_pairs(bias, b, h, s, s, True), bias.numel())
+        pairs = live_pairs(bias, b, h, s, s, True)
+        bound_ms, bound_by = attention_bound(b, h, s, s, d, pairs,
+                                             bias.numel())
+        fma_ms, fma_by = attention_bound(b, h, s, s, d, pairs, bias.numel(),
+                                         FP32_FLOPS_PER_S)
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, fma_bound_ms=fma_ms,
+                           fma_bound_by=fma_by)
         print(f"[{card}] flash_attention_fwd B={b} H={h} S={s} D={d} "
               f"live={live} causal: max_abs_err={err:.3e} kernel_ms="
               f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-              flush=True)
+              f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+              f"3xTF32) fma_bound_ms={fma_ms:.4f} ({fma_by})", flush=True)
     # the rest of what the wrapper accepts, for correctness only: every
     # head dim, Sq != Sk, a full and a head-broadcast bias, no bias
     coverage_err = 0.0
@@ -525,16 +539,16 @@ def check_attention(card):
 
 
 def attention_bwd_bound(b, h, sq, sk, d, pairs, bias_numel, n_out,
-                        flops_per_pair):
+                        flops_per_pair, rate=ATTN_PATH_RATE):
     """Least time for one backward kernel on this card: bytes (q, k, v,
     dO, the bias, lse and delta read once; `n_out` [.., S, D] gradients
     written once) over HBM rate vs the (q, k) pairs this data leaves in
-    times `flops_per_pair` (6*D for dq, 8*D for dk/dv) over the fp32
-    rate."""
+    times `flops_per_pair` (6*D for dq, 8*D for dk/dv) at `rate` FLOP/s
+    (as attention_bound)."""
     nbytes = 4.0 * (2 * b * h * sq * d + 2 * b * h * sk * d + bias_numel
                     + 2 * b * h * sq + n_out * b * h * sk * d)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops_per_pair * pairs / FP32_FLOPS_PER_S
+    t_ops = flops_per_pair * pairs / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -588,14 +602,18 @@ def check_attention_bwd(card):
             q, k, v, attn_mask=bias), iters=10)
         bound_ms, bound_by = attention_bound(b, h, s, s, d, pairs,
                                              bias.numel())
+        fma_ms, fma_by = attention_bound(b, h, s, s, d, pairs, bias.numel(),
+                                         FP32_FLOPS_PER_S)
         rows[("flash_attention_fwd", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            fma_bound_ms=fma_ms, fma_bound_by=fma_by)
         print(f"[{card}] flash_attention_fwd B={b} H={h} S={s} D={d} "
               f"{label} bias {tuple(bias.shape)}: max_abs_err={err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-              f"{pairs} live pairs)", flush=True)
+              f"3xTF32) fma_bound_ms={fma_ms:.4f} ({fma_by}; {pairs} live "
+              f"pairs)", flush=True)
         delta = fa._delta(o, do).contiguous()
         args = (q, k, v, bias, do, lse, delta)
         dq_k, _ = fa.flash_attention_bwd_dq(*args)
@@ -619,18 +637,39 @@ def check_attention_bwd(card):
                                  f"bias: max abs err {err:.3e}")
             ms = cuda_ms(lambda: kernel_fn(*args), iters=10)
             plain_ms = cuda_ms(lambda: plain_fn(*args), iters=5)
+            # PyTorch's attention backward computes dq, dk and dv in one
+            # call, whichever it is asked for: the row's library time is
+            # that whole call (see the backward total below)
             library_ms = cuda_ms(lambda: torch.autograd.grad(
                 lib_out, wrt, do, retain_graph=True), iters=10)
             bound_ms, bound_by = attention_bwd_bound(
                 b, h, s, s, d, pairs, bias.numel(), n_out, fpp)
+            fma_ms, fma_by = attention_bwd_bound(
+                b, h, s, s, d, pairs, bias.numel(), n_out, fpp,
+                FP32_FLOPS_PER_S)
             rows[(kname, label)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                fma_bound_ms=fma_ms, fma_bound_by=fma_by)
             print(f"[{card}] {kname} B={b} H={h} S={s} D={d} {label} bias "
                   f"{tuple(bias.shape)}: max_abs_err={err:.3e} kernel_ms="
                   f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms="
                   f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-                  f"{pairs} live pairs)", flush=True)
+                  f"3xTF32) fma_bound_ms={fma_ms:.4f} ({fma_by}; {pairs} "
+                  f"live pairs)", flush=True)
+        # the flash backward as a whole (both kernels; delta is a torch
+        # reduction either way) against the one library call that computes
+        # dq, dk and dv together
+        total_ms = (rows[("flash_attention_bwd_dq", label)]["ms"]
+                    + rows[("flash_attention_bwd_dkv", label)]["ms"])
+        total_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (lq, lk, lv), do, retain_graph=True), iters=10)
+        rows[("flash_attention_bwd_dkv", label)].update(
+            backward_total_ms=total_ms, backward_library_ms=total_lib_ms)
+        print(f"[{card}] flash backward total B={b} H={h} S={s} D={d} "
+              f"{label} bias: dq + dk/dv kernel_ms={total_ms:.4f} vs "
+              f"library_ms={total_lib_ms:.4f} (one call for dq, dk, dv; "
+              f"{total_ms / total_lib_ms:.2f}x)", flush=True)
         del lib_out, lq, lk, lv
     coverage_err = 0.0
     for b, h, sq, sk, d, bias_shape, causal, bias_grad in BWD_COVERAGE_CASES:
@@ -1561,6 +1600,12 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
           flush=True)
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.2f} ms {n:5d}x  {key[:90]}", flush=True)
+    # the flash kernels by name: forward and dk/dv main kernels, dq, and
+    # the pack kernels both of them launch ahead (one name for the two)
+    flash = [(k, ms, n) for k, ms, n in rows
+             if "flash" in k or "pack_rows" in k or "pack_cols" in k]
+    for key, ms, n in sorted(flash, key=lambda r: -r[1]):
+        print(f"  flash: {ms:9.3f} ms {n:5d}x  {key[:90]}", flush=True)
     # the forward alone: the ops before append_backward's seed. Each
     # __vjp__ replays its forward op, so a step runs this much twice.
     blk = main.desc.global_block
@@ -1582,7 +1627,9 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
           f"the __vjp__ replays add to each step", flush=True)
     return dict(wall_ms=wall_ms, device_ms=busy_ms, forward_ms=fwd_ms,
                 top_kernels=[dict(name=k[:120], ms=ms, count=n) for k, ms, n
-                             in sorted(rows, key=lambda r: -r[1])[:12]])
+                             in sorted(rows, key=lambda r: -r[1])[:12]],
+                flash_kernels=[dict(name=k[:120], ms=ms, count=n)
+                               for k, ms, n in flash])
 
 
 def train(card):
@@ -2968,10 +3015,13 @@ def main() -> int:
                            + [r["max_abs_err"] for r in attn.values()]
                            + [r["max_abs_err"] for r in
                               train_shapes["flash_attention_fwd"].values()]),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "fma_bound_ms",
+                                     "fma_bound_by")}}]
+    # the flash rows' bound_ms at the 3xTF32 rate, fma_bound_ms at the FMA
+    # rate (where the earlier kernels, and dq still, run their products);
+    # the dk/dv row carries the backward total (dq + dk/dv) and the one
+    # library call that computes all three gradients
     for name, line in (("flash_attention_bwd_dq", 213),
                        ("flash_attention_bwd_dkv", 265)):
         case = attn_bwd[(name, BWD_MAIN_CASE)]
@@ -2983,7 +3033,9 @@ def main() -> int:
                                + [r["max_abs_err"] for r in
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}})
+                                    "library_ms", "fma_bound_ms",
+                                    "fma_bound_by", "backward_total_ms",
+                                    "backward_library_ms") if k in case}})
     for name, line in (("fused_lstm_fwd", 35), ("fused_lstm_bwd", 66)):
         case = lstm_rows[(name, LSTM_MAIN_CASE)]
         rows.append({

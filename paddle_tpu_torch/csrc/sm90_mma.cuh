@@ -1,12 +1,14 @@
 // Hopper (sm_90a) primitives of the tensor-core kernels in this directory:
-// 16-byte asynchronous copies into shared memory, warpgroup matrix
-// multiplies (wgmma.mma_async) with A from registers and B from a K-major
-// shared tile in the 128-byte swizzle, the round-to-TF32 of the 3xTF32
-// split, the bfloat16 pair conversion, a warp shuffle and the dynamic
-// shared memory. Every piece of PTX
-// of those kernels is here, so that a host C++ version of these few
-// functions (tests/test_torch_fused_conv_cuda_source.py writes one) runs
-// the kernels' own tiling, staging, masking and reduction logic on a CPU.
+// 16-byte asynchronous copies into shared memory, the proxy fence that
+// makes shared-memory writes visible to the tensor cores, warpgroup
+// matrix multiplies (wgmma.mma_async) with A from registers or from a
+// K-major shared tile and B from a K-major shared tile, both in the
+// 128-byte swizzle, the round-to-TF32 of the 3xTF32 split, the bfloat16
+// pair conversion, a warp shuffle and the dynamic shared memory. Every
+// piece of PTX of those kernels is here, so that a host C++ version of
+// these few functions (tests/test_torch_cuda_emulation.py writes one)
+// runs the kernels' own tiling, staging, masking and reduction logic on a
+// CPU.
 //
 // Fragment and tile semantics the kernels rely on (PTX ISA, "Asynchronous
 // Warpgroup Level Matrix Multiply-Accumulate", register fragments and
@@ -22,7 +24,11 @@
 //   B (N x 32 bytes of K, K-major): row n of the tile at byte n * 128 of a
 //     1024-byte-aligned tile (8-row atoms of 8 x 128 bytes, 1024 bytes
 //     apart), its 16-byte chunk q stored at chunk q ^ (n % 8): the
-//     128-byte swizzle. `b` points at the tile plus 32 bytes per k-step.
+//     128-byte swizzle. `b` points at the tile plus 32 bytes per k-step
+//     (or is its descriptor, b_desc, moved on by desc_add).
+//   A from shared memory (tf32 only here, wgmma_ss): the 64 rows of A laid
+//     out as B's N rows, `a` the descriptor of the tile plus 32 bytes a
+//     k-step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +59,13 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
+}
+
+// Orders this thread's earlier writes to shared memory (plain stores and
+// completed cp.async copies) before later reads of the async proxy, which
+// is how wgmma reads its shared-memory operands.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -100,7 +113,7 @@ __device__ __forceinline__ unsigned char* dyn_smem() {
   return smem_raw;
 }
 
-// Matrix descriptor of a K-major B tile in the 128-byte swizzle: start
+// Matrix descriptor of a K-major A or B tile in the 128-byte swizzle: start
 // address, leading byte offset 16 (unused in this mode), stride byte
 // offset 1024 (between 8-row atoms), swizzle mode 1.
 __device__ __forceinline__ uint64_t b_desc(const void* tile) {
@@ -111,16 +124,24 @@ __device__ __forceinline__ uint64_t b_desc(const void* tile) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The descriptor of the tile `bytes` further on (a multiple of 16 that
+// keeps it in shared memory): one add where a loop walks a tile's k-steps
+// and planes from a descriptor made once.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, int bytes) {
+  return desc + static_cast<uint64_t>(bytes >> 4);
+}
+
 // d[64 x N] = A[64 x K] * B[K x N] (+ d when accumulate is nonzero) for
 // one k-step of one warpgroup: K = 16 bf16 (kBf16) or 8 tf32, float32
-// accumulators, A from registers, B from the shared tile at `b`. Issued
-// asynchronously: wgmma_commit and wgmma_wait0 complete it. The tensor
-// cores' float32 accumulation does not round to nearest (its error grows
-// with the number of steps added), so the kernels add a few steps' sum
-// into their own float32 registers with an ordinary add.
+// accumulators, A from registers, B from the shared tile of descriptor
+// `b` (or at address `b`, below). Issued asynchronously: wgmma_commit
+// and wgmma_wait0 complete it. The tensor cores' float32 accumulation
+// does not round to nearest (its error grows with the number of steps
+// added), so the kernels add a few steps' sum into their own float32
+// registers with an ordinary add.
 template <int N, bool kBf16>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2],
-                                      const uint32_t (&a)[4], const void* b,
+                                      const uint32_t (&a)[4], uint64_t b,
                                       int accumulate);
 
 #define D8(i)                                                        \
@@ -129,9 +150,8 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2],
 
 template <>
 __device__ __forceinline__ void wgmma<64, true>(
-    float (&d)[32], const uint32_t (&a)[4], const void* b,
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
     int accumulate) {
-  const uint64_t desc = b_desc(b);
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -146,9 +166,8 @@ __device__ __forceinline__ void wgmma<64, true>(
 
 template <>
 __device__ __forceinline__ void wgmma<128, true>(
-    float (&d)[64], const uint32_t (&a)[4], const void* b,
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
     int accumulate) {
-  const uint64_t desc = b_desc(b);
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -164,10 +183,35 @@ __device__ __forceinline__ void wgmma<128, true>(
 }
 
 template <>
+__device__ __forceinline__ void wgmma<16, false>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32, false>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma<64, false>(
-    float (&d)[32], const uint32_t (&a)[4], const void* b,
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
     int accumulate) {
-  const uint64_t desc = b_desc(b);
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -182,9 +226,8 @@ __device__ __forceinline__ void wgmma<64, false>(
 
 template <>
 __device__ __forceinline__ void wgmma<128, false>(
-    float (&d)[64], const uint32_t (&a)[4], const void* b,
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
     int accumulate) {
-  const uint64_t desc = b_desc(b);
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -199,6 +242,34 @@ __device__ __forceinline__ void wgmma<128, false>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
+// d[64 x N] = A[64 x 8] * B[8 x N] (+ d when accumulate is nonzero), tf32,
+// A from the K-major shared tile at `a` (64 rows, laid out as B's rows),
+// B from the shared tile at `b`; asynchronous, as wgmma.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : D8(0), D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef D8
+
+// wgmma with B given by its shared tile's address.
+template <int N, bool kBf16>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], const void* b,
+                                      int accumulate) {
+  wgmma<N, kBf16>(d, a, b_desc(b), accumulate);
+}
 
 }  // namespace sm90

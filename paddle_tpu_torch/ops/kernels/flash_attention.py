@@ -12,11 +12,15 @@ flash_attention.py``:
                                 (csrc/flash_attention_bwd.cu)
 
 Each CUDA source's header says what bounds it on an H100 and how the
-design answers that. ``flash_attention_bwd`` runs the whole backward
-(delta = rowsum(dO * O) in torch, as the JAX package computes it outside
-its kernels, then both kernels); ``FlashAttention`` is the
-torch.autograd.Function over the pair, the counterpart of the JAX
-package's ``jax.custom_vjp``, and ``flash_attention`` applies it.
+design answers that. The forward and dk/dv kernels run their products on
+the tensor cores in 3xTF32; each call first packs its B operands into
+TF32 hi/lo planes, in a scratch buffer the wrapper allocates
+(``torch.empty``, sized by the library's ``*_scratch_bytes``).
+``flash_attention_bwd`` runs the whole backward (delta = rowsum(dO * O)
+in torch, as the JAX package computes it outside its kernels, then both
+kernels); ``FlashAttention`` is the torch.autograd.Function over the
+pair, the counterpart of the JAX package's ``jax.custom_vjp``, and
+``flash_attention`` applies it.
 
 Every wrapper takes its kernel for CUDA tensors — there is no fallback:
 a CUDA input a kernel cannot take raises, and so does a failed build or
@@ -82,18 +86,31 @@ def _scores(q, k, bias, causal, sm_scale):
     return s
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.library(_SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the forward library's C entry points
+    (the built one, or any library with the same interface)."""
     if not getattr(lib, "_paddle_bound", False):
         fn = lib.flash_attention_fwd_f32
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 4
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.flash_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.flash_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(build.library(_SOURCE))
+
+
+def _scratch(nbytes, device):
+    """The packed operand planes of one call (the kernels' pack step
+    writes them): uninitialized bytes."""
+    return torch.empty(int(nbytes), dtype=torch.uint8, device=device)
 
 
 def _check_inputs(q, k, v, bias, who="flash_attention_fwd"):
@@ -166,13 +183,15 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _library()
+    scratch = _scratch(lib.flash_attention_fwd_scratch_bytes(b, h, sq, sk, d),
+                       q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, *strides,
-            int(bool(causal)), float(sm_scale), stream)
+            o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), b, h, sq, sk,
+            d, *strides, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(
             "flash_attention_fwd kernel launch failed: "
@@ -260,19 +279,29 @@ def flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
     return dq, dk, dv, (_reduce_dbias(ds, bias) if want else None)
 
 
-def _bwd_library() -> ctypes.CDLL:
-    lib = build.library(_BWD_SOURCE)
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the backward library's C entry points
+    (the built one, or any library with the same interface)."""
     if not getattr(lib, "_paddle_bound", False):
+        tail = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+                + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_bwd_dq_f32.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.flash_attention_bwd_dkv_f32.argtypes = \
+            [ctypes.c_void_p] * 10 + tail
         for fn in (lib.flash_attention_bwd_dq_f32,
                    lib.flash_attention_bwd_dkv_f32):
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 4
-                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        fn = lib.flash_attention_bwd_dkv_scratch_bytes
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
     return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    return bind_bwd(build.library(_BWD_SOURCE))
 
 
 def _check_bwd_inputs(q, k, v, bias, do, lse, delta, who):
@@ -295,6 +324,11 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
     sk = k.shape[2]
     bias, strides = _bias_strides(bias, (b, h, sq, sk), name)
     lib = _bwd_library()
+    # the dk/dv kernel packs Q and dO into a scratch of its own
+    scratch = []
+    if name == "flash_attention_bwd_dkv":
+        scratch.append(_scratch(lib.flash_attention_bwd_dkv_scratch_bytes(
+            b, h, sq, sk, d), q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name + "_f32")(
@@ -302,8 +336,8 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
             bias.data_ptr() if bias is not None else None, do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out1.data_ptr(),
             out2.data_ptr() if out2 is not None else None,
-            b, h, sq, sk, d, *strides, int(bool(causal)), float(sm_scale),
-            stream)
+            *(t.data_ptr() for t in scratch), b, h, sq, sk, d, *strides,
+            int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: "

@@ -1,0 +1,265 @@
+"""The CUDA sources of the flash-attention kernels, run on the CPU.
+
+paddle_tpu_torch/csrc/flash_attention_fwd.cu and flash_attention_bwd.cu
+compile only for a card, but their logic — the pack kernels' hi/lo TF32
+planes in the rows and cols layouts with the keys (queries) permuted
+within each group of 8, the ring of copy stages, the 128-byte-swizzled
+tiles, A fragments from registers (Q; K and V of dk/dv, read from shared
+memory; P and dS read in place from the accumulator before) and from
+shared tiles (Q at D = 128), the 3xTF32 passes, the online softmax over
+the key tiles, the per-tile promotion of long sums, the masks in the
+reference's order, the causal tile skips and the strided bias — is plain
+C++ over a small CUDA subset plus the PTX helpers of csrc/sm90_mma.cuh.
+This test compiles both sources against the emulation of
+tests/test_torch_cuda_emulation.py (its multiplies truncate their
+float32 sums, as the tensor cores do) and holds the C entry points
+against the plain twins of ops/kernels/flash_attention.py run in
+float64: every head dim, Sq != Sk, Sq = 1, lengths that are not tile
+multiples, key-row, dense and head-broadcast biases, causal and not, and
+a fully masked row. Three mutants must be caught: 3xTF32 with its lo
+products dropped, the pack's permutation of each group of 8 off by one,
+and dV summed in one truncating accumulator over a long reduction. A
+model of the truncation pins the promotion threshold (kPromoteAfter). It
+says nothing about speed or about the device compiler; chip_smoke.py
+runs the real kernels on the card.
+
+Tolerance: the kernels against the float64 twin, max |diff| <= 1e-5 of
+max(max |twin|, 1) for each output (O, lse, dq, dk, dv): 3xTF32 keeps
+about float32's digits, the float32 twin would differ by ~1e-6. The
+masked row is held against the float32 twin: its -1e9 bias absorbs the
+scores in float32 (a uniform softmax, as the reference computes), not in
+float64.
+"""
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from test_torch_cuda_emulation import compile_cuda, mutate, \
+    truncating_3xtf32
+
+CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+FWD = CSRC / "flash_attention_fwd.cu"
+BWD = CSRC / "flash_attention_bwd.cu"
+TILES = "flash_tiles.cuh"
+RTOL = 1e-5
+
+
+def _compile(out: Path, which, text=None, tiles_text=None):
+    """The forward ("fwd") or backward ("bwd") library, from `text` (the
+    source by default) and `tiles_text` (flash_tiles.cuh by default)."""
+    headers = {TILES: tiles_text or (CSRC / TILES).read_text()}
+    src, bind = (FWD, fa.bind) if which == "fwd" else (BWD, fa.bind_bwd)
+    return bind(ctypes.CDLL(str(compile_cuda(
+        out, text or src.read_text(), f"flash_{which}", headers))))
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("flash_emulated")
+    return _compile(out, "fwd"), _compile(out, "bwd")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd(lib, q, k, v, bias, causal, scale):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias, strides = fa._bias_strides(bias, (b, h, sq, sk), "test")
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, sq)
+    scratch = torch.empty(lib.flash_attention_fwd_scratch_bytes(b, h, sq, sk,
+                                                                d),
+                          dtype=torch.uint8)
+    err = lib.flash_attention_fwd_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o), _ptr(lse),
+        _ptr(scratch), b, h, sq, sk, d, *strides, int(causal), scale, None)
+    assert err == 0
+    return o, lse
+
+
+def _bwd(lib, which, q, k, v, bias, do, lse, delta, causal, scale):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias, strides = fa._bias_strides(bias, (b, h, sq, sk), "test")
+    if which == "dq":
+        out1, out2, scratch = torch.empty_like(q), None, []
+    else:
+        out1, out2 = torch.empty_like(k), torch.empty_like(v)
+        scratch = [torch.empty(lib.flash_attention_bwd_dkv_scratch_bytes(
+            b, h, sq, sk, d), dtype=torch.uint8)]
+    err = getattr(lib, f"flash_attention_bwd_{which}_f32")(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
+        _ptr(delta), _ptr(out1), _ptr(out2), *map(_ptr, scratch), b, h, sq,
+        sk, d,
+        *strides, int(causal), scale, None)
+    assert err == 0
+    return out1 if which == "dq" else (out1, out2)
+
+
+def _inputs(b, h, sq, sk, d, bias_shape, seed, mask_row=False):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    bias = None
+    if bias_shape is not None:
+        bias = torch.from_numpy(rng.standard_normal(bias_shape, np.float32))
+        if mask_row:   # every key of batch 0 masked: a uniform softmax
+            bias[0] = -1e9
+    return q, k, v, do, bias
+
+
+def _hold(got, want, what):
+    for name, g, w in zip(("first", "second"), got, want):
+        lim = RTOL * max(float(w.abs().max()), 1.0)
+        err = float((g.double() - w).abs().max())
+        assert err <= lim, f"{what} {name} output: {err:.3e} > {lim:.3e}"
+
+
+# (B, H, Sq, Sk, D, bias shape or None, causal, mask a row): every head
+# dim, Sq != Sk, Sq = 1, lengths off the 64-row tiles and the 32- and
+# 16-row query tiles of dk/dv, key-row, dense and head-broadcast biases
+CASES = [
+    (1, 2, 70, 50, 16, (1, 2, 70, 50), False, False),
+    (2, 1, 1, 90, 32, (2, 1, 1, 90), False, False),
+    (2, 1, 45, 37, 32, (2, 1, 1, 37), False, True),
+    (1, 1, 100, 130, 64, None, True, False),
+    (1, 2, 33, 80, 64, (1, 1, 33, 80), True, False),
+    (1, 2, 65, 40, 128, (1, 2, 1, 40), True, False),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,bias_shape,causal,mask_row", CASES)
+def test_kernels_match_float64_twins(libs, b, h, sq, sk, d, bias_shape,
+                                     causal, mask_row):
+    fwd, bwd = libs
+    q, k, v, do, bias = _inputs(b, h, sq, sk, d, bias_shape, sq + sk + d,
+                                mask_row)
+    scale = 1.0 / np.sqrt(d)
+    # a -1e9 bias absorbs every score of a masked row in float32 (the
+    # uniform softmax the reference computes), not in float64: that case
+    # is held against the twin in float32
+    ref = torch.float32 if mask_row else torch.float64
+    args64 = [t.to(ref) if t is not None else None for t in (q, k, v, bias)]
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, causal, scale)
+    what = f"B{b} H{h} Sq{sq} Sk{sk} D{d} bias {bias_shape} causal {causal}"
+    o, lse = _fwd(fwd, q, k, v, bias, causal, scale)
+    _hold((o, lse), (o64, lse64), f"forward {what}")
+
+    delta64 = fa._delta(o64, do.to(ref))
+    lse32, delta32 = lse64.float(), delta64.float()
+    dq = _bwd(bwd, "dq", q, k, v, bias, do, lse32, delta32, causal, scale)
+    dk, dv = _bwd(bwd, "dkv", q, k, v, bias, do, lse32, delta32, causal,
+                  scale)
+    dq64, _ = fa.flash_attention_bwd_dq_plain(*args64, do.to(ref), lse64,
+                                              delta64, causal, scale)
+    dk64, dv64 = fa.flash_attention_bwd_dkv_plain(*args64, do.to(ref),
+                                                  lse64, delta64, causal,
+                                                  scale)
+    _hold((dq,), (dq64,), f"dq {what}")
+    _hold((dk, dv), (dk64, dv64), f"dk/dv {what}")
+
+
+# 3xTF32 with its lo products dropped in the forward's Q.K^T: one TF32 pass
+_DROP_LO = [("""        sm90::wgmma<kBK, false>(s, ql[kq], kk, kq > 0);
+        sm90::wgmma<kBK, false>(s, qh[kq], kl, 1);
+        sm90::wgmma<kBK, false>(s, qh[kq], kk, 1);
+""", """        sm90::wgmma<kBK, false>(s, qh[kq], kk, kq > 0);
+""")]
+
+# the pack's permutation of each group of 8 off by one place: every key
+# (query) meets its neighbour's probability
+_PERM_OFF = [("  return u < 4 ? 2 * u : 2 * (u - 4) + 1;",
+              "  return u < 4 ? 2 * u + 1 : 2 * (u - 4);")]
+
+# dK and dV summed in the tensor cores' accumulators over every query
+# tile, with no rounding add
+_NO_PROMOTION = [
+    ("""        float part[C::kN / 2];
+""", """        float (&part)[C::kN / 2] =
+            *reinterpret_cast<float(*)[C::kN / 2]>(sum + n0 / 2);
+"""),
+    ("""          sm90::wgmma<C::kN, false>(part, fl[j], bj, j > 0);""",
+     """          sm90::wgmma<C::kN, false>(part, fl[j], bj, 1);"""),
+    ("""        for (int i = 0; i < C::kN / 2; ++i) sum[n0 / 2 + i] += part[i];""",
+     """        for (int i = 0; i < C::kN / 2; ++i) (void)part[i];"""),
+]
+
+
+def _fwd_error(fwd, seed=5):
+    q, k, v, _, bias = _inputs(1, 1, 70, 90, 64, (1, 1, 1, 90), seed)
+    o, lse = _fwd(fwd, q, k, v, bias, False, 0.125)
+    o64, _ = fa.flash_attention_fwd_plain(q.double(), k.double(), v.double(),
+                                          bias.double(), False, 0.125)
+    return float((o.double() - o64).abs().max()) / float(o64.abs().max())
+
+
+def test_dropping_tf32_lo_terms_is_caught(tmp_path, libs):
+    fwd = _compile(tmp_path, "fwd", mutate(FWD.read_text(), _DROP_LO))
+    assert _fwd_error(libs[0]) <= RTOL
+    assert _fwd_error(fwd) > 10 * RTOL
+
+
+def test_permutation_off_by_one_is_caught(tmp_path):
+    fwd = _compile(tmp_path, "fwd", tiles_text=mutate(
+        (CSRC / TILES).read_text(), _PERM_OFF))
+    assert _fwd_error(fwd) > 1e-2
+
+
+def _long_dv(bwd, sq=2048):
+    """dV of one 64-key block over sq queries with dO > 0, so that every
+    term of its sums has one sign and truncation errors add up: the
+    largest error relative to max|dV|."""
+    rng = np.random.default_rng(9)
+    b, h, sk, d = 1, 1, 64, 16
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+    do = torch.from_numpy(rng.uniform(0.5, 1.5, (b, h, sq, d))
+                          .astype(np.float32))
+    args64 = (q.double(), k.double(), v.double(), None)
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, False, 0.25)
+    delta64 = fa._delta(o64, do.double())
+    _, dv = _bwd(bwd, "dkv", q, k, v, None, do, lse64.float(),
+                 delta64.float(), False, 0.25)
+    _, dv64 = fa.flash_attention_bwd_dkv_plain(*args64, do.double(), lse64,
+                                               delta64, False, 0.25)
+    return float((dv.double() - dv64).abs().max()) / float(dv64.abs().max())
+
+
+def test_no_promotion_on_a_long_reduction_is_caught(tmp_path, libs):
+    bwd = _compile(tmp_path, "bwd", mutate(BWD.read_text(), _NO_PROMOTION))
+    assert _long_dv(libs[1]) <= RTOL / 2
+    assert _long_dv(bwd) > RTOL
+
+
+def test_promotion_threshold_holds_the_float32_limit():
+    """kPromoteAfter (flash_tiles.cuh): a product whose k-steps all go into
+    one truncating accumulator stays within half the float32 limit up to
+    that many multiplies on attention's terms (probabilities in [0, 1]
+    times values of one sign), misses the limit over a whole training
+    reduction (2048 queries: 768 multiplies), and a fresh accumulator a
+    32-query tile (12 multiplies) added with a rounding add holds it."""
+    after = int(re.search(r"constexpr int kPromoteAfter = (\d+);",
+                          (CSRC / TILES).read_text()).group(1))
+    rng = np.random.default_rng(0)
+
+    def err(n, promote_every):
+        p = rng.uniform(0, 1, (64, n)).astype(np.float32).astype(np.float64)
+        x = rng.uniform(0.5, 1.5, (n, 16)).astype(np.float32).astype(
+            np.float64)
+        exact = p @ x
+        got = truncating_3xtf32(p, x, promote_every)
+        return np.abs(got - exact).max() / np.abs(exact).max()
+
+    assert err(after // 3 * 8, 0) <= RTOL / 2
+    assert err(2048, 0) > RTOL
+    assert err(2048, 4) <= RTOL / 10
