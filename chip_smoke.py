@@ -179,6 +179,7 @@ BWD_COVERAGE_CASES = [
     (1, 2, 200, 200, 128, None, True, False),
     (4, 8, 1, 300, 64, (4, 1, 1, 300), False, True),
     (2, 4, 96, 96, 32, (2, 1, 96, 96), False, False),
+    (1, 2, 150, 170, 128, (1, 2, 150, 170), True, True),
 ]
 
 TRAIN_CFG = dict(src_vocab=32000, trg_vocab=32000, max_len=2048, n_layer=6,
@@ -1600,12 +1601,18 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
           flush=True)
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.2f} ms {n:5d}x  {key[:90]}", flush=True)
-    # the flash kernels by name: forward and dk/dv main kernels, dq, and
-    # the pack kernels both of them launch ahead (one name for the two)
+    # the flash kernels by name: the forward, dq and dk/dv main kernels,
+    # and the pack kernels all three launch ahead (one name for the three;
+    # a call packs 1 rows + 1 cols in the forward, 2 rows + 1 cols in dq,
+    # 2 rows + 2 cols in dk/dv)
     flash = [(k, ms, n) for k, ms, n in rows
              if "flash" in k or "pack_rows" in k or "pack_cols" in k]
     for key, ms, n in sorted(flash, key=lambda r: -r[1]):
         print(f"  flash: {ms:9.3f} ms {n:5d}x  {key[:90]}", flush=True)
+    dq_ms = sum(ms for k, ms, n in flash if "flash_bwd_dq" in k)
+    if dq_ms:
+        print(f"[{card}] dq main kernel: {dq_ms:.3f} ms of the {label} "
+              "step", flush=True)
     # the forward alone: the ops before append_backward's seed. Each
     # __vjp__ replays its forward op, so a step runs this much twice.
     blk = main.desc.global_block
@@ -1629,7 +1636,7 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
                 top_kernels=[dict(name=k[:120], ms=ms, count=n) for k, ms, n
                              in sorted(rows, key=lambda r: -r[1])[:12]],
                 flash_kernels=[dict(name=k[:120], ms=ms, count=n)
-                               for k, ms, n in flash])
+                               for k, ms, n in flash], dq_device_ms=dq_ms)
 
 
 def train(card):
@@ -3018,10 +3025,11 @@ def main() -> int:
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms", "fma_bound_ms",
                                      "fma_bound_by")}}]
-    # the flash rows' bound_ms at the 3xTF32 rate, fma_bound_ms at the FMA
-    # rate (where the earlier kernels, and dq still, run their products);
-    # the dk/dv row carries the backward total (dq + dk/dv) and the one
-    # library call that computes all three gradients
+    # the flash rows' bound_ms at the 3xTF32 rate of the tensor cores,
+    # where all three kernels run their products, fma_bound_ms at the FMA
+    # rate of the earlier kernels; the dk/dv row carries the backward total
+    # (dq + dk/dv) and the one library call that computes all three
+    # gradients
     for name, line in (("flash_attention_bwd_dq", 213),
                        ("flash_attention_bwd_dkv", 265)):
         case = attn_bwd[(name, BWD_MAIN_CASE)]

@@ -1,4 +1,5 @@
-// Flash-attention backward, float32, for Hopper (sm_90a): two kernels.
+// Flash-attention backward, float32, for Hopper (sm_90a): two kernels, both
+// with their products on the tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // (_bwd): _dq_kernel, which gives dq = scale * sum_k ds * k and, in its
@@ -16,72 +17,84 @@
 // dq, 8*D for dk/dv. Reading q, k, v, dO (and a bias) once and writing the
 // gradients once is tens of MB at the training shapes, a few microseconds
 // at 3.35 TB/s: both kernels are bound by operations, so neither writes the
-// S x S probabilities to device memory. dq still runs its products on the
-// fp32 FMA units (67 TFLOP/s on an H100 SXM); dk/dv runs them on the tensor
-// cores in 3xTF32 (494.7 / 3 TFLOP/s), as PyTorch's own attention backward
-// does, where its earlier kernel ran scalar loops at ~25% of the FMA rate.
+// S x S probabilities to device memory. Both run their products on the
+// tensor cores in 3xTF32 (494.7 / 3 TFLOP/s on an H100 SXM), as PyTorch's
+// own attention backward does; the earlier kernels ran scalar loops on the
+// FMA units (67 TFLOP/s), at 25-27% of that rate.
 //
-// dq (simple and correct first; the tensor cores are later work): one CTA
-// of 256 threads per (batch*head, 64-row query tile); the query and dO
-// tiles are staged once, transposed, in shared memory; a loop over 64-row
-// key tiles (the TPU's sequential grid axis) stages K (transposed and
-// row-major) and V (transposed). Each thread owns a 4x4 block of the
-// 64x64 score and dp tiles and 4 rows x D/16 columns of the dq
-// accumulator; ds goes through shared memory into the ds * K product.
-// bias_grad: it writes ds for every tile it computes into a zero-filled
-// [B,H,Sq,Sk] buffer; the wrapper sums it over the bias's broadcast dims.
-// Shared memory 5*64*D + 64*64 floats (176 KB at D=128).
-//
-// dk/dv, and what each part of its design answers:
+// What the two share, and what each part answers:
 //  * 3xTF32 on wgmma. Each operand is split into hi = tf32(v) and lo =
 //    tf32(v - hi); each k-step runs three m64nNk8 TF32 passes (lo*hi,
-//    hi*lo, hi*hi). Per query tile: S^T = K.Q^T and dP^T = V.dO^T, then
-//    dV += P^T.dO and dK += dS^T.Q.
-//  * One warpgroup (128 threads) a block owns 64 key rows; a loop over
-//    query tiles of 32 is the TPU's sequential grid axis.
-//  * Two blocks an SM. A block has one warpgroup, whose waits on the
-//    tensor cores and elementwise work between the four products leave
-//    them idle unless a second block fills the gaps; so a block keeps
-//    under half an SM's shared memory: K and V once as float32 (rows
-//    padded by 4 floats, so a fragment load hits 32 banks), their A
-//    fragments read and split in the thread at each k-step, and one
-//    buffer of query tiles. As hi/lo shared tiles read by wgmma K and V
-//    would take 64 KB at D = 64, and as register fragments 128 registers
-//    beside four accumulators.
-//  * P^T and dS^T are the A operands of the dV and dK products straight
-//    from the S^T and dP^T accumulators, split in the thread: the pack
-//    permutes the queries of dO^T and Q^T within each group of 8 to match
-//    the accumulator's column order (flash_tiles.cuh, perm8).
+//    hi*lo, hi*hi): a one-pass TF32 product keeps 3 digits, this about
+//    float32's.
+//  * One warpgroup (128 threads) a block owns 64 rows of the gradient's
+//    side (queries for dq, keys for dk/dv); a loop over 32-row tiles of the
+//    other side is the TPU's sequential grid axis. Under causal, tiles that
+//    lie wholly on the masked side of the diagonal are skipped (their p is
+//    exactly 0 in the reference too; dq leaves their ds zero).
+//  * Two blocks an SM. A block has one warpgroup, whose waits on its
+//    copies, on the tensor cores and on the elementwise work between the
+//    products leave the SM idle unless a second block fills the gaps; so a
+//    block keeps under half an SM's shared memory and at most 255
+//    registers (D <= 64). One tile buffer is refilled in two halves: the
+//    operands of the first two products as soon as those have read them,
+//    those of the last two as soon as they have, so each half's copy runs
+//    beside the other half's products.
 //  * B operands from 128-byte-swizzled shared tiles filled by cp.async: a
-//    pack kernel ahead writes Q and dO (rows: the B of K.Q^T and V.dO^T)
-//    and Q^T and dO^T (cols: the B of dS^T.Q and P^T.dO) as TF32 hi and lo
-//    planes, padded to whole tiles. The one buffer is refilled in two
-//    halves: the next tile's rows as soon as S^T and dP^T have read this
-//    one's, its columns as soon as dV and dK have, so each half's copy
-//    runs beside the other half's products. lse, delta and the bias of a
-//    tile are loaded ahead of its products: in this fragment layout the 8
-//    lanes of a quad row read 8 neighbouring keys of one query, so a dense
-//    [B,1,S,S] bias is read in whole 32-byte sectors (the earlier kernel
-//    gathered it transposed).
+//    pack kernel ahead writes them as TF32 hi and lo planes, padded to
+//    whole tiles (flash_tiles.cuh), so a copy is a straight 16-byte
+//    cp.async a piece and no thread splits a B element in the loop.
+//  * The accumulator as the next A operand. ds (dq), and p and ds (dk/dv),
+//    are A fragments straight from the accumulator of the product before,
+//    split in the thread: its columns 2t, 2t + 1 are the fragment's words
+//    t, t + 4, so the pack permutes the reduction index of the next B
+//    operand within each group of 8 (perm8): no shuffle.
 //  * Promotion. The tensor cores' float32 sums truncate (past 1e-5 over a
-//    2048-query reduction in one accumulator: the source test's model
-//    shows it); each tile's dV and dK products go into fresh registers,
-//    added with a rounding add. A tile's product is 3 * 32 / 8 = 12
-//    multiplies, under kPromoteAfter.
-//  * At D = 128 the registers hold dK and dV (128) beside a 64-column
-//    product at a time and 4 k-steps of K or V fragments.
-//  * Under causal, query tiles that end before the block's first key are
-//    skipped (their p is exactly 0 in the reference too).
-// Both kernels: each CTA owns its output tile (no atomics, deterministic
-// results); the masks are applied in the reference's order; the bias is
-// read through per-dimension strides (stride 0 on a broadcast dim), so a
-// [B,1,1,Sk] key-row mask or a [B,1,Sq,Sk] bias is never expanded. All PTX
-// of dk/dv (cp.async, wgmma, cvt.rna.tf32) lives in sm90_mma.cuh.
+//    2048-long reduction in one accumulator: the source test's model shows
+//    it); each tile's gradient product goes into fresh registers, added
+//    with a rounding add. A tile's product is 3 * 32 / 8 = 12 multiplies,
+//    and S (dP) 3 * D / 8, all under kPromoteAfter.
+//  * The bias is read through per-dimension strides (stride 0 on a
+//    broadcast dim), so a [B,1,1,Sk] key-row mask or a [B,1,Sq,Sk] bias is
+//    never expanded; in the accumulator layout the 4 lanes of a quad read
+//    8 neighbouring keys of one query, whole 32-byte sectors of a dense
+//    bias (and, for dq's bias_grad, whole sectors of ds written).
+//  * Each CTA owns its output tile: no atomics, deterministic results.
 //
-// C interface (no PyTorch headers): the Python wrapper passes raw device
-// pointers (and, for dk/dv, a scratch buffer of
-// flash_attention_bwd_dkv_scratch_bytes() for the packed planes) and the
-// current CUDA stream through ctypes and checks the returned cudaError_t.
+// dq (flash_bwd_dq_tc_kernel): S = Q.K^T and dP = dO.V^T over d, then
+// dq += dS.K over the tile's 32 keys. Q's A fragments are loaded and split
+// once a block (D <= 64; at D = 128 they would not fit beside dq, so Q is
+// split once into swizzled shared planes and read with wgmma_ss, as the
+// forward does). dO's fragments beside Q's would take 64 more registers
+// for the whole loop, so dO is kept as float32 in shared memory (rows
+// padded by 4 floats, so a fragment load hits 32 banks) and each k-step's
+// fragments are read and split in the thread, while S runs on the tensor
+// cores. A pack ahead writes K and V as rows (the B of Q.K^T and dO.V^T)
+// and K as cols with its keys permuted (the B of dS.K). At D = 128 dq is
+// multiplied 64 columns at a time and dP waits every 4 k-steps. Each of
+// dq's products issues the lo passes of all its k-steps before the hi*hi
+// passes: every add into a tensor-core accumulator truncates to the ulp of
+// the running sum, so the small lo terms are summed while it is small
+// (the source test's interleaved mutant errs over 1.5x more; chip_smoke's
+// hold on the Q and K projections' gradients needs it). bias_grad: ds of
+// every computed tile
+// goes from the accumulator into a zero-filled [B,H,Sq,Sk] buffer; the
+// wrapper sums it over the bias's broadcast dims.
+//
+// dk/dv (flash_bwd_dkv_tc_kernel): per query tile S^T = K.Q^T and dP^T =
+// V.dO^T, then dV += P^T.dO and dK += dS^T.Q. K and V stay as float32 in
+// shared memory, their A fragments read and split in the thread at each
+// k-step (as hi/lo shared tiles read by wgmma they would take 64 KB at
+// D = 64, as register fragments 128 registers beside four accumulators).
+// The pack writes Q and dO as rows and cols. At D = 128 the registers hold
+// dK and dV (128) beside a 64-column product at a time and 4 k-steps of K
+// or V fragments.
+//
+// All PTX (cp.async, wgmma, cvt.rna.tf32) lives in sm90_mma.cuh. C
+// interface (no PyTorch headers): the Python wrapper passes raw device
+// pointers, a scratch buffer of flash_attention_bwd_{dq,dkv}_scratch_bytes()
+// for the packed planes, and the current CUDA stream through ctypes, and
+// checks the returned cudaError_t.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,185 +105,357 @@
 
 namespace {
 
-constexpr int kBlock = 64;     // query rows and key rows per tile
-constexpr int kThreads = 256;  // 16 x 16 thread grid
 using flash::kNegInf;
 
-struct Args {
+// -- dq on the tensor cores (3xTF32) ----------------------------------------
+
+constexpr int kDqThreads = 128;  // one warpgroup
+constexpr int kDqBQ = 64;        // query rows a block
+constexpr int kDqBK = 32;        // keys a tile
+
+template <int D>
+struct DqCfg {
+  static constexpr int kDc = flash::dpad(D) / 32;  // d chunks of rows tiles
+  static constexpr bool kQReg = D <= 64;           // Q fragments in registers
+  static constexpr int kPitch = D + 4;  // floats between dO rows: the 8 rows
+                                        // x 4 lanes of a fragment load hit
+                                        // 32 banks
+  static constexpr int kQPlane = kQReg ? 0 : kDc * kDqBQ * 128;  // bytes
+  static constexpr int kRPlane = kDc * kDqBK * 128;  // K or V rows tile
+  static constexpr int kTPlane = D * 128;            // K^T tile (32 keys)
+  // k-steps of dP issued before a wait, and output columns of a dq
+  // product: what the registers hold beside dq at D = 128
+  static constexpr int kGroup = D <= 64 ? D / 8 : 4;
+  static constexpr int kDqN = D <= 64 ? D : 64;
+  // alignment slack, Q planes (D = 128), the K, V and K^T tile, dO
+  static constexpr int kSmem = 1024 + 2 * (kQPlane + 2 * kRPlane + kTPlane) +
+                               kDqBQ * kPitch * 4;
+  static_assert(3 * kDqBK / 8 <= flash::kPromoteAfter &&
+                    3 * D / 8 <= flash::kPromoteAfter,
+                "a product's multiplies exceed the promotion threshold");
+};
+
+struct DqArgs {
   const float* q;
-  const float* k;
-  const float* v;
-  const float* bias;
   const float* dout;
+  const float* bias;
   const float* lse;
   const float* delta;
-  float* out1;  // dq | dk
-  float* out2;  // dbias (or null) | dv
+  const uint32_t* kp;   // rows planes of K
+  const uint32_t* vp;   // rows planes of V
+  const uint32_t* ktp;  // cols planes of K
+  float* dq;
+  float* dbias;  // the full-shape ds, or null
   int H, Sq, Sk;
+  long long rplane, tplane;  // elements of one plane
   long long bs_b, bs_h, bs_q, bs_k;
   int causal;
   float scale;
 };
 
-// scale * dot + bias, then the k >= Sk and causal masks, in the
-// reference's order
-__device__ __forceinline__ float masked_score(const Args& a, float dot,
-                                              int b, int h, int qr, int kc) {
-  float x = dot * a.scale;
-  if (a.bias != nullptr && qr < a.Sq && kc < a.Sk)
-    x += a.bias[b * a.bs_b + h * a.bs_h + (long long)qr * a.bs_q +
-                (long long)kc * a.bs_k];
-  if (kc >= a.Sk) x = kNegInf;
-  if (a.causal && qr < kc) x = kNegInf;
-  return x;
-}
-
-// rows [r0, r0 + 64) of a [S, D] matrix into T (transposed, [D][64])
-// and/or R (row-major, [64][D]); rows at or past S read as 0
 template <int D>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
-                                      int S, float* T, float* R) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const float x = r0 + r < S ? src[(size_t)(r0 + r) * D + c] : 0.f;
-    if (T != nullptr) T[c * kBlock + r] = x;
-    if (R != nullptr) R[r * D + c] = x;
-  }
-}
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_tc_kernel(DqArgs a) {
+  using C = DqCfg<D>;
+  constexpr int kS = kDqBK / 2;  // S and dP accumulator registers
+  constexpr int kO = D / 2;      // dq accumulator registers
+  constexpr int kDSteps = D / 8, kKSteps = kDqBK / 8;
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Qt, dOt, Kt, Vt [D][64]; Ks [64][D]; dSt [64 k][64 q]
-  return sizeof(float) * (size_t)(5 * D * kBlock + kBlock * kBlock);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(Args a) {
-  constexpr int kCols = D / 16;  // dq columns per thread
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* dOt = Qt + D * kBlock;
-  float* Kt = dOt + D * kBlock;
-  float* Vt = Kt + D * kBlock;
-  float* Ks = Vt + D * kBlock;
-  float* dSt = Ks + kBlock * D;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(sm90::dyn_smem()) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = base;                   // Q planes (D = 128)
+  unsigned char* ks = qs + 2 * C::kQPlane;    // K rows: hi, lo planes
+  unsigned char* vs = ks + 2 * C::kRPlane;    // V rows: hi, lo planes
+  unsigned char* ts = vs + 2 * C::kRPlane;    // K^T: hi, lo planes
+  float* dof = reinterpret_cast<float*>(ts + 2 * C::kTPlane);  // [64][kPitch]
+  // wgmma descriptors of the four tiles; a k-step's is one add on
+  const uint64_t qd = sm90::b_desc(qs), kd = sm90::b_desc(ks),
+                 vd = sm90::b_desc(vs), td = sm90::b_desc(ts);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key columns tx*4.., dq columns tx*kCols..
-  const int ty = tid / 16;  // query rows ty*4..ty*4+3
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kBlock;
-  const float* qb = a.q + (size_t)bh * a.Sq * D;
-  const float* dob = a.dout + (size_t)bh * a.Sq * D;
-  const float* kb = a.k + (size_t)bh * a.Sk * D;
-  const float* vb = a.v + (size_t)bh * a.Sk * D;
-  float* dbias = a.out2;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kDqBQ;
+  const int lr0 = warp * 16 + g;
+  const int qr0 = q0 + lr0, qr1 = qr0 + 8;
+  const float* qb = a.q + static_cast<size_t>(bh) * a.Sq * D;
+  const float* dob = a.dout + static_cast<size_t>(bh) * a.Sq * D;
+  const long long sp = flash::pad_rows(a.Sk);
 
-  stage<D>(qb, q0, a.Sq, Qt, nullptr);
-  stage<D>(dob, q0, a.Sq, dOt, nullptr);
-  float lse[4], delta[4], acc[4][kCols];
+  // Q: fragments of this thread's rows (a[0] = (g, t), a[1] = (g + 8, t),
+  // a[2] = (g, t + 4), a[3] = (g + 8, t + 4) of each k-step of 8 d), or
+  // the whole tile into swizzled shared planes; dO as float32 into shared
+  // memory (rows past Sq are zeros)
+  uint32_t qh[C::kQReg ? kDSteps : 1][4], ql[C::kQReg ? kDSteps : 1][4];
+  if constexpr (C::kQReg) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    lse[i] = qr < a.Sq ? a.lse[(size_t)bh * a.Sq + qr] : 0.f;
-    delta[i] = qr < a.Sq ? a.delta[(size_t)bh * a.Sq + qr] : 0.f;
+    for (int s = 0; s < kDSteps; ++s)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int row = e & 1 ? qr1 : qr0, col = 8 * s + t + (e & 2 ? 4 : 0);
+        const float v = row < a.Sq ? qb[static_cast<size_t>(row) * D + col]
+                                   : 0.f;
+        flash::split(v, qh[s][e], ql[s][e]);
+      }
   }
+  for (int i = tid; i < kDqBQ * D; i += kDqThreads) {
+    const int r = i / D, e = i % D;
+    const bool in = q0 + r < a.Sq;
+    const size_t at = static_cast<size_t>(q0 + r) * D + e;
+    if constexpr (!C::kQReg)
+      flash::store_split(qs, kDqBQ, C::kQPlane, r, e, in ? qb[at] : 0.f);
+    dof[r * C::kPitch + e] = in ? dob[at] : 0.f;
+  }
+  const float lse0 = qr0 < a.Sq ? a.lse[static_cast<size_t>(bh) * a.Sq + qr0]
+                                : 0.f;
+  const float lse1 = qr1 < a.Sq ? a.lse[static_cast<size_t>(bh) * a.Sq + qr1]
+                                : 0.f;
+  const float dl0 = qr0 < a.Sq ? a.delta[static_cast<size_t>(bh) * a.Sq + qr0]
+                               : 0.f;
+  const float dl1 = qr1 < a.Sq ? a.delta[static_cast<size_t>(bh) * a.Sq + qr1]
+                               : 0.f;
 
-  int n_tiles = (a.Sk + kBlock - 1) / kBlock;
+  int n_tiles = flash::cdiv(a.Sk, kDqBK);
   if (a.causal) {
-    // key tiles whose first key lies past this CTA's last query row
-    const int last = (q0 + kBlock - 1) / kBlock + 1;
+    // key tiles whose first key lies past this block's last query row
+    const int last = (q0 + kDqBQ - 1) / kDqBK + 1;
     n_tiles = n_tiles < last ? n_tiles : last;
   }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlock;
-    __syncthreads();  // the previous tile's Kt/Vt/Ks/dSt are consumed
-    stage<D>(kb, k0, a.Sk, Kt, Ks);
-    stage<D>(vb, k0, a.Sk, Vt, nullptr);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
+  const long long rb = static_cast<long long>(bh) * C::kDc * sp * 32;
+  const uint32_t* tb = a.ktp + static_cast<long long>(bh) * (sp / 32) * D * 32;
+  // K and V rows (the B of Q.K^T and dO.V^T) and the K^T columns (the B of
+  // dS.K) of key tile kt into their halves of the tile buffer
+  auto issue_rows = [&](int kt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&Qt[d * kBlock + ty * 4]);
-      const float4 ov = *reinterpret_cast<const float4*>(&dOt[d * kBlock + ty * 4]);
-      const float4 kv = *reinterpret_cast<const float4*>(&Kt[d * kBlock + tx * 4]);
-      const float4 vv = *reinterpret_cast<const float4*>(&Vt[d * kBlock + tx * 4]);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
-        }
+    for (int c = 0; c < C::kDc; ++c) {
+      const long long at = rb + (c * sp + kt * kDqBK) * 32;
+      flash::copy_tile(ks + c * kDqBK * 128, a.kp + at, kDqBK, a.rplane,
+                       C::kRPlane, kDqThreads);
+      flash::copy_tile(vs + c * kDqBK * 128, a.vp + at, kDqBK, a.rplane,
+                       C::kRPlane, kDqThreads);
     }
+  };
+  auto issue_cols = [&](int kt) {
+    flash::copy_tile(ts, tb + static_cast<long long>(kt) * D * 32, D,
+                     a.tplane, C::kTPlane, kDqThreads);
+  };
 
+  // this thread's two bias rows (a row past Sq reads row Sq - 1: its
+  // output is never stored, and rows do not mix)
+  const float* brow0 = nullptr;
+  const float* brow1 = nullptr;
+  if (a.bias != nullptr) {
+    const float* bb = a.bias + b * a.bs_b + h * a.bs_h;
+    brow0 = bb + (qr0 < a.Sq ? qr0 : a.Sq - 1) * a.bs_q;
+    brow1 = bb + (qr1 < a.Sq ? qr1 : a.Sq - 1) * a.bs_q;
+  }
+
+  float dq[kO];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
+  for (int i = 0; i < kO; ++i) dq[i] = 0.f;
+
+  // One buffer, refilled in two halves: K and V rows of tile kt + 1 are
+  // copied while tile kt's elementwise step and dS.K run, K^T of tile
+  // kt + 1 while tile kt + 1's Q.K^T and dO.V^T run. Each half's copies
+  // are one commit group, so waiting until one group is in flight finds
+  // the older half landed.
+  issue_rows(0);
+  sm90::cp_async_commit();
+  issue_cols(0);
+  sm90::cp_async_commit();
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    sm90::cp_async_wait(1);  // this thread's copies of the rows (tile kt)
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's (and dO, Q)
+    const int k0 = kt * kDqBK;
+
+    // S = Q.K^T, 3xTF32: the lo passes of every k-step first, then the
+    // hi*hi passes, so that only those add into a sum of the result's size
+    float s[kS], dp[kS];
+    sm90::wgmma_fence();
+    sm90::fence_acc(s);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx * 4 + j;
-        const float x = masked_score(a, s[i][j], b, h, qr, kc);
-        const float p = qr < a.Sq ? expf(x - lse[i]) : 0.f;
-        const float ds = p * (dp[i][j] - delta[i]);
-        s[i][j] = ds;
-        if (dbias != nullptr && qr < a.Sq && kc < a.Sk)
-          dbias[((size_t)bh * a.Sq + qr) * a.Sk + kc] = ds;
+    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int kq = 0; kq < kDSteps; ++kq) {
+        const uint64_t kk =
+            sm90::desc_add(kd, (kq / 4) * kDqBK * 128 + (kq % 4) * 32);
+        const uint64_t kl = sm90::desc_add(kk, C::kRPlane);
+        if constexpr (C::kQReg) {
+          if (pass == 0) {
+            sm90::wgmma<kDqBK, false>(s, ql[kq], kk, kq > 0);
+            sm90::wgmma<kDqBK, false>(s, qh[kq], kl, 1);
+          } else {
+            sm90::wgmma<kDqBK, false>(s, qh[kq], kk, 1);
+          }
+        } else {
+          const uint64_t qq =
+              sm90::desc_add(qd, (kq / 4) * kDqBQ * 128 + (kq % 4) * 32);
+          if (pass == 0) {
+            sm90::wgmma_ss<kDqBK>(s, sm90::desc_add(qq, C::kQPlane), kk,
+                                  kq > 0);
+            sm90::wgmma_ss<kDqBK>(s, qq, kl, 1);
+          } else {
+            sm90::wgmma_ss<kDqBK>(s, qq, kk, 1);
+          }
+        }
+      }
+    sm90::wgmma_commit();
+    // the tile's bias while the tensor cores run: s[4j + 2r + e] is row
+    // (r ? qr1 : qr0), key k0 + 8j + 2t + e. A tile whose keys all lie
+    // below Sk reads contiguous keys at fixed offsets and needs no key
+    // mask; only such a tile that also lies below the causal diagonal
+    // skips the masks altogether.
+    const bool full = k0 + kDqBK <= a.Sk;
+    const bool edge = !full || (a.causal && k0 + kDqBK - 1 > q0);
+    float bv[kS];
+    if (brow0 != nullptr && full && a.bs_k == 1) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+        bv[i] = (i & 2 ? brow1 : brow0)[k0 + 8 * (i / 4) + 2 * t + (i & 1)];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        bv[i] = brow0 != nullptr && col < a.Sk
+                    ? (i & 2 ? brow1 : brow0)[col * a.bs_k]
+                    : 0.f;
       }
     }
+    // dP = dO.V^T, 3xTF32, dO's fragments (rows lr0 and lr0 + 8, columns
+    // 8s + t and 8s + t + 4) read from shared memory and split while the
+    // tensor cores run; kGroup k-steps in flight at a time
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&dSt[(tx * 4 + j) * kBlock + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlock; ++kk) {
-      const float4 dv4 = *reinterpret_cast<const float4*>(&dSt[kk * kBlock + ty * 4]);
-      const float da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
-      float ka[kCols];
+    for (int s0 = 0; s0 < kDSteps; s0 += C::kGroup) {
+      uint32_t fh[C::kGroup][4], fl[C::kGroup][4];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) ka[c] = Ks[kk * D + tx * kCols + c];
+      for (int i = 0; i < C::kGroup; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e)
+          flash::split(dof[(e & 1 ? lr0 + 8 : lr0) * C::kPitch +
+                           8 * (s0 + i) + t + (e & 2 ? 4 : 0)],
+                       fh[i][e], fl[i][e]);
+      sm90::wgmma_fence();
+      sm90::fence_acc(dp);
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(da[i], ka[c], acc[i][c]);
+      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as for S
+#pragma unroll
+        for (int i = 0; i < C::kGroup; ++i) {
+          const int st = s0 + i;
+          const uint64_t vv =
+              sm90::desc_add(vd, (st / 4) * kDqBK * 128 + (st % 4) * 32);
+          if (pass == 0) {
+            sm90::wgmma<kDqBK, false>(dp, fl[i], vv, st > 0);
+            sm90::wgmma<kDqBK, false>(dp, fh[i],
+                                      sm90::desc_add(vv, C::kRPlane), 1);
+          } else {
+            sm90::wgmma<kDqBK, false>(dp, fh[i], vv, 1);
+          }
+        }
+      sm90::wgmma_commit();
+      if (s0 + C::kGroup < kDSteps) {  // D = 128: free the fragments
+        sm90::wgmma_wait0();
+        sm90::fence_acc(dp);
+      }
     }
+    sm90::wgmma_wait0();
+    sm90::fence_acc(s);
+    sm90::fence_acc(dp);
+    __syncthreads();  // every thread's products have read the rows
+    if (kt + 1 < n_tiles) issue_rows(kt + 1);
+    sm90::cp_async_commit();
+
+    // p = exp(s - lse), ds = p (dp - delta), with the masks in the
+    // reference's order; bias_grad: ds into the full-shape buffer (a
+    // quad's lanes write 8 neighbouring keys of one query)
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int row = i & 2 ? qr1 : qr0;
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      float x = s[i] * a.scale + bv[i];
+      if (edge) {
+        if (col >= a.Sk) x = kNegInf;
+        if (a.causal && row < col) x = kNegInf;
+      }
+      const float p = row < a.Sq ? __expf(x - (i & 2 ? lse1 : lse0)) : 0.f;
+      const float ds = p * (dp[i] - (i & 2 ? dl1 : dl0));
+      s[i] = ds;
+      if (a.dbias != nullptr && row < a.Sq && col < a.Sk)
+        a.dbias[(static_cast<size_t>(bh) * a.Sq + row) * a.Sk + col] = ds;
+    }
+
+    // dq += dS.K, each tile's product into fresh registers added with a
+    // rounding add. The A fragment of k-step j is the accumulator in place
+    // (keys 8j + 2t, words t; 8j + 2t + 1, words t + 4), which the packed
+    // K^T holds at those positions.
+    uint32_t fh[kKSteps][4], fl[kKSteps][4];
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j) {
+      flash::split(s[4 * j], fh[j][0], fl[j][0]);
+      flash::split(s[4 * j + 2], fh[j][1], fl[j][1]);
+      flash::split(s[4 * j + 1], fh[j][2], fl[j][2]);
+      flash::split(s[4 * j + 3], fh[j][3], fl[j][3]);
+    }
+    sm90::cp_async_wait(1);  // this thread's copies of K^T (tile kt)
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += C::kDqN) {
+      float pdq[C::kDqN / 2];
+      sm90::wgmma_fence();
+      sm90::fence_acc(pdq);
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as for S
+#pragma unroll
+        for (int j = 0; j < kKSteps; ++j) {
+          const uint64_t bj = sm90::desc_add(td, n0 * 128 + j * 32);
+          if (pass == 0) {
+            sm90::wgmma<C::kDqN, false>(pdq, fl[j], bj, j > 0);
+            sm90::wgmma<C::kDqN, false>(pdq, fh[j],
+                                        sm90::desc_add(bj, C::kTPlane), 1);
+          } else {
+            sm90::wgmma<C::kDqN, false>(pdq, fh[j], bj, 1);
+          }
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_acc(pdq);
+#pragma unroll
+      for (int i = 0; i < C::kDqN / 2; ++i) dq[n0 / 2 + i] += pdq[i];
+    }
+    __syncthreads();  // every thread's dS.K has read K^T: refill it
+    if (kt + 1 < n_tiles) issue_cols(kt + 1);
+    sm90::cp_async_commit();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= a.Sq) continue;
-    float* row = a.out1 + ((size_t)bh * a.Sq + qr) * D + tx * kCols;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? qr1 : qr0;
+    if (row >= a.Sq) continue;
+    float* drow = a.dq + (static_cast<size_t>(bh) * a.Sq + row) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) row[c] = a.scale * acc[i][c];
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(drow + 8 * j + 2 * t) = make_float2(
+          a.scale * dq[4 * j + 2 * r], a.scale * dq[4 * j + 2 * r + 1]);
   }
 }
 
 template <int D>
-cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kBlock - 1) / kBlock, B * a.H);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+cudaError_t launch_dq(DqArgs a, int B, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  if (C::kSmem > flash::max_dynamic_smem())
+    return cudaErrorInvalidConfiguration;
+  static int allowed = 0;
+  if (C::kSmem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kSmem);
+    if (err != cudaSuccess) return err;
+    allowed = C::kSmem;
+  }
+  const dim3 grid(flash::cdiv(a.Sq, kDqBQ), B * a.H);
+  flash_bwd_dq_tc_kernel<D><<<grid, kDqThreads, C::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -558,54 +743,65 @@ cudaError_t launch_dkv(DkvArgs a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-Args make_args(const float* q, const float* k, const float* v,
-               const float* bias, const float* dout, const float* lse,
-               const float* delta, float* out1, float* out2, int H, int Sq,
-               int Sk, long long bs_b, long long bs_h, long long bs_q,
-               long long bs_k, int causal, float scale) {
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = bias;
-  a.dout = dout;
-  a.lse = lse;
-  a.delta = delta;
-  a.out1 = out1;
-  a.out2 = out2;
-  a.H = H;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.bs_b = bs_b;
-  a.bs_h = bs_h;
-  a.bs_q = bs_q;
-  a.bs_k = bs_k;
-  a.causal = causal;
-  a.scale = scale;
-  return a;
-}
-
 }  // namespace
 
+// Bytes of the scratch flash_attention_bwd_dq_f32 needs: the rows planes of
+// K and V and the cols planes of K (flash_tiles.cuh).
+extern "C" long long flash_attention_bwd_dq_scratch_bytes(int B, int H,
+                                                           int Sq, int Sk,
+                                                           int D) {
+  (void)Sq;
+  return 4LL * 2 *
+         (2 * flash::rows_plane(B * H, Sk, D) + flash::cols_plane(B * H, Sk, D));
+}
+
 // dq [B,H,Sq,D] and, when dbias is not null, the full-shape bias gradient
-// ds into dbias [B,H,Sq,Sk] (which the caller zero-fills).
+// ds into dbias [B,H,Sq,Sk] (which the caller zero-fills); scratch of
+// flash_attention_bwd_dq_scratch_bytes().
 extern "C" int flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* bias,
     const float* dout, const float* lse, const float* delta, float* dq,
-    float* dbias, int B, int H, int Sq, int Sk, int D,
+    float* dbias, void* scratch, int B, int H, int Sq, int Sk, int D,
     long long bias_stride_b, long long bias_stride_h,
     long long bias_stride_q, long long bias_stride_k, int causal,
     float sm_scale, void* stream) {
-  const Args a = make_args(q, k, v, bias, dout, lse, delta, dq, dbias, H, Sq,
-                           Sk, bias_stride_b, bias_stride_h, bias_stride_q,
-                           bias_stride_k, causal, sm_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DqArgs a;
+  a.q = q;
+  a.dout = dout;
+  a.bias = bias;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  a.dbias = dbias;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.rplane = flash::rows_plane(B * H, Sk, D);
+  a.tplane = flash::cols_plane(B * H, Sk, D);
+  uint32_t* kp = static_cast<uint32_t*>(scratch);
+  uint32_t* vp = kp + 2 * a.rplane;
+  uint32_t* ktp = vp + 2 * a.rplane;
+  a.kp = kp;
+  a.vp = vp;
+  a.ktp = ktp;
+  a.bs_b = bias_stride_b;
+  a.bs_h = bias_stride_h;
+  a.bs_q = bias_stride_q;
+  a.bs_k = bias_stride_k;
+  a.causal = causal;
+  a.scale = sm_scale;
+  cudaError_t err = flash::pack_rows(k, kp, B * H, Sk, D, s);
+  if (err == cudaSuccess) err = flash::pack_rows(v, vp, B * H, Sk, D, s);
+  if (err == cudaSuccess) err = flash::pack_cols(k, ktp, B * H, Sk, D, s);
+  if (err != cudaSuccess) return err;
   switch (D) {
     case 16: return launch_dq<16>(a, B, s);
     case 32: return launch_dq<32>(a, B, s);
     case 64: return launch_dq<64>(a, B, s);
-    case 128: return launch_dq<128>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_dq<128>(a, B, s);
   }
 }
 

@@ -12,10 +12,10 @@ flash_attention.py``:
                                 (csrc/flash_attention_bwd.cu)
 
 Each CUDA source's header says what bounds it on an H100 and how the
-design answers that. The forward and dk/dv kernels run their products on
-the tensor cores in 3xTF32; each call first packs its B operands into
-TF32 hi/lo planes, in a scratch buffer the wrapper allocates
-(``torch.empty``, sized by the library's ``*_scratch_bytes``).
+design answers that. All three kernels run their products on the tensor
+cores in 3xTF32; each call first packs its B operands into TF32 hi/lo
+planes, in a scratch buffer the wrapper allocates (``torch.empty``, sized
+by the library's ``*_scratch_bytes``).
 ``flash_attention_bwd`` runs the whole backward (delta = rowsum(dO * O)
 in torch, as the JAX package computes it outside its kernels, then both
 kernels); ``FlashAttention`` is the torch.autograd.Function over the
@@ -285,15 +285,13 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_paddle_bound", False):
         tail = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
                 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_bwd_dq_f32.argtypes = [ctypes.c_void_p] * 9 + tail
-        lib.flash_attention_bwd_dkv_f32.argtypes = \
-            [ctypes.c_void_p] * 10 + tail
-        for fn in (lib.flash_attention_bwd_dq_f32,
-                   lib.flash_attention_bwd_dkv_f32):
+        for which in ("dq", "dkv"):
+            fn = getattr(lib, f"flash_attention_bwd_{which}_f32")
+            fn.argtypes = [ctypes.c_void_p] * 10 + tail
             fn.restype = ctypes.c_int
-        fn = lib.flash_attention_bwd_dkv_scratch_bytes
-        fn.argtypes = [ctypes.c_int] * 5
-        fn.restype = ctypes.c_longlong
+            fn = getattr(lib, f"flash_attention_bwd_{which}_scratch_bytes")
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_longlong
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
@@ -324,11 +322,10 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
     sk = k.shape[2]
     bias, strides = _bias_strides(bias, (b, h, sq, sk), name)
     lib = _bwd_library()
-    # the dk/dv kernel packs Q and dO into a scratch of its own
-    scratch = []
-    if name == "flash_attention_bwd_dkv":
-        scratch.append(_scratch(lib.flash_attention_bwd_dkv_scratch_bytes(
-            b, h, sq, sk, d), q.device))
+    # each kernel packs its B operands (dq: K and V; dk/dv: Q and dO) into
+    # a scratch of its own, held here until the launch returns
+    scratch = _scratch(getattr(lib, name + "_scratch_bytes")(b, h, sq, sk, d),
+                       q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name + "_f32")(
@@ -336,7 +333,7 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
             bias.data_ptr() if bias is not None else None, do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out1.data_ptr(),
             out2.data_ptr() if out2 is not None else None,
-            *(t.data_ptr() for t in scratch), b, h, sq, sk, d, *strides,
+            scratch.data_ptr(), b, h, sq, sk, d, *strides,
             int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(

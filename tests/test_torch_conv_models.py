@@ -33,6 +33,7 @@ the reference itself moves when its parameters are nudged by one ulp
 3.8e-4 * max|g|, the port differs by up to 3.7 times the nudge's effect
 on the same parameter; a wrong formula moves them by O(1)).
 """
+import importlib
 import json
 
 import jax.numpy as jnp
@@ -65,12 +66,28 @@ BUILDERS = {
 }
 
 
+# each package's backward names its snapshot vars `<name>@PRE.<n>` from a
+# count of every snapshot its process has taken
+_BACKWARDS = [importlib.import_module(f"{pkg}.core.backward")
+              for pkg in ("paddle_tpu", "paddle_tpu_torch")]
+
+
 def _build(name):
+    """Both packages' programs for `name`. Other test files in the same
+    process advance one package's snapshot count and not the other's, so
+    both builds start it from 0 (and it is restored after)."""
     fn, ref_mod, port_mod = BUILDERS[name]
-    with ref_framework.isolated_name_scope():
-        ref = fn(ref_mod)
-    with framework.isolated_name_scope():
-        port = fn(port_mod)
+    saved = [m._SNAP_COUNTER[0] for m in _BACKWARDS]
+    for m in _BACKWARDS:
+        m._SNAP_COUNTER[0] = 0
+    try:
+        with ref_framework.isolated_name_scope():
+            ref = fn(ref_mod)
+        with framework.isolated_name_scope():
+            port = fn(port_mod)
+    finally:
+        for m, n in zip(_BACKWARDS, saved):
+            m._SNAP_COUNTER[0] = n
     return ref, port
 
 

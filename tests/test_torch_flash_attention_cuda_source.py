@@ -4,8 +4,9 @@ paddle_tpu_torch/csrc/flash_attention_fwd.cu and flash_attention_bwd.cu
 compile only for a card, but their logic — the pack kernels' hi/lo TF32
 planes in the rows and cols layouts with the keys (queries) permuted
 within each group of 8, the ring of copy stages, the 128-byte-swizzled
-tiles, A fragments from registers (Q; K and V of dk/dv, read from shared
-memory; P and dS read in place from the accumulator before) and from
+tiles, A fragments from registers (Q; K and V of dk/dv and dO of dq,
+read from shared memory; P and dS read in place from the accumulator
+before) and from
 shared tiles (Q at D = 128), the 3xTF32 passes, the online softmax over
 the key tiles, the per-tile promotion of long sums, the masks in the
 reference's order, the causal tile skips and the strided bias — is plain
@@ -16,15 +17,18 @@ float32 sums, as the tensor cores do) and holds the C entry points
 against the plain twins of ops/kernels/flash_attention.py run in
 float64: every head dim, Sq != Sk, Sq = 1, lengths that are not tile
 multiples, key-row, dense and head-broadcast biases, causal and not, and
-a fully masked row. Three mutants must be caught: 3xTF32 with its lo
-products dropped, the pack's permutation of each group of 8 off by one,
-and dV summed in one truncating accumulator over a long reduction. A
-model of the truncation pins the promotion threshold (kPromoteAfter). It
+a fully masked row, and dq's bias_grad mode (the full-shape ds, zeros on
+the tiles the causal skip never computes). Five mutants must be caught:
+3xTF32 with its lo products dropped, the pack's permutation of each group
+of 8 off by one (in the forward and in dq), dV or dq summed in one
+truncating accumulator over a long reduction, and dq's lo and hi*hi
+passes interleaved (its error against float64 grows). A model of the truncation
+pins the promotion threshold (kPromoteAfter). It
 says nothing about speed or about the device compiler; chip_smoke.py
 runs the real kernels on the card.
 
 Tolerance: the kernels against the float64 twin, max |diff| <= 1e-5 of
-max(max |twin|, 1) for each output (O, lse, dq, dk, dv): 3xTF32 keeps
+max(max |twin|, 1) for each output (O, lse, dq, ds, dk, dv): 3xTF32 keeps
 about float32's digits, the float32 twin would differ by ~1e-6. The
 masked row is held against the float32 twin: its -1e9 bias absorbs the
 scores in float32 (a uniform softmax, as the reference computes), not in
@@ -84,23 +88,29 @@ def _fwd(lib, q, k, v, bias, causal, scale):
     return o, lse
 
 
-def _bwd(lib, which, q, k, v, bias, do, lse, delta, causal, scale):
+def _bwd(lib, which, q, k, v, bias, do, lse, delta, causal, scale,
+         bias_grad=False):
+    """dq (and, with bias_grad, the full-shape ds in a zero-filled buffer,
+    as the wrapper allocates it: (dq, ds)) or (dk, dv)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     bias, strides = fa._bias_strides(bias, (b, h, sq, sk), "test")
     if which == "dq":
-        out1, out2, scratch = torch.empty_like(q), None, []
+        out1 = torch.empty_like(q)
+        out2 = torch.zeros(b, h, sq, sk) if bias_grad else None
     else:
         out1, out2 = torch.empty_like(k), torch.empty_like(v)
-        scratch = [torch.empty(lib.flash_attention_bwd_dkv_scratch_bytes(
-            b, h, sq, sk, d), dtype=torch.uint8)]
+    scratch = torch.empty(getattr(
+        lib, f"flash_attention_bwd_{which}_scratch_bytes")(b, h, sq, sk, d),
+        dtype=torch.uint8)
     err = getattr(lib, f"flash_attention_bwd_{which}_f32")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(out1), _ptr(out2), *map(_ptr, scratch), b, h, sq,
-        sk, d,
+        _ptr(delta), _ptr(out1), _ptr(out2), _ptr(scratch), b, h, sq, sk, d,
         *strides, int(causal), scale, None)
     assert err == 0
-    return out1 if which == "dq" else (out1, out2)
+    if which == "dq":
+        return (out1, out2) if bias_grad else out1
+    return out1, out2
 
 
 def _inputs(b, h, sq, sk, d, bias_shape, seed, mask_row=False):
@@ -168,6 +178,29 @@ def test_kernels_match_float64_twins(libs, b, h, sq, sk, d, bias_shape,
     _hold((dk, dv), (dk64, dv64), f"dk/dv {what}")
 
 
+def test_dq_bias_grad_matches_float64_twin(libs):
+    """dq's bias_grad mode: ds written from the accumulator layout into the
+    zero-filled full-shape buffer, zeros on the key tiles the causal skip
+    never computes, against the twin's ds in float64 (Sq != Sk, lengths
+    off the 64-query blocks and 32-key tiles)."""
+    _, bwd = libs
+    b, h, sq, sk, d = 1, 2, 70, 130, 32
+    q, k, v, do, bias = _inputs(b, h, sq, sk, d, (b, h, sq, sk), 11)
+    scale = 1.0 / np.sqrt(d)
+    args64 = [t.double() for t in (q, k, v, bias)]
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, True, scale)
+    delta64 = fa._delta(o64, do.double())
+    dq, ds = _bwd(bwd, "dq", q, k, v, bias, do, lse64.float(),
+                  delta64.float(), True, scale, bias_grad=True)
+    dq64, ds64 = fa.flash_attention_bwd_dq_plain(
+        *args64, do.double(), lse64, delta64, True, scale, bias_grad=True)
+    _hold((dq, ds), (dq64, ds64), "dq bias_grad")
+    # the first query block's tiles past key 63, and the second's past
+    # key 127, are never computed
+    assert not ds[:, :, :64, 64:].any() and not ds[:, :, 64:, 128:].any()
+    assert ds[:, :, :64, :64].abs().min() < ds[:, :, :64, :64].abs().max()
+
+
 # 3xTF32 with its lo products dropped in the forward's Q.K^T: one TF32 pass
 _DROP_LO = [("""        sm90::wgmma<kBK, false>(s, ql[kq], kk, kq > 0);
         sm90::wgmma<kBK, false>(s, qh[kq], kl, 1);
@@ -208,10 +241,63 @@ def test_dropping_tf32_lo_terms_is_caught(tmp_path, libs):
     assert _fwd_error(fwd) > 10 * RTOL
 
 
+def _dq_error(bwd, seed=6):
+    q, k, v, do, bias = _inputs(1, 1, 70, 90, 64, (1, 1, 1, 90), seed)
+    args64 = (q.double(), k.double(), v.double(), bias.double())
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, False, 0.125)
+    delta64 = fa._delta(o64, do.double())
+    dq = _bwd(bwd, "dq", q, k, v, bias, do, lse64.float(), delta64.float(),
+              False, 0.125)
+    dq64, _ = fa.flash_attention_bwd_dq_plain(*args64, do.double(), lse64,
+                                              delta64, False, 0.125)
+    return float((dq.double() - dq64).abs().max()) / float(dq64.abs().max())
+
+
 def test_permutation_off_by_one_is_caught(tmp_path):
-    fwd = _compile(tmp_path, "fwd", tiles_text=mutate(
-        (CSRC / TILES).read_text(), _PERM_OFF))
+    """The forward's P.V and dq's dS.K both read the accumulator as the A
+    fragment against a pack permuted by perm8."""
+    tiles = mutate((CSRC / TILES).read_text(), _PERM_OFF)
+    fwd = _compile(tmp_path, "fwd", tiles_text=tiles)
     assert _fwd_error(fwd) > 1e-2
+    bwd = _compile(tmp_path, "bwd", tiles_text=tiles)
+    assert _dq_error(bwd) > 1e-2
+
+# dq summed in the tensor cores' accumulators over every key tile, with no
+# rounding add
+_DQ_NO_PROMOTION = [
+    ("""      float pdq[C::kDqN / 2];
+""", """      float (&pdq)[C::kDqN / 2] =
+          *reinterpret_cast<float(*)[C::kDqN / 2]>(dq + n0 / 2);
+"""),
+    ("""            sm90::wgmma<C::kDqN, false>(pdq, fl[j], bj, j > 0);""",
+     """            sm90::wgmma<C::kDqN, false>(pdq, fl[j], bj, 1);"""),
+    ("""      for (int i = 0; i < C::kDqN / 2; ++i) dq[n0 / 2 + i] += pdq[i];""",
+     """      for (int i = 0; i < C::kDqN / 2; ++i) (void)pdq[i];"""),
+]
+
+
+# every product's passes interleaved k-step by k-step (lo*hi, hi*lo,
+# hi*hi), as the forward and dk/dv issue them
+_DQ_INTERLEAVED = [
+    ("""    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int kq = 0; kq < kDSteps; ++kq) {""",
+     """    for (int kq = 0; kq < kDSteps; ++kq)
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {"""),
+    ("""      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as for S
+#pragma unroll
+        for (int i = 0; i < C::kGroup; ++i) {""",
+     """      for (int i = 0; i < C::kGroup; ++i)
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {"""),
+    ("""      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as for S
+#pragma unroll
+        for (int j = 0; j < kKSteps; ++j) {""",
+     """      for (int j = 0; j < kKSteps; ++j)
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {"""),
+]
 
 
 def _long_dv(bwd, sq=2048):
@@ -235,10 +321,72 @@ def _long_dv(bwd, sq=2048):
     return float((dv.double() - dv64).abs().max()) / float(dv64.abs().max())
 
 
+def _long_dq(bwd, sk=2048):
+    """dq of one 64-query block over sk keys with K > 0 and a delta below
+    every dp (the C entry point takes any lse and delta), so that every ds,
+    and every term of dq's sums, has one sign and truncation errors add
+    up: the largest error relative to max|dq|."""
+    rng = np.random.default_rng(9)
+    b, h, sq, d = 1, 1, 64, 16
+    q = torch.from_numpy(0.1 * rng.standard_normal((b, h, sq, d),
+                                                   np.float32))
+    k = torch.from_numpy(rng.uniform(0.5, 1.5, (b, h, sk, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    args64 = (q.double(), k.double(), v.double(), None)
+    _, lse64 = fa.flash_attention_fwd_plain(*args64, False, 0.25)
+    delta64 = torch.full((b, h, sq), -50.0, dtype=torch.float64)
+    dq = _bwd(bwd, "dq", q, k, v, None, do, lse64.float(), delta64.float(),
+              False, 0.25)
+    dq64, ds64 = fa.flash_attention_bwd_dq_plain(
+        *args64, do.double(), lse64, delta64, False, 0.25, bias_grad=True)
+    assert float(ds64.min()) > 0
+    return float((dq.double() - dq64).abs().max()) / float(dq64.abs().max())
+
+
 def test_no_promotion_on_a_long_reduction_is_caught(tmp_path, libs):
     bwd = _compile(tmp_path, "bwd", mutate(BWD.read_text(), _NO_PROMOTION))
     assert _long_dv(libs[1]) <= RTOL / 2
     assert _long_dv(bwd) > RTOL
+
+
+def _dq_mean_error(bwd):
+    """dq's mean |error| against the float64 twin, relative to max|dq|, at
+    two 64-query blocks over 512 keys, D = 64, with scores of a few units
+    (q scaled by 3)."""
+    rng = np.random.default_rng(12)
+    b, h, sq, sk, d = 1, 2, 64, 512, 64
+    q = torch.from_numpy(3 * rng.standard_normal((b, h, sq, d), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+            for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    args64 = (q.double(), k.double(), v.double(), None)
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, False, 0.125)
+    lse, delta = lse64.float(), fa._delta(o64, do.double()).float()
+    dq = _bwd(bwd, "dq", q, k, v, None, do, lse, delta, False, 0.125)
+    dq64, _ = fa.flash_attention_bwd_dq_plain(*args64, do.double(),
+                                              lse.double(), delta.double(),
+                                              False, 0.125)
+    return float((dq.double() - dq64).abs().mean()) / float(
+        dq64.abs().max())
+
+
+def test_dq_lo_passes_first_cuts_the_truncation_error(tmp_path, libs):
+    """Each add into a tensor-core accumulator truncates to the running
+    sum's ulp, so dq issues every lo pass of a product before its hi*hi
+    passes, and only those add at the sum's full size; with the passes
+    interleaved k-step by k-step, dq errs at least 1.5x more."""
+    bwd = _compile(tmp_path, "bwd", mutate(BWD.read_text(), _DQ_INTERLEAVED))
+    assert _dq_mean_error(bwd) > 1.5 * _dq_mean_error(libs[1])
+
+
+def test_dq_no_promotion_on_a_long_reduction_is_caught(tmp_path, libs):
+    """dq over 2048 keys in one truncating accumulator misses the limit
+    that the per-tile promotion holds."""
+    bwd = _compile(tmp_path, "bwd", mutate(BWD.read_text(), _DQ_NO_PROMOTION))
+    assert _long_dq(libs[1]) <= RTOL / 2
+    assert _long_dq(bwd) > RTOL
 
 
 def test_promotion_threshold_holds_the_float32_limit():
