@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught):
      yardstick) and the card's lower bound for the work (for the flash
      kernels at the 3xTF32 rate of the tensor cores, with the FMA-rate
      bound beside it, and the flash backward total, dq + dk/dv, against
-     the one PyTorch call that computes dq, dk and dv together).
+     the one PyTorch call that computes dq, dk and dv together; for the
+     persistent fused-GRU kernels, a bitwise rerun, the barrier floor
+     (the same grid through the same barriers with no products) and the
+     backward's recurrence and dW reduction apart).
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -65,7 +68,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and read just after, and once with __pallas__="0" stamped on every
      gru op and fwd_op copy under PADDLE_TPU_PALLAS_GRU=0 (the scan
      route). Losses and every parameter's step-1 gradient must agree per
-     element.
+     element; a profiled step gives the fused-GRU kernels' device ms
+     (forward, backward recurrence, dW) beside the step's.
   7. the inference entry point: the kernel-route model of phase 6 saved
      with io.save_inference_model, loaded with io.load_inference_model
      into a fresh Executor and scope and run on one feed; its logits must
@@ -258,7 +262,8 @@ GRU_FWD_ATOL = 1e-6
 GRU_MAIN_CASE = "ragged"
 # fused-GRU sweep: (T, B, H, lengths, nonzero h0, h_last cotangent): H
 # 64/256/512 and one off every tile edge, B 1/7/64, T 1/5/80, zero-length
-# and full rows
+# and full rows; H 1024 and 2048, whose W strips do not fit in shared
+# memory (the persistent kernels stream the rest from L2)
 GRU_COVERAGE_CASES = [
     (5, 7, 64, [5, 0, 3, 1, 5, 2, 0], True, True),
     (1, 7, 256, [1, 0, 1, 1, 0, 1, 1], True, True),
@@ -267,7 +272,20 @@ GRU_COVERAGE_CASES = [
     (5, 64, 256, [i % 6 for i in range(64)], False, True),
     (80, 7, 512, [80, 0, 40, 79, 1, 80, 13], True, False),
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
+    (5, 8, 1024, [5, 0, 3, 5, 1, 4, 5, 2], True, True),
+    (5, 8, 2048, [5, 3, 0, 5, 1, 4, 5, 2], True, True),
 ]
+# the times of the per-step kernels the persistent ones replaced (two
+# launches a step; PERF.md rows 6-7, NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside the persistent kernels' times and kept out of the
+# kernels line, which holds only this run's numbers
+GRU_PER_STEP_MS = {("fused_gru_fwd", "ragged"): "1.3773-1.4124",
+                   ("fused_gru_fwd", "full"): "1.3785-1.4097",
+                   ("fused_gru_bwd", "ragged"): "2.2876-2.3312",
+                   ("fused_gru_bwd", "full"): "2.2876-2.3312"}
+# kernel name fragments of a fused-GRU call in a profile
+GRU_KERNELS = {"forward": "gru_fwd_persistent", "backward recurrence":
+               "gru_bwd_persistent", "dW": "gru_dw_"}
 
 
 # the fused conv + BN kernels (paddle_tpu/ops/pallas/fused_conv.py) at the
@@ -980,11 +998,31 @@ def gru_yardstick(inputs, cts):
     return fwd, bwd
 
 
+def gru_device_ms(fn, iters=5):
+    """Device ms per call of each fused-GRU kernel that fn launches (keys
+    of GRU_KERNELS), from one torch.profiler pass over `iters` calls after
+    a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {part: sum(ms for name, ms, _ in device_kernels(prof)
+                      if frag in name) / iters
+            for part, frag in GRU_KERNELS.items()}
+
+
 def check_gru(card):
     """The fused-GRU forward and backward kernels against their plain
     twins on the card at the book model's shape (T80 B64 H512, the phase-6
-    source lengths, and full lengths), timed there with the nn.GRU
-    yardstick and the bound; then over GRU_COVERAGE_CASES."""
+    source lengths, and full lengths), each run twice (bitwise equal),
+    timed there beside the per-step kernels' times, the nn.GRU
+    yardstick, the bound, the barrier floor (the same grid through the
+    same barriers with no products) and the backward's recurrence and dW
+    reduction apart; then over GRU_COVERAGE_CASES."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_gru as fg
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1002,9 +1040,14 @@ def check_gru(card):
             raise SystemExit(f"fused GRU kernels disagree with their plain "
                              f"twins at T={t} B={b} H={h} {label}: forward "
                              f"{ferr:.3e}, backward {berr:.3e}")
+        bwd_args = inputs[1:] + (outs[0], outs[2]) + cts
+        reruns = [fg.fused_gru_fwd(*inputs) + fg.fused_gru_bwd(*bwd_args)
+                  for _ in range(2)]
+        if not all(torch.equal(x, y) for x, y in zip(*reruns)):
+            raise SystemExit(f"fused GRU kernels: a rerun at T={t} B={b} "
+                             f"H={h} {label} is not bitwise equal")
         yard_fwd, yard_bwd = gru_yardstick(inputs, cts)
         l_sum = int(np.sum(lens))
-        bwd_args = inputs[1:] + (outs[0], outs[2]) + cts
         times = {
             "fused_gru_fwd": (
                 cuda_ms(lambda: fg.fused_gru_fwd(*inputs), iters=10),
@@ -1014,16 +1057,30 @@ def check_gru(card):
                 cuda_ms(lambda: fg.fused_gru_bwd(*bwd_args), iters=10),
                 cuda_ms(lambda: fg.fused_gru_bwd_plain(*bwd_args), iters=5),
                 cuda_ms(yard_bwd, iters=10), berr, True)}
+        parts = gru_device_ms(lambda: fg.fused_gru_bwd(*bwd_args))
         for name, (ms, plain_ms, yard_ms, err, bwd) in times.items():
             bound_ms, bound_by = gru_bound(t, b, h, l_sum, bwd)
+            plan = fg.barrier_floor(t, b, h, bwd, DEVICE)
+            floor_ms = cuda_ms(
+                lambda: fg.barrier_floor(t, b, h, bwd, DEVICE), iters=10)
             rows[(name, label)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                yardstick_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by)
+                yardstick_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by,
+                barrier_floor_ms=floor_ms,
+                plan=plan, **({"recurrence_device_ms":
+                               parts["backward recurrence"],
+                               "dw_device_ms": parts["dW"]} if bwd else {}))
             print(f"[{card}] {name} T={t} B={b} H={h} {label} lengths (sum "
                   f"{l_sum}): max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"(per-step kernels: {GRU_PER_STEP_MS[(name, label)]}) "
                   f"plain_ms={plain_ms:.4f} nn.GRU yardstick_ms="
-                  f"{yard_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-                  flush=True)
+                  f"{yard_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"barrier_floor_ms={floor_ms:.4f} ({plan['barriers']} "
+                  "barriers)" + (f" recurrence_device_ms="
+                                 f"{parts['backward recurrence']:.4f} "
+                                 f"dw_device_ms={parts['dW']:.4f}"
+                                 if bwd else ""), flush=True)
+            print(f"  plan: {plan}", flush=True)
     coverage_err = {"fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
     for t, b, h, lens, state, last in GRU_COVERAGE_CASES:
         inputs, cts = _gru_inputs(gen, t, b, h, lens, state, last)
@@ -1576,11 +1633,14 @@ def device_kernels(prof):
     return rows
 
 
-def profile_step(main, startup, loss, weights, feed, card, label="flash"):
+def profile_step(main, startup, loss, weights, feed, card, label="flash",
+                 groups=None):
     """One more step of `main` (the `label` route) under torch.profiler
     (after a warm-up step), for where its device time goes: the kernels
     by total device time, and the device-busy share of the step's wall
-    time; then the forward alone (see below)."""
+    time, and the device ms and launches of each of `groups` ({part:
+    fragment of its kernels' names}); then the forward alone (see
+    below)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import Executor, Scope, load_param_arrays
@@ -1609,6 +1669,16 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
              if "flash" in k or "pack_rows" in k or "pack_cols" in k]
     for key, ms, n in sorted(flash, key=lambda r: -r[1]):
         print(f"  flash: {ms:9.3f} ms {n:5d}x  {key[:90]}", flush=True)
+    grouped = {part: dict(ms=sum(ms for k, ms, n in rows if frag in k),
+                          count=sum(n for k, ms, n in rows if frag in k))
+               for part, frag in (groups or {}).items()}
+    if grouped:
+        g_ms = sum(g["ms"] for g in grouped.values())
+        print(f"[{card}] {label} kernels of the profiled step: " + ", ".join(
+            f"{part} {g['ms']:.3f} ms ({g['count']}x)"
+            for part, g in grouped.items()) + f"; {g_ms:.3f} ms of "
+            f"{busy_ms:.1f} ms device, {wall_ms:.1f} ms wall "
+            f"({100 * busy_ms / wall_ms:.1f}% busy)", flush=True)
     dq_ms = sum(ms for k, ms, n in flash if "flash_bwd_dq" in k)
     if dq_ms:
         print(f"[{card}] dq main kernel: {dq_ms:.3f} ms of the {label} "
@@ -1636,7 +1706,8 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash"):
                 top_kernels=[dict(name=k[:120], ms=ms, count=n) for k, ms, n
                              in sorted(rows, key=lambda r: -r[1])[:12]],
                 flash_kernels=[dict(name=k[:120], ms=ms, count=n)
-                               for k, ms, n in flash], dq_device_ms=dq_ms)
+                               for k, ms, n in flash], dq_device_ms=dq_ms,
+                kernel_groups=grouped)
 
 
 def train(card):
@@ -2000,7 +2071,7 @@ def train_gru_nmt(card):
     inference = reload_inference(main, logits, exe, scope, feed, card)
     del exe, scope
     profiled = profile_step(main, startup, loss, weights, feed, card,
-                            "GRU kernel")
+                            "GRU kernel", groups=GRU_KERNELS)
 
     _stamp_pallas(main, "gru", "0")
     kernels.reset_launch_counts()
@@ -3068,7 +3139,10 @@ def main() -> int:
                                + [r["max_abs_err"] for r in
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "yardstick_ms")}})
+                                    "library_ms", "yardstick_ms",
+                                    "barrier_floor_ms", "plan",
+                                    "recurrence_device_ms", "dw_device_ms")
+               if k in case}})
     # the fused conv kernels at stage 1 of the chain, float32 (3xTF32),
     # with the bfloat16 kernel's numbers beside them; ms, plain_ms and
     # library_ms in the bare variant (no affine, ReLU or statistics: the

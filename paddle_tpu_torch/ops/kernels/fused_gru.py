@@ -12,8 +12,14 @@ lengths [B] int32. h = u h_prev + (1 - u) tanh(x_c + (r h_prev) W_c). A
 row freezes past its length and its h_all there is 0; h_last is the
 state at length-1 (h0 for a zero-length row). The forward also returns
 gates [T, B, 3H] (u, r, c of every step), which the backward reads where
-the reference recomputes them. The CUDA source's header says what
-bounds the kernels on an H100 and how the design answers that.
+the reference recomputes them. On the card each call is ONE persistent
+launch that walks all T steps (the backward adds the dW reduction):
+each block keeps its strip of W in shared memory for the whole call, and
+grid-wide barriers stand between the two dependent stages of a step.
+The grid is the co-resident maximum; a grid that cannot be co-resident
+is refused by the cooperative launch, and the wrapper raises with the
+plan (grid, blocks per SM, shared memory). The CUDA source's header says
+what bounds the kernels on an H100 and how the design answers that.
 ``FusedGRU`` is the torch.autograd.Function over the pair, the
 counterpart of the reference's ``jax.custom_vjp``, and ``fused_gru``
 applies it.
@@ -122,15 +128,29 @@ def _library() -> ctypes.CDLL:
     lib = build.library(_SOURCE)
     if not getattr(lib, "_paddle_bound", False):
         lib.fused_gru_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2)
         lib.fused_gru_fwd_f32.restype = ctypes.c_int
         lib.fused_gru_bwd_f32.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 2)
         lib.fused_gru_bwd_f32.restype = ctypes.c_int
+        lib.fused_gru_dw_splits.argtypes = [ctypes.c_int] * 3
+        lib.fused_gru_dw_splits.restype = ctypes.c_int
+        lib.fused_gru_sync_words.argtypes = [ctypes.c_int]
+        lib.fused_gru_sync_words.restype = ctypes.c_int
+        lib.fused_gru_barrier_floor.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        lib.fused_gru_barrier_floor.restype = ctypes.c_int
         lib.fused_gru_error_string.argtypes = [ctypes.c_int]
         lib.fused_gru_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
     return lib
+
+
+#: the launch plan a C entry point reports (csrc/fused_gru.cu plan_launch)
+PLAN_FIELDS = ("tiles", "blocks_per_sm", "sms", "grid", "smem_bytes",
+               "resident_w_quads", "a_chunk", "x_slots", "barriers")
 
 
 def _check(who, lead, w, h0, lengths, **more):
@@ -160,22 +180,45 @@ def _check(who, lead, w, h0, lengths, **more):
             tuple(lengths.shape) != (bsz,) or not lengths.is_contiguous():
         raise ValueError(f"{who}: lengths must be a contiguous int32 "
                          f"({bsz},) tensor on {seq.device}")
-    if bsz > 65535 * 16:
-        raise ValueError(f"{who}: batch {bsz} exceeds the grid")
+    if -(-bsz // 16) * -(-hidden // 16) >= 2 ** 31:
+        raise ValueError(f"{who}: {bsz} x {hidden} has too many tiles")
 
 
-def _raise_on(lib, err, who):
+def _sync_words(bsz, device):
+    """The grid barriers' counters (csrc/fused_gru.cu Barrier), as many
+    words as the library asks for; the C functions zero them."""
+    words = _library().fused_gru_sync_words(bsz)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def _launch(who, entry, device, *args):
+    """Call the C entry point `entry` on `device`'s current stream with a
+    plan buffer; raise with the CUDA error and the launch plan (grid,
+    blocks per SM, shared memory: a grid that cannot be co-resident is
+    refused, and nothing falls back) unless it returns 0. Returns the
+    plan as a dict."""
+    lib = _library()
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.addressof(plan), stream)
+    plan = dict(zip(PLAN_FIELDS, plan))
     if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: "
-                           f"{lib.fused_gru_error_string(err).decode()}")
+        raise RuntimeError(
+            f"{who} kernel launch failed: "
+            f"{lib.fused_gru_error_string(err).decode()} (grid "
+            f"{plan['grid']} for {plan['tiles']} tiles, "
+            f"{plan['blocks_per_sm']} blocks per SM on {plan['sms']} SMs "
+            f"at {plan['smem_bytes']} bytes of shared memory a block)")
+    return plan
 
 
 def fused_gru_fwd(x, w, h0, lengths
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GRU over T steps: (h_all [T,B,H], h_last [B,H], gates [T,B,3H]).
-    CUDA tensors run the forward kernels (float32, contiguous, int32
-    lengths — anything else raises); CPU tensors run fused_gru_fwd_plain;
-    meta tensors get outputs of the right shape."""
+    CUDA tensors run the persistent forward kernel (float32, contiguous,
+    int32 lengths — anything else raises); CPU tensors run
+    fused_gru_fwd_plain; meta tensors get outputs of the right shape."""
     if x.device.type == "meta":
         t_max, bsz, g3 = x.shape
         return (x.new_empty((t_max, bsz, g3 // 3)), h0.new_empty(h0.shape),
@@ -187,22 +230,20 @@ def fused_gru_fwd(x, w, h0, lengths
     hidden = g3 // 3
     h_all = torch.empty((t_max, bsz, hidden), dtype=x.dtype, device=x.device)
     gates = torch.empty_like(x)
-    h_last, rh = torch.empty_like(h0), torch.empty_like(h0)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_gru_fwd_f32(
+    h_last, rh, h_pong = (torch.empty_like(h0) for _ in range(3))
+    sync = _sync_words(bsz, x.device)
+    _launch("fused_gru_fwd", "fused_gru_fwd_f32", x.device,
             x.data_ptr(), w.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
             h_all.data_ptr(), h_last.data_ptr(), gates.data_ptr(),
-            rh.data_ptr(), t_max, bsz, hidden, stream)
-    _raise_on(lib, err, "fused_gru_fwd")
+            rh.data_ptr(), h_pong.data_ptr(), sync.data_ptr(), t_max, bsz,
+            hidden)
     fused_gru_fwd.launches += 1
     return h_all, h_last, gates
 
 
 #: kernel launches since the count was last set to 0 (one per call of the
-#: C function, which launches the 2T step kernels; the plain and meta
-#: paths do not count)
+#: C function, which launches the one persistent kernel that walks all T
+#: steps; the plain and meta paths do not count)
 fused_gru_fwd.launches = 0
 
 
@@ -210,8 +251,9 @@ def fused_gru_bwd(w, h0, lengths, h_all, gates, dh_all, dh_last=None):
     """The backward of fused_gru_fwd, from its h_all and gates, for the
     output cotangents dh_all [T,B,H] and dh_last [B,H] (None is zero):
     (dx [T,B,3H], dw [H,3H], dh0 [B,H]). The last-state cotangent is
-    folded in torch (fold_last); CUDA tensors then run the backward
-    kernels (same conditions as fused_gru_fwd), CPU tensors
+    folded in torch (fold_last); CUDA tensors then run the persistent
+    backward kernel and the dW reduction (same conditions as
+    fused_gru_fwd; W is read as it is, no transposed copy), CPU tensors
     fused_gru_bwd_plain."""
     if gates.device.type == "meta":
         return gates.new_empty(gates.shape), w.new_empty(w.shape), \
@@ -229,24 +271,39 @@ def fused_gru_bwd(w, h0, lengths, h_all, gates, dh_all, dh_last=None):
     dx = torch.empty_like(gates)
     dw = torch.empty_like(w)
     dh0, dh_cur, d_rh = (torch.empty_like(h0) for _ in range(3))
-    # W^T for the per-step products with W_c^T and W_ur^T (a copy, once)
-    wt = w.t().contiguous()
-    lib = _library()
+    # the dW reduction's partial sums, one [H, 3H] a row split
     with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream(gates.device).cuda_stream
-        err = lib.fused_gru_bwd_f32(
-            wt.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
+        splits = _library().fused_gru_dw_splits(t_max, bsz, hidden)
+    dw_parts = torch.empty((splits,) + tuple(w.shape), dtype=w.dtype,
+                           device=w.device)
+    sync = _sync_words(bsz, gates.device)
+    _launch("fused_gru_bwd", "fused_gru_bwd_f32", gates.device,
+            w.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
             h_all.data_ptr(), gates.data_ptr(), dh_all.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dh_cur.data_ptr(),
-            d_rh.data_ptr(), t_max, bsz, hidden, stream)
-    _raise_on(lib, err, "fused_gru_bwd")
+            d_rh.data_ptr(), dw_parts.data_ptr(), sync.data_ptr(), t_max,
+            bsz, hidden, splits)
     fused_gru_bwd.launches += 1
     if dh0_direct is not None:
         dh0 = dh0 + dh0_direct
     return dx, dw, dh0
 
 
+#: one per call of the C function, which launches the persistent kernel
+#: of the recurrence and then the dW reduction (row splits, then their sum)
 fused_gru_bwd.launches = 0
+
+
+def barrier_floor(t_max, bsz, hidden, backward, device):
+    """Launch, on `device`'s current stream, the grid the forward
+    (backward=True: the backward) would take at these shapes, stepping
+    through the same grid-wide barriers with no products: what the
+    barriers alone cost a call. Returns the launch plan. A measurement
+    of the design (chip_smoke.py times it), not a route of any op."""
+    sync = _sync_words(bsz, device)
+    return _launch("fused_gru barrier floor", "fused_gru_barrier_floor",
+                   device, sync.data_ptr(), t_max, bsz, hidden,
+                   int(backward))
 
 
 class FusedGRU(torch.autograd.Function):
