@@ -27,9 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels at the 3xTF32 rate of the tensor cores, with the FMA-rate
      bound beside it, and the flash backward total, dq + dk/dv, against
      the one PyTorch call that computes dq, dk and dv together; for the
-     persistent fused-GRU kernels, a bitwise rerun, the barrier floor
-     (the same grid through the same barriers with no products) and the
-     backward's recurrence and dW reduction apart).
+     persistent fused-LSTM kernels at the 3xTF32 rate too; for the
+     persistent fused-LSTM and fused-GRU kernels, a bitwise rerun, the
+     barrier floor (the same grid through the same barriers with no
+     products) and the backward's recurrence and dW reduction apart).
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -55,7 +56,9 @@ Phases (any failure exits non-zero; nothing is caught):
      stamped on every lstm op and fwd_op copy under
      PADDLE_TPU_PALLAS_LSTM=0 (the scan route: the executor stamps the
      knob over an op's stamp when it is "1" or "force"). Losses and
-     every parameter's step-1 gradient must agree per element.
+     every parameter's step-1 gradient must agree per element; a
+     profiled step gives the fused-LSTM kernels' device ms (forward,
+     backward recurrence, dW) beside the step's.
   6. train the GRU encoder-decoder of the book's machine-translation
      chapter (tests/test_book.py: embedding -> fc(3H) -> dynamic_gru for
      source and target, scaled_dot_product_attention(dec, enc, enc),
@@ -222,8 +225,9 @@ LSTM_STEPS = 5
 # the kernel table's row: the LM's shape with the bench's ragged lengths
 LSTM_MAIN_CASE = "ragged"
 # fused-LSTM sweep: (T, B, H, lengths, nonzero h0/c0, nonzero dc_all and
-# last-state cotangents): H 16/128/1024, B=1, T=1, zero-length rows, and
-# an H and B off every tile edge
+# last-state cotangents): H 16/128, B=1, T=1, zero-length rows, an H and
+# B off every tile edge; H 1024 and 2048, whose W strips do not fit in
+# shared memory (the persistent kernels stream the rest from L2)
 LSTM_COVERAGE_CASES = [
     (8, 4, 16, [0, 3, 8, 1], True, True),
     (5, 3, 128, [5, 2, 4], True, True),
@@ -231,7 +235,19 @@ LSTM_COVERAGE_CASES = [
     (7, 1, 128, [7], False, True),
     (1, 5, 128, [1, 0, 1, 1, 0], True, True),
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
+    (5, 8, 2048, [5, 3, 0, 5, 1, 4, 5, 2], True, True),
 ]
+# the times of the per-step kernels the persistent ones replaced (one
+# launch a step forward, two backward; PERF.md rows 4-5, NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside the persistent kernels' times and kept
+# out of the kernels line, which holds only this run's numbers
+LSTM_PER_STEP_MS = {("fused_lstm_fwd", "ragged"): "0.8701-0.8831",
+                    ("fused_lstm_fwd", "full"): "0.8714-0.8841",
+                    ("fused_lstm_bwd", "ragged"): "2.4845-2.5138",
+                    ("fused_lstm_bwd", "full"): "2.4845-2.5138"}
+# kernel name fragments of a fused-LSTM call in a profile
+LSTM_KERNELS = {"forward": "lstm_fwd_persistent", "backward recurrence":
+                "lstm_bwd_persistent", "dW": "lstm_dw_"}
 # kernel vs scan route of the LSTM LM and of the GRU NMT model on the
 # card, float32. The routes compute the same function with the recurrent
 # products summed in another order (the kernels' tiles vs cuBLAS); neither
@@ -726,11 +742,17 @@ def lm_lengths(seed=0):
     return ids, lens
 
 
-def lstm_bound(t, b, h, lengths_sum, backward):
+# the float32 products of the fused-LSTM kernels on the tensor cores:
+# three TF32 passes (3xTF32)
+LSTM_PATH_RATE = TF32_FLOPS_PER_S / 3
+
+
+def lstm_bound(t, b, h, lengths_sum, backward, rate=LSTM_PATH_RATE):
     """Least time for one fused-LSTM call on this card: 2*L*H*4H FLOP
     forward, 3x that backward (recompute, dh_prev, dW), L the sum of the
-    lengths, over the fp32 rate; vs the bytes of its inputs read once and
-    outputs written once over HBM rate."""
+    lengths, at `rate` FLOP/s (3xTF32 on the tensor cores by default;
+    FP32_FLOPS_PER_S for the FMA units); vs the bytes of its inputs read
+    once and outputs written once over HBM rate."""
     fwd = 2.0 * lengths_sum * h * 4 * h
     bwd = 3.0 * fwd
     seq, state, x, w = t * b * h, b * h, t * b * 4 * h, h * 4 * h + 4 * h
@@ -742,7 +764,7 @@ def lstm_bound(t, b, h, lengths_sum, backward):
         # in: x, w, b, h0, c0, lengths; out: h_all, c_all, h_last, c_last
         nbytes, flops = 4.0 * (x + w + 4 * state + b + 2 * seq), fwd
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS_PER_S
+    t_ops = flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -828,8 +850,12 @@ def lstm_library(inputs, cts):
 def check_lstm(card):
     """The fused-LSTM forward and backward kernels against their plain
     twins on the card at the LM's shape (T64 B64 H512, the bench.py
-    ragged lengths and full lengths), timed there with the cuDNN
-    yardstick and the bound; then over LSTM_COVERAGE_CASES."""
+    ragged lengths and full lengths), each run twice (bitwise equal),
+    timed there beside the per-step kernels' times, the cuDNN yardstick,
+    the bound (3xTF32, the FMA-rate bound beside it), the barrier floor
+    (the same grid through the same barriers with no products) and the
+    backward's recurrence and dW reduction apart; then over
+    LSTM_COVERAGE_CASES."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_lstm as fl
     gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -846,13 +872,18 @@ def check_lstm(card):
         print("fused_lstm_bwd vs plain, max |err| (max |plain|): " + ", ".join(
             f"{n} {e:.3e} ({m:.3e})" for n, (e, m) in per_grad.items()),
             flush=True)
+        bwd_args = inputs + tuple(outs[:2]) + cts
+        reruns = [fl.fused_lstm_fwd(*inputs) + fl.fused_lstm_bwd(*bwd_args)
+                  for _ in range(2)]
+        if not all(torch.equal(x, y) for x, y in zip(*reruns)):
+            raise SystemExit(f"fused LSTM kernels: a rerun at T={t} B={b} "
+                             f"H={h} {label} is not bitwise equal")
         lib_fwd, lib_bwd, lib_err = lstm_library(inputs, cts)
         if lib_err > LSTM_LIBRARY_ATOL:
             raise SystemExit(f"the cuDNN yardstick computes another function"
                              f": max |h_all diff| {lib_err:.3e}")
         l_sum = int(np.sum(lens))
         fwd_args = inputs
-        bwd_args = inputs + tuple(outs[:2]) + cts
         times = {
             "fused_lstm_fwd": (
                 cuda_ms(lambda: fl.fused_lstm_fwd(*fwd_args), iters=10),
@@ -862,15 +893,34 @@ def check_lstm(card):
                 cuda_ms(lambda: fl.fused_lstm_bwd(*bwd_args), iters=10),
                 cuda_ms(lambda: fl.fused_lstm_bwd_plain(*bwd_args), iters=5),
                 cuda_ms(lib_bwd, iters=10), berr, True)}
+        parts = kernel_device_ms(lambda: fl.fused_lstm_bwd(*bwd_args),
+                                 LSTM_KERNELS)
         for name, (ms, plain_ms, library_ms, err, bwd) in times.items():
             bound_ms, bound_by = lstm_bound(t, b, h, l_sum, bwd)
+            fma_ms, fma_by = lstm_bound(t, b, h, l_sum, bwd,
+                                        FP32_FLOPS_PER_S)
+            plan = fl.barrier_floor(t, b, h, bwd, DEVICE)
+            floor_ms = cuda_ms(
+                lambda: fl.barrier_floor(t, b, h, bwd, DEVICE), iters=10)
             rows[(name, label)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                fma_bound_ms=fma_ms, fma_bound_by=fma_by,
+                barrier_floor_ms=floor_ms, plan=plan,
+                **({"recurrence_device_ms": parts["backward recurrence"],
+                    "dw_device_ms": parts["dW"]} if bwd else {}))
             print(f"[{card}] {name} T={t} B={b} H={h} {label} lengths (sum "
                   f"{l_sum}): max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"(per-step kernels: {LSTM_PER_STEP_MS[(name, label)]}) "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({bound_by}, 3xTF32) "
+                  f"fma_bound_ms={fma_ms:.4f} ({fma_by}) "
+                  f"barrier_floor_ms={floor_ms:.4f} ({plan['barriers']} "
+                  "barriers)" + (f" recurrence_device_ms="
+                                 f"{parts['backward recurrence']:.4f} "
+                                 f"dw_device_ms={parts['dW']:.4f}"
+                                 if bwd else ""), flush=True)
+            print(f"  plan: {plan}", flush=True)
         print(f"cuDNN yardstick vs kernel h_all: max_abs_err={lib_err:.3e}",
               flush=True)
     coverage_err = {"fused_lstm_fwd": 0.0, "fused_lstm_bwd": 0.0}
@@ -998,10 +1048,10 @@ def gru_yardstick(inputs, cts):
     return fwd, bwd
 
 
-def gru_device_ms(fn, iters=5):
-    """Device ms per call of each fused-GRU kernel that fn launches (keys
-    of GRU_KERNELS), from one torch.profiler pass over `iters` calls after
-    a warm-up call."""
+def kernel_device_ms(fn, groups, iters=5):
+    """Device ms per call of each group of kernels that fn launches
+    ({part: fragment of its kernels' names}, as GRU_KERNELS), from one
+    torch.profiler pass over `iters` calls after a warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1012,7 +1062,7 @@ def gru_device_ms(fn, iters=5):
         torch.cuda.synchronize()
     return {part: sum(ms for name, ms, _ in device_kernels(prof)
                       if frag in name) / iters
-            for part, frag in GRU_KERNELS.items()}
+            for part, frag in groups.items()}
 
 
 def check_gru(card):
@@ -1057,7 +1107,8 @@ def check_gru(card):
                 cuda_ms(lambda: fg.fused_gru_bwd(*bwd_args), iters=10),
                 cuda_ms(lambda: fg.fused_gru_bwd_plain(*bwd_args), iters=5),
                 cuda_ms(yard_bwd, iters=10), berr, True)}
-        parts = gru_device_ms(lambda: fg.fused_gru_bwd(*bwd_args))
+        parts = kernel_device_ms(lambda: fg.fused_gru_bwd(*bwd_args),
+                                 GRU_KERNELS)
         for name, (ms, plain_ms, yard_ms, err, bwd) in times.items():
             bound_ms, bound_by = gru_bound(t, b, h, l_sum, bwd)
             plan = fg.barrier_floor(t, b, h, bwd, DEVICE)
@@ -1934,7 +1985,7 @@ def train_lstm(card):
     if any(launches[n] != c for n, c in want.items()):
         raise SystemExit(f"LSTM launches {launches}, expected {want}")
     profiled = profile_step(main, startup, f["loss"], weights, feed, card,
-                            "LSTM kernel")
+                            "LSTM kernel", groups=LSTM_KERNELS)
 
     _stamp_pallas(main, "lstm", "0")
     kernels.reset_launch_counts()
@@ -3125,7 +3176,10 @@ def main() -> int:
                                + [r["max_abs_err"] for r in
                                   train_shapes[name].values()]),
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}})
+                                    "library_ms", "fma_bound_ms",
+                                    "fma_bound_by", "barrier_floor_ms",
+                                    "plan", "recurrence_device_ms",
+                                    "dw_device_ms") if k in case}})
     # no PyTorch call computes the GRU's function (torch.nn.GRU resets
     # after the recurrent product): library_ms is null, and the nn.GRU
     # same-FLOP yardstick rides beside it

@@ -85,9 +85,10 @@
 //     the splits in order: no atomics. There is no db: the bias went into
 //     x, and autograd through that add gives its gradient.
 //
-//   Barrier (struct Barrier): sense-reversing on a global counter that
-//   the C function zeroes before the launch (csrc/grid_sync.cuh has the
-//   ordering rule). The leader adds 2^31 - (members - 1), every other
+//   Barrier (grid::Barrier, csrc/grid_sync.cuh, shared with the fused
+//   LSTM): sense-reversing on a global counter that the C function zeroes
+//   before the launch (that header has the ordering rule). The leader
+//   adds 2^31 - (members - 1), every other
 //   member 1, so the counter's top bit flips exactly when all have
 //   arrived and its low bits are 0 again for the next barrier. A step's
 //   data never leaves a row group, so with a block a tile the blocks of
@@ -109,8 +110,8 @@
 // rows of the left operand from L2 in each stage (32 tiles share a row
 // group: ~4 MB a stage over the grid), and the block's FMA (0.8 M forward)
 // on 8 warps of one SM, whose shared-memory reads and FMA run at about
-// the same rate and overlap little. paddle_tpu_torch/tools/gru_step_split.py
-// times each phase of a step on the card; PERF.md has its numbers.
+// the same rate and overlap little. gru_step_split.py (at the repository
+// root) times each phase of a step on the card; PERF.md has its numbers.
 //
 // C interface (no PyTorch headers): the Python wrapper passes raw device
 // pointers, the current CUDA stream and a host int[9] that receives the
@@ -150,37 +151,14 @@ using DwTile = Tile<64, 64, 1, 16>;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The blocks a barrier must gather: a step's data flow never leaves a
-// row group (a tile reads only its own rows of the state, rh and dx), so
-// with one tile a block the blocks of row group g = blockIdx.x % R meet
-// on counter g (its own 128-byte line), led by the block of strip 0;
-// with fewer blocks than tiles all of them meet on counter 0, led by
-// block 0. The counters need kSyncWords words each, zeroed before the
-// launch.
-constexpr int kSyncWords = 32;
-struct Barrier {
-  unsigned* counter;
-  unsigned add;  // 2^31 - (members - 1) for the leader, else 1
-  __device__ Barrier(unsigned* words, int B, int H) {
-    const unsigned groups = cdiv(B, kRows), n = groups * cdiv(H, kUnits);
-    const bool per_group = gridDim.x == n;
-    counter = words + (per_group ? blockIdx.x % groups * kSyncWords : 0);
-    const unsigned members = per_group ? n / groups : gridDim.x;
-    const bool leader = per_group ? blockIdx.x < groups : blockIdx.x == 0;
-    add = leader ? 0x80000000u - (members - 1) : 1u;
-  }
-  // Sense-reversing: the counter's top bit flips when the last member
-  // arrives, and its low bits are 0 again for the next barrier.
-  __device__ __forceinline__ void sync() const {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const unsigned old = grid::arrive(counter, add);
-      while (((old ^ grid::load_acquire(counter)) & 0x80000000u) == 0) {
-      }
-    }
-    __syncthreads();
-  }
-};
+// The grid barrier of a launch at batch B and width H (grid::Barrier): a
+// step's data flow never leaves a row group (a tile reads only its own
+// rows of the state, rh and dx), so with one tile a block each row group
+// meets on its own counter.
+__device__ grid::Barrier row_group_barrier(unsigned* sync, int B, int H) {
+  return grid::Barrier(sync, cdiv(B, kRows),
+                       cdiv(B, kRows) * cdiv(H, kUnits));
+}
 
 // The block's tiles [begin, end) of the R x S tiles, strip-major.
 struct Tiles {
@@ -357,7 +335,7 @@ gru_fwd_persistent_kernel(const FwdArgs p) {
   extern __shared__ float smem[];
   const int B = p.B, H = p.H, G = 3 * H;
   const Tiles tiles(B, H);
-  const Barrier barrier(p.sync, B, H);
+  const grid::Barrier barrier = row_group_barrier(p.sync, B, H);
   float* ws = smem;                                      // [q_res] quads
   float* as = ws + (size_t)p.q_res * kFwdQuad;           // A
   float* xs = as + max(kRows * (p.a_cap + kAPad), kOutFloats);  // slots
@@ -501,7 +479,7 @@ gru_bwd_persistent_kernel(const BwdArgs p) {
   const int B = p.B, H = p.H, G = 3 * H;
   const size_t bh = (size_t)B * H;
   const Tiles tiles(B, H);
-  const Barrier barrier(p.sync, B, H);
+  const grid::Barrier barrier = row_group_barrier(p.sync, B, H);
   // the strip's 16 rows of W by quads of columns: first W_c's (j = g - 2H
   // of [0, H)), then W_ur's (g of [0, 2H)), q_res quads in all
   const int qc = cdiv(H, 4), qc_res = min(qc, p.q_res);
@@ -621,7 +599,7 @@ gru_bwd_persistent_kernel(const BwdArgs p) {
 // same barriers with no products (chip_smoke.py times it).
 __global__ void __launch_bounds__(kThreads, 1)
 gru_barrier_kernel(unsigned* sync, int B, int H, int barriers) {
-  const Barrier barrier(sync, B, H);
+  const grid::Barrier barrier = row_group_barrier(sync, B, H);
   for (int i = 0; i < barriers; ++i) barrier.sync();
 }
 
@@ -746,27 +724,8 @@ cudaError_t plan_launch(Kernel kernel, bool backward, int T, int B, int H,
   return blocks < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
-// Words of the barriers' counters at batch B (see Barrier).
-int sync_words(int B) { return kSyncWords * cdiv(B, kRows); }
-
-// kernel<<<blocks, kThreads, smem, s>>>(args...) as a cooperative launch,
-// which the runtime refuses (cudaErrorCooperativeLaunchTooLarge) unless
-// every block can be resident at once.
-template <class... P, class... A>
-cudaError_t launch_cooperative(void (*kernel)(P...), int blocks, size_t smem,
-                               cudaStream_t s, A... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
+// Words of the barriers' counters at batch B (see grid::Barrier).
+int sync_words(int B) { return grid::kSyncWords * cdiv(B, kRows); }
 
 }  // namespace
 
@@ -794,7 +753,8 @@ int fused_gru_fwd_f32(const float* x, const float* w, const float* h0,
   const FwdArgs a{x,    w,    h0,   lengths, h_all,   h_last,
                   h_pong, gates, rh, sync,   T,       B,
                   H,    plan[5], plan[6], plan[7]};
-  err = launch_cooperative(gru_fwd_persistent_kernel, plan[3], plan[4], s, a);
+  err = grid::launch_cooperative(gru_fwd_persistent_kernel, plan[3],
+                                 kThreads, plan[4], s, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -828,7 +788,8 @@ int fused_gru_bwd_f32(const float* w, const float* h0, const int* lengths,
   const BwdArgs a{w,    h0,   lengths, h_all, gates, dh_all, dx,
                   dh0,  dh_cur, d_rh, sync,  T,     B,      H,
                   plan[5], plan[6]};
-  err = launch_cooperative(gru_bwd_persistent_kernel, plan[3], plan[4], s, a);
+  err = grid::launch_cooperative(gru_bwd_persistent_kernel, plan[3],
+                                 kThreads, plan[4], s, a);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -861,8 +822,8 @@ int fused_gru_barrier_floor(unsigned* sync, int T, int B, int H,
   if (err == cudaSuccess)
     err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
   if (err != cudaSuccess) return err;
-  err = launch_cooperative(gru_barrier_kernel, plan[3], plan[4], s, sync, B,
-                           H, plan[8]);
+  err = grid::launch_cooperative(gru_barrier_kernel, plan[3], kThreads,
+                                 plan[4], s, sync, B, H, plan[8]);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// The block-wide tiled product that the recurrences of csrc/fused_lstm.cu
-// and csrc/fused_gru.cu are built from, with their 256-thread block and
-// sigmoid. Plain CUDA C++ (no PyTorch headers), included by both sources;
-// the build hashes it with each of them.
+// The 256-thread block and the sigmoid of the recurrent kernels
+// (csrc/fused_lstm.cu, csrc/fused_gru.cu), and the block-wide tiled
+// product of csrc/fused_gru.cu's dW reduction. Plain CUDA C++ (no PyTorch
+// headers), included by both sources; the build hashes it with each of
+// them.
 #pragma once
 
 #include <cuda_runtime.h>

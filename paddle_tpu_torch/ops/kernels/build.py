@@ -98,3 +98,25 @@ def library(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([source])[source]["path"]))
             _libs[source] = lib
         return lib
+
+
+def launch_planned(lib, entry, error_string, fields, who, device, *args):
+    """Call the C entry point `entry` of `lib` with `args`, a host plan
+    buffer of len(fields) ints and `device`'s current CUDA stream (the
+    persistent recurrent kernels' convention); raise with the CUDA error
+    (`error_string(err)`) and the launch plan (grid, blocks per SM, shared
+    memory: a grid that cannot be co-resident is refused, and nothing
+    falls back) unless it returns 0. Returns the plan as a dict."""
+    import torch
+    plan = (ctypes.c_int * len(fields))()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.addressof(plan), stream)
+    plan = dict(zip(fields, plan))
+    if err != 0:
+        raise RuntimeError(
+            f"{who} kernel launch failed: {error_string(err).decode()} (grid "
+            f"{plan['grid']} for {plan['tiles']} tiles, "
+            f"{plan['blocks_per_sm']} blocks per SM on {plan['sms']} SMs "
+            f"at {plan['smem_bytes']} bytes of shared memory a block)")
+    return plan

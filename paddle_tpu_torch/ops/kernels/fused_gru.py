@@ -192,25 +192,10 @@ def _sync_words(bsz, device):
 
 
 def _launch(who, entry, device, *args):
-    """Call the C entry point `entry` on `device`'s current stream with a
-    plan buffer; raise with the CUDA error and the launch plan (grid,
-    blocks per SM, shared memory: a grid that cannot be co-resident is
-    refused, and nothing falls back) unless it returns 0. Returns the
-    plan as a dict."""
+    """build.launch_planned on this library (see there)."""
     lib = _library()
-    plan = (ctypes.c_int * len(PLAN_FIELDS))()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, ctypes.addressof(plan), stream)
-    plan = dict(zip(PLAN_FIELDS, plan))
-    if err != 0:
-        raise RuntimeError(
-            f"{who} kernel launch failed: "
-            f"{lib.fused_gru_error_string(err).decode()} (grid "
-            f"{plan['grid']} for {plan['tiles']} tiles, "
-            f"{plan['blocks_per_sm']} blocks per SM on {plan['sms']} SMs "
-            f"at {plan['smem_bytes']} bytes of shared memory a block)")
-    return plan
+    return build.launch_planned(lib, entry, lib.fused_gru_error_string,
+                                PLAN_FIELDS, who, device, *args)
 
 
 def fused_gru_fwd(x, w, h0, lengths

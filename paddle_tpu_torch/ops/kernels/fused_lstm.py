@@ -9,10 +9,13 @@ Layout, as the reference's: x [T, B, 4H] pre-projected gates, time-major,
 gate order i, c_hat, f, o; w [H, 4H]; b [4H]; h0, c0 [B, H]; lengths [B]
 int32. A row freezes past its length and its h_all/c_all there are 0;
 h_last/c_last are the state at length-1 (h0/c0 for a zero-length row).
-The CUDA source's header says what bounds the kernels on an H100 and how
-the design answers that. ``FusedLSTM`` is the torch.autograd.Function
-over the pair, the counterpart of the reference's ``jax.custom_vjp``,
-and ``fused_lstm`` applies it.
+Each C call runs its recurrence as one persistent cooperative launch (W's
+column strips resident in shared memory, one grid barrier a step, the
+products in 3xTF32 on the tensor cores); the CUDA source's header says
+what bounds the kernels on an H100 and how the design answers that.
+``FusedLSTM`` is the torch.autograd.Function over the pair, the
+counterpart of the reference's ``jax.custom_vjp``, and ``fused_lstm``
+applies it.
 
 Every wrapper takes its kernel for CUDA tensors — there is no fallback:
 a CUDA input the kernel cannot take raises, and so does a failed build or
@@ -122,19 +125,36 @@ def fused_lstm_bwd_plain(x, w, b, h0, c0, lengths, h_all, c_all, dh_all,
 
 # -- the kernels ------------------------------------------------------------
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the C entry points of
+    csrc/fused_lstm.cu on `lib`."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_lstm_fwd_f32.argtypes = [ptr] * 12 + [i32] * 3 + [ptr] * 2
+    lib.fused_lstm_bwd_f32.argtypes = [ptr] * 18 + [i32] * 4 + [ptr] * 2
+    lib.fused_lstm_barrier_floor.argtypes = [ptr] + [i32] * 4 + [ptr] * 2
+    for name in ("fused_lstm_fwd_f32", "fused_lstm_bwd_f32",
+                 "fused_lstm_barrier_floor"):
+        getattr(lib, name).restype = i32
+    lib.fused_lstm_sync_words.argtypes = [i32]
+    lib.fused_lstm_partial_floats.argtypes = [i32] * 2
+    lib.fused_lstm_partial_floats.restype = ctypes.c_longlong
+    lib.fused_lstm_dw_splits.argtypes = [i32] * 3
+    lib.fused_lstm_error_string.argtypes = [i32]
+    lib.fused_lstm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     lib = build.library(_SOURCE)
     if not getattr(lib, "_paddle_bound", False):
-        lib.fused_lstm_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.fused_lstm_fwd_f32.restype = ctypes.c_int
-        lib.fused_lstm_bwd_f32.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.fused_lstm_bwd_f32.restype = ctypes.c_int
-        lib.fused_lstm_error_string.argtypes = [ctypes.c_int]
-        lib.fused_lstm_error_string.restype = ctypes.c_char_p
+        bind(lib)
         lib._paddle_bound = True
     return lib
+
+
+#: the launch plan a C entry point reports (csrc/fused_lstm.cu plan_launch)
+PLAN_FIELDS = ("tiles", "blocks_per_sm", "sms", "grid", "smem_bytes",
+               "resident_w_rows", "barriers")
 
 
 def _check(who, x, w, b, h0, c0, lengths, **more):
@@ -163,23 +183,32 @@ def _check(who, x, w, b, h0, c0, lengths, **more):
             tuple(lengths.shape) != (bsz,) or not lengths.is_contiguous():
         raise ValueError(f"{who}: lengths must be a contiguous int32 "
                          f"({bsz},) tensor on {x.device}")
-    if bsz > 65535 * 16:
-        raise ValueError(f"{who}: batch {bsz} exceeds the grid")
+    if -(-bsz // 16) * -(-hidden // 16) >= 2 ** 31:
+        raise ValueError(f"{who}: {bsz} x {hidden} has too many tiles")
 
 
-def _raise_on(lib, err, who):
-    if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: "
-                           f"{lib.fused_lstm_error_string(err).decode()}")
+def _sync_words(bsz, device):
+    """The grid barriers' counters (csrc/grid_sync.cuh Barrier), as many
+    words as the library asks for; the C functions zero them."""
+    words = _library().fused_lstm_sync_words(bsz)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def _launch(who, entry, device, *args):
+    """build.launch_planned on this library (see there)."""
+    lib = _library()
+    return build.launch_planned(lib, entry, lib.fused_lstm_error_string,
+                                PLAN_FIELDS, who, device, *args)
 
 
 def fused_lstm_fwd(x, w, b, h0, c0, lengths
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
     """LSTM over T steps: (h_all, c_all [T,B,H], h_last, c_last [B,H]).
-    CUDA tensors run the forward kernel (float32, contiguous, int32
-    lengths — anything else raises); CPU tensors run
-    fused_lstm_fwd_plain; meta tensors get outputs of the right shape."""
+    CUDA tensors run the persistent forward kernel (float32, contiguous,
+    int32 lengths — anything else raises, and so does a grid that cannot
+    be co-resident); CPU tensors run fused_lstm_fwd_plain; meta tensors
+    get outputs of the right shape."""
     if x.device.type == "meta":
         t_max, bsz, g4 = x.shape
         seq = x.new_empty((t_max, bsz, g4 // 4))
@@ -192,23 +221,20 @@ def fused_lstm_fwd(x, w, b, h0, c0, lengths
     hidden = g4 // 4
     h_all = torch.empty((t_max, bsz, hidden), dtype=x.dtype, device=x.device)
     c_all = torch.empty_like(h_all)
-    h_last, c_last, h_scratch = (torch.empty_like(h0) for _ in range(3))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_lstm_fwd_f32(
+    h_last, c_last, h_pong = (torch.empty_like(h0) for _ in range(3))
+    sync = _sync_words(bsz, x.device)
+    _launch("fused_lstm_fwd", "fused_lstm_fwd_f32", x.device,
             x.data_ptr(), w.data_ptr(), b.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), lengths.data_ptr(), h_all.data_ptr(),
             c_all.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
-            h_scratch.data_ptr(), t_max, bsz, hidden, stream)
-    _raise_on(lib, err, "fused_lstm_fwd")
+            h_pong.data_ptr(), sync.data_ptr(), t_max, bsz, hidden)
     fused_lstm_fwd.launches += 1
     return h_all, c_all, h_last, c_last
 
 
 #: kernel launches since the count was last set to 0 (one per call of the
-#: C function, which launches the T step kernels; the plain and meta
-#: paths do not count)
+#: C function, which launches the one persistent kernel that walks all T
+#: steps; the plain and meta paths do not count)
 fused_lstm_fwd.launches = 0
 
 
@@ -218,8 +244,9 @@ def fused_lstm_bwd(x, w, b, h0, c0, lengths, h_all, c_all, dh_all, dc_all,
     dc_all [T,B,H] and dh_last, dc_last [B,H] (None is zero; dh_all or
     dc_all None too): (dx [T,B,4H], dw [H,4H], db [4H], dh0, dc0 [B,H]).
     The last-state cotangents are folded into the streams in torch; CUDA
-    tensors then run the backward kernels (same conditions as
-    fused_lstm_fwd), CPU tensors fused_lstm_bwd_plain."""
+    tensors then run the persistent backward kernel and the dW reduction
+    (same conditions as fused_lstm_fwd; W is read as it is, no transposed
+    copy), CPU tensors fused_lstm_bwd_plain."""
     if x.device.type == "meta":
         return (x.new_empty(x.shape), w.new_empty(w.shape),
                 b.new_empty(b.shape), h0.new_empty(h0.shape),
@@ -239,24 +266,43 @@ def fused_lstm_bwd(x, w, b, h0, c0, lengths, h_all, c_all, dh_all, dc_all,
     dw = torch.empty_like(w)
     db = torch.empty_like(b)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    # W^T for the per-step dh_prev = dgates W^T product (a copy, once)
-    wt = w.t().contiguous()
     lib = _library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_lstm_bwd_f32(
-            x.data_ptr(), w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-            h0.data_ptr(),
+        # the partials of dh_prev (a ping-pong of one [B, H] a W strip) and
+        # the dW reduction's partial sums, one (H + 1) x 4H a row split
+        # when there are several
+        partials = x.new_empty(lib.fused_lstm_partial_floats(bsz, hidden))
+        splits = lib.fused_lstm_dw_splits(t_max, bsz, hidden)
+    dw_parts = x.new_empty((splits if splits > 1 else 0,
+                            (hidden + 1) * g4))
+    sync = _sync_words(bsz, x.device)
+    _launch("fused_lstm_bwd", "fused_lstm_bwd_f32", x.device,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), lengths.data_ptr(), h_all.data_ptr(),
             c_all.data_ptr(), dh_all.data_ptr(), dc_all.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), t_max, bsz, hidden, stream)
-    _raise_on(lib, err, "fused_lstm_bwd")
+            dc0.data_ptr(), partials.data_ptr(), dw_parts.data_ptr(),
+            sync.data_ptr(), t_max, bsz, hidden, splits)
     fused_lstm_bwd.launches += 1
     return dx, dw, db, dh0, dc0
 
 
+#: one per call of the C function, which launches the persistent kernel
+#: of the recurrence and then the dW reduction (and with row splits their
+#: sum)
 fused_lstm_bwd.launches = 0
+
+
+def barrier_floor(t_max, bsz, hidden, backward, device):
+    """Launch, on `device`'s current stream, the grid the forward
+    (backward=True: the backward) would take at these shapes, stepping
+    through the same grid-wide barriers with no products: what the
+    barriers alone cost a call. Returns the launch plan. A measurement
+    of the design (chip_smoke.py times it), not a route of any op."""
+    sync = _sync_words(bsz, device)
+    return _launch("fused_lstm barrier floor", "fused_lstm_barrier_floor",
+                   device, sync.data_ptr(), t_max, bsz, hidden,
+                   int(backward))
 
 
 class FusedLSTM(torch.autograd.Function):

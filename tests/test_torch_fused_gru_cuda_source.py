@@ -17,27 +17,25 @@ a rerun, which must be bitwise equal. It also holds gru_step_split.py's
 edits of the source (phase marks, variants) against the current file and
 runs the marked source.
 
-The emulation: a cooperative launch runs EVERY block of the grid at once,
-one std::thread per CUDA thread, so the kernels' own grid barrier (a
-sense-reversing counter) runs as written over std::atomic_ref (the host
-grid_sync.cuh: acquire-release add, acquire load); __syncthreads is a
-std::barrier per block; `extern __shared__` is each block's own buffer,
-filled with NaN bytes so that a read of an unwritten word shows. The
-emulated card's SM count and shared-memory limit are set per test
-(emu_configure), which is how the fewer-blocks and streamed-W cases are
-reached at small shapes. A `<<<...>>>` launch (the dW kernel) runs one
-block at a time. It says nothing about speed, about races that only a
-card's timing shows, or about the device compiler; chip_smoke.py runs
-the real kernels on the card.
+The emulation (tests/test_torch_cuda_emulation.py, shared with the
+fused-LSTM source test): a cooperative launch runs EVERY block of the
+grid at once, one std::thread per CUDA thread, so the kernels' own grid
+barrier (a sense-reversing counter, csrc/grid_sync.cuh) runs as written
+over std::atomic_ref; __syncthreads is a std::barrier per block;
+`extern __shared__` is each block's own buffer, filled with NaN bytes so
+that a read of an unwritten word shows. The emulated card's SM count and
+shared-memory limit are set per test (emu_configure), which is how the
+fewer-blocks and streamed-W cases are reached at small shapes. A
+`<<<...>>>` launch (the dW kernel) runs one block at a time. It says
+nothing about speed, about races that only a card's timing shows, or
+about the device compiler; chip_smoke.py runs the real kernels on the
+card.
 
 Tolerance: float32, the same sums in another order: 1e-5 absolute
 forward, 1e-5 * max(|plain|, 1) backward.
 """
 import ctypes
 import importlib.util
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -45,212 +43,13 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import fused_gru as fg
+from test_torch_cuda_emulation import compile_grid_cuda
 
 SOURCE = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" \
     / "fused_gru.cu"
 ATOL = 1e-5
 # the emulated card: an H100's SM count and opt-in shared memory per block
 SMS, SMEM = 132, 232448
-
-EMULATION = r"""
-#pragma once
-#include <algorithm>
-#include <atomic>
-#include <barrier>
-#include <cmath>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <cstdlib>
-#include <vector>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-using std::max;
-using std::min;
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct float4 { float x, y, z, w; };
-inline float4 make_float4(float a, float b, float c, float d) {
-  return {a, b, c, d};
-}
-inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-constexpr int cudaSuccess = 0;
-constexpr int cudaErrorCooperativeLaunchTooLarge = 720;
-enum cudaDeviceAttr {
-  cudaDevAttrMultiProcessorCount = 16,
-  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
-};
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline int emu_sms = 132, emu_smem_max = 232448;
-extern "C" void emu_configure(int sms, int smem_max) {
-  emu_sms = sms;
-  emu_smem_max = smem_max;
-}
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
-  *v = a == cudaDevAttrMultiProcessorCount ? emu_sms : emu_smem_max;
-  return 0;
-}
-template <class F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
-  return bytes <= emu_smem_max ? 0 : 1;
-}
-template <class F>
-cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
-                                                          size_t smem) {
-  *n = smem <= (size_t)emu_smem_max ? 1 : 0;
-  return 0;
-}
-inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
-  std::memset(p, v, n);
-  return 0;
-}
-// gru_step_split.py's phase marks: a clock that only grows, and a
-// symbol set from the host
-inline std::atomic<long long> emu_clock{0};
-inline long long clock64() { return ++emu_clock; }
-template <class T>
-cudaError_t cudaMemcpyToSymbol(T& symbol, const void* src, size_t n) {
-  std::memcpy(&symbol, src, n);
-  return 0;
-}
-inline thread_local std::barrier<>* emu_block_barrier = nullptr;
-inline thread_local unsigned char* emu_smem = nullptr;
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
-// a warp shuffle through the block's exchange buffer, behind a barrier of
-// the thread's warp (every lane of these kernels' warps shuffles)
-inline thread_local float* emu_shfl = nullptr;
-inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
-inline float __shfl_xor_sync(unsigned, float v, int mask) {
-  const int me = threadIdx.x;
-  emu_shfl[me] = v;
-  emu_warp_barrier->arrive_and_wait();
-  const float r = emu_shfl[(me & ~31) | ((me & 31) ^ mask)];
-  emu_warp_barrier->arrive_and_wait();
-  return r;
-}
-// kernel<<<grid, threads, 0, stream>>>(...): one block at a time
-template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, int threads, A... args) {
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(threads);
-        std::vector<std::thread> team;
-        for (int t = 0; t < threads; ++t)
-          team.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by, bz);
-            blockDim = dim3(threads);
-            gridDim = grid;
-            emu_block_barrier = &bar;
-            kernel(args...);
-          });
-        for (auto& th : team) th.join();
-      }
-}
-enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
-struct cudaLaunchAttribute {
-  cudaLaunchAttributeID id;
-  union { int cooperative; } val;
-};
-struct cudaLaunchConfig_t {
-  dim3 gridDim, blockDim;
-  size_t dynamicSmemBytes;
-  cudaStream_t stream;
-  cudaLaunchAttribute* attrs;
-  unsigned numAttrs;
-};
-// a cooperative launch runs every block of the grid at once, each with its
-// own block barrier and dynamic shared memory (NaN bytes until written)
-template <class... P, class... A>
-cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
-                               void (*kernel)(P...), A... args) {
-  const dim3 grid = cfg->gridDim, block = cfg->blockDim;
-  const size_t smem = cfg->dynamicSmemBytes;
-  const unsigned blocks = grid.x * grid.y * grid.z, threads = block.x;
-  bool cooperative = false;
-  for (unsigned i = 0; i < cfg->numAttrs; ++i)
-    cooperative |= cfg->attrs[i].id == cudaLaunchAttributeCooperative &&
-                   cfg->attrs[i].val.cooperative;
-  if (!cooperative) std::abort();
-  if (blocks > (unsigned)emu_sms || smem > (size_t)emu_smem_max)
-    return cudaErrorCooperativeLaunchTooLarge;
-  std::vector<std::unique_ptr<std::barrier<>>> bars, warps;
-  std::vector<std::vector<float>> mem, shfl;
-  for (unsigned b = 0; b < blocks; ++b) {
-    bars.push_back(std::make_unique<std::barrier<>>(threads));
-    for (unsigned w = 0; w < threads / 32; ++w)
-      warps.push_back(std::make_unique<std::barrier<>>(32));
-    mem.emplace_back(smem / sizeof(float) + 4, std::nanf(""));
-    shfl.emplace_back(threads);
-  }
-  std::vector<std::thread> team;
-  for (unsigned b = 0; b < blocks; ++b)
-    for (unsigned t = 0; t < threads; ++t)
-      team.emplace_back([&, b, t] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(b % grid.x, b / grid.x % grid.y,
-                        b / (grid.x * grid.y));
-        blockDim = block;
-        gridDim = grid;
-        emu_block_barrier = bars[b].get();
-        emu_smem = reinterpret_cast<unsigned char*>(mem[b].data());
-        emu_shfl = shfl[b].data();
-        emu_warp_barrier = warps[b * (threads / 32) + t / 32].get();
-        kernel(args...);
-      });
-  for (auto& th : team) th.join();
-  return 0;
-}
-"""
-
-# csrc/grid_sync.cuh on the host: the barrier's gpu-scope add and load as
-# std::atomic_ref operations (the waiting thread yields), ld.global.cg as
-# a plain load, and the asynchronous copies as copies
-GRID_SYNC = r"""
-#pragma once
-#include <cuda_runtime.h>
-#include <atomic>
-#include <cstring>
-#include <thread>
-namespace grid {
-inline unsigned arrive(unsigned* p, unsigned v) {
-  return std::atomic_ref<unsigned>(*p).fetch_add(v,
-                                                 std::memory_order_acq_rel);
-}
-inline unsigned load_acquire(const unsigned* p) {
-  std::this_thread::yield();
-  return std::atomic_ref<unsigned>(*const_cast<unsigned*>(p)).load(
-      std::memory_order_acquire);
-}
-inline float load_cg(const float* p) { return *p; }
-inline void cp_async16(float* smem, const float* gmem) {
-  std::memcpy(smem, gmem, 16);
-}
-inline void cp_async4(float* smem, const float* gmem) { *smem = *gmem; }
-inline void cp_async_commit() {}
-inline void cp_async_wait(int) {}
-inline void cp_async_wait_all() {}
-}  // namespace grid
-"""
-
-# kernel<<<grid, threads, smem, stream>>>(args) -> emu_launch(kernel, grid,
-# threads, args)
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*[^>]+>>>\(")
-# extern __shared__ T name[]; -> the block's emulated dynamic shared memory
-_DYN_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 # (T, B, H, lengths): zero-length and full rows; H off the 16-unit tiles
 # and across two dW tiles (H 70: 2H = 140 > 128); B across two row tiles;
@@ -264,31 +63,10 @@ CASES = [
 ]
 
 
-def host_source(text):
-    """fused_gru.cu as host C++: launches and dynamic shared memory
-    rewritten for the emulation."""
-    text = _LAUNCH.sub(r"emu_launch(\1, \2, \3, ", text)
-    text = _DYN_SMEM.sub(
-        r"\1* const \2 = reinterpret_cast<\1*>(emu_smem);", text)
-    assert "<<<" not in text and "extern __shared__" not in text
-    return text
-
-
 def compile_source(out: Path, text: str) -> ctypes.CDLL:
     """`text` (a version of fused_gru.cu) compiled against the emulation
     into out/, loaded, with its C entry points' argument types set."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to emulate the CUDA source with")
-    (out / "cuda_runtime.h").write_text(EMULATION)
-    (out / "grid_sync.cuh").write_text(GRID_SYNC)
-    (out / "fused_gru.cpp").write_text(host_source(text))
-    so = out / "libfused_gru.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-I", str(out), "-I", str(SOURCE.parent), "-o",
-                    str(so), str(out / "fused_gru.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(compile_grid_cuda(out, text, "fused_gru")))
     lib.fused_gru_fwd_f32.argtypes = ([ctypes.c_void_p] * 10
                                       + [ctypes.c_int] * 3
                                       + [ctypes.c_void_p] * 2)

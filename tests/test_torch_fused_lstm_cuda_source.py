@@ -1,25 +1,33 @@
 """The CUDA source of the fused-LSTM kernels, run on the CPU.
 
 paddle_tpu_torch/csrc/fused_lstm.cu compiles only for a card, but its
-logic — tiles, ragged edges, the staged and prefetched products, the
-per-step masks and carries, the dW/db reduction — is plain C++ over a
-small CUDA subset. This test compiles the unchanged source with the host
-C++ compiler against a small emulation of that subset (one block at a
-time, one std::thread per CUDA thread, std::barrier for __syncthreads,
-__shared__ as a static shared by the block's threads) and holds both C
-entry points against the plain twins of ops/kernels/fused_lstm.py, over
-shapes off every tile edge, zero-length rows, T = 1, B > one row tile
-and nonzero initial states and last-state cotangents. It says nothing
-about speed or about the device compiler; chip_smoke.py runs the real
-kernels on the card.
+logic — the persistent forward and backward kernels' tiles, ragged edges,
+swizzled W strips (resident and streamed), per-warp A buffers, x prefetch
+slots, ping-pong state and partials, the grid barrier, carries and masks,
+the 3xTF32 products, and the dW/db reduction with its row splits — is
+plain C++ over a small CUDA subset plus the PTX helpers of
+csrc/grid_sync.cuh. This test compiles the unchanged source with the host
+C++ compiler against the emulation of tests/test_torch_cuda_emulation.py
+(shared with the fused-GRU source test): a cooperative launch runs EVERY
+block of the grid at once, one std::thread per CUDA thread, so the grid
+barrier runs as written; mma.sync m16n8k8 follows the PTX ISA's fragment
+layout and truncates its float32 sums, as the tensor cores do. It holds
+both C entry points against the plain twins of ops/kernels/fused_lstm.py
+over shapes off every tile edge, zero-length rows, T = 1, B above one row
+tile and nonzero initial states and last-state cotangents; a grid of
+fewer blocks than tiles (each block walks several tiles of two strips,
+and dW sums two row splits); a W strip that does not fit in shared
+memory; and a rerun, which must be bitwise equal. It also holds
+lstm_step_split.py's edits of the source (phase marks, variants) against
+the current file and runs the marked source. It says nothing about
+speed, about races that only a card's timing shows, or about the device
+compiler; chip_smoke.py runs the real kernels on the card.
 
-Tolerance: float32, the same sums in another order: 1e-5 absolute
-forward, 1e-5 * max(|plain|, 1) backward (measured: <= 8.4e-7).
+Tolerance: float32 (3xTF32), the same sums in another order: 1e-5
+absolute forward, 1e-5 * max(|plain|, 1) backward.
 """
 import ctypes
-import re
-import shutil
-import subprocess
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -27,62 +35,16 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+from test_torch_cuda_emulation import compile_grid_cuda, mutate
 
 SOURCE = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" \
     / "fused_lstm.cu"
 ATOL = 1e-5
-
-EMULATION = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstring>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct float4 { float x, y, z, w; };
-inline thread_local dim3 threadIdx, blockIdx;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-constexpr int cudaSuccess = 0;
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
-inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
-  std::memset(p, v, n);
-  return 0;
-}
-inline std::barrier<>* emu_barrier = nullptr;
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, int threads, A... args) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(threads);
-      emu_barrier = &bar;
-      std::vector<std::thread> team;
-      for (int t = 0; t < threads; ++t)
-        team.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          kernel(args...);
-        });
-      for (auto& th : team) th.join();
-    }
-}
-"""
-
-# kernel<<<grid, threads, smem, stream>>>(args) -> emu_launch(kernel, grid,
-# threads, args)
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*[^>]+>>>\(")
+# the emulated card: an H100's SM count and opt-in shared memory per block
+SMS, SMEM = 132, 232448
+# bytes of the kernels' fixed buffers (A, partials, x slots; the
+# backward's dgates) and of a k-step of 8 W rows (csrc/fused_lstm.cu)
+FWD_FIXED, BWD_FIXED, STEP_BYTES = 79872, 84224, 2048
 
 # (T, B, H, lengths)
 CASES = [
@@ -94,29 +56,19 @@ CASES = [
 ]
 
 
+def compile_source(out: Path, text: str) -> ctypes.CDLL:
+    """`text` (a version of fused_lstm.cu) compiled against the emulation
+    into out/, loaded, with its C entry points' argument types set."""
+    lib = fl.bind(ctypes.CDLL(str(compile_grid_cuda(out, text,
+                                                    "fused_lstm"))))
+    lib.emu_configure.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to emulate the CUDA source with")
-    out = tmp_path_factory.mktemp("fused_lstm_emulated")
-    (out / "cuda_runtime.h").write_text(EMULATION)
-    src = _LAUNCH.sub(r"emu_launch(\1, \2, \3, ", SOURCE.read_text())
-    assert "<<<" not in src
-    (out / "fused_lstm.cpp").write_text(src)
-    so = out / "libfused_lstm.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-I", str(out), "-I", str(SOURCE.parent), "-o",
-                    str(so), str(out / "fused_lstm.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    lib.fused_lstm_fwd_f32.argtypes = ([ctypes.c_void_p] * 11
-                                       + [ctypes.c_int] * 3
-                                       + [ctypes.c_void_p])
-    lib.fused_lstm_bwd_f32.argtypes = ([ctypes.c_void_p] * 16
-                                       + [ctypes.c_int] * 3
-                                       + [ctypes.c_void_p])
-    return lib
+    return compile_source(tmp_path_factory.mktemp("fused_lstm_emulated"),
+                          SOURCE.read_text())
 
 
 def _inputs(t, b, h, lens, seed):
@@ -135,30 +87,218 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-@pytest.mark.parametrize("t,b,h,lens", CASES)
-def test_cuda_source_matches_plain_twins(lib, t, b, h, lens):
-    inputs, cts = _inputs(t, b, h, lens, seed=len(lens) + h)
+def _nan(*shape):
+    return torch.full(shape, float("nan"))
+
+
+def run_kernels(lib, inputs, cts, sms=SMS, smem=SMEM, traces=None):
+    """Both C entry points on the emulated card with `sms` SMs and `smem`
+    bytes of shared memory a block: (forward outputs, backward outputs,
+    forward plan, backward plan + [the dW reduction's row splits]). The
+    backward reads the plain forward's h_all and c_all; the wrapper's part
+    (fold the last-state cotangents) is done here. Outputs and scratch
+    start as NaN, the barriers' counters as garbage (the calls zero
+    them). traces: the phase marks' buffers of the forward and the
+    backward (an instrumented source, see lstm_step_split.py)."""
     x, w, bias, h0, c0, lengths = inputs
-    outs = [torch.empty(t, b, h), torch.empty(t, b, h), torch.empty(b, h),
-            torch.empty(b, h)]
-    scratch = torch.empty(b, h)
-    assert lib.fused_lstm_fwd_f32(*_ptrs(*inputs, *outs, scratch), t, b, h,
-                                  None) == 0
+    t, b, g4 = x.shape
+    h = g4 // 4
+    lib.emu_configure(sms, smem)
+    outs = [_nan(t, b, h), _nan(t, b, h), _nan(b, h), _nan(b, h)]
+    h_pong = _nan(b, h)
+    assert lib.fused_lstm_sync_words(b) == 32 * -(-b // 16)
+    sync = torch.full((lib.fused_lstm_sync_words(b),), 12345,
+                      dtype=torch.int32)
+    fplan, bplan = (ctypes.c_int * 7)(), (ctypes.c_int * 7)()
+    if traces:
+        lib.split_set_trace(traces[0].data_ptr())
+    assert lib.fused_lstm_fwd_f32(
+        *_ptrs(*inputs, *outs, h_pong, sync), t, b, h,
+        ctypes.addressof(fplan), None) == 0
+    want = fl.fused_lstm_fwd_plain(*inputs)
+    dh_all, dc_all = fl.fold_last(*cts, lengths)
+    grads = [_nan(*a.shape) for a in (x, w, bias, h0, c0)]
+    partials = _nan(lib.fused_lstm_partial_floats(b, h))
+    splits = lib.fused_lstm_dw_splits(t, b, h)
+    dw_parts = _nan(splits, (h + 1) * g4)
+    if traces:
+        lib.split_set_trace(traces[1].data_ptr())
+    assert lib.fused_lstm_bwd_f32(
+        *_ptrs(x, w, bias, h0, c0, lengths, want[0], want[1], dh_all, dc_all,
+               *grads, partials, dw_parts, sync), t, b, h, splits,
+        ctypes.addressof(bplan), None) == 0
+    if traces:
+        lib.split_set_trace(None)
+    return outs, grads, list(fplan), list(bplan) + [splits]
+
+
+def check(inputs, cts, outs, grads):
     want = fl.fused_lstm_fwd_plain(*inputs)
     for name, got, ref in zip(("h_all", "c_all", "h_last", "c_last"), outs,
                               want):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                    atol=ATOL, err_msg=name)
-    # the wrapper's part: fold the last-state cotangents, transpose W
-    dh_all, dc_all = fl.fold_last(*cts, lengths)
-    wt = w.t().contiguous()
-    grads = [torch.empty_like(a) for a in (x, w, bias, h0, c0)]
-    assert lib.fused_lstm_bwd_f32(
-        *_ptrs(x, w, wt, bias, h0, c0, lengths, want[0], want[1], dh_all,
-               dc_all, *grads), t, b, h, None) == 0
     ref_grads = fl.fused_lstm_bwd_plain(*inputs, want[0], want[1], *cts)
     for name, got, ref in zip(("dx", "dw", "db", "dh0", "dc0"), grads,
                               ref_grads):
         np.testing.assert_allclose(
             got.numpy(), ref.numpy(), rtol=0,
             atol=ATOL * max(float(ref.abs().max()), 1.0), err_msg=name)
+
+
+@pytest.mark.parametrize("t,b,h,lens", CASES)
+def test_cuda_source_matches_plain_twins(lib, t, b, h, lens):
+    inputs, cts = _inputs(t, b, h, lens, seed=len(lens) + h)
+    outs, grads, fplan, bplan = run_kernels(lib, inputs, cts)
+    # one block a tile, the whole W strip resident, T-1 and T barriers
+    tiles = -(-b // 16) * -(-h // 16)
+    assert fplan == [tiles, 1, SMS, tiles, fplan[4], h, t - 1]
+    assert fplan[4] == FWD_FIXED + STEP_BYTES * -(-h // 8)
+    assert bplan[:7] == [tiles, 1, SMS, tiles, fplan[4] + BWD_FIXED -
+                         FWD_FIXED, h, t]
+    check(inputs, cts, outs, grads)
+
+
+def test_cuda_source_fewer_blocks_than_tiles(lib):
+    """4 blocks for 3 x 3 tiles: a block walks 2 or 3 tiles over two W
+    strips (one resident, one streamed), the later ones with x read from
+    device memory and their c state and carries there; the dW reduction
+    runs in two row splits of 160 rows."""
+    t, b, h = 8, 40, 40
+    lens = [i % 9 for i in range(b)]
+    inputs, cts = _inputs(t, b, h, lens, seed=7)
+    outs, grads, fplan, bplan = run_kernels(lib, inputs, cts, sms=4)
+    assert fplan[:4] == [9, 1, 4, 4] and bplan[3] == 4
+    assert bplan[7] == 2
+    check(inputs, cts, outs, grads)
+
+
+def test_cuda_source_streamed_w(lib):
+    """A shared-memory limit under the W strip: the forward keeps 104 of
+    its 160 rows resident, the backward 88, and both read the rest from
+    device memory every step (dW's ring then holds 2 stages)."""
+    t, b, h = 3, 5, 160
+    lens = [3, 0, 1, 3, 2]
+    inputs, cts = _inputs(t, b, h, lens, seed=11)
+    smem = BWD_FIXED + 11 * STEP_BYTES
+    outs, grads, fplan, bplan = run_kernels(lib, inputs, cts, smem=smem)
+    assert (fplan[3], fplan[5]) == (10, 104)
+    assert (bplan[3], bplan[4], bplan[5]) == (10, smem, 88)
+    check(inputs, cts, outs, grads)
+
+
+def test_cuda_source_rerun_is_bitwise_equal(lib):
+    """The same call twice gives the same bits: every sum in a fixed
+    order, no atomics but the barrier's counters."""
+    t, b, h = 4, 20, 40
+    lens = [i % 5 for i in range(b)]
+    inputs, cts = _inputs(t, b, h, lens, seed=3)
+    first = run_kernels(lib, inputs, cts, sms=4)
+    second = run_kernels(lib, inputs, cts, sms=4)
+    for a, c in zip(first[0] + first[1], second[0] + second[1]):
+        assert torch.equal(a, c)
+
+
+def test_barrier_floor_runs_the_plans_grid(lib):
+    """The barrier floor's launch takes its kernel's plan and steps
+    through the same number of the same barriers."""
+    sync = torch.zeros(64, dtype=torch.int32)
+    for sms, counters in ((SMS, (0, 32)), (4, (0,))):
+        lib.emu_configure(sms, SMEM)
+        for backward, barriers in ((0, 2), (1, 3)):
+            plan = (ctypes.c_int * 7)()
+            assert lib.fused_lstm_barrier_floor(
+                sync.data_ptr(), 3, 20, 40, backward,
+                ctypes.addressof(plan), None) == 0
+            assert list(plan)[3] == min(6, sms)
+            assert list(plan)[6] == barriers
+            # one counter a row group with a block a tile (2 x 3 tiles),
+            # else one for the grid; sense-reversing: a counter's low bits
+            # are 0 after each barrier, its top bit flipped once a barrier
+            for i in counters:
+                assert int(sync[i]) & 0x7fffffff == 0
+                assert (int(sync[i]) >> 31) & 1 == barriers % 2
+
+
+# the lo passes of 3xTF32 into the hi*hi accumulator, k-step by k-step
+_LO_INTO_HI = [("""  grid::mma_tf32(la, al, bh);
+  grid::mma_tf32(lb, ah, bl);""", """  grid::mma_tf32(hi, al, bh);
+  grid::mma_tf32(hi, ah, bl);""")]
+
+
+def _dh0_mean_error(lib):
+    """dh0's mean |error| against the float64 twin, relative to max|dh0|:
+    T = 1, so dh0 is the reduce of one step's partials, each a 64-deep
+    product (8 k-steps a warp)."""
+    t, b, h = 1, 16, 64
+    inputs, cts = _inputs(t, b, h, [1] * b, seed=5)
+    _, grads, _, _ = run_kernels(lib, inputs, cts)
+    x, w, bias, h0, c0, lengths = (v.double() if v.is_floating_point() else v
+                                   for v in inputs)
+    ref = fl.fused_lstm_bwd_plain(x, w, bias, h0, c0, lengths,
+                                  *fl.fused_lstm_fwd_plain(
+                                      x, w, bias, h0, c0, lengths)[:2],
+                                  *(c.double() for c in cts))
+    return float((grads[3].double() - ref[3]).abs().mean()) / float(
+        ref[3].abs().max())
+
+
+def test_lo_passes_apart_cut_the_truncation_error(tmp_path, lib):
+    """Each add into a tensor-core accumulator truncates to the running
+    sum's ulp, so the kernels sum the lo passes of 3xTF32 in an
+    accumulator of their own and add it to the hi*hi sum once; with the
+    lo passes added into the hi*hi accumulator k-step by k-step, dh0 errs
+    at least 1.5x more."""
+    mutant = compile_source(tmp_path, mutate(SOURCE.read_text(), _LO_INTO_HI))
+    assert _dh0_mean_error(mutant) > 1.5 * _dh0_mean_error(lib)
+
+
+def _load_step_split():
+    """lstm_step_split.py, which splits a step's time on the card by
+    marking and editing copies of fused_lstm.cu."""
+    path = SOURCE.parents[2] / "lstm_step_split.py"
+    spec = importlib.util.spec_from_file_location("lstm_step_split", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+STEP_SPLIT = _load_step_split()
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_SPLIT.VARIANTS))
+def test_step_split_edits_apply_to_the_source(variant):
+    """Every edit of the step-split script (its marks, then each variant's
+    own) still finds its one place in the current source."""
+    text = STEP_SPLIT.instrumented(SOURCE.read_text())
+    for k in range(7):
+        assert f"MARK({k})" in text or f"MARK_LANDED({k})" in text
+    files = STEP_SPLIT.variant(variant, text)
+    assert set(files) >= {"fused_lstm.cu", "grid_sync.cuh", "rnn_tile.cuh"}
+
+
+def test_step_split_marks_every_phase_and_changes_nothing(lib, tmp_path):
+    """The instrumented source, on the emulated card: the same bits out
+    as the source itself, and every phase of every step of every block
+    marked in order (5 marks a forward step, 7 a backward step, a step
+    after the one before: forward in t, backward in reverse)."""
+    ilib = compile_source(tmp_path,
+                          STEP_SPLIT.instrumented(SOURCE.read_text()))
+    ilib.split_set_trace.argtypes = [ctypes.c_void_p]
+    t, b, h = 4, 20, 64  # every warp has a k-step (H / 8 = 8 warps)
+    lens = [i % 5 for i in range(b)]
+    inputs, cts = _inputs(t, b, h, lens, seed=5)
+    traces = [torch.zeros(1024 * t * STEP_SPLIT.MARKS, dtype=torch.int64)
+              for _ in range(2)]
+    marked = run_kernels(ilib, inputs, cts, traces=traces)
+    plain = run_kernels(lib, inputs, cts)
+    for a, c in zip(marked[0] + marked[1], plain[0] + plain[1]):
+        assert torch.equal(a, c)
+    blocks = marked[2][3]
+    for trace, marks, order in ((traces[0], 5, range(t)),
+                                (traces[1], 7, range(t - 1, -1, -1))):
+        tr = trace.view(1024, t, STEP_SPLIT.MARKS)
+        assert int(tr[blocks:].abs().sum()) == 0
+        steps = tr[:blocks][:, list(order), :marks].reshape(blocks, -1)
+        assert bool((steps > 0).all())
+        assert bool((steps[:, 1:] >= steps[:, :-1]).all())
