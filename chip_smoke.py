@@ -99,8 +99,11 @@ Phases (any failure exits non-zero; nothing is caught):
      (cuDNN + the port's batch_norm in float32), ghost composed (the
      plain twin) and the megakernel, held against the twin after one
      block and after all (a rerun bitwise equal), and at tile = N = 4
-     against the batch-BN arm; timed per block; the megakernel must
-     launch there.
+     against the batch-BN arm; timed per block against its bound (in
+     float32 at the 3xTF32 rate, the FMA-rate bound beside it) and the
+     design's own byte floor; a profiled block names each of its kernels
+     (pack, GEMM1, coef, 3x3, h2, GEMM3 statistics, GEMM3 final); the
+     megakernel must launch there.
  12. the roll micro of benchmarks/megakernel_roll_micro.py: stage 2,
      tile 2, bfloat16, 8 blocks of each variant (full, strided, nobn,
      noroll) held against its twin and timed; full - noroll is the cost
@@ -2612,18 +2615,57 @@ def conv_chain(card):
                                   for d in CONV_DTYPES}}, launches
 
 
-def megakernel_bound(n, hw, cin, cm, dtype):
+def megakernel_bound(n, hw, cin, cm, dtype, rate=None):
     """Least time of one bottleneck block on this card: bytes (x read and
     y written once, the weights in the data type, the three BNs' [2, C]
     float32 rows read once) over HBM rate vs 2*N*H*W*Cm*(2*Cin + 9*Cm)
-    FLOP over the type's peak (bfloat16 tensor cores, float32 FMA)."""
+    FLOP at `rate`, by default the rate of the kernel's products on the
+    tensor cores (conv_path_rate: bfloat16 in one pass, float32 as
+    3xTF32); FP32_FLOPS_PER_S gives the FMA-rate bound of the earlier
+    SIMT kernel."""
     size = 2 if dtype == "bf16" else 4
     t_bytes = ((2 * n * hw * cin + 2 * cin * cm + 9 * cm * cm) * size
                + 2 * (2 * cm + cin) * 4) / HBM_BYTES_PER_S
-    rate = BF16_FLOPS_PER_S if dtype == "bf16" else FP32_FLOPS_PER_S
+    rate = conv_path_rate(dtype) if rate is None else rate
     t_ops = 2.0 * n * hw * cm * (2 * cin + 9 * cm) / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def megakernel_design_ms(n, hw, cin, cm, dtype):
+    """The megakernel design's own floor on device-memory traffic, over
+    HBM rate (ms): x read twice (GEMM1, GEMM3's final pass), acc1 and
+    acc2 [M, Cm] float32 each written and read once (by the 3x3, by the
+    pass that activates acc2), h2 [M, Cm] in the dtype written once and
+    read by GEMM3's two passes, y written once (acc3 never leaves the
+    chip; the 3x3's halo rows and the rows each column tile reads again
+    are taken as L2 hits)."""
+    size = 2 if dtype == "bf16" else 4
+    m = n * hw
+    nbytes = 3 * m * cin * size + 4 * m * cm * 4 + 3 * m * cm * size
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def mega_role(name):
+    """The role of one of the megakernel's device kernels, from its name
+    in a torch.profiler trace: pack (the weights), GEMM1, coef (a BN's
+    coefficients), 3x3, h2 (GEMM3's activated operand), GEMM3 statistics,
+    GEMM3 final; block_gemm_kernel<E, float A, vec, promote, epilogue>
+    is the 3x3 when its A is float32 (acc1), else GEMM1 for epilogue 0
+    (acc stored) and GEMM3's passes for 1 (statistics) and 2 (y)."""
+    for role, frag in (("pack", "pack_w_kernel"), ("coef", "coef_kernel"),
+                       ("h2", "act_kernel")):
+        if frag in name:
+            return role
+    if "block_gemm_kernel<" not in name:
+        return "other"
+    args = [a.strip() for a in
+            name.split("block_gemm_kernel<", 1)[1].split(">", 1)[0]
+            .split(",")]
+    if args[1] == "true":
+        return "3x3"
+    return {"0": "GEMM1", "1": "GEMM3 statistics",
+            "2": "GEMM3 final"}.get(args[4], "other")
 
 
 def _torch_dtype(dtype):
@@ -2777,9 +2819,11 @@ def mega_chain(x, params, side, tile, plain=False):
     return x
 
 
-def profile_chain(card, fn, blocks, label):
+def profile_chain(card, fn, blocks, label, role=None):
     """One more call of fn (after a warm-up) under torch.profiler: each
-    device kernel's time and launches per block, and their sum."""
+    device kernel's time and launches per block, and their sum; `role`
+    (a function of the kernel's name) labels each line and sums the
+    time by role."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2788,16 +2832,27 @@ def profile_chain(card, fn, blocks, label):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted((dict(name=key[:120], ms=ms / blocks, count=n / blocks)
+    rows = sorted((dict(name=key[:120], ms=ms / blocks, count=n / blocks,
+                        **({"role": role(key)} if role else {}))
                    for key, ms, n in device_kernels(prof)),
                   key=lambda r: -r["ms"])
     total = sum(r["ms"] for r in rows)
     print(f"[{card}] profiled {label}: {total:.4f} ms of device kernels a "
           "block", flush=True)
     for r in rows:
-        print(f"  {r['ms']:9.4f} ms {r['count']:5.1f}x  {r['name'][:90]}",
-              flush=True)
-    return dict(device_ms_per_block=total, kernels=rows)
+        tag = f"[{r['role']}] " if role else ""
+        print(f"  {r['ms']:9.4f} ms {r['count']:5.1f}x  {tag}"
+              f"{r['name'][:90]}", flush=True)
+    out = dict(device_ms_per_block=total, kernels=rows)
+    if role:
+        by_role = {}
+        for r in rows:
+            by_role[r["role"]] = by_role.get(r["role"], 0.0) + r["ms"]
+        print(f"[{card}] profiled {label} by kernel: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in by_role.items())
+              + " ms a block", flush=True)
+        out["by_role"] = by_role
+    return out
 
 
 def megakernel_chain(card):
@@ -2881,8 +2936,13 @@ def megakernel_chain(card):
         nchw = _mega_nchw(params)
         xn = _nchw(x, side)
         bound_ms, bound_by = megakernel_bound(n, side * side, cin, cm, dtype)
+        fma_ms, fma_by = megakernel_bound(n, side * side, cin, cm, dtype,
+                                          FP32_FLOPS_PER_S)
+        design_ms = megakernel_design_ms(n, side * side, cin, cm, dtype)
         row = dict(images=n, cin=cin, cm=cm, side=side, blocks=MEGA_BLOCKS,
                    bound_ms=bound_ms, bound_by=bound_by,
+                   fma_bound_ms=fma_ms, fma_bound_by=fma_by,
+                   design_bytes_ms=design_ms,
                    batch_bn_ms=cuda_ms(lambda: composed_chain(xn, nchw),
                                        iters=3, warmup=1) / MEGA_BLOCKS,
                    tiles={})
@@ -2899,7 +2959,9 @@ def megakernel_chain(card):
                   f"ghost composed {ghost:.4f}, batch-BN "
                   f"{row['batch_bn_ms']:.4f}, bound {bound_ms:.4f} "
                   f"({bound_by}; kernel at {100 * bound_ms / mega:.1f}% of "
-                  f"it); vs twin after 1 block "
+                  f"it; FMA-rate bound {fma_ms:.4f}, {fma_by}; the "
+                  f"design's byte floor {design_ms:.4f}); vs twin after 1 "
+                  f"block "
                   f"{checks[tile]['one_block_max_diff_frac']:.3e} * max, "
                   f"after {MEGA_BLOCKS} 2-norm gap "
                   f"{checks[tile]['all_blocks_norm_gap']:.3e} (limit "
@@ -2909,7 +2971,7 @@ def megakernel_chain(card):
             tile = MEGA_MAIN_CASE[1]
             row["profiled"] = profile_chain(
                 card, lambda: mega_chain(x, params, side, tile), MEGA_BLOCKS,
-                f"megakernel chain {label} {dtype} tile {tile}")
+                f"megakernel chain {label} {dtype} tile {tile}", mega_role)
         rows.setdefault(label, {})[dtype] = row
         del nchw, xn
     del stages
@@ -2971,6 +3033,7 @@ def roll_micro(card):
         raise SystemExit("kernel megakernel_roll_micro was not launched on "
                          "the roll micro")
     bound_ms, bound_by = megakernel_bound(n, side * side, cin, cm, dtype)
+    design_ms = megakernel_design_ms(n, side * side, cin, cm, dtype)
     rows = {}
     for variant in VARIANTS:
         ms = cuda_ms(lambda: micro_chain(x, params, variant, side, tile),
@@ -2998,11 +3061,13 @@ def roll_micro(card):
           f"{gaps['shifts_and_masks_ms']:.4f} ms/block, full - nobn "
           f"(statistics) {gaps['statistics_ms']:.4f}, full - strided "
           f"{gaps['full_minus_strided_ms']:.4f}; bound {bound_ms:.4f} "
-          f"({bound_by}); launches {launches}", flush=True)
+          f"({bound_by}; the design's byte floor {design_ms:.4f}); "
+          f"launches {launches}", flush=True)
     return {"card": card, "stage": label, "images": n, "cin": cin, "cm": cm,
             "side": side, "tile": tile, "dtype": dtype,
             "blocks": MEGA_BLOCKS, "bound_ms": bound_ms,
-            "bound_by": bound_by, "variants": rows, **gaps}, launches
+            "bound_by": bound_by, "design_bytes_ms": design_ms,
+            "variants": rows, **gaps}, launches
 
 
 def main() -> int:
@@ -3240,6 +3305,9 @@ def main() -> int:
         "ms": stage["tiles"][tile]["mega_ms"],
         "plain_ms": stage["tiles"][tile]["ghost_ms"],
         "bound_ms": stage["bound_ms"], "bound_by": stage["bound_by"],
+        "fma_bound_ms": stage["fma_bound_ms"],
+        "fma_bound_by": stage["fma_bound_by"],
+        "design_bytes_ms": stage["design_bytes_ms"],
         "library_ms": None, "yardstick_ms": stage["batch_bn_ms"]})
     # the micro's full variant, and every variant's times beside it
     rows.append({
@@ -3253,7 +3321,7 @@ def main() -> int:
         "ms": micro["variants"]["full"]["ms"],
         "plain_ms": micro["variants"]["full"]["plain_ms"],
         "bound_ms": micro["bound_ms"], "bound_by": micro["bound_by"],
-        "library_ms": None,
+        "design_bytes_ms": micro["design_bytes_ms"], "library_ms": None,
         "variant_ms": {v: r["ms"] for v, r in micro["variants"].items()},
         "variant_plain_ms": {v: r["plain_ms"]
                              for v, r in micro["variants"].items()}})

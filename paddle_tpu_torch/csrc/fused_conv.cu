@@ -103,7 +103,9 @@
 // wider image returns cudaErrorInvalidConfiguration.
 //
 // All PTX (cp.async, wgmma, cvt.rna.tf32, cvt.rn.bf16x2) lives in
-// sm90_mma.cuh.
+// sm90_mma.cuh; the block shape, the operand types, the tap bits and the
+// weight pack are shared with block_megakernel.cu through
+// implicit_gemm.cuh.
 //
 // C interface (no PyTorch headers): the Python wrapper passes raw device
 // pointers and the current CUDA stream through ctypes and checks the
@@ -114,15 +116,12 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "implicit_gemm.cuh"
 #include "sm90_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;      // two warpgroups
-constexpr int kBM = 128;           // output rows a block, 64 a warpgroup
-constexpr int kChunkBytes = 128;   // channels a reduction step, in bytes
 constexpr int kSlabPitch = 144;    // bytes between slab rows (128 + 16)
-constexpr int kMaxStages = 4;      // B ring depth
 // The tensor cores' float32 sums are truncated, not rounded: past this
 // many k-step multiplies into one accumulator (3xTF32 counts 3 a k-step)
 // each reduction step sums into fresh registers, added with a rounding
@@ -130,49 +129,6 @@ constexpr int kMaxStages = 4;      // B ring depth
 // (the float32 1x1 at K 256) within half the float32 limit of 1e-5 of
 // max|out| and puts 432 (K' 1152) past it.
 constexpr int kPromoteAfter = 96;
-constexpr int kWarps = kThreads / 32;
-
-__host__ __device__ inline int cdiv(long long a, int b) {
-  return static_cast<int>((a + b - 1) / b);
-}
-
-// The two operand types. kBK channels make one 128-byte reduction chunk,
-// taken in 4 k-steps of kK; float32 keeps hi and lo planes of w.
-struct F32 {
-  using T = float;
-  static constexpr bool kBf16 = false;
-  static constexpr int kBytes = 4, kBK = 32, kK = 8, kPlanes = 2;
-};
-struct BF16 {
-  using T = uint16_t;
-  static constexpr bool kBf16 = true;
-  static constexpr int kBytes = 2, kBK = 64, kK = 16, kPlanes = 1;
-};
-
-__device__ __forceinline__ float word_f32(uint32_t u) {
-  float f;
-  memcpy(&f, &u, 4);
-  return f;
-}
-
-__device__ __forceinline__ uint32_t f32_word(float f) {
-  uint32_t u;
-  memcpy(&u, &f, 4);
-  return u;
-}
-
-// Bits t = (dh+1)*3 + (dw+1) of the taps of output row m that stay in its
-// H x W image.
-__device__ __forceinline__ uint32_t tap_bits(int m, int H, int W) {
-  const int h = (m / W) % H, w = m % W;
-  uint32_t bits = 0;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int hh = h + t / 3 - 1, ww = w + t % 3 - 1;
-    if (hh >= 0 && hh < H && ww >= 0 && ww < W) bits |= 1u << t;
-  }
-  return bits;
-}
 
 struct Args {
   const void* x;      // [M, C] of T
@@ -189,52 +145,6 @@ struct Args {
   int halo, slab_rows;  // W + 1 (3x3) or 0; 128 + 2 * halo
   int vec_out;          // out rows are whole 16-byte chunks, 16-aligned
 };
-
-// Bytes between the rows of the output tile staged in shared memory: BN
-// elements and 16 (bf16) or 32 (float32) bytes more, so that the 8 rows x
-// 4 lanes of a fragment write land in 32 banks.
-__host__ __device__ constexpr int out_pitch(int bn, int bytes) {
-  return bn * bytes + 8 * bytes;
-}
-
-// w [taps*C, N] -> K-major [planes][npad][taps][cpad], zero past C and N;
-// float32 as TF32 hi and lo planes. One block transposes a 32 x 32 tile
-// through shared memory, so that both its reads and its writes are rows.
-template <class E>
-__global__ void __launch_bounds__(kThreads)
-pack_w_kernel(const typename E::T* __restrict__ w, uint32_t* __restrict__ wp32,
-              uint16_t* __restrict__ wp16, int taps, int C, int N, int cpad,
-              int npad) {
-  __shared__ uint32_t tile[32][33];
-  const int64_t krow = static_cast<int64_t>(taps) * cpad;
-  const int64_t total = krow * npad;
-  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int r = ty; r < 32; r += kThreads / 32) {  // w row k0 + r
-    const int k = k0 + r, tap = k / cpad, c = k % cpad, n = n0 + tx;
-    uint32_t v = 0;
-    if (c < C && n < N) {
-      const int64_t src = (static_cast<int64_t>(tap) * C + c) * N + n;
-      if constexpr (E::kBf16)
-        v = w[src];
-      else
-        v = f32_word(w[src]);
-    }
-    tile[r][tx] = v;
-  }
-  __syncthreads();
-  for (int r = ty; r < 32; r += kThreads / 32) {  // packed row n0 + r
-    const int64_t i = static_cast<int64_t>(n0 + r) * krow + k0 + tx;
-    const uint32_t v = tile[tx][r];
-    if constexpr (E::kBf16) {
-      wp16[i] = static_cast<uint16_t>(v);
-    } else {
-      const uint32_t hi = sm90::tf32_rna(word_f32(v));
-      wp32[i] = hi;
-      wp32[total + i] = sm90::tf32_rna(word_f32(v) - word_f32(hi));
-    }
-  }
-}
 
 // out tile [128 x BN] of act(x) @ w, and its column partial sums.
 template <class E, int BN, bool kVecX, bool kPromote>
@@ -605,18 +515,6 @@ long long wpack_bytes(int taps, int c, int n) {
   const long long cpad = static_cast<long long>(cdiv(c, E::kBK)) * E::kBK;
   const long long npad = static_cast<long long>(cdiv(n, bn_of(n))) * bn_of(n);
   return E::kPlanes * npad * taps * cpad * E::kBytes;
-}
-
-int max_dynamic_smem() {
-  static int bytes = 0;
-  if (bytes == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-      bytes = 48 * 1024;
-  }
-  return bytes;
 }
 
 template <class E, int BN, bool kVecX, bool kPromote>

@@ -10,7 +10,11 @@ Replaces the Pallas TPU kernels
 
 with one CUDA source, ``csrc/block_megakernel.cu`` (C entry points
 ``block_megakernel_f32`` and ``block_megakernel_bf16``, the variant an
-argument). One block is
+argument): tensor-core implicit GEMMs (wgmma; float32 as 3xTF32) over
+128-row tiles that cross ghost groups, each tile reporting its
+statistics per group segment, and GEMM3 run twice on the activated h2
+(statistics, then the residual output) so that its accumulator never
+reaches device memory. One block is
 
   1x1 (Cin->Cm) -> ghost BN + ReLU -> 3x3 (Cm->Cm, pad 1) -> ghost BN +
   ReLU -> 1x1 (Cm->Cin) -> ghost BN -> + x -> ReLU
@@ -32,8 +36,9 @@ module constants BS, CIN, CM, SIDE, TILE become arguments):
   ``full``     the block above;
   ``strided``  the same function; the reference builds each dy-trio of
                taps with one strided roll, the CUDA kernel stages each
-               dy-row window once in shared memory and reads its three
-               dx taps from it (``full`` gathers every tap on its own);
+               dy's window of 128 + 2 rows in shared memory and reads its
+               three dx taps from it (``full`` stages one halo slab for
+               all nine taps);
   ``nobn``     no statistics: every BN is the affine x * p[0] + p[1];
   ``noroll``   wrong on purpose: every tap is relu(acc1 * a1 + b1) of
                its own row, unshifted and unmasked (the cost of the
@@ -139,18 +144,24 @@ def roll_micro_block_plain(x, w1, w3, w2, p1, p2, p3, variant, side, tile):
 
 # -- the kernel -------------------------------------------------------------
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's C functions."""
+    for dt in _DTYPES.values():
+        fn = getattr(lib, f"block_megakernel_{dt}")
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.block_megakernel_workspace.argtypes = [ctypes.c_int] * 5
+    lib.block_megakernel_workspace.restype = ctypes.c_longlong
+    lib.block_megakernel_error_string.argtypes = [ctypes.c_int]
+    lib.block_megakernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     lib = build.library(_SOURCE)
     if not getattr(lib, "_paddle_bound", False):
-        for dt in _DTYPES.values():
-            fn = getattr(lib, f"block_megakernel_{dt}")
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        lib.block_megakernel_workspace.argtypes = [ctypes.c_int] * 5
-        lib.block_megakernel_workspace.restype = ctypes.c_longlong
-        lib.block_megakernel_error_string.argtypes = [ctypes.c_int]
-        lib.block_megakernel_error_string.restype = ctypes.c_char_p
+        bind(lib)
         lib._paddle_bound = True
     return lib
 

@@ -1,37 +1,44 @@
 """The CUDA source of the ghost-BN bottleneck block, run on the CPU.
 
 paddle_tpu_torch/csrc/block_megakernel.cu compiles only for a card, but
-its logic — the ghost-group-aligned row tiles with their masked tails,
-the implicit-GEMM tap gather and its edge masks, the strided variant's
-shared-memory window, the per-tile partial statistics and their
-reduction per group, the four variants, the bfloat16 rounding points —
-is plain C++ over a small CUDA subset. This test compiles the unchanged
-source with the host C++ compiler against a small emulation of that
-subset (one block at a time, one std::thread per CUDA thread,
-std::barrier for __syncthreads, __shared__ as a static shared by the
-block's threads, bfloat16 as a 16-bit struct rounding to nearest even)
-and holds both C entry points against the plain twins of
-ops/kernels/block_megakernel.py: tile 1, 2 and the whole batch, groups
-of 9 to 140 rows (row tiles that would straddle groups if they were not
-aligned to them, and a group longer than one 128-row tile), a 1x1 image
-(every off-centre tap masked), an odd Cm, Cin over one 128-column tile,
-every variant, and bfloat16. Two mutants must be caught: the BN affine
-applied after the edge mask (a padded tap reads relu(b)), and statistics
-taken over the whole batch in place of each group. It says nothing about
-speed or about the device compiler; chip_smoke.py runs the real kernel on
-the card.
+its logic — the weight packs, the tensor-core implicit GEMMs and their
+ring of copy stages, the 3x3's halo slab (and the strided variant's
+window a dy) read by the taps at their offsets, the BN prologue applied
+per row group before the edge mask, the 128-row tiles that cross ghost
+groups and their statistics per group segment, the coefficients summed
+per group in tile order, GEMM3's statistics and final passes, the
+per-step promotion of long sums, the four variants, the bfloat16
+rounding points — is plain C++ over a small CUDA subset plus the PTX
+helpers of csrc/sm90_mma.cuh. This test compiles the source with the
+host C++ compiler against the emulation of both in
+tests/test_torch_cuda_emulation.py (its warpgroup multiplies truncate
+their float32 sums, as the tensor cores do) and holds both C entry
+points against the plain twins of ops/kernels/block_megakernel.py: tile
+1, 2 and the whole batch, groups of 9 to 140 rows (row tiles that cross
+groups, a group longer than one 128-row tile), 7x7 images at tile 1
+(49-row groups across three row tiles), a 1x1 image (every off-centre
+tap masked), odd Cm, an odd Cin (x rows that are not whole 16-byte
+chunks: plain loads, and y stored element by element), Cin across the
+128-column tile, every variant, and bfloat16. It holds acc2 (the 3x3's
+accumulator, in the workspace) at K' 2304 against float64 at the fused
+convs' float32 limit. Four mutants
+must be caught: the BN affine applied after the edge mask (a padded tap
+reads relu(b)), statistics taken over the whole batch in place of each
+group, a row credited to the wrong group segment of its tile, and the
+promotion of long sums switched off. megakernel_split.py's edits of
+the source are held against it. It says nothing about speed or about
+the device compiler; chip_smoke.py runs the real kernel on the card.
 
 Tolerance: float32, the same products summed in another order and
 renormalized by three ghost BNs: max |kernel - twin| <= 1e-4 * max|twin|
-(chip_smoke.py's limit on the card). bfloat16:
-2 ulps of max|twin| (2 * 2^-7 * max|twin|): where the two orders of
-summation straddle a rounding boundary of a tap or of h2, one value
-moves by one ulp, and the output's own rounding adds another.
+(chip_smoke.py's limit on the card). bfloat16: 2 ulps of max|twin|
+(2 * 2^-7 * max|twin|): where the two orders of summation straddle a
+rounding boundary of a tap or of h2, one value moves by one ulp, and the
+output's own rounding adds another. acc2: 1e-5 of max|acc2| (the fused
+convs' float32 limit, a sum of K' products in another order).
 """
 import ctypes
-import re
-import shutil
-import subprocess
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -39,123 +46,58 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import block_megakernel as bm
+from test_torch_cuda_emulation import compile_cuda, mutate
 
 SOURCE = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" \
     / "block_megakernel.cu"
 F32_RTOL = 1e-4
 BF16_RTOL = 2 * 2.0 ** -7
+ACC_RTOL = 1e-5
 
-EMULATION = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <math.h>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-using std::min;
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct float4 { float x, y, z, w; };
-inline thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-constexpr int cudaSuccess = 0;
-constexpr int cudaErrorInvalidValue = 1;
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
-inline std::barrier<>* emu_barrier = nullptr;
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, int threads, A... args) {
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(threads);
-        emu_barrier = &bar;
-        std::vector<std::thread> team;
-        for (int t = 0; t < threads; ++t)
-          team.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by, bz);
-            gridDim = grid;
-            blockDim = dim3(threads);
-            kernel(args...);
-          });
-        for (auto& th : team) th.join();
-      }
-}
-"""
-
-BF16 = r"""
-#pragma once
-#include <cstdint>
-#include <cstring>
-struct __nv_bfloat16 { uint16_t bits; };
-inline float __bfloat162float(__nv_bfloat16 h) {
-  uint32_t u = uint32_t(h.bits) << 16;
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline __nv_bfloat16 __float2bfloat16(float f) {  // nearest even
-  uint32_t u;
-  std::memcpy(&u, &f, 4);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40)};
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return {uint16_t(u >> 16)};
-}
-"""
-
-# kernel<<<grid, threads, smem, stream>>>(args), the kernel name possibly
-# with template arguments -> emu_launch(kernel, grid, threads, args)
-_LAUNCH = re.compile(
-    r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*[^>]+>>>\(")
-
-# the BN affine applied after the edge mask (a padded tap reads relu(b))
-_MASK_THEN_AFFINE = (
-    "      if (hh < 0 || hh >= H || ww < 0 || ww >= W) return 0.f;",
-    "      if (hh < 0 || hh >= H || ww < 0 || ww >= W)\n"
-    "        return round_to<T>(fmaxf(ab[C + c], 0.f));")
+# the BN affine applied after the edge mask (a padded tap reads relu(b)):
+# the in-place activation of the slab switched off, and each float32 A
+# fragment element activated (with its row's group's coefficients) after
+# its mask
+_MASK_THEN_AFFINE = [
+    ("      activate(o, j, slab, cur, av, bv);", ""),
+    ("""          const float e[4] = {v0 ? word_f32(w0[u]) : 0.f,
+                              v1 ? word_f32(w1[u]) : 0.f,
+                              v0 ? word_f32(w0[u + 4]) : 0.f,
+                              v1 ? word_f32(w1[u + 4]) : 0.f};
+""", """          float e[4] = {v0 ? word_f32(w0[u]) : 0.f,
+                        v1 ? word_f32(w1[u]) : 0.f,
+                        v0 ? word_f32(w0[u + 4]) : 0.f,
+                        v1 ? word_f32(w1[u + 4]) : 0.f};
+          for (int r = 0; kFloatA && r < 4; ++r) {
+            const int64_t gr = std::clamp<int64_t>(
+                slab_first(o) + (r % 2 ? lr1 : lr0) + off, 0, p.M - 1);
+            const int c = j * E::kBK + u + (r / 2) * 4;
+            const float* ab = p.coef + (gr / p.G) * p.coef_stride;
+            if (c < p.C) e[r] = fmaxf(e[r] * ab[c] + ab[p.C + c], 0.f);
+          }
+"""),
+]
 # statistics over every group's row tiles and rows: full-batch BN
-_WHOLE_BATCH_STATS = (
-    "  const int first = g * tpg, count = tpg, n_rows = rows;",
-    "  const int first = 0, count = tpg * gridDim.y, "
-    "n_rows = rows * gridDim.y;")
+_WHOLE_BATCH_STATS = [
+    ("  const int g0 = g, g1 = g;",
+     "  const int g0 = 0, g1 = gridDim.y - 1;"),
+]
+# each group's first row credited to the segment of the group before it
+_WRONG_SEGMENT = [
+    ("      int next = (first_g + 1) * p.G - row0;",
+     "      int next = (first_g + 1) * p.G - row0 + 1;"),
+]
+# every reduction step's products into the one truncating accumulator
+_NO_PROMOTION = [
+    ("""  const bool promote = p.n_it * 4 * (E::kBf16 ? 1 : 3) >
+                       (E::kBf16 ? kPromoteAfterBf16 : kPromoteAfter);""",
+     "  const bool promote = false;"),
+]
 
 
 def _compile(out: Path, text: str):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to emulate the CUDA source with")
-    (out / "cuda_runtime.h").write_text(EMULATION)
-    (out / "cuda_bf16.h").write_text(BF16)
-    src = _LAUNCH.sub(r"emu_launch(\1, \2, \3, ", text)
-    assert "<<<" not in src
-    (out / "block_megakernel.cpp").write_text(src)
-    so = out / "libblock_megakernel.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-I", str(out), "-o", str(so),
-                    str(out / "block_megakernel.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    for dt in ("f32", "bf16"):
-        getattr(lib, f"block_megakernel_{dt}").argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.block_megakernel_workspace.argtypes = [ctypes.c_int] * 5
-    lib.block_megakernel_workspace.restype = ctypes.c_longlong
-    return lib
+    return bm.bind(ctypes.CDLL(str(compile_cuda(out, text,
+                                                "block_megakernel"))))
 
 
 @pytest.fixture(scope="module")
@@ -181,12 +123,15 @@ def _inputs(n, h, w, cin, cm, seed, dtype=torch.float32):
     return x, w1, w3, w2, bns
 
 
-def _call(lib, x, w1, w3, w2, bns, h, w, tile, variant):
-    """Run the C entry point of x's dtype on CPU buffers."""
+def _call(lib, x, w1, w3, w2, bns, h, w, tile, variant, ws=None):
+    """Run the C entry point of x's dtype on CPU buffers (ws: the
+    workspace, allocated here when not given)."""
     n, hw, cin = x.shape
     cm = w1.shape[1]
     y = torch.empty_like(x)
-    ws = torch.empty(lib.block_megakernel_workspace(n, hw, cin, cm, tile))
+    if ws is None:
+        ws = torch.empty(lib.block_megakernel_workspace(n, hw, cin, cm,
+                                                        tile))
     dt = "f32" if x.dtype == torch.float32 else "bf16"
     err = getattr(lib, f"block_megakernel_{dt}")(
         x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
@@ -201,10 +146,12 @@ def _gap(got, want):
         want.float().abs().max())
 
 
-# (n, H, W, Cin, Cm, tile): groups of 9 and 18 rows (tile 1, 2), 6x6 at
-# the whole batch (36 rows a group, 144 in all), a 10x14 group of 140
-# rows (two row tiles, the second 12 rows long), a 1x1 image (every
-# off-centre tap masked), an odd Cm with Cin over one 128-column tile
+# (n, H, W, Cin, Cm, tile): groups of 9 and 18 rows (tile 1, 2: row tiles
+# cross 14 and 7 groups), 6x6 at the whole batch (36 rows a group, 144
+# in all), a 10x14 group of 140 rows (two row tiles, the second 12 rows
+# long), a 1x1 image (every off-centre tap masked), an odd Cm with Cin
+# over one 128-column tile, 7x7 images at tile 1 (49-row groups across
+# three row tiles), an odd Cin (plain-load x rows, y element by element)
 CASES = [
     (4, 3, 3, 16, 8, 1),
     (4, 3, 3, 16, 8, 2),
@@ -212,6 +159,8 @@ CASES = [
     (2, 10, 14, 8, 8, 1),
     (6, 1, 1, 12, 8, 2),
     (2, 4, 5, 136, 5, 1),
+    (6, 7, 7, 16, 8, 1),
+    (3, 2, 3, 13, 6, 1),
 ]
 
 
@@ -252,9 +201,8 @@ def test_affine_after_mask_mutant_is_caught(tmp_path):
     """The same source with the BN affine applied after the edge mask (a
     padded tap reads relu(b) in place of 0) disagrees with the twin on
     the edge pixels."""
-    text = SOURCE.read_text()
-    assert text.count(_MASK_THEN_AFFINE[0]) == 1
-    mutant = _compile(tmp_path, text.replace(*_MASK_THEN_AFFINE))
+    mutant = _compile(tmp_path, mutate(SOURCE.read_text(),
+                                       _MASK_THEN_AFFINE))
     x, w1, w3, w2, bns = _inputs(2, 6, 6, 16, 8, seed=1)
     got = _call(mutant, x, w1, w3, w2, bns, 6, 6, 1, "full")
     want = bm.bottleneck_block_plain(x, w1, w3, w2, *bns, 6, 6, tile=1)
@@ -265,9 +213,8 @@ def test_whole_batch_statistics_mutant_is_caught(tmp_path):
     """The same source with the statistics taken over the whole batch
     disagrees with the twin at tile 1, and agrees with it where the tile
     is the whole batch (ghost BN is then batch BN)."""
-    text = SOURCE.read_text()
-    assert text.count(_WHOLE_BATCH_STATS[0]) == 1
-    mutant = _compile(tmp_path, text.replace(*_WHOLE_BATCH_STATS))
+    mutant = _compile(tmp_path, mutate(SOURCE.read_text(),
+                                       _WHOLE_BATCH_STATS))
     x, w1, w3, w2, bns = _inputs(4, 3, 3, 16, 8, seed=2)
     got = _call(mutant, x, w1, w3, w2, bns, 3, 3, 1, "full")
     want = bm.bottleneck_block_plain(x, w1, w3, w2, *bns, 3, 3, tile=1)
@@ -275,3 +222,79 @@ def test_whole_batch_statistics_mutant_is_caught(tmp_path):
     got = _call(mutant, x, w1, w3, w2, bns, 3, 3, 4, "full")
     want = bm.bottleneck_block_plain(x, w1, w3, w2, *bns, 3, 3, tile=4)
     assert _gap(got, want) <= F32_RTOL
+
+
+def test_wrong_group_segment_mutant_is_caught(tmp_path):
+    """The same source with each group's first row of a tile credited to
+    the segment of the group before it disagrees with the twin where
+    49-row groups cross 128-row tiles, and agrees where a group is the
+    whole batch (one segment a tile)."""
+    mutant = _compile(tmp_path, mutate(SOURCE.read_text(), _WRONG_SEGMENT))
+    x, w1, w3, w2, bns = _inputs(6, 7, 7, 16, 8, seed=4)
+    got = _call(mutant, x, w1, w3, w2, bns, 7, 7, 1, "full")
+    want = bm.bottleneck_block_plain(x, w1, w3, w2, *bns, 7, 7, tile=1)
+    assert _gap(got, want) > 1e-2
+    got = _call(mutant, x, w1, w3, w2, bns, 7, 7, 6, "full")
+    want = bm.bottleneck_block_plain(x, w1, w3, w2, *bns, 7, 7, tile=6)
+    assert _gap(got, want) <= F32_RTOL
+
+
+def _acc2_gap(lib, seed):
+    """The 3x3's float32 accumulator at K' 2304 (Cm 256) from the
+    workspace against float64 (2 x 5x5 images, tile 1): max |diff| over
+    max|acc2|."""
+    n, side, cin, cm, tile = 2, 5, 16, 256, 1
+    x, w1, w3, w2, bns = _inputs(n, side, side, cin, cm, seed=seed)
+    ws = torch.zeros(lib.block_megakernel_workspace(n, side * side, cin, cm,
+                                                    tile))
+    _call(lib, x, w1, w3, w2, bns, side, side, tile, "full", ws)
+    m = n * side * side
+    ldc = -(-cm // 8) * 8
+    start = -(-m * ldc // 64) * 64  # acc2 follows acc1 [M, ldc]
+    acc2 = ws[start:start + m * ldc].reshape(m, ldc)[:, :cm].double()
+    h = (x.double().reshape(m, cin) @ w1.double()).reshape(n // tile, -1, cm)
+    mean = h.mean(1, keepdim=True)
+    var = (h * h).mean(1, keepdim=True) - mean * mean
+    a = bns[0][0].double() / torch.sqrt(var + bm.EPS)
+    h1 = torch.clamp_min(h * a + bns[0][1].double() - mean * a, 0)
+    img = torch.nn.functional.pad(h1.reshape(n, side, side, cm),
+                                  (0, 0, 1, 1, 1, 1))
+    want = sum(img[:, t // 3:t // 3 + side, t % 3:t % 3 + side]
+               @ w3[t].double() for t in range(9)).reshape(m, cm)
+    return float((acc2 - want).abs().max() / want.abs().max())
+
+
+def test_acc2_holds_the_float32_conv_limit(lib):
+    """With the per-step promotion of long sums, the 3x3 at K' 2304 (864
+    truncating TF32 multiplies) keeps acc2 within a tenth of the fused
+    convs' float32 limit of float64."""
+    assert _acc2_gap(lib, seed=5) <= ACC_RTOL / 10
+
+
+def test_promotion_off_mutant_is_caught(tmp_path):
+    """The same source with every reduction step's products summed in one
+    truncating accumulator misses the float32 limit on acc2 at K' 2304
+    (the fused convs' finding, PERF.md)."""
+    mutant = _compile(tmp_path, mutate(SOURCE.read_text(), _NO_PROMOTION))
+    assert _acc2_gap(mutant, seed=5) > ACC_RTOL
+
+
+def _load_split():
+    """megakernel_split.py, which times edited copies of the source on
+    the card."""
+    path = SOURCE.parents[2] / "megakernel_split.py"
+    spec = importlib.util.spec_from_file_location("megakernel_split", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SPLIT = _load_split()
+
+
+@pytest.mark.parametrize("variant", sorted(SPLIT.VARIANTS))
+def test_split_edits_apply_to_the_source(variant):
+    """Every edit of megakernel_split.py's variants finds its anchor once
+    in the current source; only "kernel" leaves it as it is."""
+    text = SOURCE.read_text()
+    assert (SPLIT.edited(variant, text) == text) == (variant == "kernel")

@@ -289,6 +289,11 @@ inline void wgmma_wait0() {
 }  // namespace sm90
 """
 
+CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+# headers of csrc/ that hold no PTX: compiled for the host as they are,
+# beside the source (a quoted include looks there first)
+PLAIN_HEADERS = ("implicit_gemm.cuh",)
+
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel name possibly
 # with template arguments -> emu_launch(kernel, grid, threads, args)
 LAUNCH = re.compile(
@@ -310,13 +315,18 @@ def compile_cuda(out: Path, text: str, stem: str, headers=None) -> Path:
     """The CUDA source `text` compiled for the host against the emulation,
     as out/lib<stem>.so (skips the test where no host compiler exists).
     headers: {file name: text} of the source's own headers, written beside
-    it (after the emulation's, so a mutated header wins over nothing)."""
+    it (after the emulation's, so a mutated header wins over nothing);
+    the headers of csrc/ without PTX (PLAIN_HEADERS) are written there as
+    they are, unless given."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the CUDA source with")
     (out / "cuda_runtime.h").write_text(EMULATION)
     (out / "sm90_mma.cuh").write_text(SM90_EMULATION)
-    for name, body in (headers or {}).items():
+    headers = dict(headers or {})
+    for name in PLAIN_HEADERS:
+        headers.setdefault(name, (CSRC / name).read_text())
+    for name, body in headers.items():
         (out / name).write_text(_host_text(body))
     (out / f"{stem}.cpp").write_text(_host_text(text))
     so = out / f"lib{stem}.so"
@@ -746,8 +756,7 @@ inline void promote(float (&sum)[4], float (&hi)[4], float (&la)[4],
 }  // namespace grid
 """
 
-GRID_SYNC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / \
-    "csrc" / "grid_sync.cuh"
+GRID_SYNC = CSRC / "grid_sync.cuh"
 # the line of csrc/grid_sync.cuh past which it is compiled as it is
 GRID_SYNC_MARK = "// ---- Built on the PTX above"
 
