@@ -108,9 +108,28 @@ Phases (any failure exits non-zero; nothing is caught):
      tile 2, bfloat16, 8 blocks of each variant (full, strided, nobn,
      noroll) held against its twin and timed; full - noroll is the cost
      of the shifts and masks, full - nobn that of the statistics.
- 13. JSON lines of the kernels, serving, the three earlier trainings,
-     MNIST, ResNet-50, the conv chain, the megakernel chain and the roll
-     micro, then, last, the JSON result line.
+ 13. the Trainer (paddle_tpu_torch.trainer), at full width: phase 5's
+     LSTM LM fed as sample tuples through Trainer(feed_order=...) and
+     DataFeeder, 8 batches with prefetch 2 and lazy costs (log_every 4),
+     and without prefetch, each bit for bit equal to the same batches
+     through Executor.run by hand (a warm-up arm, then TRAINER_ROUNDS
+     interleaved rounds of the three, each timed as wall time a batch);
+     then a run stopped after 4 batches with a checkpoint and resumed
+     from it in a fresh scope and executor (Trainer.start(resume=True)),
+     bit for bit equal to the uninterrupted run (parameters and the step
+     counter). DeepFM as bench.py:593-611 runs it (batch 2048, 39 fields,
+     1e5 features, embed 8, fc 400x3, Adam lr 1e-3) over 16 seeded
+     batches at steps_per_dispatch 1 (a warm-up arm, then
+     TRAINER_ROUNDS interleaved rounds), 4, and 1 with prefetch 2: every
+     arm bit for bit equal (parameters and costs);
+     the first step against the port's CPU path by phase 8's rule; step
+     ms, examples/s and peak memory a arm; a profiled prefetch run says
+     how much of the feed uploads overlaps kernels. Launch counts are set
+     to 0 just before and read just after: the fused-LSTM kernels launch
+     there (4 forward and 2 backward a LM step), nothing else.
+ 14. JSON lines of the kernels, serving, the three earlier trainings,
+     MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
+     micro and the Trainer, then, last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -444,6 +463,31 @@ RESNET_BATCH, RESNET_STEPS = 128, 5
 # arm moves from parameters one ulp away.
 RESNET_CHECK_BATCH, RESNET_CHECK_STEPS = 4, 2
 RESNET_NOISE_FACTOR = 10.0
+
+# the Trainer phase: phase 5's LSTM LM (LSTM_CFG, B64 x T64, lengths in
+# [32, 64] drawn as lm_lengths draws them, seeds 0-7) fed as sample
+# tuples through Trainer(feed_order=...) and DataFeeder, 8 batches,
+# prefetch 2, log_every 4; a checkpoint every 4 batches for the
+# stop-and-resume arm
+TRAINER_LM_BATCHES, TRAINER_LM_CKPT_EVERY = 8, 4
+TRAINER_LM_PREFETCH, TRAINER_LM_LOG_EVERY = 2, 4
+# the Trainer phase's timed arms run in this many interleaved rounds and
+# report the median: host-clock times of one arm move 7-26% within a call
+TRAINER_ROUNDS = 3
+# DeepFM as bench.py:593-611 measures it (BASELINE config 5): 1e5
+# features, 39 fields, embed 8, fc 400x3, Adam lr 1e-3, batch 2048; 16
+# seeded dense batches drawn as the bench draws its feed
+DEEPFM_CFG = dict(num_features=int(1e5), num_fields=39, embed_dim=8,
+                  lr=1e-3)
+DEEPFM_BATCH, DEEPFM_BATCHES, DEEPFM_K = 2048, 16, 4
+# DeepFM's three dispatch arms (K = 1, K = 4, K = 1 with prefetch 2) and a
+# rerun of the K = 1 arm run the same ops in the same order on the same
+# card: all must end bit for bit equal (parameters and costs).
+# card vs the port's CPU path, first step of batch 0: the first loss
+# within rtol 1e-4; step-1 gradients by phase 8's rule (per element
+# against a CPU step whose ReLUs take the card's masks, rtol 1e-4, atol
+# 1e-5 * max|g|; the free CPU step by 2-norm <= TRAIN_GRAD_NORM_RTOL)
+DEEPFM_LOSS_RTOL = 1e-4
 
 
 def card_line() -> str:
@@ -3070,6 +3114,401 @@ def roll_micro(card):
             "variants": rows, **gaps}, launches
 
 
+def lm_trainer_batches():
+    """TRAINER_LM_BATCHES batches of phase 5's LM feed as sample tuples
+    (words, targets): batch i takes lm_lengths(seed=i)'s ids cut to its
+    lengths."""
+    out = []
+    for i in range(TRAINER_LM_BATCHES):
+        ids, lens = lm_lengths(seed=i)
+        out.append([(ids[b, :n], ids[b, :n]) for b, n in enumerate(lens)])
+    return out
+
+
+def params_of(main, scope):
+    """Every parameter of `main` in `scope`, as numpy arrays."""
+    return {p.name: scope.get(p.name).cpu().numpy()
+            for p in main.all_parameters()}
+
+
+def bitwise_gaps(got, want):
+    """Names whose arrays are not bit for bit equal."""
+    return sorted(n for n in want
+                  if got[n].dtype != want[n].dtype
+                  or got[n].shape != want[n].shape
+                  or got[n].tobytes() != want[n].tobytes())
+
+
+def trainer_arm(main, startup, loss, weights, batches, card, label,
+                checkpoint_dir=None, checkpoint_every=None, resume=False,
+                **train_kw):
+    """Trainer.train over `batches` in a fresh scope and executor on the
+    card, from `weights` or, with `resume`, from the newest checkpoint in
+    `checkpoint_dir` (Trainer.start(resume=True)); with
+    `checkpoint_every`, a checkpoint there every that many batches.
+    Returns the EndIteration costs, the host-clock times (the card
+    synchronized at the end), the peak memory, the parameters, the step
+    counter and the trainer."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.core.executor import STEP_VAR
+    from paddle_tpu_torch.executor import scope_guard
+    from paddle_tpu_torch.trainer import (BeginIteration, CheckpointConfig,
+                                          EndIteration, Trainer)
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = CheckpointConfig(str(checkpoint_dir),
+                                every_n_batches=checkpoint_every,
+                                on_error="raise")
+    scope = Scope()
+    with scope_guard(scope):
+        t = Trainer(loss, main_program=main, startup_program=startup,
+                    executor=Executor(DEVICE), checkpoint_config=ckpt,
+                    feed_order=train_kw.pop("feed_order", None))
+        t.start(resume=resume)
+        if not resume:
+            load_param_arrays(scope, weights)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, begins = [], []
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                begins.append(time.perf_counter())
+            elif isinstance(e, EndIteration):
+                events.append(e)
+        t0 = time.perf_counter()
+        t.train(1, lambda: iter(batches), event_handler=handler,
+                **train_kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        costs = [e.cost for e in events]
+    if not np.all(np.isfinite(costs)):
+        raise SystemExit(f"{label}: costs {costs}")
+    step_ms = wall_ms / len(batches)
+    print(f"[{card}] {label}: {len(batches)} batches in {len(events)} "
+          f"dispatches, {wall_ms:.1f} ms ({step_ms:.2f} ms a batch, "
+          f"host clock); peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB; costs {[round(c, 6) for c in costs]}", flush=True)
+    return dict(costs=costs, wall_ms=wall_ms, step_ms=step_ms,
+                dispatch_ms=[(b - a) * 1e3 for a, b in zip(begins,
+                                                          begins[1:])],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                params=params_of(main, scope),
+                step_var=int(scope.find(STEP_VAR)), trainer=t)
+
+
+def hand_lm_arm(main, startup, loss, weights, batches, card, label):
+    """The same batches as the Trainer arm, through DataFeeder and
+    Executor.run by hand, in a fresh scope on the card. Each step fetches
+    its loss, so each ends synchronized."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.core.executor import STEP_VAR
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    feeder = DataFeeder([main.global_block().var("words"),
+                         main.global_block().var("targets")])
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    torch.cuda.synchronize()
+    losses, step_ms = [], []
+    start = time.perf_counter()
+    for batch in batches:
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feeder.feed(batch), fetch_list=[loss],
+                      scope=scope)
+        losses.append(float(out[0].reshape(-1)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    print(f"[{card}] {label}: {len(batches)} steps, {wall_ms:.1f} ms "
+          f"({wall_ms / len(batches):.2f} ms a batch, host clock); steps "
+          f"{[round(m, 1) for m in step_ms]} ms; losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    return dict(losses=losses, step_ms=wall_ms / len(batches),
+                steps_ms=step_ms, params=params_of(main, scope),
+                step_var=int(scope.find(STEP_VAR)))
+
+
+def trainer_lstm(card):
+    """Phase 13a: phase 5's LSTM LM through Trainer.train (sample tuples,
+    feed_order, DataFeeder, prefetch, lazy costs) and without prefetch,
+    against the same batches by hand, in TRAINER_ROUNDS interleaved
+    rounds; then a run stopped after TRAINER_LM_CKPT_EVERY batches and
+    resumed from its checkpoint in a fresh scope and executor.
+    Everything bit for bit."""
+    import shutil
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import lstm_lm
+    with framework.isolated_name_scope():
+        main, startup, f = lstm_lm.build_train(**LSTM_CFG)
+    loss = f["loss"]
+    weights = seeded_weights(startup, seed=0)
+    batches = lm_trainer_batches()
+    feed_kw = dict(feed_order=["words", "targets"],
+                   prefetch=TRAINER_LM_PREFETCH,
+                   log_every=TRAINER_LM_LOG_EVERY)
+    # a hand arm first takes the card's warm-up and is the arm every
+    # other is held against; then TRAINER_ROUNDS rounds of the Trainer,
+    # the Trainer without prefetch and the hand loop, each timed as wall
+    # time over the batches with the card synchronized at the end
+    warm = hand_lm_arm(main, startup, loss, weights, batches, card,
+                       "LSTM LM by hand (warm-up)")
+    rounds = {"trainer": [], "no_prefetch": [], "hand": []}
+    for r in range(1, TRAINER_ROUNDS + 1):
+        rounds["trainer"].append(trainer_arm(
+            main, startup, loss, weights, batches, card,
+            f"LSTM LM Trainer, round {r}", **feed_kw))
+        rounds["no_prefetch"].append(trainer_arm(
+            main, startup, loss, weights, batches, card,
+            f"LSTM LM Trainer, no prefetch, round {r}",
+            feed_order=feed_kw["feed_order"]))
+        hand = hand_lm_arm(main, startup, loss, weights, batches, card,
+                           f"LSTM LM by hand, round {r}")
+        hand["costs"] = hand["losses"]
+        rounds["hand"].append(hand)
+    for label, arms in rounds.items():
+        for arm in arms:
+            off = bitwise_gaps(arm["params"], warm["params"])
+            if arm["costs"] != warm["losses"] or off \
+                    or arm["step_var"] != warm["step_var"]:
+                raise SystemExit(
+                    f"LSTM LM {label} vs by hand: costs {arm['costs']} vs "
+                    f"{warm['losses']}; parameters {off} differ; step "
+                    f"counters {arm['step_var']} vs {warm['step_var']}")
+    step_ms = {label: [a["step_ms"] for a in arms]
+               for label, arms in rounds.items()}
+    median_ms = {label: float(np.median(v)) for label, v in step_ms.items()}
+    tr = rounds["trainer"][0]
+    print(f"[{card}] LSTM LM Trainer (prefetch {TRAINER_LM_PREFETCH} and "
+          f"none) vs by hand: {len(batches)} losses and all "
+          f"{len(tr['params'])} parameters bit for bit equal, step counter "
+          f"{tr['step_var']}; ms a batch (wall / {len(batches)}, synchronized"
+          f" at the end), median of {TRAINER_ROUNDS} rounds: Trainer "
+          f"{median_ms['trainer']:.2f}, no prefetch "
+          f"{median_ms['no_prefetch']:.2f}, by hand {median_ms['hand']:.2f}"
+          f"; rounds {step_ms}", flush=True)
+
+    ckpt = ROOT / "build" / "trainer_checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cut = TRAINER_LM_CKPT_EVERY
+    first = trainer_arm(main, startup, loss, weights, batches[:cut], card,
+                        "LSTM LM Trainer, first half", checkpoint_dir=ckpt,
+                        checkpoint_every=cut, **feed_kw)
+    saved = sorted(os.listdir(ckpt))
+    if saved != [f"checkpoint_{cut}"]:
+        raise SystemExit(f"checkpoint directory holds {saved}")
+    resumed = trainer_arm(main, startup, loss, None, batches[cut:], card,
+                          "LSTM LM Trainer, resumed", checkpoint_dir=ckpt,
+                          checkpoint_every=cut, resume=True, **feed_kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if resumed["trainer"].step != len(batches):
+        raise SystemExit(f"resumed trainer at step "
+                         f"{resumed['trainer'].step}")
+    off = bitwise_gaps(resumed["params"], tr["params"])
+    if off or resumed["step_var"] != tr["step_var"] \
+            or first["costs"] + resumed["costs"] != tr["costs"]:
+        raise SystemExit(f"LSTM LM resumed vs uninterrupted: parameters "
+                         f"{off} differ; step counters {resumed['step_var']}"
+                         f" vs {tr['step_var']}; costs {first['costs']} + "
+                         f"{resumed['costs']} vs {tr['costs']}")
+    print(f"[{card}] LSTM LM stopped at batch {cut}, resumed from "
+          f"checkpoint_{cut} in a fresh scope and executor: costs, all "
+          f"parameters and the step counter ({resumed['step_var']}) bit for "
+          "bit equal to the uninterrupted run", flush=True)
+    return {"config": dict(LSTM_CFG, batch=LSTM_BATCH, t=LSTM_T),
+            "batches": len(batches), "prefetch": TRAINER_LM_PREFETCH,
+            "log_every": TRAINER_LM_LOG_EVERY, "costs": tr["costs"],
+            "step_ms": median_ms, "step_ms_rounds": step_ms,
+            "trainer_dispatch_ms": tr["dispatch_ms"],
+            "hand_warmup_step_ms": warm["step_ms"],
+            "checkpointed_step_ms": [first["step_ms"], resumed["step_ms"]],
+            "peak_bytes": tr["peak_bytes"], "bitwise_hand": True,
+            "bitwise_resume": True, "step_var": tr["step_var"]}
+
+
+def deepfm_batches():
+    """DEEPFM_BATCHES dense batches drawn as bench.py:600-605 draws its
+    feed, one after another from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    n, fields = DEEPFM_CFG["num_features"], DEEPFM_CFG["num_fields"]
+    return [{"feat_ids": rng.randint(0, n, (DEEPFM_BATCH, fields, 1)
+                                     ).astype(np.int64),
+             "feat_vals": rng.rand(DEEPFM_BATCH, fields).astype(np.float32),
+             "label": rng.randint(0, 2, (DEEPFM_BATCH, 1)
+                                  ).astype(np.float32)}
+            for _ in range(DEEPFM_BATCHES)]
+
+
+def upload_overlap(prof):
+    """(host-to-device copy ms, of which ms overlapped a kernel) over a
+    torch.profiler run: each copy's interval against the union of the
+    kernels' intervals."""
+    import torch
+    copies, kernels = [], []
+    for e in prof.events():
+        if getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    total = sum(b - a for a, b in copies)
+    covered = 0.0
+    for a, b in copies:
+        cut = sorted((max(a, ka), min(b, kb)) for ka, kb in kernels
+                     if ka < b and kb > a)
+        end = a
+        for lo, hi in cut:
+            lo = max(lo, end)
+            if hi > lo:
+                covered += hi - lo
+                end = hi
+    return total / 1e3, covered / 1e3
+
+
+def trainer_deepfm(card):
+    """Phase 13b: DeepFM at bench.py:593-611 through Trainer.train at
+    steps_per_dispatch 1, 4, and 1 with prefetch 2, in TRAINER_ROUNDS
+    interleaved rounds after a warm-up arm, all bit for bit equal; then
+    the first step on the card against the port's CPU path; then a
+    profiled prefetch run for whether the feed uploads overlap the
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import deepfm
+    with framework.isolated_name_scope():
+        main, startup, f = deepfm.build_train(**DEEPFM_CFG)
+    loss = f["loss"]
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    batches = deepfm_batches()
+    # a K = 1 arm first takes the card's warm-up and is the arm every
+    # other is held against; then TRAINER_ROUNDS interleaved rounds of
+    # K = 1 (its reruns), K = 4 and K = 1 with prefetch
+    labels = {"k1": {}, "k4": dict(steps_per_dispatch=DEEPFM_K),
+              "k1_prefetch": dict(prefetch=2)}
+    base = trainer_arm(main, startup, loss, weights, batches, card,
+                       "DeepFM Trainer k1 (warm-up)")
+    want_costs = {"k1": base["costs"], "k1_prefetch": base["costs"],
+                  "k4": base["costs"][DEEPFM_K - 1::DEEPFM_K]}
+    arms = {label: [] for label in labels}
+    for r in range(1, TRAINER_ROUNDS + 1):
+        for label, kw in labels.items():
+            arm = trainer_arm(main, startup, loss, weights, batches, card,
+                              f"DeepFM Trainer {label}, round {r}", **kw)
+            off = bitwise_gaps(arm["params"], base["params"])
+            if off or arm["costs"] != want_costs[label]:
+                raise SystemExit(f"DeepFM {label} round {r} vs k1: "
+                                 f"parameters {off} differ, costs "
+                                 f"{arm['costs']} vs {want_costs[label]}")
+            arms[label].append(arm)
+    step_ms = {label: [a["step_ms"] for a in v] for label, v in arms.items()}
+    median_ms = {label: float(np.median(v)) for label, v in step_ms.items()}
+    print(f"[{card}] DeepFM: {TRAINER_ROUNDS} rounds of K=1, K={DEEPFM_K} "
+          "and the prefetch arm end bit for bit at the first K=1 arm's "
+          f"parameters and costs; ms a batch, median of the rounds {median_ms}"
+          f"; rounds {step_ms}", flush=True)
+
+    # card vs CPU, first step of batch 0
+    relu_in = relu_inputs(main)
+    feed = batches[0]
+    gpu, _, _ = steps_arm(main, startup, loss, weights, feed, params, card,
+                          "DeepFM card", 1, device=DEVICE, extra=relu_in)
+    cpu, _, _ = steps_arm(main, startup, loss, weights, feed, params, card,
+                          "DeepFM CPU", 1, device="cpu")
+    loss_rel = abs(gpu["losses"][0] - cpu["losses"][0]) / abs(
+        cpu["losses"][0])
+    if not loss_rel <= DEEPFM_LOSS_RTOL:
+        raise SystemExit(f"DeepFM card vs CPU first loss: {gpu['losses']} "
+                         f"vs {cpu['losses']}")
+    if gpu["losses"][0] != base["costs"][0]:
+        raise SystemExit(f"DeepFM by hand vs Trainer first loss: "
+                         f"{gpu['losses'][0]} vs {base['costs'][0]}")
+    signs = {n: v > 0 for n, v in gpu["first_step"].items()}
+    pinned = pinned_relu_grads(main, startup, loss, weights, feed, params,
+                               signs, device="cpu")
+    worst, norm_gap, fails = 0.0, 0.0, []
+    for p in params:
+        g, r = gpu["grads"][p], pinned[p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        worst = max(worst, float(np.abs(g - r).max()) / scale)
+        norm_gap = max(norm_gap, _norm_gap(g, cpu["grads"][p]))
+        if not np.allclose(g, r, rtol=TRAIN_GRAD_RTOL,
+                           atol=TRAIN_GRAD_ATOL_FRAC * scale):
+            fails.append(p)
+    if fails or not norm_gap <= TRAIN_GRAD_NORM_RTOL:
+        raise SystemExit(f"DeepFM card vs CPU step-1 gradients: {fails} "
+                         f"differ per element (worst {worst:.3e} * max|g|),"
+                         f" 2-norm gap to the free CPU step {norm_gap:.3e}")
+    print(f"[{card}] DeepFM card vs CPU: first loss {gpu['losses'][0]:.7f} "
+          f"vs {cpu['losses'][0]:.7f} (rel diff {loss_rel:.3e}); step-1 "
+          f"gradients of all {len(params)} parameters equal per element to "
+          f"the CPU step with the card's ReLU masks (worst {worst:.3e} * "
+          f"max|g|), 2-norm gap to the free CPU step {norm_gap:.3e}",
+          flush=True)
+
+    # the prefetcher's uploads: do they overlap the kernels?
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer_arm(main, startup, loss, weights, batches[:6], card,
+                    "DeepFM Trainer k1_prefetch (profiled)", prefetch=2)
+    htod_ms, overlapped_ms = upload_overlap(prof)
+    busy_ms = sum(ms for _, ms, _ in device_kernels(prof))
+    print(f"[{card}] DeepFM prefetch uploads: {htod_ms:.3f} ms of "
+          f"host-to-device copies in 6 batches, {overlapped_ms:.3f} ms of "
+          f"them beside a running kernel; {busy_ms:.3f} ms of device "
+          "kernels and copies in those batches", flush=True)
+    examples = {label: DEEPFM_BATCH / (ms / 1e3)
+                for label, ms in median_ms.items()}
+    return {"config": dict(DEEPFM_CFG, layers=[400, 400, 400],
+                           batch=DEEPFM_BATCH),
+            "batches": DEEPFM_BATCHES, "bitwise_arms": True,
+            "step_ms": median_ms, "step_ms_rounds": step_ms,
+            "warmup_step_ms": base["step_ms"],
+            "examples_per_s": examples,
+            "peak_bytes": {k: max(a["peak_bytes"] for a in v)
+                           for k, v in arms.items()},
+            "costs": base["costs"], "cpu_first_loss": cpu["losses"][0],
+            "first_loss_rel_diff": loss_rel,
+            "grad_max_diff_frac_pinned": worst,
+            "grad_norm_gap_free": norm_gap,
+            "htod_ms": htod_ms, "htod_overlapped_ms": overlapped_ms,
+            "profiled_device_ms": busy_ms, "profiled_batches": 6}
+
+
+def train_trainer(card):
+    """Phase 13: the Trainer at full width (trainer_lstm,
+    trainer_deepfm), launch counts set to 0 just before and read just
+    after; the fused-LSTM kernels must launch there."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    lm = trainer_lstm(card)
+    dfm = trainer_deepfm(card)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"[{card}] Trainer phase kernel launches {launches}", flush=True)
+    # 4 forward (two lstm ops, each with its __vjp__ replay) and 2
+    # backward a step; the LM runs 8 warm-up steps by hand, TRAINER_ROUNDS
+    # rounds of 8 Trainer, 8 Trainer without prefetch and 8 hand steps,
+    # and 4 + 4 checkpointed steps
+    lm_steps = TRAINER_LM_BATCHES * (2 + 3 * TRAINER_ROUNDS)
+    want = {"fused_lstm_fwd": 2 * LSTM_CFG["num_layers"] * lm_steps,
+            "fused_lstm_bwd": LSTM_CFG["num_layers"] * lm_steps}
+    if any(launches[n] != c for n, c in want.items()):
+        raise SystemExit(f"Trainer phase launches {launches}, expected "
+                         f"{want} and 0 elsewhere")
+    stray = {n: c for n, c in launches.items() if c and n not in want}
+    if stray:
+        raise SystemExit(f"the Trainer phase launched {stray}")
+    return {"card": card, "lstm_lm": lm, "deepfm": dfm}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3177,7 +3616,10 @@ def main() -> int:
     # -- 12. the roll micro: the megakernel's four variants ------------------
     micro, micro_launches = roll_micro(card)
 
-    # -- 13. result lines ------------------------------------------------------
+    # -- 13. the Trainer: the LSTM LM and DeepFM at full width --------------
+    trainer, trainer_launches = train_trainer(card)
+
+    # -- 14. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -3192,7 +3634,8 @@ def main() -> int:
                       "resnet_training": resnet_launches[name],
                       "conv_chain": chain_launches[name],
                       "megakernel_chain": mega_launches[name],
-                      "roll_micro": micro_launches[name]}
+                      "roll_micro": micro_launches[name],
+                      "trainer": trainer_launches[name]}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -3341,6 +3784,7 @@ def main() -> int:
     print(json.dumps({"conv_chain": chain}))
     print(json.dumps({"megakernel_chain": mega}))
     print(json.dumps({"roll_micro": micro}))
+    print(json.dumps({"trainer": trainer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,15 +11,22 @@ and trains the Transformer NMT model (models/transformer.py
 build_train: core/backward.py autodiff, optimizer.py Adam), the
 stacked-LSTM LM (models/lstm_lm.py) and GRU encoder-decoders
 (layers.dynamic_gru) through Executor.run; io.py saves a trained
-program as an inference model and loads it back. It imports neither jax
-nor paddle_tpu.
+program as an inference model and loads it back. trainer.Trainer runs
+the event loop over readers (reader/, data_feeder.py), with
+asynchronous dispatch, iterations=K and checkpoints
+(distributed/checkpoint.py); models/deepfm.py builds DeepFM. It imports
+neither jax nor paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every ported op)
 from . import layers  # noqa: F401
 from .core.scope import Scope, global_scope, reset_global_scope  # noqa: F401
-from .executor import CPUPlace, CUDAPlace, Executor, scope_guard  # noqa: F401
+from .executor import (CPUPlace, CUDAPlace, Executor,  # noqa: F401
+                       StepResult, scope_guard)
 from .framework import (Program, default_main_program,  # noqa: F401
                         default_startup_program, program_guard,
                         reset_default_programs)
 from . import io  # noqa: F401
 from .io import load_param_arrays  # noqa: F401
+from . import reader, resilience  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from .reader import batch  # noqa: F401

@@ -124,8 +124,8 @@ class ExecutionContext:
 
     `extra` carries run-wide values: "device", the torch.device that
     constant and random ops create their outputs on, and "step", the
-    executor's run count, which per-step random ops fold into their
-    seed.
+    scope's step counter for this run (core/executor.py STEP_VAR), which
+    per-step random ops fold into their seed.
     """
 
     __slots__ = ("op", "env", "_outputs", "extra")

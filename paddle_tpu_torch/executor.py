@@ -6,7 +6,8 @@ from __future__ import annotations
 import contextlib
 
 from .core import scope as scope_mod
-from .core.executor import Executor  # noqa: F401 — public re-export
+from .core.executor import (Executor, StepResult,  # noqa: F401 — re-export
+                            device_feed)
 
 
 @contextlib.contextmanager

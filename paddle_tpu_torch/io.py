@@ -12,7 +12,7 @@ read and write the global scope (``scope_guard`` picks another).
 ``load_inference_model`` also reads the native PTIR binary ``__model__``
 that the JAX package writes where its native IR library builds
 (``native/ir.cc``), with a pure-Python decoder of that format
-(``decode_ptir``). Not ported yet (ROADMAP A2): writing PTIR, and
+(``decode_ptir``). Not ported yet (ROADMAP A7): writing PTIR, and
 ``verify_program`` at save time.
 
 ``load_param_arrays`` is the port's own: the port's startup draws its
@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .core.executor import resolve_device, to_numpy
+from .core.executor import STEP_VAR, resolve_device, to_numpy
 from .core.scope import Scope, global_scope
 from .framework import Block, Program, default_main_program
 from .models.transformer import KV_CACHE_PREFIX
@@ -350,13 +350,16 @@ def load_param_arrays(model_or_scope, arrays: Dict[str, np.ndarray]
     such as a train step's scope after its startup ran) from ``arrays``,
     on the device and in the dtype the variable already has. Raises
     KeyError on a missing or an extra name and ValueError on a shape or
-    dtype mismatch, before anything is written."""
+    dtype mismatch, before anything is written. The step counter
+    (``STEP_VAR``) is no weight: it is neither set nor required, and an
+    array of that name is ignored."""
     scope = model_or_scope if isinstance(model_or_scope, Scope) \
         else model_or_scope.scope
     names = sorted(n for n in scope.local_names()
-                   if not n.startswith(KV_CACHE_PREFIX))
+                   if not n.startswith(KV_CACHE_PREFIX) and n != STEP_VAR)
     missing = [n for n in names if n not in arrays]
-    extra = sorted(n for n in arrays if n not in set(names))
+    extra = sorted(n for n in arrays if n not in set(names)
+                   and n != STEP_VAR)
     if missing or extra:
         raise KeyError(f"load_param_arrays: missing {missing}, extra "
                        f"{extra}")

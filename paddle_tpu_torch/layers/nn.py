@@ -3,7 +3,8 @@ that the port's models build with: the decoder LM, the Transformer NMT
 model, the LSTM LM, the GRU encoder-decoder of the book's
 machine-translation chapter, and the conv models (MNIST, ResNet, VGG):
 fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
-layer_norm, dropout, cross_entropy, softmax_with_cross_entropy, accuracy,
+layer_norm, dropout, cross_entropy, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, square_error_cost, accuracy,
 topk, sequence_pool, relu, softmax, mean, reduce_sum,
 elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention.
 Each function appends the same ops, with the same attrs and var names,
@@ -17,7 +18,9 @@ from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "conv2d",
            "pool2d", "batch_norm", "layer_norm", "dropout",
-           "cross_entropy", "softmax_with_cross_entropy", "accuracy",
+           "cross_entropy", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits", "square_error_cost",
+           "accuracy",
            "topk", "sequence_pool", "relu", "softmax", "mean",
            "reduce_sum",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
@@ -310,6 +313,22 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      outputs={"Softmax": softmax, "Loss": loss},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": x, "Label": label}, outputs={"Out": out})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": input, "Y": label}, outputs={"Out": out})
+    return out
 
 
 def accuracy(input, label, k=1, correct=None, total=None):

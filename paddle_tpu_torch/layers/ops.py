@@ -1,12 +1,19 @@
-"""Comparison and logical layers: the subset of ``paddle_tpu/layers/ops.py``
-that the decoder LM and the Transformer NMT model build with."""
+"""Unary, comparison and logical layers: the subset of
+``paddle_tpu/layers/ops.py`` that the port's models build with (the
+decoder LM and the Transformer NMT model; sigmoid and square for
+DeepFM)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
+from .nn import _unary
 
+_UNARY_OPS = ["sigmoid", "square"]
 _CMP_OPS = ["equal", "less_than", "less_equal"]
 
-__all__ = list(_CMP_OPS) + ["logical_not"]
+__all__ = list(_UNARY_OPS) + list(_CMP_OPS) + ["logical_not"]
+
+sigmoid = _unary("sigmoid")
+square = _unary("square")
 
 
 def _make_cmp(op_type):

@@ -1,15 +1,34 @@
 """Stacked-LSTM language model (reference: benchmark/fluid/
-stacked_dynamic_lstm.py).
+stacked_dynamic_lstm.py + book understand_sentiment stacked LSTM).
 
-The port's copy of ``language_model`` and ``build_train`` from
-``paddle_tpu/models/lstm_lm.py``: the same ops, attrs and var names.
+The port's copy of ``paddle_tpu/models/lstm_lm.py`` (``stacked_lstm_net``,
+``language_model``, ``build_train``): the same ops, attrs and var names.
 Variable-length sequences ride the ragged (padded + lengths)
 representation; each ``lstm`` op runs the fused-LSTM kernels on the
-card (ops/sequence_ops.py). ``stacked_lstm_net`` is not ported yet.
+card (ops/sequence_ops.py).
 """
 from __future__ import annotations
 
 from .. import framework, layers, optimizer as opt
+
+
+def stacked_lstm_net(data, vocab_size, hid_dim=512, emb_dim=512,
+                     stacked_num=3, class_dim=2):
+    """Sentiment-style classifier over ragged word ids."""
+    emb = layers.embedding(data, size=[vocab_size, emb_dim])
+    fc1 = layers.fc(emb, size=hid_dim * 4)
+    lstm1, _cell = layers.dynamic_lstm(fc1, size=hid_dim * 4)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = layers.fc(inputs, size=hid_dim * 4)
+        lstm, _cell = layers.dynamic_lstm(fc, size=hid_dim * 4,
+                                          is_reverse=(i % 2) == 0)
+        inputs = [fc, lstm]
+    fc_last = layers.sequence_pool(inputs[0], pool_type="max")
+    lstm_last = layers.sequence_pool(inputs[1], pool_type="max")
+    prediction = layers.fc([fc_last, lstm_last], size=class_dim,
+                           act="softmax")
+    return prediction
 
 
 def language_model(words, targets, vocab_size, emb_dim=256, hid_dim=512,

@@ -92,6 +92,8 @@ _register_act("relu", torch.relu)
 _register_act("tanh", torch.tanh)
 _register_act("sqrt", torch.sqrt)
 _register_act("sign", torch.sign)
+_register_act("sigmoid", torch.sigmoid)
+_register_act("square", torch.square)
 
 
 @register_op("clip")

@@ -179,8 +179,9 @@ def _layer_norm(ctx):
 def _dropout(ctx):
     """Reference dropout_op: keep each element with probability 1 - p.
     The mask comes from an explicit torch.Generator seeded from the op's
-    seed attr and the executor's run count, so a ``__vjp__`` replay in
-    the same run draws the same mask. It draws torch's bits, not
+    seed attr and the scope's step counter (core/executor.py STEP_VAR),
+    so a ``__vjp__`` replay in the same run draws the same mask and a
+    run resumed from a checkpoint draws the uninterrupted run's masks. It draws torch's bits, not
     JAX's."""
     x = ctx.input("X")
     prob = ctx.attr("dropout_prob", 0.5)
@@ -243,6 +244,22 @@ def _softmax_with_cross_entropy(ctx):
     loss = -torch.gather(logp, -1, lab.long().unsqueeze(-1))
     ctx.set_output("Softmax", torch.softmax(logits, dim=-1))
     ctx.set_output("Loss", loss)
+
+
+@register_op("sigmoid_cross_entropy_with_logits", no_grad_slots=["Label"])
+def _sigmoid_xent(ctx):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), elementwise: the
+    numerically stable form, as the reference writes it (torch.maximum
+    splits the gradient at x = 0 as jnp.maximum does)."""
+    x = ctx.input("X")
+    label = ctx.input("Label")
+    ctx.set_output("Out", torch.maximum(x, torch.zeros_like(x)) - x * label
+                   + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx):
+    ctx.set_output("Out", torch.square(ctx.input("X") - ctx.input("Y")))
 
 
 @register_op("lookup_table", no_grad_slots=["Ids"])
