@@ -31,6 +31,11 @@ Phases (any failure exits non-zero; nothing is caught):
      persistent fused-LSTM and fused-GRU kernels, a bitwise rerun, the
      barrier floor (the same grid through the same barriers with no
      products) and the backward's recurrence and dW reduction apart).
+Phases 3-9 and 13 run the port's default executor, the compiled one
+(paddle_tpu_torch/core/executor.py: a plan per compile key, each forward
+op run once under autograd for its __vjp__ op, a CUDA graph per key from
+its second run on), and print how many of its keys were captured; the
+launch counts include what every graph replay launches.
   3. serve the decoder LM at Transformer-base width through the port's
      entry points (GenerationModel.build -> GenerationEngine.submit):
      6 requests on 4 slots, continuous batching, KV cache. Launch
@@ -58,7 +63,8 @@ Phases (any failure exits non-zero; nothing is caught):
      knob over an op's stamp when it is "1" or "force"). Losses and
      every parameter's step-1 gradient must agree per element; a
      profiled step gives the fused-LSTM kernels' device ms (forward,
-     backward recurrence, dW) beside the step's.
+     backward recurrence, dW) beside the step's. One forward and one
+     backward launch an lstm op a step.
   6. train the GRU encoder-decoder of the book's machine-translation
      chapter (tests/test_book.py: embedding -> fc(3H) -> dynamic_gru for
      source and target, scaled_dot_product_attention(dec, enc, enc),
@@ -72,7 +78,8 @@ Phases (any failure exits non-zero; nothing is caught):
      gru op and fwd_op copy under PADDLE_TPU_PALLAS_GRU=0 (the scan
      route). Losses and every parameter's step-1 gradient must agree per
      element; a profiled step gives the fused-GRU kernels' device ms
-     (forward, backward recurrence, dW) beside the step's.
+     (forward, backward recurrence, dW) beside the step's. One forward and
+     one backward launch a gru op a step.
   7. the inference entry point: the kernel-route model of phase 6 saved
      with io.save_inference_model, loaded with io.load_inference_model
      into a fresh Executor and scope and run on one feed; its logits must
@@ -126,10 +133,24 @@ Phases (any failure exits non-zero; nothing is caught):
      ms, examples/s and peak memory a arm; a profiled prefetch run says
      how much of the feed uploads overlaps kernels. Launch counts are set
      to 0 just before and read just after: the fused-LSTM kernels launch
-     there (4 forward and 2 backward a LM step), nothing else.
- 14. JSON lines of the kernels, serving, the three earlier trainings,
+     there (2 forward and 2 backward a LM step), nothing else.
+ 14. the eager executor (Executor(compiled=False)) beside the compiled
+     one, each pair from the same weights on the same card: serving
+     (phase 3's model and requests; token streams equal), NMT at 2+2
+     layers (phase 4's width otherwise), the LSTM LM, GRU NMT, DeepFM
+     through the Trainer and ResNet-50 at batch 128, each held bit for
+     bit (losses or costs, every parameter, the step counter; a
+     parameter set into the scope between two replays; the LM also with
+     donate_state=False). Per arm:
+     ms a step (CVE_WARM untimed steps first: the compiled key's warm-up
+     and capture), busy share of CVE_PROFILED profiled steps, peak
+     memory, launches a step; the flash, LSTM and GRU forward launches a
+     compiled step must be half the eager step's, their backward
+     launches equal.
+ 15. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
-     micro and the Trainer, then, last, the JSON result line.
+     micro, the Trainer and phase 14 (`compiled`), then, last, the JSON
+     result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -480,6 +501,21 @@ TRAINER_ROUNDS = 3
 DEEPFM_CFG = dict(num_features=int(1e5), num_fields=39, embed_dim=8,
                   lr=1e-3)
 DEEPFM_BATCH, DEEPFM_BATCHES, DEEPFM_K = 2048, 16, 4
+
+# phase 14, the eager arm (Executor(compiled=False)) beside the compiled
+# arm: each training arm runs CVE_STEPS steps, the first CVE_WARM of them
+# the compiled key's warm-up and capture (untimed), then CVE_PROFILED
+# steps under torch.profiler for the busy share. NMT runs at 2+2 layers
+# (the script's time limit), everything else at its phase's width.
+CVE_STEPS, CVE_WARM, CVE_PROFILED = 6, 2, 2
+CVE_NMT_CFG = dict(TRAIN_CFG, n_layer=2)
+# the kernels whose forward the eager arm's __vjp__ replays launch a
+# second time: their forward launches a compiled step must be half the
+# eager step's, their backward launches equal
+CVE_HALVED = {"nmt": ("flash_attention_fwd", ("flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv")),
+              "lstm_lm": ("fused_lstm_fwd", ("fused_lstm_bwd",)),
+              "gru_nmt": ("fused_gru_fwd", ("fused_gru_bwd",))}
 # DeepFM's three dispatch arms (K = 1, K = 4, K = 1 with prefetch 2) and a
 # rerun of the K = 1 arm run the same ops in the same order on the same
 # card: all must end bit for bit equal (parameters and costs).
@@ -1534,13 +1570,15 @@ def compare_streams(prompts, gpu_res, cpu_res, cpu_model):
 
 def time_serving(model, card):
     """Prefill ms per prompt bucket and decode tokens/s per cache bucket
-    (host clock; each call returns host tokens, so it ends synchronized)."""
+    (host clock; each call returns host tokens, so it ends synchronized),
+    each after two untimed calls (a compiled key's warm-up and capture)."""
     rng = np.random.RandomState(2)
     spec = model.spec
     out = {"prefill_ms": {}, "decode_tokens_per_s": {}}
     for bucket in spec.prompt_buckets:
         prompt = rng.randint(1, spec.vocab_size, bucket).tolist()
-        model.run_prefill(prompt, 0)
+        for _ in range(2):
+            model.run_prefill(prompt, 0)
         t0 = time.perf_counter()
         for _ in range(5):
             model.run_prefill(prompt, 0)
@@ -1548,7 +1586,8 @@ def time_serving(model, card):
     tokens = rng.randint(1, spec.vocab_size, spec.slots).astype(np.int64)
     for bucket in spec.cache_buckets:
         positions = np.full(spec.slots, bucket - 1, np.int64)
-        model.run_decode(tokens, positions, bucket)
+        for _ in range(2):
+            model.run_decode(tokens, positions, bucket)
         t0 = time.perf_counter()
         for _ in range(10):
             model.run_decode(tokens, positions, bucket)
@@ -1606,6 +1645,7 @@ def train_arm(main, startup, loss, weights, feed, params, card, label):
         print(f"[{card}] train {label} step {step}: loss {losses[-1]:.6f} "
               f"{step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.2f} GiB",
               flush=True)
+    print(f"[{card}] train {label}: {capture_note(exe)}", flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
                 grads=grads, relu_signs=signs)
 
@@ -1715,6 +1755,19 @@ def hold_step1_grads(main, startup, loss, weights, feed, params, flash,
     return worst, by_noise
 
 
+def capture_note(exe):
+    """How `exe`'s compiled keys ran on the card: the keys, how many were
+    captured as a CUDA graph, and the op types (registered
+    capturable=False) that kept any from one."""
+    keys = list(exe._cache.values())
+    blockers = sorted({t for c in keys for t in c.uncaptured_ops})
+    replayed = sorted({t for c in keys for t in c.replayed})
+    return (f"{len(keys)} compiled keys, {sum(c.captured for c in keys)} "
+            f"captured" + (f"; not capturable: {blockers} (the startup "
+                           "program's random init)" if blockers else "")
+            + (f"; __vjp__ replays of {replayed}" if replayed else ""))
+
+
 def device_kernels(prof):
     """(name, device ms, launches) of each device kernel a
     torch.profiler run recorded."""
@@ -1745,7 +1798,10 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash",
     exe, scope = Executor(DEVICE), Scope()
     exe.run(startup, scope=scope)
     load_param_arrays(scope, weights)
-    exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+    # the compiled key's first run is its warm-up, the second captures it:
+    # the profiled run replays the graph
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1755,8 +1811,8 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash",
     busy_ms = sum(r[1] for r in rows)
     print(f"[{card}] profiled {label} step: {wall_ms:.1f} ms wall, "
           f"{busy_ms:.1f} ms of device kernels "
-          f"({100 * busy_ms / wall_ms:.1f}% busy, overlap not removed)",
-          flush=True)
+          f"({100 * busy_ms / wall_ms:.1f}% busy, overlap not removed); "
+          f"captured {exe.last_compiled.captured}", flush=True)
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.2f} ms {n:5d}x  {key[:90]}", flush=True)
     # the flash kernels by name: the forward, dq and dk/dv main kernels,
@@ -1781,8 +1837,8 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash",
     if dq_ms:
         print(f"[{card}] dq main kernel: {dq_ms:.3f} ms of the {label} "
               "step", flush=True)
-    # the forward alone: the ops before append_backward's seed. Each
-    # __vjp__ replays its forward op, so a step runs this much twice.
+    # the forward alone: the ops before append_backward's seed (the eager
+    # arm's __vjp__ replays run this much a second time a step)
     blk = main.desc.global_block
     ops = blk.ops
     seed = [loss.name + "@GRAD"]
@@ -1790,7 +1846,8 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash",
                         if op.output("Out") == seed)]
     main.desc._bump_version()
     try:
-        exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
         t0 = time.perf_counter()
         for _ in range(3):
             exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
@@ -1798,8 +1855,9 @@ def profile_step(main, startup, loss, weights, feed, card, label="flash",
     finally:
         blk.ops = ops
         main.desc._bump_version()
-    print(f"[{card}] forward alone ({label} route): {fwd_ms:.1f} ms — what "
-          f"the __vjp__ replays add to each step", flush=True)
+    print(f"[{card}] forward alone ({label} route, compiled): {fwd_ms:.1f} "
+          "ms — what the eager arm's __vjp__ replays add to each step",
+          flush=True)
     return dict(wall_ms=wall_ms, device_ms=busy_ms, forward_ms=fwd_ms,
                 top_kernels=[dict(name=k[:120], ms=ms, count=n) for k, ms, n
                              in sorted(rows, key=lambda r: -r[1])[:12]],
@@ -1935,6 +1993,8 @@ def steps_arm(main, startup, loss, weights, feed, params, card, label,
               f" {step_ms[-1]:.1f} ms" + (f" peak {peaks[-1] / 2**30:.3f} "
                                          "GiB" if on_card else ""),
               flush=True)
+    if on_card:
+        print(f"[{card}] {label}: {capture_note(exe)}", flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
                 grads=grads, first_step=firsts), exe, scope
 
@@ -2025,9 +2085,9 @@ def train_lstm(card):
         if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched on the LSTM "
                              "training path")
-    # per step: each lstm op's forward and its __vjp__ replay, and one
-    # backward per op
-    want = {"fused_lstm_fwd": 2 * LSTM_CFG["num_layers"] * LSTM_STEPS,
+    # per step: one forward and one backward per lstm op (the compiled
+    # step runs each forward op once; its __vjp__ op reads that record)
+    want = {"fused_lstm_fwd": LSTM_CFG["num_layers"] * LSTM_STEPS,
             "fused_lstm_bwd": LSTM_CFG["num_layers"] * LSTM_STEPS}
     if any(launches[n] != c for n, c in want.items()):
         raise SystemExit(f"LSTM launches {launches}, expected {want}")
@@ -2125,7 +2185,8 @@ def reload_inference(main, logits, exe, scope, feed, card):
     print(f"[{card}] inference model ({', '.join(files)}; {n_ops} ops, "
           f"feeds {feeds}) reloaded on the card: logits "
           f"{tuple(got.data.shape)} equal the trained program's bit for bit"
-          f"; reloaded run {run_ms:.1f} ms, launches {launches}", flush=True)
+          f"; reloaded run {run_ms:.1f} ms, launches {launches}; "
+          f"{capture_note(fresh)} (one run: its warm-up)", flush=True)
     return dict(files=files, ops=n_ops, logits_shape=list(got.data.shape),
                 bitwise_equal=True, run_ms=run_ms,
                 launches={k: v for k, v in launches.items() if v})
@@ -2161,9 +2222,9 @@ def train_gru_nmt(card):
     per_step = {n: c / GRU_STEPS for n, c in launches.items()}
     print(f"[{card}] GRU NMT kernel launches {launches} ({per_step} per "
           f"step)", flush=True)
-    # per step: each gru op's forward and its __vjp__ replay, and one
-    # backward per op
-    want = {"fused_gru_fwd": 4 * GRU_STEPS, "fused_gru_bwd": 2 * GRU_STEPS}
+    # per step: one forward and one backward per gru op (the compiled
+    # step runs each forward op once; its __vjp__ op reads that record)
+    want = {"fused_gru_fwd": 2 * GRU_STEPS, "fused_gru_bwd": 2 * GRU_STEPS}
     if any(launches[n] != c for n, c in want.items()):
         raise SystemExit(f"GRU launches {launches}, expected {want}")
     inference = reload_inference(main, logits, exe, scope, feed, card)
@@ -3141,15 +3202,18 @@ def bitwise_gaps(got, want):
 
 def trainer_arm(main, startup, loss, weights, batches, card, label,
                 checkpoint_dir=None, checkpoint_every=None, resume=False,
-                **train_kw):
+                compiled=True, profile_from=None, **train_kw):
     """Trainer.train over `batches` in a fresh scope and executor on the
     card, from `weights` or, with `resume`, from the newest checkpoint in
     `checkpoint_dir` (Trainer.start(resume=True)); with
     `checkpoint_every`, a checkpoint there every that many batches.
     Returns the EndIteration costs, the host-clock times (the card
     synchronized at the end), the peak memory, the parameters, the step
-    counter and the trainer."""
+    counter and the trainer. `compiled=False` gives the Trainer the eager
+    executor; with `profile_from`, torch.profiler records from that
+    batch's BeginIteration to the end (the busy share)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import Executor, Scope, load_param_arrays
     from paddle_tpu_torch.core.executor import STEP_VAR
     from paddle_tpu_torch.executor import scope_guard
@@ -3163,7 +3227,8 @@ def trainer_arm(main, startup, loss, weights, batches, card, label,
     scope = Scope()
     with scope_guard(scope):
         t = Trainer(loss, main_program=main, startup_program=startup,
-                    executor=Executor(DEVICE), checkpoint_config=ckpt,
+                    executor=Executor(DEVICE, compiled=compiled),
+                    checkpoint_config=ckpt,
                     feed_order=train_kw.pop("feed_order", None))
         t.start(resume=resume)
         if not resume:
@@ -3171,9 +3236,13 @@ def trainer_arm(main, startup, loss, weights, batches, card, label,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         events, begins = [], []
+        prof = None if profile_from is None else profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
         def handler(e):
             if isinstance(e, BeginIteration):
+                if len(begins) == profile_from:
+                    prof.start()
                 begins.append(time.perf_counter())
             elif isinstance(e, EndIteration):
                 events.append(e)
@@ -3182,6 +3251,11 @@ def trainer_arm(main, startup, loss, weights, batches, card, label,
                 **train_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = None
+        if prof is not None:
+            prof.stop()
+            profiled_ms = (time.perf_counter() - begins[profile_from]) * 1e3
+            busy = sum(ms for _, ms, _ in device_kernels(prof)) / profiled_ms
         costs = [e.cost for e in events]
     if not np.all(np.isfinite(costs)):
         raise SystemExit(f"{label}: costs {costs}")
@@ -3189,13 +3263,14 @@ def trainer_arm(main, startup, loss, weights, batches, card, label,
     print(f"[{card}] {label}: {len(batches)} batches in {len(events)} "
           f"dispatches, {wall_ms:.1f} ms ({step_ms:.2f} ms a batch, "
           f"host clock); peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
-          f" GiB; costs {[round(c, 6) for c in costs]}", flush=True)
+          f" GiB; costs {[round(c, 6) for c in costs]}; "
+          f"{capture_note(t.exe)}", flush=True)
     return dict(costs=costs, wall_ms=wall_ms, step_ms=step_ms,
                 dispatch_ms=[(b - a) * 1e3 for a, b in zip(begins,
                                                           begins[1:])],
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 params=params_of(main, scope),
-                step_var=int(scope.find(STEP_VAR)), trainer=t)
+                step_var=int(scope.find(STEP_VAR)), trainer=t, busy=busy)
 
 
 def hand_lm_arm(main, startup, loss, weights, batches, card, label):
@@ -3493,12 +3568,12 @@ def train_trainer(card):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     print(f"[{card}] Trainer phase kernel launches {launches}", flush=True)
-    # 4 forward (two lstm ops, each with its __vjp__ replay) and 2
-    # backward a step; the LM runs 8 warm-up steps by hand, TRAINER_ROUNDS
+    # 2 forward and 2 backward a step (two lstm ops; the compiled step
+    # runs each forward op once); the LM runs 8 warm-up steps by hand, TRAINER_ROUNDS
     # rounds of 8 Trainer, 8 Trainer without prefetch and 8 hand steps,
     # and 4 + 4 checkpointed steps
     lm_steps = TRAINER_LM_BATCHES * (2 + 3 * TRAINER_ROUNDS)
-    want = {"fused_lstm_fwd": 2 * LSTM_CFG["num_layers"] * lm_steps,
+    want = {"fused_lstm_fwd": LSTM_CFG["num_layers"] * lm_steps,
             "fused_lstm_bwd": LSTM_CFG["num_layers"] * lm_steps}
     if any(launches[n] != c for n, c in want.items()):
         raise SystemExit(f"Trainer phase launches {launches}, expected "
@@ -3507,6 +3582,290 @@ def train_trainer(card):
     if stray:
         raise SystemExit(f"the Trainer phase launched {stray}")
     return {"card": card, "lstm_lm": lm, "deepfm": dfm}, launches
+
+
+def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
+            donate=True):
+    """Phase 14's arm of one training path: CVE_STEPS + CVE_PROFILED
+    steps over `feeds` (step i takes feeds[i % len(feeds)]) from `weights`
+    in a fresh scope on the card, through Executor(compiled=compiled,
+    donate_state=donate). Steps after the first CVE_WARM are timed (host
+    clock around Executor.run, which ends synchronized) and their kernel
+    launches counted; the last CVE_PROFILED run under torch.profiler.
+    Before step CVE_WARM + 1 (a replay, on the compiled arm) the last
+    parameter is set into the scope from outside, halved: the replay must
+    read it. Returns the losses, ms a step (median), busy share, peak
+    memory, launches a step, the parameters and the step counter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.core.executor import STEP_VAR
+    from paddle_tpu_torch.ops import kernels
+    exe = Executor(DEVICE, compiled=compiled, donate_state=donate)
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    last = main.all_parameters()[-1].name
+
+    def step(i):
+        out = exe.run(main, feed=feeds[i % len(feeds)],
+                      fetch_list=[loss.name], scope=scope)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+
+    for i in range(CVE_STEPS):
+        if i == CVE_WARM:
+            kernels.reset_launch_counts()
+        if i == CVE_WARM + 1:
+            scope.set(last, scope.get(last) * 0.5)
+        t0 = time.perf_counter()
+        step(i)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    timed = CVE_STEPS - CVE_WARM
+    launches = {n: c / timed for n, c in kernels.launch_counts().items()
+                if c}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(CVE_STEPS, CVE_STEPS + CVE_PROFILED):
+            step(i)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+    if not np.all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: losses {losses}")
+    out = dict(losses=losses, step_ms=float(np.median(step_ms[CVE_WARM:])),
+               steps_ms=step_ms, busy=busy,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               launches_per_step=launches, params=params_of(main, scope),
+               step_var=int(scope.find(STEP_VAR)),
+               captured=bool(compiled and exe.last_compiled.captured),
+               note=capture_note(exe) if compiled else "eager")
+    print(f"[{card}] {label}: {out['step_ms']:.2f} ms a step (median of "
+          f"{timed}; steps {[round(m, 1) for m in step_ms]}), "
+          f"{100 * busy:.1f}% busy over {CVE_PROFILED} profiled steps, peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB, launches a step {launches};"
+          f" {out['note']}", flush=True)
+    return out
+
+
+def cve_hold(what, eager, compiled, card, halved=None):
+    """The two arms of `what` bit for bit: losses (or costs), every
+    parameter, the step counter; and, for the paths in CVE_HALVED, the
+    replayed kernel's forward launches a compiled step at half the eager
+    step's and its backward launches equal."""
+    key = "losses" if "losses" in eager else "costs"
+    off = bitwise_gaps(compiled["params"], eager["params"])
+    if compiled[key] != eager[key] or off or \
+            compiled["step_var"] != eager["step_var"]:
+        raise SystemExit(f"{what} compiled vs eager: {key} {compiled[key]}"
+                         f" vs {eager[key]}; parameters {off} differ; step "
+                         f"counters {compiled['step_var']} vs "
+                         f"{eager['step_var']}")
+    if halved:
+        fwd, bwds = halved
+        e, c = eager["launches_per_step"], compiled["launches_per_step"]
+        if not (e.get(fwd) and c.get(fwd) * 2 == e[fwd]) or \
+                any(c.get(b) != e.get(b) or not e.get(b) for b in bwds):
+            raise SystemExit(f"{what} launches a step, compiled {c} vs "
+                             f"eager {e}: expected {fwd} at half, {bwds} "
+                             "equal")
+    print(f"[{card}] {what}: compiled arm bit for bit equal to the eager "
+          f"arm ({len(eager[key])} {key}, {len(eager['params'])} "
+          f"parameters, step counter {eager['step_var']})"
+          + (f"; {halved[0]} {compiled['launches_per_step'][halved[0]]:g} "
+             f"a step vs {eager['launches_per_step'][halved[0]]:g}"
+             if halved else ""), flush=True)
+    return {label: {k: arm[k] for k in ("step_ms", "busy", "peak_bytes",
+                                         "launches_per_step", "captured",
+                                         "note") if k in arm}
+            for label, arm in (("eager", eager), ("compiled", compiled))}
+
+
+def cve_training_pair(what, main, startup, loss, weights, feeds, card,
+                      no_donate=False):
+    """The eager and the compiled arm of `what` (and, with `no_donate`, a
+    compiled arm with donate_state=False, held against the eager arm the
+    same way), each in a fresh executor and scope."""
+    import gc
+    import torch
+    arms = {}
+    for label, compiled, donate in (("eager", False, True),
+                                    ("compiled", True, True),
+                                    ("compiled, donate_state=False", True,
+                                     False))[:3 if no_donate else 2]:
+        arms[label] = cve_arm(main, startup, loss, weights, feeds, card,
+                              f"{what} {label}", compiled, donate)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if no_donate:
+        cve_hold(f"{what} (donate_state=False)", arms["eager"],
+                 arms["compiled, donate_state=False"], card,
+                 CVE_HALVED.get(what))
+    return cve_hold(what, arms["eager"], arms["compiled"], card,
+                    CVE_HALVED.get(what))
+
+
+def cve_serving(card):
+    """Phase 14, serving: phase 3's model and requests through a compiled
+    and an eager executor (same weights); token streams must be equal.
+    Per arm: the requests' wall time, prefill ms and decode tokens/s per
+    bucket (time_serving), the busy share of 10 decode steps at the
+    largest cache bucket, peak memory, launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import Executor, load_param_arrays
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.generation import (GenerationModel,
+                                                     GenerationSpec)
+    spec = GenerationSpec(**SERVE_SPEC)
+    compiled = GenerationModel.build(spec)
+    weights = seeded_weights(compiled.programs["startup"], seed=0)
+    eager = GenerationModel(compiled.programs, spec)
+    eager.executor = Executor(eager.device, compiled=False)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, spec.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    arms, streams = {}, {}
+    for label, model in (("eager", eager), ("compiled", compiled)):
+        load_param_arrays(model, weights)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve(model, prompts)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {n: c for n, c in kernels.launch_counts().items() if c}
+        streams[label] = [(r.tokens, r.finish_reason) for r in res]
+        timing = time_serving(model, card)
+        bucket = spec.cache_buckets[-1]
+        tokens = rng.randint(1, spec.vocab_size, spec.slots).astype(np.int64)
+        positions = np.full(spec.slots, bucket - 1, np.int64)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                model.run_decode(tokens, positions, bucket)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+        arms[label] = dict(
+            serve_s=serve_s, decode_step_ms=wall_ms / 10, busy=busy,
+            peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+            note=capture_note(model.executor) if label == "compiled"
+            else "eager", **timing)
+        print(f"[{card}] serving {label}: {len(prompts)} requests in "
+              f"{serve_s:.3f} s, launches {launches}; 10 decode steps at "
+              f"cache bucket {bucket}: {wall_ms / 10:.3f} ms a step, "
+              f"{100 * busy:.1f}% busy; peak "
+              f"{arms[label]['peak_bytes'] / 2**30:.3f} GiB; "
+              f"{arms[label]['note']}", flush=True)
+    if streams["compiled"] != streams["eager"]:
+        raise SystemExit(f"serving compiled vs eager: token streams differ"
+                         f": {streams['compiled']} vs {streams['eager']}")
+    if arms["compiled"]["launches"] != arms["eager"]["launches"]:
+        raise SystemExit(f"serving launches compiled "
+                         f"{arms['compiled']['launches']} vs eager "
+                         f"{arms['eager']['launches']}")
+    print(f"[{card}] serving: compiled token streams equal the eager "
+          f"arm's ({sum(len(t) for t, _ in streams['eager'])} tokens)",
+          flush=True)
+    return arms
+
+
+def cve_deepfm(card):
+    """Phase 14, DeepFM through the Trainer (phase 13's configuration and
+    batches, K = 1): the eager arm, then the compiled arm, each profiled
+    from its third batch on; costs, parameters and the step counter bit
+    for bit."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import deepfm
+    with framework.isolated_name_scope():
+        main, startup, f = deepfm.build_train(**DEEPFM_CFG)
+    weights = seeded_weights(startup, seed=0)
+    batches = deepfm_batches()
+    arms = {}
+    for label, compiled in (("eager", False), ("compiled", True)):
+        arm = trainer_arm(main, startup, f["loss"], weights, batches, card,
+                          f"DeepFM Trainer {label}", compiled=compiled,
+                          profile_from=CVE_WARM)
+        arm["launches_per_step"] = {}
+        arm["note"] = capture_note(arm["trainer"].exe) if compiled \
+            else "eager"
+        arm["captured"] = bool(compiled and
+                               arm["trainer"].exe.last_compiled.captured)
+        print(f"[{card}] DeepFM {label}: {100 * arm['busy']:.1f}% busy from "
+              f"batch {CVE_WARM + 1} on", flush=True)
+        arms[label] = arm
+    return cve_hold("deepfm", arms["eager"], arms["compiled"], card)
+
+
+def compiled_vs_eager(card):
+    """Phase 14: the eager arm beside the compiled arm on serving, NMT
+    (2+2 layers), the LSTM LM, GRU NMT, DeepFM through the Trainer and
+    ResNet-50, each pair bit for bit; launch counts are set to 0 by each
+    arm and read after it."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core.lod import RaggedPair
+    from paddle_tpu_torch.models import lstm_lm, resnet, transformer
+    out = {"card": card, "steps": CVE_STEPS, "warm_steps": CVE_WARM,
+           "profiled_steps": CVE_PROFILED}
+    out["serving"] = cve_serving(card)
+
+    with framework.isolated_name_scope():
+        main, startup, f = transformer.build_train(**CVE_NMT_CFG)
+    rng = np.random.RandomState(0)
+    ln, vocab = CVE_NMT_CFG["max_len"], CVE_NMT_CFG["trg_vocab"]
+    feeds = []
+    for _ in range(2):
+        feed = {n: rng.randint(1, vocab, (TRAIN_BATCH, ln, 1))
+                .astype(np.int64)
+                for n in ("src_ids", "trg_ids", "trg_labels")}
+        feed["pos_ids"] = np.arange(ln).astype(np.int64)
+        feeds.append(feed)
+    out["nmt"] = cve_training_pair("nmt", main, startup, f["loss"],
+                                   seeded_weights(startup, seed=0), feeds,
+                                   card)
+
+    with framework.isolated_name_scope():
+        main, startup, f = lstm_lm.build_train(**LSTM_CFG)
+    feeds = []
+    for seed in range(2):
+        ids, lens = lm_lengths(seed)
+        feeds.append({"words": RaggedPair(ids, lens),
+                      "targets": RaggedPair(ids, lens)})
+    out["lstm_lm"] = cve_training_pair("lstm_lm", main, startup, f["loss"],
+                                       seeded_weights(startup, seed=0),
+                                       feeds, card, no_donate=True)
+
+    main, startup, _, loss = build_gru_nmt()
+    feeds = []
+    for seed in range(2):
+        (src, trg, lbl), src_lens, trg_lens = gru_lengths(seed)
+        feeds.append({"src": RaggedPair(src, src_lens),
+                      "trg": RaggedPair(trg, trg_lens),
+                      "lbl": RaggedPair(lbl, trg_lens)})
+    out["gru_nmt"] = cve_training_pair("gru_nmt", main, startup, loss,
+                                       seeded_weights(startup, seed=0),
+                                       feeds, card)
+
+    out["deepfm"] = cve_deepfm(card)
+
+    with framework.isolated_name_scope():
+        main, startup, f = resnet.build_train(**RESNET_CFG)
+    rng = np.random.RandomState(3)
+    feeds = [{"img": rng.rand(RESNET_BATCH, *RESNET_CFG["image_shape"])
+              .astype(np.float32),
+              "label": rng.randint(0, RESNET_CFG["class_dim"],
+                                   (RESNET_BATCH, 1)).astype(np.int64)}
+             for _ in range(2)]
+    out["resnet50"] = cve_training_pair("resnet50", main, startup,
+                                        f["loss"],
+                                        seeded_weights(startup, seed=0),
+                                        feeds, card)
+    return out
 
 
 def main() -> int:
@@ -3575,8 +3934,8 @@ def main() -> int:
     launches = kernels.launch_counts()
     n_tokens = sum(len(r.tokens) for r in gpu_res)
     print(f"[{card}] served {len(prompts)} requests, {n_tokens} tokens in "
-          f"{serve_s:.3f} s on the card; kernel launches {launches}",
-          flush=True)
+          f"{serve_s:.3f} s on the card; kernel launches {launches}; "
+          f"{capture_note(gpu.executor)}", flush=True)
     for name in SERVING_KERNELS:
         if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched on the "
@@ -3619,7 +3978,10 @@ def main() -> int:
     # -- 13. the Trainer: the LSTM LM and DeepFM at full width --------------
     trainer, trainer_launches = train_trainer(card)
 
-    # -- 14. result lines ------------------------------------------------------
+    # -- 14. the eager arm beside the compiled arm ---------------------------
+    compiled = compiled_vs_eager(card)
+
+    # -- 15. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -3785,6 +4147,7 @@ def main() -> int:
     print(json.dumps({"megakernel_chain": mega}))
     print(json.dumps({"roll_micro": micro}))
     print(json.dumps({"trainer": trainer}))
+    print(json.dumps({"compiled": compiled}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

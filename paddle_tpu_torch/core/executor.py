@@ -1,18 +1,54 @@
-"""Executor: run a Program block eagerly, op by op, on one torch device.
+"""Executor: run a Program block on one torch device, compiled (the
+default) or eagerly, op by op.
 
-The JAX package traces a whole block into one jitted function. PyTorch
-runs eagerly, so this executor walks the block and calls each op's
-compute rule (core/registry.py) in order: feeds and persistable state go
-in, fetches and written state come out. Read-write persistable state
-(the KV caches of the generation programs) is updated IN PLACE by its
-ops, which is what the JAX executor gets from buffer donation. Every op
-runs under torch.no_grad(); a training program's gradients come from
-its ``__vjp__`` grad ops (core/backward.py), each of which replays its
-forward op under autograd by itself. Every forward value stays in the
-run's environment until the run ends, as the JAX trace keeps it live
-for the grad ops. Before a run, the kernel-dispatch stamps of the JAX
-executor's rewrite are applied to a copy of the program (core/dispatch.py),
-cached per program, program version and knob values.
+The JAX package traces a whole block into one jitted function, cached per
+compile key. The port's form of that is a plan, built once per key
+(`Executor.compile_key`: program uid and version, feed signature, fetch
+list, iterations, stacked_feed, donate_state), held in a
+`CompiledProgram`:
+
+- every op's compute rule (core/registry.py) resolved once, the
+  constant ops' outputs materialized once (register_op(constant=True));
+- each forward op paired with the ``__vjp__`` grad op whose ``fwd_op`` it
+  is (core/backward.py). The step runs that forward op once, under
+  autograd, with the inputs that need a gradient as detached leaves, and
+  hands the rest of the block its detached outputs; the grad op pulls its
+  cotangents through the recorded graph and drops it. That is what XLA's
+  CSE gives the reference: no second forward. A ``__vjp__`` op whose
+  forward op is not in the block as its ``fwd_op`` copy describes it (a
+  ``clone(for_test=True)`` re-stamps ``is_test`` on the op, not the copy)
+  replays its copy, as the eager arm does (`CompiledProgram.replayed`);
+  one with sub-block closures (A4) is refused;
+- each value dropped from the step's environment after its last reader,
+  except the fetches and the written state (autograd keeps what a
+  recorded graph saved): the role of XLA's buffer assignment;
+- on a CUDA card, the whole planned step captured once as a
+  ``torch.cuda.CUDAGraph`` and replayed: the first run of a key runs the
+  plan eagerly (it is also the warm-up: cuBLAS and cuDNN handles, kernel
+  builds), the second captures and replays it, later runs replay (a
+  thread that has not run the key yet warms up first: the libraries'
+  handles are per thread, and a capture cannot create one). Feeds
+  are copied into static input buffers; read state lives in static
+  buffers the scope points at, and the captured step writes the new
+  state into them (the counterpart of donation); a state tensor set into
+  the scope from outside between runs is copied in before the replay;
+  fetches are copied out of the graph's outputs. The kernel wrappers'
+  launch counts the capture added are credited on every replay. A
+  program holding an op registered capturable=False (a random op seeding
+  a host generator) is compiled but never captured:
+  `CompiledProgram.uncaptured_ops` names those ops. A capture or replay
+  error raises; nothing is rerouted.
+
+`Executor(compiled=False)` is the eager walk: every op's compute rule in
+order under torch.no_grad(), each ``__vjp__`` grad op replaying its
+forward op under autograd by itself, every value kept until the run ends.
+Read-write persistable state (the KV caches of the generation programs)
+is updated IN PLACE by its ops on both paths; with
+``donate_state=False`` the compiled path updates copies, and the tensors
+a caller held before a run are left as they were. Before a run, the
+kernel-dispatch stamps of the JAX executor's rewrite are applied to a
+copy of the program (core/dispatch.py), cached per program, program
+version and knob values.
 
 The step counter lives in the scope, as in the JAX package: ``STEP_VAR``
 holds a 0-d int32 tensor on the host (it seeds host-side generators, so
@@ -20,26 +56,35 @@ reading it never waits for the card). ``run`` reads it, hands each op
 ``step + i`` on iteration i, and stores ``step + iterations``; so a
 second executor on the same scope, ``Trainer.test`` and a checkpoint
 resume all continue one count. ``run(..., iterations=K)`` runs the block
-K times, state chained from one run to the next; ``sync=False`` returns
-a ``StepResult`` whose fetches convert to the host only when read.
+K times (K replays once captured), state chained from one run to the
+next; ``sync=False`` returns a ``StepResult`` whose fetches convert to
+the host only when read.
 
-Not ported yet: the compile cache, While probing, and the cost/memory
-reports (ROADMAP A3, A6).
+Not ported yet: While probing (A4), and the cost/memory reports and the
+rewrite pipeline (A6).
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import flags
 from . import dispatch
-from .ir import BlockDesc, Program, SUB_BLOCK_ATTRS
+from .ir import BlockDesc, OpDesc, Program, SUB_BLOCK_ATTRS
 from .lod import LoDTensor, RaggedPair
 from .registry import OpRegistry, run_op
 from .scope import Scope, global_scope
 
 STEP_VAR = "@step_counter@"
+
+
+def donate_state_default() -> bool:
+    """Executor(donate_state=None)'s value: PADDLE_TPU_DONATE_STATE, on
+    unless "0" (paddle_tpu/core/executor.py DONATE_STATE_DEFAULT)."""
+    return flags.get("PADDLE_TPU_DONATE_STATE") != "0"
 
 
 def resolve_device(place=None) -> torch.device:
@@ -199,6 +244,26 @@ def to_numpy(value) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _abstractify(value):
+    if isinstance(value, RaggedPair):
+        return ("ragged", tuple(value.data.shape), _dtype_name(value.data),
+                tuple(value.lengths.shape))
+    return (tuple(value.shape), _dtype_name(value))
+
+
+def _dtype_name(value) -> str:
+    return str(value.dtype).replace("torch.", "")
+
+
+def feed_signature(feed_vals) -> Tuple:
+    """Hashable (name, abstract shape/dtype) signature of a feed dict —
+    the per-request part of the executor's compile key. Feed values must
+    already be in device form (`to_device_value`: a ragged value is a
+    RaggedPair, ("ragged", data shape, dtype, lengths shape)); numpy
+    arrays and anything else with .shape/.dtype work too."""
+    return tuple(sorted((k, _abstractify(v)) for k, v in feed_vals.items()))
+
+
 def _collect_state_names(program: Program, block: BlockDesc,
                          scope: Scope) -> Tuple[List[str], List[str]]:
     """Names of persistable vars this block reads (from scope) and writes."""
@@ -282,14 +347,156 @@ class StepResult:
         return iter(self.fetches())
 
 
+def _detached(value):
+    if isinstance(value, RaggedPair):
+        return RaggedPair(value.data.detach(), value.lengths)
+    return value.detach() if isinstance(value, torch.Tensor) else value
+
+
+def _clone(value):
+    if isinstance(value, RaggedPair):
+        return RaggedPair(value.data.clone(), value.lengths.clone())
+    return value.clone()
+
+
+def _copy_into(static, value, what: str) -> None:
+    """static.copy_(value), for a tensor or a RaggedPair, after checking
+    that the two agree in shape and dtype."""
+    for dst, src in zip(_feed_tensors(static), _feed_tensors(value)):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(
+                f"{what}: a {src.dtype} {tuple(src.shape)} tensor cannot "
+                f"take the place of the captured step's {dst.dtype} "
+                f"{tuple(dst.shape)} buffer")
+        dst.copy_(src)
+
+
+def _same_op(op: OpDesc, fwd: Dict[str, Any]) -> bool:
+    """True when `op` is the op the ``fwd_op`` dict `fwd` was copied
+    from, attrs included."""
+    try:
+        return bool(op.to_dict() == fwd)
+    except (TypeError, ValueError):  # attrs that do not compare as bools
+        return False
+
+
+def _outputs_key(op_type: str, outputs: Dict[str, List[str]]) -> Tuple:
+    return (op_type, tuple(sorted((k, tuple(v)) for k, v in outputs.items())))
+
+
+# the kinds of a plan step
+_RUN, _CONST, _RECORD, _VJP = range(4)
+
+
+class _Plan:
+    """What one compile key runs: each op of the block with its kind
+    (plain, constant, forward recorded for a ``__vjp__`` op, ``__vjp__``
+    reading that record), and the names dropped after it."""
+
+    def __init__(self, block: BlockDesc, keep):
+        ops = list(block.ops)
+        fwd_of: Dict[int, int] = {}     # __vjp__ op index -> forward index
+        need: Dict[int, List[bool]] = {}  # forward index -> in_need_grad
+        latest: Dict[Tuple, int] = {}
+        self.replayed: List[int] = []
+        for j, op in enumerate(ops):
+            if op.type != "__vjp__":
+                latest[_outputs_key(op.type, op.outputs)] = j
+                continue
+            if op.attrs.get("closure_names"):
+                raise NotImplementedError(
+                    f"op {j} (__vjp__ of {op.attrs['fwd_op']['type']!r}) "
+                    "differentiates a sub-block: the compiled executor does "
+                    "not run sub-blocks yet (ROADMAP A4); run the program "
+                    "with Executor(compiled=False)")
+            fwd = op.attrs["fwd_op"]
+            i = latest.get(_outputs_key(fwd["type"], fwd["outputs"]))
+            flags_ = list(op.attrs["in_need_grad"])
+            if i is not None and _same_op(ops[i], fwd) and \
+                    need.setdefault(i, flags_) == flags_:
+                fwd_of[j] = i
+            else:
+                self.replayed.append(j)
+        # the last __vjp__ op reading a record drops it
+        last_vjp = {i: j for j, i in fwd_of.items()}
+        self.steps: List[Tuple[OpDesc, int, Any]] = []
+        last: Dict[str, int] = {}
+        for j, op in enumerate(ops):
+            opdef = OpRegistry.get(op.type)
+            if j in fwd_of:
+                i = fwd_of[j]
+                kind, arg = _VJP, (i, last_vjp[i] == j)
+                reads = op.input("OutGrad")
+            elif j in need:
+                kind, arg = _RECORD, need[j]
+                reads = op.input_names()
+            else:
+                kind = _CONST if opdef.constant and not any(
+                    n in keep for n in op.output_names()) else _RUN
+                arg, reads = None, op.input_names()
+            self.steps.append((op, kind, arg))
+            for n in reads + op.output_names():
+                last[n] = j
+        self.drops: List[List[str]] = [[] for _ in ops]
+        for n, j in last.items():
+            if n not in keep:
+                self.drops[j].append(n)
+        self.uncaptured_ops = tuple(sorted({
+            op.type for op in ops
+            if not OpRegistry.get(op.type).capturable}))
+
+
+class CompiledProgram:
+    """The compiled form of (program, feed signature, fetch list): the
+    state names, the plan (`_Plan`) and, once a card has captured it, the
+    CUDA graph with its static buffers.
+
+    `captured` is True once the step has been captured; it stays False on
+    the CPU and for a program holding an op in `uncaptured_ops` (the op
+    types registered capturable=False). `replayed` lists the ``__vjp__``
+    op types that replay their forward op instead of reading its record."""
+
+    def __init__(self, plan: _Plan, stamped: Program, read_names,
+                 write_names, fetch_names, ro_names=(), rw_names=()):
+        self.plan = plan
+        self.stamped = stamped
+        self.read_names = list(read_names)
+        self.write_names = list(write_names)
+        self.fetch_names = list(fetch_names)
+        self.ro_names = list(ro_names)
+        self.rw_names = list(rw_names)
+        self.uncaptured_ops = plan.uncaptured_ops
+        self.replayed = [plan.steps[j][0].attrs["fwd_op"]["type"]
+                         for j in plan.replayed]
+        self.captured = False
+        # the threads that have run the planned step of this key: cuBLAS
+        # and cuDNN create their handles per thread on first use, which a
+        # capture refuses, so a thread captures only a key it warmed up
+        self.warm_threads = set()
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.static_feed: Dict[str, Any] = {}
+        self.static_state: Dict[str, torch.Tensor] = {}
+        # state name -> its tensor after a replay; the fetches' tensors
+        self.static_writes: Dict[str, Any] = {}
+        self.static_fetches: List[Any] = []
+        # kernel launches one replay makes ({wrapper name: count})
+        self.launches: Dict[str, int] = {}
+
+
 class Executor:
     """Runs Programs on one device. `place` defaults to the first CUDA
     card and raises without one; pass "cpu" (or CPUPlace()) to run on
-    the CPU."""
+    the CPU. `compiled=False` runs the eager walk instead of the compiled
+    plan; `donate_state=None` reads PADDLE_TPU_DONATE_STATE (on unless
+    "0")."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, donate_state: Optional[bool] = None,
+                 compiled: bool = True):
         self.place = place
         self.device = resolve_device(place)
+        self.compiled = bool(compiled)
+        self.donate_state = donate_state_default() if donate_state is None \
+            else bool(donate_state)
         # The JAX reference computes in full float32; TF32 keeps about
         # three decimal digits, so it is switched off for matmuls and
         # convolutions alike.
@@ -304,6 +511,31 @@ class Executor:
         # the event recorded after the last dispatch on the card, until
         # synchronize() has waited for it
         self._inflight: Optional[torch.cuda.Event] = None
+        # compile key -> CompiledProgram; the hits and misses of its
+        # lookups (a miss plans a new key), as the reference counts them
+        self._cache: Dict[Tuple, CompiledProgram] = {}
+        self.cache_stats: Dict[str, int] = {"hits": 0, "misses": 0}
+        # the CompiledProgram of the most recent compiled run
+        self.last_compiled: Optional[CompiledProgram] = None
+
+    @staticmethod
+    def compile_key(program, feed_sig, fetch_names, block_idx: int = 0,
+                    while_bounds=None, iterations: int = 1,
+                    stacked_feed: bool = False, amp=None,
+                    donate=None) -> Tuple:
+        """The compile-cache key of one (program, feed signature, fetch
+        list) combination, in the reference's field layout
+        (paddle_tpu/core/executor.py Executor.compile_key). `feed_sig`
+        comes from `feed_signature`. AMP and While bounds are not ported
+        yet: `amp` is always False and `while_bounds` None.
+        `donate=None` reads the process default."""
+        if hasattr(program, "desc"):
+            program = program.desc
+        return (program.uid, program.version, feed_sig,
+                tuple(fetch_names), block_idx, bool(amp),
+                tuple(sorted(while_bounds.items())) if while_bounds
+                else None, iterations, stacked_feed,
+                donate_state_default() if donate is None else bool(donate))
 
     def _dispatched(self, program: Program) -> Program:
         """`program` with the kernel-dispatch stamps of the knobs in force
@@ -315,6 +547,40 @@ class Executor:
             hit = (program.version, knob, dispatch.stamped(program, knob))
             self._stamped[program.uid] = hit
         return hit[2]
+
+    def _feed_values(self, feed) -> Dict[str, Any]:
+        """The feed in device form; a `device_feed` upload is awaited on
+        the current stream first."""
+        if isinstance(feed, DeviceFeed):
+            feed_vals = dict(feed)
+            if feed.ready is not None:
+                await_upload(feed.ready, [t for v in feed_vals.values()
+                                          for t in _feed_tensors(v)],
+                             self.device)
+            return feed_vals
+        return {k: to_device_value(v, self.device) for k, v in feed.items()}
+
+    @staticmethod
+    def _check_iterations(feed_vals, iterations: int,
+                          stacked_feed: bool) -> None:
+        if stacked_feed:
+            if iterations == 1:
+                raise ValueError("stacked_feed requires iterations > 1")
+            for k, v in feed_vals.items():
+                if not isinstance(v, torch.Tensor):
+                    raise ValueError(
+                        f"stacked_feed: feed {k!r} is not an array "
+                        "(ragged/LoDTensor feeds cannot be stacked — "
+                        "their padded length may differ per batch)")
+                if tuple(v.shape[:1]) != (iterations,):
+                    raise ValueError(
+                        f"stacked_feed: feed {k!r} leading dim "
+                        f"{tuple(v.shape[:1])} != iterations {iterations}")
+        if iterations < 1:
+            raise ValueError(
+                f"iterations must be >= 1, got {iterations}: a "
+                "zero-length scan would return zero-initialized "
+                "fetches without running anything")
 
     def run(self, program, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -342,11 +608,233 @@ class Executor:
         new state, but nothing waits for the card until a fetched value
         is read. Fetching a read-written persistable (a parameter, an
         optimizer accumulator, a KV cache) that way is rejected, by the
-        JAX executor's donated-state rule: the KV-cache ops write their
-        state in place, so a lazy handle would read a later step's
-        values. Fetch such vars with sync=True."""
+        JAX executor's donated-state rule: the compiled step writes such
+        state in place (the eager arm's KV-cache ops too), so a lazy
+        handle would read a later step's values. Fetch such vars with
+        sync=True, or (compiled) build the Executor with
+        donate_state=False."""
         if hasattr(program, "desc"):  # accept the python builder wrapper
             program = program.desc
+        if not self.compiled:
+            return self._run_eager(program, feed, fetch_list, scope,
+                                   return_numpy, iterations, stacked_feed,
+                                   sync)
+        source, program = program, self._dispatched(program)
+        scope = global_scope() if scope is None else scope
+        fetch_names = [f if isinstance(f, str) else f.name
+                       for f in (fetch_list or [])]
+        feed_vals = self._feed_values(feed or {})
+        self._check_iterations(feed_vals, iterations, stacked_feed)
+        key = self.compile_key(source, feed_signature(feed_vals),
+                               fetch_names, iterations=iterations,
+                               stacked_feed=stacked_feed,
+                               donate=self.donate_state)
+        compiled = self._cache.get(key)
+        if compiled is None or compiled.stamped is not program:
+            self.cache_stats["misses"] += 1
+            compiled = self._compile(program, fetch_names, scope)
+            self._cache[key] = compiled
+        else:
+            self.cache_stats["hits"] += 1
+        self.last_compiled = compiled
+        if not sync and self.donate_state:
+            aliased = [n for n in fetch_names if n in compiled.rw_names]
+            if aliased:
+                raise ValueError(
+                    f"sync=False cannot fetch donated state vars "
+                    f"{aliased}: the lazy StepResult would hold a buffer "
+                    "a later step writes in place. Fetch them with "
+                    "sync=True, or build the Executor with "
+                    "donate_state=False.")
+
+        counter = scope.find(STEP_VAR)
+        step = 0 if counter is None else int(counter)
+        captures = self.device.type == "cuda" and \
+            not compiled.uncaptured_ops
+        for i in range(iterations):
+            feed_i = {k: v[i] for k, v in feed_vals.items()} \
+                if stacked_feed else feed_vals
+            thread = threading.get_ident()
+            if captures and (compiled.graph is not None
+                             or thread in compiled.warm_threads):
+                fetched = self._replay(source, compiled, feed_i, scope,
+                                       step + i)
+            else:
+                fetched = self._step(source, compiled, feed_i, scope,
+                                     step + i)
+                compiled.warm_threads.add(thread)
+        scope.set(STEP_VAR, torch.tensor(step + iterations,
+                                         dtype=torch.int32))
+        return self._result(fetched, fetch_names, return_numpy, sync)
+
+    def _result(self, fetched, fetch_names, return_numpy, sync):
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._inflight = event
+        result = StepResult(fetched, fetch_names, return_numpy, event)
+        return result.fetches() if sync else result
+
+    # -- the compiled path ---------------------------------------------------
+    def _compile(self, program: Program, fetch_names,
+                 scope: Scope) -> CompiledProgram:
+        block = program.global_block
+        read_names, write_names = _collect_state_names(program, block, scope)
+        written = set(write_names)
+        plan = _Plan(block, set(fetch_names) | written)
+        return CompiledProgram(
+            plan, program, read_names, write_names, fetch_names,
+            ro_names=[n for n in read_names if n not in written],
+            rw_names=[n for n in read_names if n in written])
+
+    def _run_plan(self, source: Program, compiled: CompiledProgram,
+                  env: Dict[str, Any], step: int) -> None:
+        """The planned step over `env`, as run number `step`."""
+        plan = compiled.plan
+        extra = {"device": self.device, "step": step}
+        records: Dict[int, Tuple] = {}
+        from ..ops.core_ops import vjp_grads, vjp_leaves, vjp_out_names
+        with torch.no_grad():
+            for j, (op, kind, arg) in enumerate(plan.steps):
+                if kind == _RUN:
+                    outs = run_op(op, env, extra)
+                elif kind == _CONST:
+                    key = (source.uid, source.version, j)
+                    outs = self._const_cache.get(key)
+                    if outs is None:
+                        outs = run_op(op, env, extra)
+                        self._const_cache[key] = outs
+                elif kind == _RECORD:
+                    names = op.input_names()
+                    local, leaves, wrapped = vjp_leaves(
+                        names, [env[n] for n in names], arg)
+                    with torch.enable_grad():
+                        recorded = run_op(op, local, extra)
+                    records[j] = (recorded, leaves, wrapped)
+                    outs = {n: _detached(v) for n, v in recorded.items()}
+                else:
+                    i, last_use = arg
+                    recorded, leaves, wrapped = records[i] if not last_use \
+                        else records.pop(i)
+                    grads = vjp_grads(recorded, vjp_out_names(op),
+                                      [env[n] for n in op.input("OutGrad")],
+                                      leaves, wrapped,
+                                      retain_graph=not last_use)
+                    outs = dict(zip(op.output("InGrad"), grads))
+                env.update(outs)
+                for n in plan.drops[j]:
+                    env.pop(n, None)
+
+    def _step(self, source, compiled: CompiledProgram, feed_i, scope,
+              step: int) -> List[Any]:
+        """One planned step run as it is (the CPU; on the card, a key's
+        first run and a program that is not captured)."""
+        env = {n: scope.get(n) for n in compiled.read_names}
+        if not self.donate_state:  # in-place ops write into copies
+            env.update((n, _clone(env[n])) for n in compiled.rw_names)
+        env.update(feed_i)
+        self._run_plan(source, compiled, env, step)
+        for n in compiled.write_names:
+            if n in env:
+                scope.set(n, env[n])
+        return [env[n] for n in compiled.fetch_names]
+
+    def _capture(self, source, compiled: CompiledProgram, feed_i, scope,
+                 step: int) -> None:
+        """Capture the planned step into `compiled.graph`: static buffers
+        for the feeds and the read state (with donation, the scope's own
+        tensors), the new state written into them inside the graph."""
+        from ..ops import kernels
+        compiled.static_feed = {k: _clone(v) for k, v in feed_i.items()}
+        statics: Dict[int, torch.Tensor] = {}
+        for n in compiled.read_names:
+            v = scope.get(n)
+            if not isinstance(v, torch.Tensor) or not v.is_cuda or \
+                    self.device.index not in (None, v.device.index):
+                raise ValueError(
+                    f"state {n!r} is not a tensor on {self.device}: the "
+                    "captured step reads state from the card")
+            # a buffer two names share is given to one of them
+            if not self.donate_state or (v.numel() and
+                                         v.data_ptr() in statics):
+                v = v.clone()
+            if v.numel():
+                statics[v.data_ptr()] = v
+            compiled.static_state[n] = v
+            if self.donate_state:
+                scope.set(n, v)
+        fixed = set(statics)
+        fixed.update(t.data_ptr() for v in compiled.static_feed.values()
+                     for t in _feed_tensors(v))
+        fixed.update(v.data_ptr() for outs in self._const_cache.values()
+                     for v in outs.values() if isinstance(v, torch.Tensor))
+
+        def owned(v):
+            """v itself, or a copy of it when its memory is a static
+            buffer or a cached constant (state must own its memory)."""
+            if any(t.numel() and t.data_ptr() in fixed
+                   for t in _feed_tensors(v)):
+                return _clone(v)
+            return v
+
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            env = dict(compiled.static_state)
+            env.update(compiled.static_feed)
+            self._run_plan(source, compiled, env, step)
+            copies = []
+            for n in compiled.write_names:
+                if n not in env:
+                    continue
+                dst = compiled.static_state.get(n)
+                if dst is None:
+                    compiled.static_writes[n] = owned(env[n])
+                    continue
+                if env[n] is not dst:
+                    # every source is read before any buffer is written
+                    copies.append((n, dst, owned(env[n])))
+                compiled.static_writes[n] = dst
+            for n, dst, src in copies:
+                _copy_into(dst, src, f"state {n!r}")
+            compiled.static_fetches = [env[n]
+                                       for n in compiled.fetch_names]
+            del env, copies
+        after = kernels.launch_counts()
+        compiled.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+        # the capture ran the wrappers but launched nothing
+        kernels.credit_launches({k: -c for k, c in
+                                 compiled.launches.items()})
+        compiled.graph = graph
+        compiled.captured = True
+
+    def _replay(self, source, compiled: CompiledProgram, feed_i, scope,
+                step: int) -> List[Any]:
+        """One step through the captured graph (captured first on the
+        key's second run)."""
+        from ..ops import kernels
+        if compiled.graph is None:
+            self._capture(source, compiled, feed_i, scope, step)
+        else:
+            for n, static in compiled.static_state.items():
+                v = scope.get(n)
+                if v is not static:
+                    _copy_into(static, v, f"state {n!r}")
+                    if self.donate_state:
+                        scope.set(n, static)
+            for k, static in compiled.static_feed.items():
+                _copy_into(static, feed_i[k], f"feed {k!r}")
+        compiled.graph.replay()
+        kernels.credit_launches(compiled.launches)
+        for n, v in compiled.static_writes.items():
+            scope.set(n, v if self.donate_state else _clone(v))
+        return [_clone(v) for v in compiled.static_fetches]
+
+    # -- the eager walk ------------------------------------------------------
+    def _run_eager(self, program, feed, fetch_list, scope, return_numpy,
+                   iterations, stacked_feed, sync):
         source, program = program, self._dispatched(program)
         scope = global_scope() if scope is None else scope
         feed = feed or {}
@@ -354,34 +842,8 @@ class Executor:
                        for f in (fetch_list or [])]
         block = program.global_block
         read_names, write_names = _collect_state_names(program, block, scope)
-
-        if isinstance(feed, DeviceFeed):
-            feed_vals = dict(feed)
-            if feed.ready is not None:
-                await_upload(feed.ready, [t for v in feed_vals.values()
-                                          for t in _feed_tensors(v)],
-                             self.device)
-        else:
-            feed_vals = {k: to_device_value(v, self.device)
-                         for k, v in feed.items()}
-        if stacked_feed:
-            if iterations == 1:
-                raise ValueError("stacked_feed requires iterations > 1")
-            for k, v in feed_vals.items():
-                if not isinstance(v, torch.Tensor):
-                    raise ValueError(
-                        f"stacked_feed: feed {k!r} is not an array "
-                        "(ragged/LoDTensor feeds cannot be stacked — "
-                        "their padded length may differ per batch)")
-                if tuple(v.shape[:1]) != (iterations,):
-                    raise ValueError(
-                        f"stacked_feed: feed {k!r} leading dim "
-                        f"{tuple(v.shape[:1])} != iterations {iterations}")
-        if iterations < 1:
-            raise ValueError(
-                f"iterations must be >= 1, got {iterations}: a "
-                "zero-length scan would return zero-initialized "
-                "fetches without running anything")
+        feed_vals = self._feed_values(feed)
+        self._check_iterations(feed_vals, iterations, stacked_feed)
         if not sync:
             rw = set(read_names) & set(write_names)
             aliased = [n for n in fetch_names if n in rw]
@@ -404,14 +866,8 @@ class Executor:
                     scope.set(n, env[n])
         scope.set(STEP_VAR, torch.tensor(step + iterations,
                                          dtype=torch.int32))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self._inflight = event
-        result = StepResult([env[n] for n in fetch_names], fetch_names,
-                            return_numpy, event)
-        return result.fetches() if sync else result
+        return self._result([env[n] for n in fetch_names], fetch_names,
+                            return_numpy, sync)
 
     def _run_block(self, source: Program, block: BlockDesc,
                    env: Dict[str, Any], write_names: List[str],

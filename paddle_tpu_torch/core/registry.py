@@ -6,7 +6,8 @@ outputs there. The executor runs the rules eagerly, op by op, on the
 tensors' own device. Gradients are desc-level, as in the JAX package
 (core/backward.py): an op may register a grad maker that appends grad
 OpDescs; every other op gets the generic ``__vjp__`` grad op, which
-replays the compute rule under torch autograd.
+replays the compute rule under torch autograd (the eager executor), or
+reads the autograd graph its forward op recorded (the compiled one).
 
 Ragged values (core/lod.py RaggedPair) reach only the ops registered
 ``ragged_aware``; every other op sees their dense data, and its outputs
@@ -31,7 +32,8 @@ class OpDef:
     def __init__(self, type: str, compute: Callable,
                  grad_maker: Optional[Callable] = None,
                  no_grad_slots: Optional[List[str]] = None,
-                 constant: bool = False, ragged_aware: bool = False):
+                 constant: bool = False, ragged_aware: bool = False,
+                 capturable: bool = True):
         self.type = type
         # ragged_aware ops receive RaggedPair values as-is; other ops get
         # dense .data views and their outputs are re-wrapped (see run_op).
@@ -46,6 +48,12 @@ class OpDef:
         # their attrs on every run; the executor materializes them once
         # per (program, device) instead of once per run
         self.constant = constant
+        # False for an op whose rule cannot be recorded into a CUDA graph
+        # and replayed: it seeds a torch.Generator on the host from its
+        # attrs or the step (manual_seed is refused during a capture, and
+        # a replay would repeat the captured draw). The executor compiles
+        # a program that holds one but does not capture it
+        self.capturable = capturable
 
     def __repr__(self):
         return f"OpDef({self.type})"
@@ -73,13 +81,14 @@ class OpRegistry:
 
 
 def register_op(type: str, grad_maker=None, no_grad_slots=None,
-                constant=False, ragged_aware=False):
+                constant=False, ragged_aware=False, capturable=True):
     """Decorator: register `fn(ctx)` as the compute rule for op `type`."""
     def deco(fn):
         OpRegistry.register(OpDef(type, fn, grad_maker=grad_maker,
                                   no_grad_slots=no_grad_slots,
                                   constant=constant,
-                                  ragged_aware=ragged_aware))
+                                  ragged_aware=ragged_aware,
+                                  capturable=capturable))
         return fn
     return deco
 

@@ -38,6 +38,13 @@ FLAGS: Dict[str, tuple] = {
         "conv2d memory layout: \"nhwc\" runs each conv on channels_last "
         "copies of its input and filter (the op's API stays NCHW); the "
         "default \"nchw\" runs it as given"),
+    "PADDLE_TPU_DONATE_STATE": (
+        "1", "core/executor.py",
+        "default of Executor(donate_state=None) on the compiled path: \"1\" "
+        "updates read-written state in place, in buffers the compiled step "
+        "owns (the scope points at them); \"0\" leaves the tensors a caller "
+        "held before a run as they were (a copy a step). Part of the "
+        "compile key"),
     "PADDLE_TPU_DECODE_SLOTS": (
         "4", "serving/generation/model.py",
         "default in-flight slot count of a generation model's "

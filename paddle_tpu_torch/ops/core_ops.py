@@ -58,7 +58,7 @@ def _generator(ctx) -> torch.Generator:
     return g
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", capturable=False)
 def _uniform_random(ctx):
     shape = list(ctx.attr("shape"))
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
@@ -72,7 +72,7 @@ def _uniform_random(ctx):
     ctx.set_output("Out", (u * (hi - lo) + lo).to(dtype))
 
 
-@register_op("gaussian_random")
+@register_op("gaussian_random", capturable=False)
 def _gaussian_random(ctx):
     """mean + std * N(0, 1) of the attr shape, drawn from the op's seeded
     generator in float32, then cast."""
@@ -141,6 +141,58 @@ def _dense(v):
     return v.data if isinstance(v, RaggedPair) else v
 
 
+def vjp_leaves(names, values, need_grad):
+    """The environment a forward rule runs in under autograd, for a
+    ``__vjp__`` op: {name: value} over `names`, where each value that
+    needs a gradient is a detached leaf copy (a ragged value's leaf is
+    its dense data, re-wrapped with the same lengths, so a sequence op
+    still sees every row's length). Returns (env, leaves, wrapped): the
+    leaves and the values they stand for, in order."""
+    leaves, wrapped = [], []
+    env = {}
+    for n, v, need in zip(names, values, need_grad):
+        if need:
+            leaf = _dense(v).detach().requires_grad_(True)
+            leaves.append(leaf)
+            wrapped.append(v)
+            v = RaggedPair(leaf, v.lengths) if isinstance(v, RaggedPair) \
+                else leaf
+        env[n] = v
+    return env, leaves, wrapped
+
+
+def vjp_grads(outs, grad_out_names, out_grads, leaves, wrapped,
+              retain_graph=False):
+    """Pull the cotangents `out_grads` of the outputs `grad_out_names` of
+    `outs` (a forward rule's outputs, recorded under autograd from
+    vjp_leaves' env) back to the leaves: one gradient a leaf, zeros for
+    a leaf the outputs do not depend on (as jax.vjp gives), ragged with
+    its lengths where the leaf stood for a ragged value."""
+    with torch.enable_grad():
+        pairs = [(_dense(outs[n]), _dense(g))
+                 for n, g in zip(grad_out_names, out_grads)
+                 if _dense(outs[n]).requires_grad]
+        grads = [None] * len(leaves)
+        if pairs:
+            ys, cts = zip(*pairs)
+            grads = torch.autograd.grad(ys, leaves, cts, allow_unused=True,
+                                        retain_graph=retain_graph)
+    out = []
+    for g, leaf, v in zip(grads, leaves, wrapped):
+        g = torch.zeros_like(leaf) if g is None else g.detach()
+        out.append(RaggedPair(g, v.lengths) if isinstance(v, RaggedPair)
+                   else g)
+    return out
+
+
+def vjp_out_names(op):
+    """The forward outputs of the ``__vjp__`` op `op` that get a
+    cotangent, in its OutGrad order."""
+    fwd = op.attrs["fwd_op"]
+    names = [n for slot in fwd["outputs"].values() for n in slot]
+    return [n for n, h in zip(names, op.attrs["out_has_grad"]) if h]
+
+
 @register_op("__vjp__", ragged_aware=True)
 def _vjp(ctx):
     """Gradient of an arbitrary forward op: replay its compute rule under
@@ -149,48 +201,29 @@ def _vjp(ctx):
     The inputs that need a gradient enter the replay as detached leaf
     copies; torch.autograd.grad then pulls the output cotangents back to
     them. An input the outputs do not depend on gets zeros, as jax.vjp
-    gives. The executor runs every other op under torch.no_grad(); only
-    this replay records a graph, and it is dropped when the op returns.
-    Eager torch has no CSE: the forward op runs a second time here (for
-    scaled_dot_product_attention on the flash route that is a second
-    forward-kernel launch before the backward kernels, for lstm on the
-    kernel route a second fused-LSTM forward).
+    gives. The eager executor (Executor(compiled=False)) runs every
+    other op under torch.no_grad(); only this replay records a graph,
+    and it is dropped when the op returns. Eager torch has no CSE: the
+    forward op runs a second time here (for scaled_dot_product_attention
+    on the flash route that is a second forward-kernel launch before the
+    backward kernels, for lstm on the kernel route a second fused-LSTM
+    forward). The compiled executor does not run this rule: it records
+    the forward op itself under autograd and hands its graph to this op
+    (core/executor.py), through the same vjp_leaves and vjp_grads.
 
     Ragged values, as the JAX package's op treats them: a ragged input's
     leaf is its dense data, re-wrapped with the same lengths before the
-    forward rule runs (so a sequence op still sees every row's length);
-    ragged outputs and cotangents enter autograd as their data; the
-    gradient of a ragged input comes back ragged with its lengths."""
+    forward rule runs; ragged outputs and cotangents enter autograd as
+    their data; the gradient of a ragged input comes back ragged with
+    its lengths."""
     fwd = OpDesc.from_dict(ctx.attr("fwd_op"))
-    fwd_out_names = fwd.output_names()
-    in_vals = ctx.inputs("FwdIn")
-    out_grads = ctx.inputs("OutGrad")
-    in_need_grad = ctx.attr("in_need_grad")
-    grad_out_names = [n for n, h in zip(fwd_out_names,
-                                        ctx.attr("out_has_grad")) if h]
     replay_names = fwd.input_names() + list(ctx.attr("closure_names", [])
                                             or [])
-    leaves, wrapped = [], []
-    env = {}
-    for n, v, need in zip(replay_names, in_vals, in_need_grad):
-        if need:
-            leaf = _dense(v).detach().requires_grad_(True)
-            leaves.append(leaf)
-            wrapped.append(v)
-            v = RaggedPair(leaf, v.lengths) if isinstance(v, RaggedPair) \
-                else leaf
-        env[n] = v
+    env, leaves, wrapped = vjp_leaves(replay_names, ctx.inputs("FwdIn"),
+                                      ctx.attr("in_need_grad"))
     with torch.enable_grad():
         outs = run_op(fwd, env, ctx.extra)
-        pairs = [(_dense(outs[n]), _dense(g))
-                 for n, g in zip(grad_out_names, out_grads)
-                 if _dense(outs[n]).requires_grad]
-        grads = [None] * len(leaves)
-        if pairs:
-            ys, cts = zip(*pairs)
-            grads = torch.autograd.grad(ys, leaves, cts, allow_unused=True)
-    for i, (g, leaf, v) in enumerate(zip(grads, leaves, wrapped)):
-        g = torch.zeros_like(leaf) if g is None else g.detach()
-        if isinstance(v, RaggedPair):
-            g = RaggedPair(g, v.lengths)
+    grads = vjp_grads(outs, vjp_out_names(ctx.op), ctx.inputs("OutGrad"),
+                      leaves, wrapped)
+    for i, g in enumerate(grads):
         ctx.set_output("InGrad", g, index=i)

@@ -33,3 +33,12 @@ def reset_launch_counts():
 
 def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def credit_launches(counts):
+    """Add `counts` ({name: launches}, negative to take some back) to the
+    wrappers' counts: a CUDA graph replay launches what its capture
+    recorded without running the wrappers, so the executor credits the
+    capture's counts on every replay (core/executor.py)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

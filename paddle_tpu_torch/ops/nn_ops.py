@@ -175,7 +175,7 @@ def _layer_norm(ctx):
     ctx.set_output("Variance", var.reshape(x.shape[:begin]))
 
 
-@register_op("dropout")
+@register_op("dropout", capturable=False)
 def _dropout(ctx):
     """Reference dropout_op: keep each element with probability 1 - p.
     The mask comes from an explicit torch.Generator seeded from the op's

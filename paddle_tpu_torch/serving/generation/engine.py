@@ -244,8 +244,12 @@ class GenerationEngine:
             except Exception as e:  # noqa: BLE001 — the driver must live
                 # a failed step leaves every active slot's cache state
                 # suspect: retire them all with the tokens they already
-                # completed and keep the driver alive
+                # completed and keep the loop alive; the requests taken
+                # from the queue and not admitted (the one whose prefill
+                # failed first) fail with the error
                 self.last_error = e
+                for req in pending:
+                    req.future.set_exception(e)
                 self._abort_all(e)
 
     def _abort_all(self, exc: BaseException):
@@ -279,7 +283,11 @@ class GenerationEngine:
                 break
             req = pending.popleft()
             if self.mode == "cached":
-                tok = self.model.run_prefill(req.prompt, slot)
+                try:
+                    tok = self.model.run_prefill(req.prompt, slot)
+                except BaseException:
+                    pending.appendleft(req)
+                    raise
                 self._install(slot, req)
                 self._deliver_token(slot, req, tok)
             else:

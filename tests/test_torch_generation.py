@@ -242,3 +242,25 @@ def test_load_params_rejects_mismatch(pair):
     ptt.load_param_arrays(port, good)
     assert not torch.equal(before, port.scope.get(name))
     np.testing.assert_array_equal(port.scope.get(name).numpy(), good[name])
+
+
+def test_failed_prefill_fails_its_request_instead_of_dropping_it(pair):
+    """A prefill that raises fails that request's future (and those
+    taken from the queue with it) with the error; the engine lives on and
+    serves the next request."""
+    _, model = pair
+    eng = model.serve(config=GenerationConfig(max_new_tokens=2)).start()
+    real = model.run_prefill
+    try:
+        def broken(prompt, slot):
+            raise RuntimeError("prefill failed")
+        model.run_prefill = broken
+        fut = eng.submit([5, 9, 3])
+        with pytest.raises(RuntimeError, match="prefill failed"):
+            fut.result(timeout=30)
+        assert isinstance(eng.last_error, RuntimeError)
+        model.run_prefill = real
+        assert len(eng.submit([5, 9, 3]).result(timeout=30).tokens) == 2
+    finally:
+        model.run_prefill = real
+        eng.stop(drain=True, timeout=30)

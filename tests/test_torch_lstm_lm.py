@@ -180,13 +180,14 @@ def test_final_params_match(runs, ref, port):
 
 def test_routes_ran_as_stamped(runs):
     """The JAX kernel route traced the Pallas kernel and its scan route
-    did not; the port's "force" route called FusedLSTM for both lstm
-    ops and both __vjp__ replays in every step, the "0" stamp never; the
-    CPU run launched no CUDA kernel."""
+    did not; the port's "force" route called FusedLSTM once for each lstm
+    op in every step (the compiled executor runs each forward op once,
+    under autograd, and its __vjp__ op reads that record: no replay), the
+    "0" stamp never; the CPU run launched no CUDA kernel."""
     from paddle_tpu_torch.ops import kernels
     assert runs["ref_scan_traces"] == 0
     assert runs["ref_kernel_traces"] >= 2 * KW["num_layers"]
-    assert runs["kernel_route_calls"] == 2 * KW["num_layers"] * STEPS
+    assert runs["kernel_route_calls"] == KW["num_layers"] * STEPS
     assert runs["scan_route_calls"] == 0
     assert kernels.launch_counts()["fused_lstm_fwd"] == 0
     assert kernels.launch_counts()["fused_lstm_bwd"] == 0
