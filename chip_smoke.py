@@ -147,10 +147,23 @@ launch counts include what every graph replay launches.
      memory, launches a step; the flash, LSTM and GRU forward launches a
      compiled step must be half the eager step's, their backward
      launches equal.
- 15. JSON lines of the kernels, serving, the three earlier trainings,
+ 15. bf16 AMP (paddle_tpu_torch/amp.py, bench.py's default precision):
+     the bf16 entry points of the three flash kernels against their bf16
+     twins at phase 2's serving case (S1024, causal) and phase 4's
+     training shapes (key-row mask and dense), by ROADMAP B1's rule,
+     timed beside the twins, F.scaled_dot_product_attention in bf16 and
+     their bf16 bounds; phase 4's NMT under amp_guard(), 5 steps, with
+     flash (only the bf16 flash kernels launch: 18 of each a step) and
+     with use_flash=False stamped, each held against phase 4's float32
+     flash arm (see AMP_NMT_FACTOR); ResNet-50 at batch 128 under
+     amp_guard(), 5 steps, compiled against eager bit for bit as phase 14
+     holds them, its step-1 loss against phase 14's float32 arm (see
+     AMP_RESNET_LOSS_RTOL), no kernel launched; per arm ms a step, busy
+     share of profiled steps and peak memory, float32 beside AMP.
+ 16. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
-     micro, the Trainer and phase 14 (`compiled`), then, last, the JSON
-     result line.
+     micro, the Trainer, phase 14 (`compiled`) and phase 15 (`amp`),
+     then, last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -516,6 +529,56 @@ CVE_HALVED = {"nmt": ("flash_attention_fwd", ("flash_attention_bwd_dq",
                                               "flash_attention_bwd_dkv")),
               "lstm_lm": ("fused_lstm_fwd", ("fused_lstm_bwd",)),
               "gru_nmt": ("fused_gru_fwd", ("fused_gru_bwd",))}
+# phase 15, bf16 AMP. The bf16 flash kernels against their bf16 twins at
+# phase 2's serving case (S1024, causal, the key-row mask of ATTN_CASES)
+# and phase 4's training shapes (key-row mask and dense decoder bias):
+# (label, (B, H, S, D), bias kind, causal)
+AMP_ATTN_CASES = [("S1024", (1, 8, 1024, 64), "serving", True),
+                  ("keyrow", TRAIN_ATTN, "keyrow", False),
+                  ("dense", TRAIN_ATTN, "dense", False)]
+AMP_MAIN_CASES = {"flash_attention_fwd_bf16": "S1024",
+                  "flash_attention_bwd_dq_bf16": "keyrow",
+                  "flash_attention_bwd_dkv_bf16": "keyrow"}
+# the bf16 entry points the AMP NMT step launches, 18 each a step (6
+# encoder self-attentions, 6 decoder self- and 6 cross-attentions)
+AMP_NMT_KERNELS = tuple(AMP_MAIN_CASES)
+AMP_NMT_LAUNCHES_PER_STEP = 18
+# the AMP arm with flash (a) against phase 4's float32 flash arm (c): its
+# step-1 loss and every parameter's step-1 gradient may sit at most this
+# many times as far from (c) as the AMP arm with the naive attention (b)
+# does (distance: |loss difference|, 2-norm of the gradient difference).
+# Both AMP arms round every mul and conv the same way; (b) also rounds
+# the attention scores to bf16 before the softmax, (a) P and dS as the
+# Pallas kernels do. Held for every parameter but the attentions' Q and
+# K projection weights: their gradients pass through ds = p (dp - delta),
+# a difference of nearly equal terms, and the flash algorithm takes delta
+# = rowsum(dO * O) from the bf16 O (as the reference's Pallas backward
+# does), the naive one from its own float32 softmax; (a)'s sit up to
+# ~12x farther from float32 there (an H100 run of this script, deep
+# decoder layers) with kernels that agree with their twins. Every parameter,
+# those included, is held against (a'): the same AMP step with the three
+# bf16 kernels swapped for their plain twins and the ReLUs pinned to
+# (a)'s masks: (a) may sit at most AMP_TWIN_FACTOR times as far from (a')
+# as (a') sits from (c). Where the bf16 rounding noise dominates a
+# gradient (the Q/K projections, through delta), the kernel and the twin
+# round P, and so O and delta, at other scales: two roundings whose
+# noise is independent sit about sqrt(2) times one's noise apart (an H100
+# run: up to 1.61 on the deepest decoder layer's cross-attention Q/K,
+# 0.03-0.76 everywhere else). A wrong tile, mask or rounding moves a
+# gradient by O(1), hundreds of times the AMP noise.
+AMP_NMT_FACTOR = 2.0
+AMP_TWIN_FACTOR = 2.0
+# ResNet-50 under AMP (bench.py's default precision): its step-1 loss
+# within this relative distance of the float32 arm's (phase 14's,
+# same weights and feeds): bf16 convs and activations move a
+# 1000-class cross entropy by well under 1%; a cast in the wrong place
+# (a float32 conv, a bf16 statistic) moves it by more, or not at all
+AMP_RESNET_LOSS_RTOL = 5e-2
+# each AMP ResNet-50 arm: AMP_STEPS steps (phase 14's first CVE_WARM of
+# them untimed), then CVE_PROFILED profiled steps for the busy share (the
+# NMT arms take phase 4's TRAIN_STEPS)
+AMP_STEPS = 5
+
 # DeepFM's three dispatch arms (K = 1, K = 4, K = 1 with prefetch 2) and a
 # rerun of the K = 1 arm run the same ops in the same order on the same
 # card: all must end bit for bit equal (parameters and costs).
@@ -552,6 +615,9 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 # the float32 products of the flash kernels on the tensor cores: three
 # TF32 passes (3xTF32)
 ATTN_PATH_RATE = TF32_FLOPS_PER_S / 3
+# a masked score in bf16 (F.scaled_dot_product_attention's mask for the
+# bf16 yardstick): -1e9 rounds to a bf16 value, exp of it is 0 all the same
+NEG_INF_BF16 = -1e9
 
 
 def attention_bound(b, h, sq, sk, d, pairs, bias_numel,
@@ -1601,25 +1667,53 @@ def time_serving(model, card):
     return out
 
 
-def _stamp_naive(main):
-    """use_flash=False on every attention op and on the fwd_op copy each
-    __vjp__ took at append_backward time."""
+def _stamp_naive(main, naive=True):
+    """use_flash=False (with naive=False: the attr taken away, the op's
+    auto policy back in charge) on every attention op and on the fwd_op
+    copy each __vjp__ took at append_backward time."""
     for op in main.desc.global_block.ops:
         if op.type == "scaled_dot_product_attention":
-            op.attrs["use_flash"] = False
+            attrs = op.attrs
         elif op.type == "__vjp__" and \
                 op.attrs["fwd_op"]["type"] == "scaled_dot_product_attention":
-            op.attrs["fwd_op"]["attrs"]["use_flash"] = False
+            attrs = op.attrs["fwd_op"]["attrs"]
+        else:
+            continue
+        if naive:
+            attrs["use_flash"] = False
+        else:
+            attrs.pop("use_flash", None)
     main.desc._bump_version()
 
 
-def train_arm(main, startup, loss, weights, feed, params, card, label):
+@contextlib.contextmanager
+def flash_twins():
+    """The bf16 flash kernels' wrappers swapped for their plain twins
+    while inside (on CUDA tensors too; no launch is counted)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    saved = (fa.flash_attention_fwd_bf16, fa.flash_attention_bwd_dq_bf16,
+             fa.flash_attention_bwd_dkv_bf16)
+    fa.flash_attention_fwd_bf16 = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd_dq_bf16 = fa.flash_attention_bwd_dq_plain
+    fa.flash_attention_bwd_dkv_bf16 = fa.flash_attention_bwd_dkv_plain
+    try:
+        yield
+    finally:
+        (fa.flash_attention_fwd_bf16, fa.flash_attention_bwd_dq_bf16,
+         fa.flash_attention_bwd_dkv_bf16) = saved
+
+
+def train_arm(main, startup, loss, weights, feed, params, card, label,
+              profiled=0):
     """TRAIN_STEPS Adam steps from `weights` in a fresh scope; the first
     also fetches every parameter's gradient and the sign of every ReLU
     input. Each step's time is a host clock around Executor.run, which
-    ends synchronized (it returns the fetches as numpy)."""
+    ends synchronized (it returns the fetches as numpy). With `profiled`,
+    the kernels' launch counts are read after those steps, and that many
+    more steps run under torch.profiler for the device-busy share."""
     import torch
     from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.ops import kernels
     exe, scope = Executor(), Scope()
     exe.run(startup, scope=scope)
     load_param_arrays(scope, weights)
@@ -1646,8 +1740,21 @@ def train_arm(main, startup, loss, weights, feed, params, card, label):
               f"{step_ms[-1]:.1f} ms peak {peaks[-1] / 2**30:.2f} GiB",
               flush=True)
     print(f"[{card}] train {label}: {capture_note(exe)}", flush=True)
-    return dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
-                grads=grads, relu_signs=signs)
+    out = dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
+               grads=grads, relu_signs=signs)
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        out["launches"] = kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled):
+                exe.run(main, feed=feed, fetch_list=[loss.name],
+                        scope=scope)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["busy"] = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+    return out
 
 
 def pinned_relu_grads(main, startup, loss, weights, feed, params, signs,
@@ -1941,7 +2048,7 @@ def train(card):
     for label, arm in (("flash", flash), ("naive", naive)):
         summary[label] = {k: arm[k] for k in ("losses", "step_ms",
                                               "peak_bytes")}
-    return summary, launches
+    return summary, launches, flash
 
 
 def _stamp_pallas(main, op_type, value):
@@ -3585,7 +3692,7 @@ def train_trainer(card):
 
 
 def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
-            donate=True):
+            donate=True, steps=CVE_STEPS):
     """Phase 14's arm of one training path: CVE_STEPS + CVE_PROFILED
     steps over `feeds` (step i takes feeds[i % len(feeds)]) from `weights`
     in a fresh scope on the card, through Executor(compiled=compiled,
@@ -3615,7 +3722,7 @@ def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
                       fetch_list=[loss.name], scope=scope)
         losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
 
-    for i in range(CVE_STEPS):
+    for i in range(steps):
         if i == CVE_WARM:
             kernels.reset_launch_counts()
         if i == CVE_WARM + 1:
@@ -3624,13 +3731,13 @@ def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
         step(i)
         step_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    timed = CVE_STEPS - CVE_WARM
+    timed = steps - CVE_WARM
     launches = {n: c / timed for n, c in kernels.launch_counts().items()
                 if c}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(CVE_STEPS, CVE_STEPS + CVE_PROFILED):
+        for i in range(steps, steps + CVE_PROFILED):
             step(i)
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
@@ -3680,12 +3787,13 @@ def cve_hold(what, eager, compiled, card, halved=None):
              if halved else ""), flush=True)
     return {label: {k: arm[k] for k in ("step_ms", "busy", "peak_bytes",
                                          "launches_per_step", "captured",
-                                         "note") if k in arm}
+                                         "note", "losses", "costs")
+                    if k in arm}
             for label, arm in (("eager", eager), ("compiled", compiled))}
 
 
 def cve_training_pair(what, main, startup, loss, weights, feeds, card,
-                      no_donate=False):
+                      no_donate=False, steps=CVE_STEPS):
     """The eager and the compiled arm of `what` (and, with `no_donate`, a
     compiled arm with donate_state=False, held against the eager arm the
     same way), each in a fresh executor and scope."""
@@ -3697,7 +3805,7 @@ def cve_training_pair(what, main, startup, loss, weights, feeds, card,
                                     ("compiled, donate_state=False", True,
                                      False))[:3 if no_donate else 2]:
         arms[label] = cve_arm(main, startup, loss, weights, feeds, card,
-                              f"{what} {label}", compiled, donate)
+                              f"{what} {label}", compiled, donate, steps)
         gc.collect()
         torch.cuda.empty_cache()
     if no_donate:
@@ -3868,6 +3976,313 @@ def compiled_vs_eager(card):
     return out
 
 
+def attention_bound_bf16(b, h, sq, sk, d, pairs, bias_numel, kind):
+    """Least time for one bf16 flash kernel on this card: the bytes it
+    must move (bf16 q, k, v, and dO for the backward, read once; the
+    float32 bias, lse and delta read or written once; its bf16 outputs
+    written once) over HBM rate vs the live (q, k) pairs times its FLOP a
+    pair (the float32 rows' counts: 4*D forward, 6*D dq, 8*D dk/dv) at
+    the dense bf16 rate."""
+    bhq, bhk, rows = b * h * sq * d, b * h * sk * d, b * h * sq
+    nbytes, fpp = {
+        "fwd": (2 * (2 * bhq + 2 * bhk) + 4 * (bias_numel + rows), 4 * d),
+        "dq": (2 * (3 * bhq + 2 * bhk) + 4 * (bias_numel + 2 * rows), 6 * d),
+        "dkv": (2 * (2 * bhq + 4 * bhk) + 4 * (bias_numel + 2 * rows),
+                8 * d)}[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = fpp * pairs / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bf16_gap(got, want, limit):
+    """(max |got - want|, the largest ratio of |got - want| to its
+    allowance: one bf16 ulp at the larger of the two plus `limit`)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    allow = fa.bf16_spacing(torch.maximum(g.abs(), w.abs())) + limit
+    return (float(err.max()),
+            float((err / allow.clamp_min(1e-300)).max()))
+
+
+def check_attention_bf16(card):
+    """Phase 15's kernel holds: the three bf16 flash kernels against their
+    bf16 twins (ops/kernels/flash_attention.py) at AMP_ATTN_CASES, by
+    ROADMAP B1's rule (one bf16 ulp of the output plus 1e-5 of its sum of
+    |terms|) with bf16_limits' operand-rounding term (one ulp of each p
+    or ds a product takes in bf16 times its partner, 1.5 for O's p: the
+    kernel computes them in another order than its twin, and the forward
+    rounds p at another scale), timed beside the twin and
+    F.scaled_dot_product_attention in bf16 (for the backward kernels,
+    its whole backward)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = {}
+    for label, (b, h, s, d), kind, causal in AMP_ATTN_CASES:
+        q, k, v, do = (torch.randn(b, h, s, d, device=DEVICE, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        if kind == "dense":
+            bias = torch.full((s, s), -1e9, device=DEVICE).triu(1)
+            bias = bias.expand(b, 1, s, s).contiguous()
+        else:
+            bias = torch.zeros(b, 1, 1, s, device=DEVICE)
+            if kind == "serving":   # phase 2's live key rows
+                bias[..., {c[0]: c[2] for c in ATTN_CASES}[label]:] = -1e9
+        o_t, lse_t = fa.flash_attention_fwd_plain(q, k, v, bias, causal)
+        delta = fa._delta(o_t, do).contiguous()
+        args = (q, k, v, bias, do, lse_t, delta)
+        lim = fa.bf16_limits(*args, causal)
+        got = {"flash_attention_fwd_bf16": (
+                   fa.flash_attention_fwd_bf16(q, k, v, bias, causal)[0], o_t,
+                   lim["o"]),
+               "flash_attention_bwd_dq_bf16": (
+                   fa.flash_attention_bwd_dq_bf16(*args, causal)[0],
+                   fa.flash_attention_bwd_dq_plain(*args, causal)[0],
+                   lim["dq"])}
+        dk, dv = fa.flash_attention_bwd_dkv_bf16(*args, causal)
+        dk_t, dv_t = fa.flash_attention_bwd_dkv_plain(*args, causal)
+        torch.cuda.synchronize()
+        errs = {n: _bf16_gap(*t) for n, t in got.items()}
+        gk, gv = _bf16_gap(dk, dk_t, lim["dk"]), _bf16_gap(dv, dv_t,
+                                                           lim["dv"])
+        errs["flash_attention_bwd_dkv_bf16"] = (max(gk[0], gv[0]),
+                                                max(gk[1], gv[1]))
+        del got, dk, dv, dk_t, dv_t, lim
+        for name, (err, ratio) in errs.items():
+            if not ratio <= 1.0:
+                raise SystemExit(f"{name} disagrees with its bf16 twin at "
+                                 f"{label}: max abs err {err:.3e}, "
+                                 f"{ratio:.3f} of its allowance")
+        pairs = live_pairs(bias, b, h, s, s, causal)
+        mask = bias.to(torch.bfloat16)
+        if causal:
+            mask = mask + torch.full((s, s), NEG_INF_BF16, device=DEVICE,
+                                     dtype=torch.bfloat16).triu(1)
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                 attn_mask=mask)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (lq, lk, lv), do, retain_graph=True), iters=10)
+        lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=10)
+        for name, kernel_fn, plain_fn, kind_ in (
+                ("flash_attention_fwd_bf16",
+                 lambda: fa.flash_attention_fwd_bf16(q, k, v, bias, causal),
+                 lambda: fa.flash_attention_fwd_plain(q, k, v, bias, causal),
+                 "fwd"),
+                ("flash_attention_bwd_dq_bf16",
+                 lambda: fa.flash_attention_bwd_dq_bf16(*args, causal),
+                 lambda: fa.flash_attention_bwd_dq_plain(*args, causal),
+                 "dq"),
+                ("flash_attention_bwd_dkv_bf16",
+                 lambda: fa.flash_attention_bwd_dkv_bf16(*args, causal),
+                 lambda: fa.flash_attention_bwd_dkv_plain(*args, causal),
+                 "dkv")):
+            bound_ms, bound_by = attention_bound_bf16(
+                b, h, s, s, d, pairs, bias.numel(), kind_)
+            row = dict(max_abs_err=errs[name][0],
+                       allowance_ratio=errs[name][1],
+                       ms=cuda_ms(kernel_fn, iters=10),
+                       plain_ms=cuda_ms(plain_fn, iters=3),
+                       library_ms=lib_fwd_ms if kind_ == "fwd"
+                       else lib_bwd_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows[(name, label)] = row
+            print(f"[{card}] {name} B={b} H={h} S={s} D={d} {label} "
+                  f"causal={causal}: max_abs_err={row['max_abs_err']:.3e} "
+                  f"({row['allowance_ratio']:.3f} of B1's allowance) "
+                  f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                  f" library_ms={row['library_ms']:.4f} (bf16 "
+                  f"{'forward' if kind_ == 'fwd' else 'whole backward'}) "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}, dense bf16; "
+                  f"{pairs} live pairs)", flush=True)
+        del lib_out, lq, lk, lv, q, k, v, do, bias, o_t, lse_t, delta, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _median_ms(step_ms):
+    """The median of the steps after the first two (a key's first run and
+    its capture)."""
+    return float(np.median(step_ms[2:]))
+
+
+def train_amp(card, flash32, f32_profiled, resnet32):
+    """Phase 15: the bf16 flash kernels against their twins, then NMT at
+    phase 4's configuration and ResNet-50 at phase 9's under amp_guard()
+    (bench.py's default precision), each beside its float32 arm from the
+    earlier phases (phase 4's flash arm `flash32` and its profiled step
+    `f32_profiled`; phase 14's ResNet-50 pair `resnet32`). Returns the
+    phase's summary, its kernel rows and the NMT flash arm's launches."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import resnet, transformer
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    rows = check_attention_bf16(card)
+    holds_s = time.perf_counter() - t0
+
+    # NMT: (a) AMP + flash, (b) AMP + naive attention, (c) phase 4's
+    # float32 flash arm, from the same weights on the same feed
+    with framework.isolated_name_scope():
+        main, startup, f = transformer.build_train(**TRAIN_CFG)
+    weights = seeded_weights(startup, seed=0)
+    params = [p.name for p in main.all_parameters()]
+    ln, vocab = TRAIN_CFG["max_len"], TRAIN_CFG["trg_vocab"]
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randint(1, vocab, (TRAIN_BATCH, ln, 1)).astype(np.int64)
+            for n in ("src_ids", "trg_ids", "trg_labels")}
+    feed["pos_ids"] = np.arange(ln).astype(np.int64)
+    arms = {}
+    with amp.amp_guard():
+        kernels.reset_launch_counts()
+        arms["amp_flash"] = train_arm(main, startup, f["loss"], weights,
+                                      feed, params, card, "NMT AMP flash",
+                                      profiled=CVE_PROFILED)
+        launches = arms["amp_flash"]["launches"]
+        want = {n: AMP_NMT_LAUNCHES_PER_STEP * TRAIN_STEPS
+                for n in AMP_NMT_KERNELS}
+        got = {n: c for n, c in launches.items() if c}
+        if got != want:
+            raise SystemExit(f"NMT AMP flash launched {got}, expected "
+                             f"{want} ({AMP_NMT_LAUNCHES_PER_STEP} of each "
+                             f"bf16 flash kernel a step, nothing else)")
+        _stamp_naive(main)
+        kernels.reset_launch_counts()
+        arms["amp_naive"] = train_arm(main, startup, f["loss"], weights,
+                                      feed, params, card, "NMT AMP naive",
+                                      profiled=CVE_PROFILED)
+        if any(arms["amp_naive"]["launches"].values()):
+            raise SystemExit(f"NMT AMP naive launched "
+                             f"{arms['amp_naive']['launches']}")
+        _stamp_naive(main, False)
+        with flash_twins():
+            twin = pinned_relu_grads(main, startup, f["loss"], weights,
+                                     feed, params,
+                                     arms["amp_flash"]["relu_signs"])
+    a, b, c = arms["amp_flash"], arms["amp_naive"], flash32
+    for label, arm in arms.items():
+        if not np.all(np.isfinite(arm["losses"])):
+            raise SystemExit(f"NMT {label}: losses {arm['losses']}")
+
+    def gap(x, y):
+        return float(np.linalg.norm(x - y))
+
+    qk = {p + "@GRAD" for p in qk_projection_params(main)}
+    dists = {"loss step 1": (abs(a["losses"][0] - c["losses"][0]),
+                             abs(b["losses"][0] - c["losses"][0]))}
+    for p in params:
+        dists[p + "@GRAD"] = (gap(a["grads"][p], c["grads"][p]),
+                              gap(b["grads"][p], c["grads"][p]))
+    ratios = {q: da / max(db, 1e-30) for q, (da, db) in dists.items()}
+    twin_ratios = {p + "@GRAD": gap(a["grads"][p], twin[p]) / max(
+        gap(twin[p], c["grads"][p]), 1e-30) for p in params}
+    print(f"[{card}] NMT AMP vs float32 (phase 4's flash arm), step 1: "
+          f"|flash - f32| / |naive - f32| (2-norms; factor "
+          f"{AMP_NMT_FACTOR}, Q/K projections * reported only), then "
+          f"|flash - twins| / |twins - f32| (factor {AMP_TWIN_FACTOR}):",
+          flush=True)
+    items = list(ratios.items())
+    for i in range(0, len(items), 3):
+        print("  " + "; ".join(
+            f"{q}{'*' if q in qk else ''} {r:.3f} / "
+            f"{twin_ratios.get(q, 0.0):.3f}" for q, r in items[i:i + 3]),
+            flush=True)
+    fails = {q: r for q, r in ratios.items()
+             if q not in qk and not r <= AMP_NMT_FACTOR}
+    fails.update({q + " (twins)": r for q, r in twin_ratios.items()
+                  if not r <= AMP_TWIN_FACTOR})
+    if fails:
+        raise SystemExit(f"NMT AMP flash: {fails} over their factors "
+                         f"({AMP_NMT_FACTOR} against the naive arm, "
+                         f"{AMP_TWIN_FACTOR} against the twins)")
+    held = [r for q, r in ratios.items() if q not in qk]
+    print(f"[{card}] NMT AMP: losses flash {a['losses']}, naive "
+          f"{b['losses']}, float32 {c['losses']}; against the naive arm up "
+          f"to {max(held):.3f} (loss {ratios['loss step 1']:.3f}; Q/K "
+          f"projections up to {max(ratios[q] for q in qk):.3f}, not held); "
+          f"against the twins up to {max(twin_ratios.values()):.3f}",
+          flush=True)
+    nmt = {"config": dict(TRAIN_CFG, batch=TRAIN_BATCH), "steps": TRAIN_STEPS,
+           "launches_per_step": {n: launches[n] / TRAIN_STEPS
+                                 for n in AMP_NMT_KERNELS},
+           "factor": AMP_NMT_FACTOR, "ratio_max": max(held),
+           "qk_ratio_max": max(ratios[q] for q in qk), "ratios": ratios,
+           "twin_factor": AMP_TWIN_FACTOR,
+           "twin_ratio_max": max(twin_ratios.values()),
+           "twin_ratios": twin_ratios,
+           "f32_flash": {"losses": c["losses"],
+                         "step_ms": _median_ms(c["step_ms"]),
+                         "busy": f32_profiled["device_ms"]
+                         / f32_profiled["wall_ms"],
+                         "peak_bytes": c["peak_bytes"]}}
+    for label, arm in arms.items():
+        nmt[label] = {"losses": arm["losses"],
+                      "step_ms": _median_ms(arm["step_ms"]),
+                      "busy": arm["busy"], "peak_bytes": arm["peak_bytes"]}
+    del arms, a, b, twin, main, startup, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNet-50: compiled against eager under AMP, as phase 14 holds them
+    with framework.isolated_name_scope():
+        main, startup, f = resnet.build_train(**RESNET_CFG)
+    rng = np.random.RandomState(3)
+    feeds = [{"img": rng.rand(RESNET_BATCH, *RESNET_CFG["image_shape"])
+              .astype(np.float32),
+              "label": rng.randint(0, RESNET_CFG["class_dim"],
+                                   (RESNET_BATCH, 1)).astype(np.int64)}
+             for _ in range(2)]
+    with amp.amp_guard():
+        pair = cve_training_pair("resnet50 AMP", main, startup, f["loss"],
+                                 seeded_weights(startup, seed=0), feeds,
+                                 card, steps=AMP_STEPS)
+    for label, arm in pair.items():
+        if arm["launches_per_step"]:
+            raise SystemExit(f"ResNet-50 AMP {label} launched "
+                             f"{arm['launches_per_step']}; no op dispatches "
+                             "a kernel there")
+    amp_loss = pair["compiled"]["losses"][0]
+    f32_loss = resnet32["compiled"]["losses"][0]
+    rel = abs(amp_loss - f32_loss) / abs(f32_loss)
+    print(f"[{card}] ResNet-50 AMP step-1 loss {amp_loss:.6f} vs float32 "
+          f"{f32_loss:.6f}: relative distance {rel:.3e} (limit "
+          f"{AMP_RESNET_LOSS_RTOL})", flush=True)
+    if not rel <= AMP_RESNET_LOSS_RTOL:
+        raise SystemExit(f"ResNet-50 AMP step-1 loss {rel:.3e} from the "
+                         f"float32 arm's, over {AMP_RESNET_LOSS_RTOL}")
+    for label in ("eager", "compiled"):
+        print(f"[{card}] ResNet-50 {label}: float32 "
+              f"{resnet32[label]['step_ms']:.2f} ms a step, "
+              f"{100 * resnet32[label]['busy']:.1f}% busy, peak "
+              f"{resnet32[label]['peak_bytes'] / 2**30:.2f} GiB; AMP "
+              f"{pair[label]['step_ms']:.2f} ms, "
+              f"{100 * pair[label]['busy']:.1f}% busy, peak "
+              f"{pair[label]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    for label in ("f32_flash", "amp_flash", "amp_naive"):
+        arm = nmt[label]
+        print(f"[{card}] NMT {label}: {arm['step_ms']:.2f} ms a step, "
+              f"{100 * arm['busy']:.1f}% busy, peak "
+              f"{arm['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    resnet_out = {"config": dict(RESNET_CFG, batch=RESNET_BATCH),
+                  "steps": AMP_STEPS, "loss_rel_to_f32": rel,
+                  "amp": pair,
+                  "f32": {k: {x: resnet32[k][x] for x in
+                              ("step_ms", "busy", "peak_bytes", "losses")}
+                          for k in ("eager", "compiled")}}
+    summary = {"card": card, "kernel_holds_s": holds_s,
+               "kernels": {f"{n} {label}": r for (n, label), r in
+                           rows.items()},
+               "nmt": nmt, "resnet50": resnet_out,
+               "phase_s": time.perf_counter() - t0}
+    return summary, rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3952,7 +4367,7 @@ def main() -> int:
     del gpu, cpu
 
     # -- 4. train at Transformer-base width ----------------------------------
-    training, train_launches = train(card)
+    training, train_launches, flash32 = train(card)
 
     # -- 5. train the stacked-LSTM LM ----------------------------------------
     lstm_training, lstm_launches = train_lstm(card)
@@ -3981,11 +4396,16 @@ def main() -> int:
     # -- 14. the eager arm beside the compiled arm ---------------------------
     compiled = compiled_vs_eager(card)
 
-    # -- 15. result lines ------------------------------------------------------
+    # -- 15. bf16 AMP: the bf16 flash kernels, NMT and ResNet-50 -------------
+    amp_summary, amp_rows, amp_launches = train_amp(
+        card, flash32, training["profiled_step"], compiled["resnet50"])
+    del flash32
+
+    # -- 16. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
-                           + list(gru_rows.items())
+                           + list(gru_rows.items()) + list(amp_rows.items())
                            + list(conv_rows.items()) if n == name}
                     for name in launches}
     by_path = {name: {"serving": launches[name],
@@ -3997,7 +4417,8 @@ def main() -> int:
                       "conv_chain": chain_launches[name],
                       "megakernel_chain": mega_launches[name],
                       "roll_micro": micro_launches[name],
-                      "trainer": trainer_launches[name]}
+                      "trainer": trainer_launches[name],
+                      "amp_training": amp_launches[name]}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -4036,6 +4457,23 @@ def main() -> int:
                                     "library_ms", "fma_bound_ms",
                                     "fma_bound_by", "backward_total_ms",
                                     "backward_library_ms") if k in case}})
+    # the bf16 entry points of the three flash kernels (the Pallas kernels'
+    # bf16 arm): bound_ms at the dense bf16 rate, library_ms the bf16
+    # F.scaled_dot_product_attention forward or its whole backward
+    for name, line in (("flash_attention_fwd_bf16", 61),
+                       ("flash_attention_bwd_dq_bf16", 213),
+                       ("flash_attention_bwd_dkv_bf16", 265)):
+        case = amp_rows[(name, AMP_MAIN_CASES[name])]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_"
+                      f"{'fwd' if 'fwd' in name else 'bwd'}.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "max_abs_err": max(r["max_abs_err"] for (n, _), r in
+                               amp_rows.items() if n == name),
+            "shape": AMP_MAIN_CASES[name],
+            **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "allowance_ratio")}})
     for name, line in (("fused_lstm_fwd", 35), ("fused_lstm_bwd", 66)):
         case = lstm_rows[(name, LSTM_MAIN_CASE)]
         rows.append({
@@ -4148,6 +4586,7 @@ def main() -> int:
     print(json.dumps({"roll_micro": micro}))
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"compiled": compiled}))
+    print(json.dumps({"amp": amp_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,9 +14,11 @@ stacked-LSTM LM (models/lstm_lm.py) and GRU encoder-decoders
 program as an inference model and loads it back. trainer.Trainer runs
 the event loop over readers (reader/, data_feeder.py), with
 asynchronous dispatch, iterations=K and checkpoints
-(distributed/checkpoint.py); models/deepfm.py builds DeepFM. It imports
-neither jax nor paddle_tpu.
+(distributed/checkpoint.py); models/deepfm.py builds DeepFM. amp.py
+turns on bf16 automatic mixed precision (PADDLE_TPU_AMP=1 or
+amp.amp_guard()). It imports neither jax nor paddle_tpu.
 """
+from . import amp  # noqa: F401
 from . import ops  # noqa: F401  (registers every ported op)
 from . import layers  # noqa: F401
 from .core.scope import Scope, global_scope, reset_global_scope  # noqa: F401

@@ -4,7 +4,7 @@ default) or eagerly, op by op.
 The JAX package traces a whole block into one jitted function, cached per
 compile key. The port's form of that is a plan, built once per key
 (`Executor.compile_key`: program uid and version, feed signature, fetch
-list, iterations, stacked_feed, donate_state), held in a
+list, the AMP flag, iterations, stacked_feed, donate_state), held in a
 `CompiledProgram`:
 
 - every op's compute rule (core/registry.py) resolved once, the
@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from .. import flags
+from ..amp import amp_enabled
 from . import dispatch
 from .ir import BlockDesc, OpDesc, Program, SUB_BLOCK_ATTRS
 from .lod import LoDTensor, RaggedPair
@@ -526,13 +527,16 @@ class Executor:
         """The compile-cache key of one (program, feed signature, fetch
         list) combination, in the reference's field layout
         (paddle_tpu/core/executor.py Executor.compile_key). `feed_sig`
-        comes from `feed_signature`. AMP and While bounds are not ported
-        yet: `amp` is always False and `while_bounds` None.
-        `donate=None` reads the process default."""
+        comes from `feed_signature`; `amp=None` reads the ambient AMP
+        state (amp.py), as run() does, so a run under amp_guard and one
+        outside it are two keys. While bounds are not ported yet:
+        `while_bounds` is None. `donate=None` reads the process
+        default."""
         if hasattr(program, "desc"):
             program = program.desc
         return (program.uid, program.version, feed_sig,
-                tuple(fetch_names), block_idx, bool(amp),
+                tuple(fetch_names), block_idx,
+                amp_enabled() if amp is None else bool(amp),
                 tuple(sorted(while_bounds.items())) if while_bounds
                 else None, iterations, stacked_feed,
                 donate_state_default() if donate is None else bool(donate))

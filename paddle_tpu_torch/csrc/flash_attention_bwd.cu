@@ -1,5 +1,7 @@
-// Flash-attention backward, float32, for Hopper (sm_90a): two kernels, both
-// with their products on the tensor cores in 3xTF32.
+// Flash-attention backward for Hopper (sm_90a): two kernels, both with
+// their products on the tensor cores, in float32 (3xTF32) and in bfloat16
+// (one bf16 pass; those kernels and their entry points,
+// flash_attention_bwd_{dq,dkv}_bf16, are at the end of this file).
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // (_bwd): _dq_kernel, which gives dq = scale * sum_k ds * k and, in its
@@ -76,7 +78,8 @@
 // passes: every add into a tensor-core accumulator truncates to the ulp of
 // the running sum, so the small lo terms are summed while it is small
 // (the source test's interleaved mutant errs over 1.5x more; chip_smoke's
-// hold on the Q and K projections' gradients needs it). bias_grad: ds of
+// hold on the Q and K projections' gradients needs it); dk/dv and the
+// forward issue theirs in the same order. bias_grad: ds of
 // every computed tile
 // goes from the accumulator into a zero-filled [B,H,Sq,Sk] buffer; the
 // wrapper sums it over the bias's broadcast dims.
@@ -583,15 +586,20 @@ flash_bwd_dkv_tc_kernel(DkvArgs a) {
       sm90::wgmma_fence();
       sm90::fence_acc(acc);
 #pragma unroll
-      for (int i = 0; i < C::kGroup; ++i) {
-        const int s = s0 + i;
-        const uint64_t bb =
-            sm90::desc_add(bt, (s / 4) * kBQ * 128 + (s % 4) * 32);
-        sm90::wgmma<kBQ, false>(acc, fl[i], bb, s > 0);
-        sm90::wgmma<kBQ, false>(acc, fh[i], sm90::desc_add(bb, C::kRPlane),
-                                1);
-        sm90::wgmma<kBQ, false>(acc, fh[i], bb, 1);
-      }
+      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as dq's
+#pragma unroll
+        for (int i = 0; i < C::kGroup; ++i) {
+          const int s = s0 + i;
+          const uint64_t bb =
+              sm90::desc_add(bt, (s / 4) * kBQ * 128 + (s % 4) * 32);
+          if (pass == 0) {
+            sm90::wgmma<kBQ, false>(acc, fl[i], bb, s > 0);
+            sm90::wgmma<kBQ, false>(acc, fh[i],
+                                    sm90::desc_add(bb, C::kRPlane), 1);
+          } else {
+            sm90::wgmma<kBQ, false>(acc, fh[i], bb, 1);
+          }
+        }
       sm90::wgmma_commit();
       sm90::wgmma_wait0();
       sm90::fence_acc(acc);
@@ -684,13 +692,18 @@ flash_bwd_dkv_tc_kernel(DkvArgs a) {
         sm90::wgmma_fence();
         sm90::fence_acc(part);
 #pragma unroll
-        for (int j = 0; j < kQSteps; ++j) {
-          const uint64_t bj = sm90::desc_add(bn, j * 32);
-          sm90::wgmma<C::kN, false>(part, fl[j], bj, j > 0);
-          sm90::wgmma<C::kN, false>(part, fh[j],
-                                    sm90::desc_add(bj, C::kTPlane), 1);
-          sm90::wgmma<C::kN, false>(part, fh[j], bj, 1);
-        }
+        for (int pass = 0; pass < 2; ++pass)  // lo passes first
+#pragma unroll
+          for (int j = 0; j < kQSteps; ++j) {
+            const uint64_t bj = sm90::desc_add(bn, j * 32);
+            if (pass == 0) {
+              sm90::wgmma<C::kN, false>(part, fl[j], bj, j > 0);
+              sm90::wgmma<C::kN, false>(part, fh[j],
+                                        sm90::desc_add(bj, C::kTPlane), 1);
+            } else {
+              sm90::wgmma<C::kN, false>(part, fh[j], bj, 1);
+            }
+          }
         sm90::wgmma_commit();
         sm90::wgmma_wait0();
         sm90::fence_acc(part);
@@ -740,6 +753,473 @@ cudaError_t launch_dkv(DkvArgs a, int B, cudaStream_t stream) {
   }
   const dim3 grid(flash::cdiv(a.Sk, kBK), B * a.H);
   flash_bwd_dkv_tc_kernel<D><<<grid, kDkvThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// -- bfloat16 ----------------------------------------------------------------
+// Both kernels with bf16 operands, as the Pallas kernels run on bf16
+// inputs: one m64nNk16 bf16 pass a k-step (float32 accumulators), p and
+// ds rebuilt and kept in float32 (dq's bias_grad ds is float32), rounded
+// to bf16 (bf16x2_rn) only as the A fragments of dS.K, P^T.dO and
+// dS^T.Q, and dq, dk, dv stored in bf16; the bias is read as float32.
+// Tiles of 64 on both sides. The rows tiles (K and V for dq; Q and dO for
+// dk/dv) are copied straight from the inputs (copy_rows_bf16), the cols
+// tiles (K^T; Q^T and dO^T) from the planes one pack writes ahead; the
+// accumulators are the next product's A fragments as they lie. Each
+// tile's gradient product goes into fresh registers, added with a
+// rounding add; at D = 128 it goes in two 64-column halves. Bound: 6*D
+// (dq) and 8*D (dk/dv) operations a live pair at the dense bf16 rate (989
+// TFLOP/s); a first, simple version (no TMA producer warp), as the
+// float32 kernels. At D = 128 both spill a little (ptxas: 255 registers).
+
+constexpr int kBT16 = 64;  // rows a bf16 block, and rows a tile
+
+template <int D>
+struct Cfg16 {
+  static constexpr int kDc = flash::dchunks_bf16(D);  // d chunks of rows
+  static constexpr int kRTile = kDc * kBT16 * 128;    // bytes
+  static constexpr int kTTile = D * 128;
+  static constexpr int kN = D <= 64 ? D : 64;  // columns of a product
+  static constexpr int kPitch = D / 2 + 4;     // words between K (V) rows
+                                               // in dk/dv's shared copy
+};
+
+struct DqArgs16 {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  const uint16_t* dout;
+  const float* bias;
+  const float* lse;
+  const float* delta;
+  const uint16_t* ktp;  // cols plane of K
+  uint16_t* dq;
+  float* dbias;  // the full-shape ds, or null
+  int H, Sq, Sk;
+  long long bs_b, bs_h, bs_q, bs_k;
+  int causal;
+  float scale;
+};
+
+// the A fragments of k-step st (rows r0 and r0 + 8, columns 16st + 2t,
+// + 1 and 16st + 8 + 2t, + 1) of rows of the bf16 [S][D] matrix m, rows
+// past `rows` zeros
+template <int D>
+__device__ __forceinline__ void global_fragment_bf16(const uint16_t* m,
+                                                     int rows, int r0,
+                                                     int st, int t,
+                                                     uint32_t (&a)[4]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(m);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = e & 1 ? r0 + 8 : r0;
+    a[e] = row < rows ? w[static_cast<size_t>(row) * (D / 2) + 8 * st + t +
+                          (e & 2 ? 4 : 0)]
+                      : 0u;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_bf16_kernel(DqArgs16 a) {
+  using C = Cfg16<D>;
+  constexpr int kS = kBT16 / 2;  // S and dP accumulator registers
+  constexpr int kO = D / 2;      // dq accumulator registers
+  constexpr int kDSteps = D / 16, kKSteps = kBT16 / 16;
+
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(sm90::dyn_smem()) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  unsigned char* ks = base;             // K rows
+  unsigned char* vs = ks + C::kRTile;   // V rows
+  unsigned char* ts = vs + C::kRTile;   // K^T
+  const uint64_t kd = sm90::b_desc(ks), vd = sm90::b_desc(vs),
+                 td = sm90::b_desc(ts);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kBT16;
+  const int lr0 = warp * 16 + g;
+  const int qr0 = q0 + lr0, qr1 = qr0 + 8;
+  const long long sp = flash::pad_rows(a.Sk);
+
+  // Q's and dO's fragments, once a block
+  uint32_t qf[kDSteps][4], df[kDSteps][4];
+  {
+    const uint16_t* qb = a.q + static_cast<size_t>(bh) * a.Sq * D;
+    const uint16_t* dob = a.dout + static_cast<size_t>(bh) * a.Sq * D;
+#pragma unroll
+    for (int st = 0; st < kDSteps; ++st) {
+      global_fragment_bf16<D>(qb, a.Sq, qr0, st, t, qf[st]);
+      global_fragment_bf16<D>(dob, a.Sq, qr0, st, t, df[st]);
+    }
+  }
+  const float lse0 = qr0 < a.Sq ? a.lse[static_cast<size_t>(bh) * a.Sq + qr0]
+                                : 0.f;
+  const float lse1 = qr1 < a.Sq ? a.lse[static_cast<size_t>(bh) * a.Sq + qr1]
+                                : 0.f;
+  const float dl0 = qr0 < a.Sq ? a.delta[static_cast<size_t>(bh) * a.Sq + qr0]
+                               : 0.f;
+  const float dl1 = qr1 < a.Sq ? a.delta[static_cast<size_t>(bh) * a.Sq + qr1]
+                               : 0.f;
+
+  int n_tiles = flash::cdiv(a.Sk, kBT16);
+  if (a.causal) {
+    const int last = (q0 + kBT16 - 1) / kBT16 + 1;
+    n_tiles = n_tiles < last ? n_tiles : last;
+  }
+  const uint16_t* kb = a.k + static_cast<size_t>(bh) * a.Sk * D;
+  const uint16_t* vb = a.v + static_cast<size_t>(bh) * a.Sk * D;
+  const uint16_t* tb = a.ktp + static_cast<long long>(bh) * (sp / 64) * D * 64;
+  auto issue_rows = [&](int kt) {
+    flash::copy_rows_bf16(ks, kb, kt * kBT16, kBT16, a.Sk, D, kDqThreads);
+    flash::copy_rows_bf16(vs, vb, kt * kBT16, kBT16, a.Sk, D, kDqThreads);
+  };
+  auto issue_cols = [&](int kt) {
+    flash::copy_plane_bf16(ts, tb + static_cast<long long>(kt) * D * 64, D,
+                           kDqThreads);
+  };
+
+  const float* brow0 = nullptr;
+  const float* brow1 = nullptr;
+  if (a.bias != nullptr) {
+    const float* bb = a.bias + b * a.bs_b + h * a.bs_h;
+    brow0 = bb + (qr0 < a.Sq ? qr0 : a.Sq - 1) * a.bs_q;
+    brow1 = bb + (qr1 < a.Sq ? qr1 : a.Sq - 1) * a.bs_q;
+  }
+
+  float dq[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) dq[i] = 0.f;
+
+  issue_rows(0);
+  sm90::cp_async_commit();
+  issue_cols(0);
+  sm90::cp_async_commit();
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    sm90::cp_async_wait(1);  // this thread's copies of the rows (tile kt)
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's
+    const int k0 = kt * kBT16;
+
+    // S = Q.K^T and dP = dO.V^T
+    float s[kS], dp[kS];
+    sm90::wgmma_fence();
+    sm90::fence_acc(s);
+    sm90::fence_acc(dp);
+#pragma unroll
+    for (int st = 0; st < kDSteps; ++st) {
+      const int off = (st / 4) * kBT16 * 128 + (st % 4) * 32;
+      sm90::wgmma<kBT16, true>(s, qf[st], sm90::desc_add(kd, off), st > 0);
+      sm90::wgmma<kBT16, true>(dp, df[st], sm90::desc_add(vd, off), st > 0);
+    }
+    sm90::wgmma_commit();
+    const bool edge = k0 + kBT16 > a.Sk || (a.causal && k0 + kBT16 - 1 > q0);
+    float bv[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      bv[i] = brow0 != nullptr && col < a.Sk
+                  ? (i & 2 ? brow1 : brow0)[col * a.bs_k]
+                  : 0.f;
+    }
+    sm90::wgmma_wait0();
+    sm90::fence_acc(s);
+    sm90::fence_acc(dp);
+    __syncthreads();  // every thread's products have read the rows
+    if (kt + 1 < n_tiles) issue_rows(kt + 1);
+    sm90::cp_async_commit();
+
+    // p = exp(s - lse), ds = p (dp - delta) in float32, with the masks in
+    // the reference's order; bias_grad: ds into the full-shape buffer
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int row = i & 2 ? qr1 : qr0;
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      float x = s[i] * a.scale + bv[i];
+      if (edge) {
+        if (col >= a.Sk) x = kNegInf;
+        if (a.causal && row < col) x = kNegInf;
+      }
+      const float p = row < a.Sq ? __expf(x - (i & 2 ? lse1 : lse0)) : 0.f;
+      const float ds = p * (dp[i] - (i & 2 ? dl1 : dl0));
+      s[i] = ds;
+      if (a.dbias != nullptr && row < a.Sq && col < a.Sk)
+        a.dbias[(static_cast<size_t>(bh) * a.Sq + row) * a.Sk + col] = ds;
+    }
+
+    // dq += dS.K, dS rounded to bf16 as the A fragments
+    uint32_t sf[kKSteps][4];
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j) flash::acc_fragment_bf16(s, j, sf[j]);
+    sm90::cp_async_wait(1);  // this thread's copies of K^T (tile kt)
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += C::kN) {
+      float tile_sum[C::kN / 2];
+      sm90::wgmma_fence();
+      sm90::fence_acc(tile_sum);
+#pragma unroll
+      for (int j = 0; j < kKSteps; ++j)
+        sm90::wgmma<C::kN, true>(tile_sum, sf[j],
+                                 sm90::desc_add(td, n0 * 128 + j * 32), j > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_acc(tile_sum);
+#pragma unroll
+      for (int i = 0; i < C::kN / 2; ++i) dq[n0 / 2 + i] += tile_sum[i];
+    }
+    __syncthreads();  // every thread's dS.K has read K^T: refill it
+    if (kt + 1 < n_tiles) issue_cols(kt + 1);
+    sm90::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? qr1 : qr0;
+    if (row >= a.Sq) continue;
+    uint16_t* drow = a.dq + (static_cast<size_t>(bh) * a.Sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * t) = sm90::bf16x2_rn(
+          a.scale * dq[4 * j + 2 * r], a.scale * dq[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq16(DqArgs16 a, int B, cudaStream_t stream) {
+  using C = Cfg16<D>;
+  const int smem = 1024 + 2 * C::kRTile + C::kTTile;
+  if (smem > flash::max_dynamic_smem()) return cudaErrorInvalidConfiguration;
+  static int allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  const dim3 grid(flash::cdiv(a.Sq, kBT16), B * a.H);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kDqThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+struct DkvArgs16 {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  const uint16_t* dout;
+  const float* bias;
+  const float* lse;
+  const float* delta;
+  const uint16_t* qtp;   // cols plane of Q
+  const uint16_t* dotp;  // cols plane of dO
+  uint16_t* dk;
+  uint16_t* dv;
+  int H, Sq, Sk;
+  long long bs_b, bs_h, bs_q, bs_k;
+  int causal;
+  float scale;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_bf16_kernel(DkvArgs16 a) {
+  using C = Cfg16<D>;
+  constexpr int kS = kBT16 / 2;  // S^T and dP^T accumulator registers
+  constexpr int kO = D / 2;      // dK and dV accumulator registers
+  constexpr int kDSteps = D / 16, kQSteps = kBT16 / 16;
+  // K and V as bf16 in shared memory, C::kPitch words a row
+  constexpr int kKV = (2 * kBT16 * C::kPitch * 4 + 1023) / 1024 * 1024;
+
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(sm90::dyn_smem()) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  uint32_t* kw = reinterpret_cast<uint32_t*>(base);  // K, then V
+  uint32_t* vw = kw + kBT16 * C::kPitch;
+  unsigned char* qs = base + kKV;        // Q rows
+  unsigned char* ds_ = qs + C::kRTile;   // dO rows
+  unsigned char* qts = ds_ + C::kRTile;  // Q^T
+  unsigned char* dts = qts + C::kTTile;  // dO^T
+  const uint64_t qd = sm90::b_desc(qs), dd = sm90::b_desc(ds_),
+                 qtd = sm90::b_desc(qts), dtd = sm90::b_desc(dts);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * kBT16;
+  const int lr0 = warp * 16 + g;
+  const int kr0 = k0 + lr0, kr1 = kr0 + 8;
+  const long long sp = flash::pad_rows(a.Sq);
+
+  {  // K and V rows into shared memory (rows past Sk are zeros)
+    const uint32_t* kg = reinterpret_cast<const uint32_t*>(
+        a.k + static_cast<size_t>(bh) * a.Sk * D);
+    const uint32_t* vg = reinterpret_cast<const uint32_t*>(
+        a.v + static_cast<size_t>(bh) * a.Sk * D);
+    for (int i = tid; i < kBT16 * (D / 2); i += kDkvThreads) {
+      const int r = i / (D / 2), w = i % (D / 2);
+      const bool in = k0 + r < a.Sk;
+      const size_t at = static_cast<size_t>(k0 + r) * (D / 2) + w;
+      kw[r * C::kPitch + w] = in ? kg[at] : 0u;
+      vw[r * C::kPitch + w] = in ? vg[at] : 0u;
+    }
+  }
+
+  const int n_tiles = flash::cdiv(a.Sq, kBT16);
+  const int first = a.causal ? k0 / kBT16 : 0;
+  const uint16_t* qb = a.q + static_cast<size_t>(bh) * a.Sq * D;
+  const uint16_t* dob = a.dout + static_cast<size_t>(bh) * a.Sq * D;
+  const long long tb = static_cast<long long>(bh) * (sp / 64) * D * 64;
+  auto issue_rows = [&](int qt) {
+    flash::copy_rows_bf16(qs, qb, qt * kBT16, kBT16, a.Sq, D, kDkvThreads);
+    flash::copy_rows_bf16(ds_, dob, qt * kBT16, kBT16, a.Sq, D, kDkvThreads);
+  };
+  auto issue_cols = [&](int qt) {
+    const long long at = tb + static_cast<long long>(qt) * D * 64;
+    flash::copy_plane_bf16(qts, a.qtp + at, D, kDkvThreads);
+    flash::copy_plane_bf16(dts, a.dotp + at, D, kDkvThreads);
+  };
+
+  float dk[kO], dv[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) dk[i] = dv[i] = 0.f;
+
+  if (first < n_tiles) issue_rows(first);
+  sm90::cp_async_commit();
+  if (first < n_tiles) issue_cols(first);
+  sm90::cp_async_commit();
+  for (int qt = first; qt < n_tiles; ++qt) {
+    sm90::cp_async_wait(1);  // this thread's copies of the rows (tile qt)
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's (and K and V)
+    const int q0 = qt * kBT16;
+
+    // S^T = K.Q^T and dP^T = V.dO^T, K's and V's fragments read from
+    // shared memory a k-step at a time
+    float sT[kS], dpT[kS];
+    sm90::wgmma_fence();
+    sm90::fence_acc(sT);
+    sm90::fence_acc(dpT);
+#pragma unroll
+    for (int st = 0; st < kDSteps; ++st) {
+      uint32_t kf[4], vf[4];
+      flash::row_fragment_bf16(kw, C::kPitch, lr0, st, t, kf);
+      flash::row_fragment_bf16(vw, C::kPitch, lr0, st, t, vf);
+      const int off = (st / 4) * kBT16 * 128 + (st % 4) * 32;
+      sm90::wgmma<kBT16, true>(sT, kf, sm90::desc_add(qd, off), st > 0);
+      sm90::wgmma<kBT16, true>(dpT, vf, sm90::desc_add(dd, off), st > 0);
+    }
+    sm90::wgmma_commit();
+    // lse and delta of this thread's query columns, the bias of its (key
+    // row, query column) pairs, while the tensor cores run
+    float lq[kS / 2], dl[kS / 2], bv[kS];
+#pragma unroll
+    for (int i = 0; i < kS / 2; ++i) {
+      const int col = q0 + 8 * (i / 2) + 2 * t + (i & 1);
+      const size_t at = static_cast<size_t>(bh) * a.Sq + col;
+      lq[i] = col < a.Sq ? a.lse[at] : 0.f;
+      dl[i] = col < a.Sq ? a.delta[at] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int row = i & 2 ? kr1 : kr0;
+      const int col = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+      bv[i] = a.bias != nullptr && col < a.Sq && row < a.Sk
+                  ? a.bias[b * a.bs_b + h * a.bs_h + col * a.bs_q +
+                           row * a.bs_k]
+                  : 0.f;
+    }
+    sm90::wgmma_wait0();
+    sm90::fence_acc(sT);
+    sm90::fence_acc(dpT);
+    __syncthreads();  // every thread's products have read the rows
+    if (qt + 1 < n_tiles) issue_rows(qt + 1);
+    sm90::cp_async_commit();
+
+    // p = exp(s - lse), ds = p (dp - delta) in float32, with the masks in
+    // the reference's order
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int row = i & 2 ? kr1 : kr0;
+      const int col = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const int c = 2 * (i / 4) + (i & 1);
+      float x = sT[i] * a.scale + bv[i];
+      if (row >= a.Sk) x = kNegInf;
+      if (a.causal && col < row) x = kNegInf;
+      const float p = col < a.Sq ? __expf(x - lq[c]) : 0.f;
+      sT[i] = p;
+      dpT[i] = p * (dpT[i] - dl[c]);
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q, P and dS rounded to bf16 as the A
+    // fragments
+    auto product = [&](const float (&acc)[kS], uint64_t bt,
+                       float (&sum)[kO]) {
+      uint32_t af[kQSteps][4];
+#pragma unroll
+      for (int j = 0; j < kQSteps; ++j) flash::acc_fragment_bf16(acc, j, af[j]);
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += C::kN) {
+        float tile_sum[C::kN / 2];
+        sm90::wgmma_fence();
+        sm90::fence_acc(tile_sum);
+#pragma unroll
+        for (int j = 0; j < kQSteps; ++j)
+          sm90::wgmma<C::kN, true>(tile_sum, af[j],
+                                   sm90::desc_add(bt, n0 * 128 + j * 32),
+                                   j > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait0();
+        sm90::fence_acc(tile_sum);
+#pragma unroll
+        for (int i = 0; i < C::kN / 2; ++i) sum[n0 / 2 + i] += tile_sum[i];
+      }
+    };
+    sm90::cp_async_wait(1);  // this thread's copies of the columns
+    sm90::fence_proxy_async();
+    __syncthreads();         // and every thread's
+    product(sT, dtd, dv);    // dO^T
+    product(dpT, qtd, dk);   // Q^T
+    __syncthreads();  // every thread's products have read the columns
+    if (qt + 1 < n_tiles) issue_cols(qt + 1);
+    sm90::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? kr1 : kr0;
+    if (row >= a.Sk) continue;
+    const size_t at = (static_cast<size_t>(bh) * a.Sk + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<uint32_t*>(a.dk + at + 8 * j + 2 * t) =
+          sm90::bf16x2_rn(a.scale * dk[i], a.scale * dk[i + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv + at + 8 * j + 2 * t) =
+          sm90::bf16x2_rn(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv16(DkvArgs16 a, int B, cudaStream_t stream) {
+  using C = Cfg16<D>;
+  constexpr int kKV = (2 * kBT16 * C::kPitch * 4 + 1023) / 1024 * 1024;
+  const int smem = 1024 + kKV + 2 * (C::kRTile + C::kTTile);
+  if (smem > flash::max_dynamic_smem()) return cudaErrorInvalidConfiguration;
+  static int allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  const dim3 grid(flash::cdiv(a.Sk, kBT16), B * a.H);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kDkvThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -863,6 +1343,132 @@ extern "C" int flash_attention_bwd_dkv_f32(
     case 32: return launch_dkv<32>(a, B, s);
     case 64: return launch_dkv<64>(a, B, s);
     default: return launch_dkv<128>(a, B, s);
+  }
+}
+
+// Bytes of the scratch flash_attention_bwd_dq_bf16 needs: K's bf16 cols
+// plane.
+extern "C" long long flash_attention_bwd_dq_bf16_scratch_bytes(int B, int H,
+                                                                int Sq, int Sk,
+                                                                int D) {
+  (void)Sq;
+  return 2LL * flash::cols_plane(B * H, Sk, D);
+}
+
+// Bytes of the scratch flash_attention_bwd_dkv_bf16 needs: the bf16 cols
+// planes of Q and dO.
+extern "C" long long flash_attention_bwd_dkv_bf16_scratch_bytes(int B, int H,
+                                                                 int Sq,
+                                                                 int Sk,
+                                                                 int D) {
+  (void)Sk;
+  return 2LL * 2 * flash::cols_plane(B * H, Sq, D);
+}
+
+namespace {
+
+// the bf16 inputs the kernels copy with cp.async must be 16-byte aligned
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+}  // namespace
+
+// dq [B,H,Sq,D] (bf16) of bf16 q, k, v and dO and float32 lse, delta and
+// bias; with dbias not null, the full-shape float32 ds into dbias
+// [B,H,Sq,Sk] (which the caller zero-fills); scratch of
+// flash_attention_bwd_dq_bf16_scratch_bytes().
+extern "C" int flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout, const float* lse, const float* delta, void* dq,
+    float* dbias, void* scratch, int B, int H, int Sq, int Sk, int D,
+    long long bias_stride_b, long long bias_stride_h,
+    long long bias_stride_q, long long bias_stride_k, int causal,
+    float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DqArgs16 a;
+  a.q = static_cast<const uint16_t*>(q);
+  a.k = static_cast<const uint16_t*>(k);
+  a.v = static_cast<const uint16_t*>(v);
+  a.dout = static_cast<const uint16_t*>(dout);
+  a.bias = bias;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = static_cast<uint16_t*>(dq);
+  a.dbias = dbias;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  uint16_t* ktp = static_cast<uint16_t*>(scratch);
+  a.ktp = ktp;
+  a.bs_b = bias_stride_b;
+  a.bs_h = bias_stride_h;
+  a.bs_q = bias_stride_q;
+  a.bs_k = bias_stride_k;
+  a.causal = causal;
+  a.scale = sm_scale;
+  const cudaError_t err =
+      flash::pack_cols_bf16(a.k, ktp, B * H, Sk, D, s);
+  if (err != cudaSuccess) return err;
+  switch (D) {
+    case 16: return launch_dq16<16>(a, B, s);
+    case 32: return launch_dq16<32>(a, B, s);
+    case 64: return launch_dq16<64>(a, B, s);
+    default: return launch_dq16<128>(a, B, s);
+  }
+}
+
+// dk, dv [B,H,Sk,D] (bf16); scratch of
+// flash_attention_bwd_dkv_bf16_scratch_bytes().
+extern "C" int flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout, const float* lse, const float* delta, void* dk,
+    void* dv, void* scratch, int B, int H, int Sq, int Sk, int D,
+    long long bias_stride_b, long long bias_stride_h,
+    long long bias_stride_q, long long bias_stride_k, int causal,
+    float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DkvArgs16 a;
+  a.q = static_cast<const uint16_t*>(q);
+  a.k = static_cast<const uint16_t*>(k);
+  a.v = static_cast<const uint16_t*>(v);
+  a.dout = static_cast<const uint16_t*>(dout);
+  a.bias = bias;
+  a.lse = lse;
+  a.delta = delta;
+  a.dk = static_cast<uint16_t*>(dk);
+  a.dv = static_cast<uint16_t*>(dv);
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  const long long plane = flash::cols_plane(B * H, Sq, D);
+  uint16_t* qtp = static_cast<uint16_t*>(scratch);
+  uint16_t* dotp = qtp + plane;
+  a.qtp = qtp;
+  a.dotp = dotp;
+  a.bs_b = bias_stride_b;
+  a.bs_h = bias_stride_h;
+  a.bs_q = bias_stride_q;
+  a.bs_k = bias_stride_k;
+  a.causal = causal;
+  a.scale = sm_scale;
+  cudaError_t err = flash::pack_cols_bf16(a.q, qtp, B * H, Sq, D, s);
+  if (err == cudaSuccess)
+    err = flash::pack_cols_bf16(a.dout, dotp, B * H, Sq, D, s);
+  if (err != cudaSuccess) return err;
+  switch (D) {
+    case 16: return launch_dkv16<16>(a, B, s);
+    case 32: return launch_dkv16<32>(a, B, s);
+    case 64: return launch_dkv16<64>(a, B, s);
+    default: return launch_dkv16<128>(a, B, s);
   }
 }
 

@@ -1,7 +1,8 @@
-// Tiles of the flash-attention kernels on the tensor cores (3xTF32): the
-// packed operand planes in device memory, the kernels that pack them, and
-// the copies and stores that put them into the 128-byte-swizzled shared
-// tiles wgmma reads (csrc/sm90_mma.cuh states that layout).
+// Tiles of the flash-attention kernels on the tensor cores (3xTF32 in
+// float32, one pass in bfloat16): the packed operand planes in device
+// memory, the kernels that pack them, and the copies and stores that put
+// them into the 128-byte-swizzled shared tiles wgmma reads
+// (csrc/sm90_mma.cuh states that layout). The bf16 part is at the end.
 //
 // wgmma takes a TF32 B operand only K-major (the reduction index
 // contiguous), and 3xTF32 needs each operand as hi = tf32(v) and lo =
@@ -190,6 +191,109 @@ __device__ __forceinline__ void store_split(unsigned char* dst, int rows,
   const int off = (e / 32) * rows * 128 + swz(r, (e % 32) / 4) + (e % 4) * 4;
   *reinterpret_cast<uint32_t*>(dst + off) = hi;
   *reinterpret_cast<uint32_t*>(dst + plane_bytes + off) = lo;
+}
+
+// -- bfloat16 ----------------------------------------------------------------
+// The bf16 kernels split nothing: a B tile is one plane of bf16, 64 values
+// (128 bytes) a swizzled row and 16 values (32 bytes) a k-step. The B of a
+// product that reduces over d (Q.K^T: K; dO.V^T: V; K.Q^T: Q; V.dO^T: dO)
+// is read straight from the [BH][S][D] input by cp.async (copy_rows_bf16:
+// the pieces past S or D zero-filled); the B of one that reduces over s
+// (P.V: V^T; dS.K: K^T; P^T.dO: dO^T; dS^T.Q: Q^T) from a cols plane
+// [BH][Sp / 64][D][64] that pack_cols_bf16 writes ahead (rows past S
+// zeros). A bf16 product's accumulator is the next product's A fragment
+// as it lies: its columns 16j + 2t, 16j + 2t + 1 and 16j + 8 + 2t,
+// 16j + 9 + 2t are words t and t + 4 of k-step j, so no pack permutes.
+
+// src [bh][s][d] bf16 -> the bf16 cols plane. A block transposes a
+// 64-row x 32-column tile through shared memory.
+__global__ void __launch_bounds__(kPackThreads)
+pack_cols_bf16_kernel(const uint16_t* __restrict__ src,
+                      uint16_t* __restrict__ dst, int s, int d) {
+  __shared__ uint16_t tile[64][34];
+  const long long sp = pad_rows(s);
+  const int r0 = blockIdx.x * 64, d0 = blockIdx.y * 32, b = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int r = ty; r < 64; r += kPackThreads / 32) {
+    const int row = r0 + r, e = d0 + tx;
+    tile[r][tx] = row < s && e < d
+                      ? src[(static_cast<long long>(b) * s + row) * d + e]
+                      : static_cast<uint16_t>(0);
+  }
+  __syncthreads();
+  for (int c = ty; c < 32; c += kPackThreads / 32) {  // packed row d0 + c
+    if (d0 + c >= d) continue;
+    const long long at =
+        ((static_cast<long long>(b) * (sp / 64) + r0 / 64) * d + d0 + c) *
+            64 + 2 * tx;
+    *reinterpret_cast<uint32_t*>(dst + at) =
+        static_cast<uint32_t>(tile[2 * tx][c]) |
+        (static_cast<uint32_t>(tile[2 * tx + 1][c]) << 16);
+  }
+}
+
+inline cudaError_t pack_cols_bf16(const uint16_t* src, uint16_t* dst, int bh,
+                                  int s, int d, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(pad_rows(s) / 64), cdiv(d, 32), bh);
+  pack_cols_bf16_kernel<<<grid, kPackThreads, 0, stream>>>(src, dst, s, d);
+  return cudaGetLastError();
+}
+
+// d chunks of 64 values a bf16 rows tile holds (D 16 and 32 are padded to
+// one chunk with zeros)
+__host__ __device__ constexpr int dchunks_bf16(int d) {
+  return d <= 64 ? 1 : d / 64;
+}
+
+// Copies, by the calling block's `threads` threads, rows n0 .. n0 + rows - 1
+// of the bf16 [s][d] matrix at src into the swizzled tiles at dst, chunk c
+// (values 64c .. 64c + 63 of each row) rows * 128 bytes on; rows past s and
+// values past d are zero-filled.
+__device__ __forceinline__ void copy_rows_bf16(unsigned char* dst,
+                                               const uint16_t* src, int n0,
+                                               int rows, int s, int d,
+                                               int threads) {
+  const int per_row = dchunks_bf16(d) * 8;
+  for (int i = threadIdx.x; i < rows * per_row; i += threads) {
+    const int n = i / per_row, c = (i % per_row) / 8, q = i % 8;
+    const int e = c * 64 + q * 8;
+    const bool in = n0 + n < s && e < d;
+    sm90::cp_async16(dst + c * rows * 128 + swz(n, q),
+                     in ? src + static_cast<long long>(n0 + n) * d + e : src,
+                     in ? 16 : 0);
+  }
+}
+
+// Copies `rows` rows of 128 bytes from src (rows 64 bf16 apart) into the
+// swizzled tile at dst.
+__device__ __forceinline__ void copy_plane_bf16(unsigned char* dst,
+                                                const uint16_t* src,
+                                                int rows, int threads) {
+  for (int i = threadIdx.x; i < rows * 8; i += threads) {
+    const int n = i / 8, q = i % 8;
+    sm90::cp_async16(dst + swz(n, q), src + n * 64 + q * 8, 16);
+  }
+}
+
+// The A fragment of one bf16 k-step (16 columns) from a 64 x N float32
+// accumulator, columns 16j .. 16j + 15, rounded to nearest-even bf16.
+__device__ __forceinline__ void acc_fragment_bf16(const float* acc, int j,
+                                                  uint32_t (&a)[4]) {
+  a[0] = sm90::bf16x2_rn(acc[8 * j], acc[8 * j + 1]);
+  a[1] = sm90::bf16x2_rn(acc[8 * j + 2], acc[8 * j + 3]);
+  a[2] = sm90::bf16x2_rn(acc[8 * j + 4], acc[8 * j + 5]);
+  a[3] = sm90::bf16x2_rn(acc[8 * j + 6], acc[8 * j + 7]);
+}
+
+// The A fragment of bf16 k-step `s` of rows r0 and r0 + 8 of a row-major
+// bf16 matrix m whose rows are `pitch` 32-bit words apart.
+__device__ __forceinline__ void row_fragment_bf16(const uint32_t* m, int pitch,
+                                                  int r0, int s, int t,
+                                                  uint32_t (&a)[4]) {
+  a[0] = m[r0 * pitch + 8 * s + t];
+  a[1] = m[(r0 + 8) * pitch + 8 * s + t];
+  a[2] = m[r0 * pitch + 8 * s + t + 4];
+  a[3] = m[(r0 + 8) * pitch + 8 * s + t + 4];
 }
 
 }  // namespace flash

@@ -132,7 +132,8 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t desc, int bytes) {
 }
 
 // d[64 x N] = A[64 x K] * B[K x N] (+ d when accumulate is nonzero) for
-// one k-step of one warpgroup: K = 16 bf16 (kBf16) or 8 tf32, float32
+// one k-step of one warpgroup (N 16, 32, 64 or 128): K = 16 bf16 (kBf16)
+// or 8 tf32, float32
 // accumulators, A from registers, B from the shared tile of descriptor
 // `b` (or at address `b`, below). Issued asynchronously: wgmma_commit
 // and wgmma_wait0 complete it. The tensor cores' float32 accumulation
@@ -147,6 +148,32 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2],
 #define D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma<16, true>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32, true>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma<64, true>(

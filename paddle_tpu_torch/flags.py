@@ -11,6 +11,13 @@ from typing import Dict
 
 # name -> (default, where it is read, what it does)
 FLAGS: Dict[str, tuple] = {
+    "PADDLE_TPU_AMP": (
+        "0", "amp.py",
+        "\"1\" turns bf16 automatic mixed precision on for the process "
+        "(read at import; amp.enable / amp.amp_guard change it after): "
+        "mul and conv2d take bf16 operands and return bf16, a mixed "
+        "bf16/float32 elementwise pair computes in bf16. Part of the "
+        "compile key"),
     "PADDLE_TPU_FLASH_MIN_SEQ": (
         "512", "ops/nn_ops.py",
         "minimum query and key length at which scaled_dot_product_attention "

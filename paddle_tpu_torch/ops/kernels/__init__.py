@@ -6,7 +6,10 @@ One module per kernel family, named after the TPU kernels it replaces in
 """
 from .block_megakernel import bottleneck_block, roll_micro_block  # noqa: F401
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
-                              flash_attention_bwd_dq, flash_attention_fwd,
+                              flash_attention_bwd_dkv_bf16,
+                              flash_attention_bwd_dq,
+                              flash_attention_bwd_dq_bf16,
+                              flash_attention_fwd, flash_attention_fwd_bf16,
                               flash_attention_fwd_plain)
 from .fused_conv import conv1x1_bn_act, conv3x3_bn_act  # noqa: F401
 from .fused_gru import fused_gru_bwd, fused_gru_fwd  # noqa: F401
@@ -16,6 +19,9 @@ from .fused_lstm import fused_lstm_bwd, fused_lstm_fwd  # noqa: F401
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+           "flash_attention_fwd_bf16": flash_attention_fwd_bf16,
+           "flash_attention_bwd_dq_bf16": flash_attention_bwd_dq_bf16,
+           "flash_attention_bwd_dkv_bf16": flash_attention_bwd_dkv_bf16,
            "fused_lstm_fwd": fused_lstm_fwd,
            "fused_lstm_bwd": fused_lstm_bwd,
            "fused_gru_fwd": fused_gru_fwd,

@@ -12,10 +12,18 @@ flash_attention.py``:
                                 (csrc/flash_attention_bwd.cu)
 
 Each CUDA source's header says what bounds it on an H100 and how the
-design answers that. All three kernels run their products on the tensor
-cores in 3xTF32; each call first packs its B operands into TF32 hi/lo
-planes, in a scratch buffer the wrapper allocates (``torch.empty``, sized
-by the library's ``*_scratch_bytes``).
+design answers that. Each kernel has a float32 and a bfloat16 entry
+point, as the Pallas kernels take either dtype. In float32 all three run
+their products on the tensor cores in 3xTF32; each call first packs its
+B operands into TF32 hi/lo planes, in a scratch buffer the wrapper
+allocates (``torch.empty``, sized by the library's ``*_scratch_bytes``).
+In bfloat16 they run one bf16 pass a k-step with float32 accumulators,
+round P and dS to bf16 before the products that take them, as the
+Pallas kernels do, and write O, dq, dk and dv in bf16; softmax
+statistics, lse and delta stay float32 and the bias is read as float32.
+The bf16 entry points count their launches under their own names
+(``flash_attention_fwd_bf16``, ``flash_attention_bwd_dq_bf16``,
+``flash_attention_bwd_dkv_bf16``).
 ``flash_attention_bwd`` runs the whole backward (delta = rowsum(dO * O)
 in torch, as the JAX package computes it outside its kernels, then both
 kernels); ``FlashAttention`` is the torch.autograd.Function over the
@@ -51,21 +59,31 @@ def _bias_4d(bias: torch.Tensor) -> torch.Tensor:
     return bias
 
 
+def _rounded(x, dtype):
+    """x rounded to `dtype` and back: the Pallas kernels cast P and dS to
+    their product partner's dtype (bf16) before the product, and sum
+    the exact products in float32. A no-op for float32 and float64."""
+    return x.to(dtype).to(x.dtype) if dtype == torch.bfloat16 else x
+
+
 def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
                               sm_scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Straightforward torch composition with the kernel's semantics:
-    returns (O [B,H,Sq,D], lse [B,H,Sq]) in float32 (float64 for float64
-    inputs). bias is additive and broadcastable to [B,H,Sq,Sk]; causal
-    masks kpos > qpos with NEG_INF; a row whose probabilities all vanish
-    gives O = 0."""
+    returns (O [B,H,Sq,D] in q's dtype, lse [B,H,Sq] in float32, float64
+    for float64 inputs), computed in float32 (float64). bias is additive
+    and broadcastable to [B,H,Sq,Sk]; causal masks kpos > qpos with
+    NEG_INF; a row whose probabilities all vanish gives O = 0. For bf16
+    inputs P = exp(s - m) is rounded to bf16 before P.V, as the Pallas
+    kernel rounds it (its m is the running max of its key blocks, this
+    one the row's: the two roundings differ, see bf16_limits)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s = _scores(q, k, bias, causal, sm_scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, v.to(s.dtype)) / torch.where(
+    o = torch.matmul(_rounded(p, v.dtype), v.to(s.dtype)) / torch.where(
         l == 0, torch.ones_like(l), l)
     lse = (m + torch.log(torch.clamp(l, min=1e-37))).squeeze(-1)
     return o.to(q.dtype), lse
@@ -90,13 +108,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument and result types of the forward library's C entry points
     (the built one, or any library with the same interface)."""
     if not getattr(lib, "_paddle_bound", False):
-        fn = lib.flash_attention_fwd_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
-        lib.flash_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
+        for kind in _KINDS.values():
+            fn = getattr(lib, f"flash_attention_fwd_{kind}")
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 4
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, _scratch_fn("flash_attention_fwd", kind))
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
@@ -107,6 +127,17 @@ def _library() -> ctypes.CDLL:
     return bind(build.library(_SOURCE))
 
 
+# the C entry points' suffix for each input dtype
+_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _scratch_fn(name, kind):
+    """The C function that sizes `name`'s scratch for `kind` ("f32" or
+    "bf16")."""
+    return f"{name}_scratch_bytes" if kind == "f32" else \
+        f"{name}_bf16_scratch_bytes"
+
+
 def _scratch(nbytes, device):
     """The packed operand planes of one call (the kernels' pack step
     writes them): uninitialized bytes."""
@@ -114,19 +145,25 @@ def _scratch(nbytes, device):
 
 
 def _check_inputs(q, k, v, bias, who="flash_attention_fwd"):
+    if q.dtype not in _KINDS:
+        raise TypeError(f"{who}: q is {q.dtype}; the kernels take "
+                        "float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{who}: {name} on {t.device}, "
                              f"q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{who}: {name} is {t.dtype}; "
-                            "the kernel takes float32 only")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{who}: {name} is {t.dtype}, q {q.dtype}; "
+                            "the kernels take q, k and v of one dtype")
         if t.ndim != 4:
             raise ValueError(f"{who}: {name} must be "
                              f"[B,H,S,D], got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be "
                              "contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{who}: bf16 {name} must start 16-byte "
+                             "aligned (the kernels copy it with cp.async)")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if tuple(k.shape) != (b, h, sk, d) or tuple(v.shape) != (b, h, sk, d):
@@ -164,45 +201,72 @@ def _bias_strides(bias, shape, who):
 def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
                         sm_scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Online-softmax attention forward: (O [B,H,Sq,D], lse [B,H,Sq]).
+    """Online-softmax attention forward: (O [B,H,Sq,D] in q's dtype, lse
+    [B,H,Sq] float32).
 
-    q: [B,H,Sq,D]; k, v: [B,H,Sk,D]; bias additive with any dim
+    q: [B,H,Sq,D]; k, v: [B,H,Sk,D]; bias additive (float32) with any dim
     broadcast (size 1); causal adds the qpos >= kpos mask; sm_scale
     defaults to 1/sqrt(D). CUDA tensors run the hand-written kernel
-    (float32, contiguous, D in SUPPORTED_HEAD_DIMS — anything else
-    raises); other tensors run flash_attention_fwd_plain."""
+    (float32 or, through flash_attention_fwd_bf16, bfloat16; contiguous,
+    D in SUPPORTED_HEAD_DIMS — anything else raises); other tensors run
+    flash_attention_fwd_plain."""
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale)
-    _check_inputs(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_fwd_bf16(q, k, v, bias, causal, sm_scale)
+    o, lse = _launch_fwd(q, k, v, bias, causal, sm_scale,
+                         "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_fwd_bf16(q, k, v, bias=None, causal: bool = False,
+                             sm_scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flash_attention_fwd's bfloat16 kernel (its own launch count): bf16
+    q, k, v on a card (anything else there raises); other tensors run
+    flash_attention_fwd_plain."""
+    if not q.is_cuda:
+        return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_fwd_bf16: q is {q.dtype}")
+    o, lse = _launch_fwd(q, k, v, bias, causal, sm_scale,
+                         "flash_attention_fwd_bf16")
+    flash_attention_fwd_bf16.launches += 1
+    return o, lse
+
+
+def _launch_fwd(q, k, v, bias, causal, sm_scale, who):
+    _check_inputs(q, k, v, bias, who)
+    kind = _KINDS[q.dtype]
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    bias, strides = _bias_strides(bias, (b, h, sq, sk),
-                                  "flash_attention_fwd")
+    bias, strides = _bias_strides(bias, (b, h, sq, sk), who)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _library()
-    scratch = _scratch(lib.flash_attention_fwd_scratch_bytes(b, h, sq, sk, d),
-                       q.device)
+    scratch = _scratch(getattr(lib, _scratch_fn("flash_attention_fwd", kind))(
+        b, h, sq, sk, d), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd_f32(
+        err = getattr(lib, f"flash_attention_fwd_{kind}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), b, h, sq, sk,
             d, *strides, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(
-            "flash_attention_fwd kernel launch failed: "
+            f"{who} kernel launch failed: "
             f"{lib.flash_attention_error_string(err).decode()}")
-    flash_attention_fwd.launches += 1
     return o, lse
 
 
 #: kernel launches since the count was last set to 0 (the wrapper adds
 #: one per launch and nowhere else; the plain path does not count)
 flash_attention_fwd.launches = 0
+flash_attention_fwd_bf16.launches = 0
 
 
 # -- backward ---------------------------------------------------------------
@@ -226,29 +290,86 @@ def flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
                                  bias_grad: bool = False):
     """Dense twin of the dq kernel: (dq [B,H,Sq,D], ds [B,H,Sq,Sk] or
     None). ds = p * (dO v^T - delta) is the exact gradient of a full
-    [B,H,Sq,Sk] bias; it is returned only with bias_grad."""
+    [B,H,Sq,Sk] bias (float32, also for bf16 inputs); it is returned only
+    with bias_grad. For bf16 inputs ds is rounded to bf16 before dS.K."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, bias, lse, causal, sm_scale)
     dp = torch.matmul(do.to(p.dtype), v.to(p.dtype).transpose(-1, -2))
     ds = p * (dp - delta.to(p.dtype)[..., None])
-    dq = sm_scale * torch.matmul(ds, k.to(p.dtype))
+    dq = sm_scale * torch.matmul(_rounded(ds, k.dtype), k.to(p.dtype))
     return dq.to(q.dtype), (ds if bias_grad else None)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
                                   causal: bool = False,
                                   sm_scale: Optional[float] = None):
-    """Dense twin of the dk/dv kernel: dv = p^T dO, dk = scale ds^T q."""
+    """Dense twin of the dk/dv kernel: dv = p^T dO, dk = scale ds^T q
+    (for bf16 inputs p and ds rounded to bf16 before their products)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, bias, lse, causal, sm_scale)
     dof = do.to(p.dtype)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dv = torch.matmul(_rounded(p, do.dtype).transpose(-1, -2), dof)
     dp = torch.matmul(dof, v.to(p.dtype).transpose(-1, -2))
     ds = p * (dp - delta.to(p.dtype)[..., None])
-    dk = sm_scale * torch.matmul(ds.transpose(-1, -2), q.to(p.dtype))
+    dk = sm_scale * torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2),
+                                 q.to(p.dtype))
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bf16_spacing(x):
+    """The spacing of bfloat16 values at |x| (0 at 0), float64."""
+    x = x.double()
+    mant, exp = torch.frexp(x)
+    return torch.where(mant == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), exp - 8))
+
+
+def bf16_limits(q, k, v, bias, do, lse, delta, causal: bool = False,
+                sm_scale: Optional[float] = None, rounding: bool = True):
+    """How far two bf16 results of the flash functions may sit apart, per
+    element, in float64, one bf16 ulp of the output (bf16_spacing, added
+    by the caller) short: {"o", "dq", "dk", "dv"}.
+
+    Each holds 1e-5 of the output's sum of |terms| (O: sum_k p_k |v_kd| /
+    l; dq: scale sum_k |ds|_k |k_kd|; dk: scale sum_q |ds|_qk |q_qd|; dv:
+    sum_q p_qk |dO_qd|), for two float32 sums of the same products in
+    another order, where |ds| = p (sum_e |dO_e| |v_ke| + |delta|): ds =
+    p (dp - delta) is a difference of nearly equal terms where a row's p
+    sits on one key (a causal row 0: ds is rounding noise about 0), so
+    its float32 error scales with those terms, not with ds.
+
+    With `rounding`, each also holds the rounding of the operand its
+    product takes in bf16, one bf16 ulp of it per term (sum_k ulp(ds_k)
+    |k_kd| for dq, and so on): a CUDA kernel and its twin compute p and
+    ds in another order, so one may round a value on a rounding boundary
+    to the other neighbour. For O it is 1.5 ulps of p: the CUDA kernel
+    rounds exp(s - m) at the running max m of its key tiles, the twin at
+    the row's, a factor that is no power of two, so each rounding may
+    land up to half an ulp of its own scale away."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    bias = None if bias is None else bias.double()
+    r = 1.0 if rounding else 0.0
+    s = _scores(q, k, bias, causal, sm_scale)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    av = v.abs()
+    out = {"o": torch.matmul(1e-5 * e + 1.5 * r * bf16_spacing(e), av) / l}
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - delta.double()[..., None])
+    ds_terms = p * (torch.matmul(do.abs(), av.transpose(-1, -2))
+                    + delta.double().abs()[..., None])
+    ds_w = 1e-5 * ds_terms + r * bf16_spacing(ds)
+    out["dq"] = sm_scale * torch.matmul(ds_w, k.abs())
+    out["dk"] = sm_scale * torch.matmul(ds_w.transpose(-1, -2), q.abs())
+    out["dv"] = torch.matmul((1e-5 * p + r * bf16_spacing(p))
+                             .transpose(-1, -2), do.abs())
+    return out
 
 
 def _reduce_dbias(ds, bias):
@@ -286,12 +407,14 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         tail = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
                 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         for which in ("dq", "dkv"):
-            fn = getattr(lib, f"flash_attention_bwd_{which}_f32")
-            fn.argtypes = [ctypes.c_void_p] * 10 + tail
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"flash_attention_bwd_{which}_scratch_bytes")
-            fn.argtypes = [ctypes.c_int] * 5
-            fn.restype = ctypes.c_longlong
+            for kind in _KINDS.values():
+                fn = getattr(lib, f"flash_attention_bwd_{which}_{kind}")
+                fn.argtypes = [ctypes.c_void_p] * 10 + tail
+                fn.restype = ctypes.c_int
+                fn = getattr(lib, _scratch_fn(f"flash_attention_bwd_{which}",
+                                              kind))
+                fn.argtypes = [ctypes.c_int] * 5
+                fn.restype = ctypes.c_longlong
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         lib._paddle_bound = True
@@ -305,8 +428,10 @@ def _bwd_library() -> ctypes.CDLL:
 def _check_bwd_inputs(q, k, v, bias, do, lse, delta, who):
     _check_inputs(q, k, v, bias, who)
     if do.shape != q.shape or do.dtype != q.dtype or \
-            do.device != q.device or not do.is_contiguous():
-        raise ValueError(f"{who}: dO must be a contiguous {q.dtype} "
+            do.device != q.device or not do.is_contiguous() or \
+            (do.dtype == torch.bfloat16 and do.data_ptr() % 16):
+        raise ValueError(f"{who}: dO must be a contiguous (bf16: 16-byte "
+                         f"aligned) {q.dtype} "
                          f"{tuple(q.shape)} tensor on {q.device}")
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != tuple(q.shape[:3]) or \
@@ -320,15 +445,16 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
                 sm_scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    kind = _KINDS[q.dtype]
     bias, strides = _bias_strides(bias, (b, h, sq, sk), name)
     lib = _bwd_library()
     # each kernel packs its B operands (dq: K and V; dk/dv: Q and dO) into
     # a scratch of its own, held here until the launch returns
-    scratch = _scratch(getattr(lib, name + "_scratch_bytes")(b, h, sq, sk, d),
+    scratch = _scratch(getattr(lib, _scratch_fn(name, kind))(b, h, sq, sk, d),
                        q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name + "_f32")(
+        err = getattr(lib, f"{name}_{kind}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out1.data_ptr(),
@@ -337,7 +463,7 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out1, out2, causal,
             int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(
-            f"{name} kernel launch failed: "
+            f"{name}{'' if kind == 'f32' else '_bf16'} kernel launch failed: "
             f"{lib.flash_attention_bwd_error_string(err).decode()}")
 
 
@@ -346,16 +472,44 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                            sm_scale: Optional[float] = None,
                            bias_grad: bool = False):
     """dq [B,H,Sq,D] and, with bias_grad and a bias, the full-shape bias
-    gradient ds [B,H,Sq,Sk] (zero on causally skipped tiles), from the
-    forward's lse and delta = rowsum(dO * O), both [B,H,Sq] float32.
-    CUDA tensors run the dq kernel (float32, contiguous, D in
+    gradient ds [B,H,Sq,Sk] float32 (zero on causally skipped tiles), from
+    the forward's lse and delta = rowsum(dO * O), both [B,H,Sq] float32.
+    CUDA tensors run the dq kernel (float32 or, through
+    flash_attention_bwd_dq_bf16, bfloat16; contiguous, D in
     SUPPORTED_HEAD_DIMS — anything else raises); other tensors run
     flash_attention_bwd_dq_plain."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
                                             causal, sm_scale, bias_grad)
-    _check_bwd_inputs(q, k, v, bias, do, lse, delta,
-                      "flash_attention_bwd_dq")
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dq_bf16(q, k, v, bias, do, lse, delta,
+                                           causal, sm_scale, bias_grad)
+    out = _dq(q, k, v, bias, do, lse, delta, causal, sm_scale, bias_grad,
+              "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return out
+
+
+def flash_attention_bwd_dq_bf16(q, k, v, bias, do, lse, delta,
+                                causal: bool = False,
+                                sm_scale: Optional[float] = None,
+                                bias_grad: bool = False):
+    """flash_attention_bwd_dq's bfloat16 kernel (its own launch count):
+    bf16 q, k, v and dO on a card (anything else there raises); other
+    tensors run flash_attention_bwd_dq_plain."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, bias, do, lse, delta,
+                                            causal, sm_scale, bias_grad)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd_dq_bf16: q is {q.dtype}")
+    out = _dq(q, k, v, bias, do, lse, delta, causal, sm_scale, bias_grad,
+              "flash_attention_bwd_dq_bf16")
+    flash_attention_bwd_dq_bf16.launches += 1
+    return out
+
+
+def _dq(q, k, v, bias, do, lse, delta, causal, sm_scale, bias_grad, who):
+    _check_bwd_inputs(q, k, v, bias, do, lse, delta, who)
     b, h, sq, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -366,7 +520,6 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                          device=q.device)
     _launch_bwd("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta, dq,
                 ds, causal, sm_scale)
-    flash_attention_bwd_dq.launches += 1
     return dq, ds
 
 
@@ -374,19 +527,45 @@ def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
                             causal: bool = False,
                             sm_scale: Optional[float] = None):
     """(dk, dv) [B,H,Sk,D] from the forward's lse and delta. CUDA tensors
-    run the dk/dv kernel (same conditions as flash_attention_bwd_dq);
-    other tensors run flash_attention_bwd_dkv_plain."""
+    run the dk/dv kernel (same conditions as flash_attention_bwd_dq;
+    bfloat16 through flash_attention_bwd_dkv_bf16); other tensors run
+    flash_attention_bwd_dkv_plain."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
                                              causal, sm_scale)
-    _check_bwd_inputs(q, k, v, bias, do, lse, delta,
-                      "flash_attention_bwd_dkv")
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dkv_bf16(q, k, v, bias, do, lse, delta,
+                                            causal, sm_scale)
+    out = _dkv(q, k, v, bias, do, lse, delta, causal, sm_scale,
+               "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return out
+
+
+def flash_attention_bwd_dkv_bf16(q, k, v, bias, do, lse, delta,
+                                 causal: bool = False,
+                                 sm_scale: Optional[float] = None):
+    """flash_attention_bwd_dkv's bfloat16 kernel (its own launch count):
+    bf16 q, k, v and dO on a card (anything else there raises); other
+    tensors run flash_attention_bwd_dkv_plain."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse, delta,
+                                             causal, sm_scale)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd_dkv_bf16: q is {q.dtype}")
+    out = _dkv(q, k, v, bias, do, lse, delta, causal, sm_scale,
+               "flash_attention_bwd_dkv_bf16")
+    flash_attention_bwd_dkv_bf16.launches += 1
+    return out
+
+
+def _dkv(q, k, v, bias, do, lse, delta, causal, sm_scale, who):
+    _check_bwd_inputs(q, k, v, bias, do, lse, delta, who)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_attention_bwd_dkv", q, k, v, bias, do, lse, delta,
                 dk, dv, causal, sm_scale)
-    flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -448,3 +627,5 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq_bf16.launches = 0
+flash_attention_bwd_dkv_bf16.launches = 0

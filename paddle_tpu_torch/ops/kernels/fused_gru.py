@@ -169,6 +169,11 @@ def _check(who, lead, w, h0, lengths, **more):
                   dh_all=(t_max, bsz, hidden))
     tensors = dict(w=w, h0=h0, **more)
     for name, t in tensors.items():
+        if t.dtype == torch.bfloat16:
+            raise ValueError(
+                f"{who}: {name} is bfloat16: the fused-GRU kernels' bf16 arm "
+                "is not ported yet (the Pallas kernels take bf16 and "
+                "compute in float32); the CUDA kernels take float32 only")
         if t.device != seq.device or t.dtype != torch.float32 or \
                 not t.is_contiguous() or tuple(t.shape) != shapes[name]:
             raise ValueError(

@@ -172,6 +172,11 @@ def _check(who, x, w, b, h0, c0, lengths, **more):
         shapes[name] = (t_max, bsz, hidden)
         tensors[name] = t
     for name, t in tensors.items():
+        if t.dtype == torch.bfloat16:
+            raise ValueError(
+                f"{who}: {name} is bfloat16: the fused-LSTM kernels' bf16 arm "
+                "is not ported yet (the Pallas kernels take bf16 and "
+                "compute in float32); the CUDA kernels take float32 only")
         if t.device != x.device or t.dtype != torch.float32 or \
                 not t.is_contiguous() or tuple(t.shape) != shapes[name]:
             raise ValueError(

@@ -7,13 +7,30 @@ models' train steps run (softmax and top_k included), plus the few that
 the gradient clippers and regularizers (clip.py, regularizer.py)
 append.
 The matrix products stay torch.matmul: the JAX package left them to XLA
-and wrote no kernel for them.
+and wrote no kernel for them. Under AMP (amp.py) they take the
+reference's _mxu_matmul rule, and a mixed bf16/float32 elementwise pair
+computes in bf16.
 """
 from __future__ import annotations
 
 import torch
 
+from ..amp import amp_cast, amp_enabled
 from ..core.registry import register_op
+
+
+def _mxu_matmul(x, y):
+    """torch.matmul under the reference's AMP rule: bf16 operands and a
+    bf16 result wherever the promoted dtype was float32, the products
+    accumulated in float32 (cuBLAS on the card; the CPU's bf16 GEMM also
+    sums in float32 and rounds once, tests/test_torch_amp.py holds it).
+    Without AMP, or for other dtypes, the operands are promoted as
+    jnp.matmul promotes them."""
+    out_dtype = torch.promote_types(x.dtype, y.dtype)
+    x, y = amp_cast(x, y)
+    if x.dtype == y.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return torch.matmul(x, y)
+    return torch.matmul(x.to(out_dtype), y.to(out_dtype))
 
 
 def _broadcast_y(x, y, axis: int):
@@ -33,6 +50,11 @@ def _register_elementwise(name, fn):
     def _op(ctx, _fn=fn):
         x = ctx.input("X")
         y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        # under AMP bf16 wins a mixed bf16/float32 pair (a float32 bias or
+        # scale would otherwise promote the activations back to float32)
+        if amp_enabled() and {x.dtype, y.dtype} == {torch.bfloat16,
+                                                     torch.float32}:
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
         ctx.set_output("Out", _fn(x, y))
 
 
@@ -61,7 +83,7 @@ def _mul(ctx):
     x2 = x.reshape(_prod(x.shape[:xn]), _prod(x.shape[xn:]))
     y2 = y.reshape(_prod(y.shape[:yn]), _prod(y.shape[yn:]))
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
-    ctx.set_output("Out", torch.matmul(x2, y2).reshape(out_shape))
+    ctx.set_output("Out", _mxu_matmul(x2, y2).reshape(out_shape))
 
 
 @register_op("reduce_sum")

@@ -19,7 +19,17 @@ route is the matmul/softmax composition. The sequence-parallel branch
 waits for a mesh. softmax_with_cross_entropy ports the reference's
 default path; its PADDLE_TPU_FUSED_XENT streaming variant is not ported.
 conv2d_transpose, depthwise and 3-D convs and the other pools wait for
-later slices.
+later slices (conv2d_transpose takes conv2d's AMP cast with it, as the
+reference's _conv_transpose_impl does).
+
+Under AMP (amp.py) conv2d takes bf16 operands and its output stays bf16,
+as the reference's; every other rule here keeps the reference's dtypes
+as they are: pool2d averages a bf16 input in float32 and returns bf16;
+batch_norm and layer_norm normalize in float32 with float32 statistics
+and return the input's dtype; dropout returns its input's dtype; the
+cross-entropy losses compute in float32; lookup_table returns its
+table's dtype; the naive attention promotes as jnp.einsum does (a bf16
+score plus a float32 mask is float32).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags
+from ..amp import amp_cast
 from ..core.registry import register_op
 from .kernels.flash_attention import NEG_INF, flash_attention
 
@@ -45,11 +56,14 @@ def _conv2d_impl(x, w, strides, paddings, dilations, groups):
     """NCHW conv, as the reference's _conv2d_impl: a strided 1x1 conv with
     no padding slices its input first and convolves at stride 1 (the same
     values; the gradient work then matches the reference's). Under
-    PADDLE_TPU_CONV_LAYOUT=nhwc it runs on channels_last copies."""
+    PADDLE_TPU_CONV_LAYOUT=nhwc it runs on channels_last copies. Under
+    AMP both operands drop to bf16 and the output stays bf16 (cuDNN
+    accumulates in float32)."""
     if (tuple(w.shape[2:]) == (1, 1) and tuple(paddings) == (0, 0)
             and (strides[0] > 1 or strides[1] > 1) and groups == 1):
         x = x[:, :, ::strides[0], ::strides[1]]
         strides = (1, 1)
+    x, w = amp_cast(x, w)
     if flags.get("PADDLE_TPU_CONV_LAYOUT") == "nhwc":
         x = x.contiguous(memory_format=torch.channels_last)
         w = w.contiguous(memory_format=torch.channels_last)
@@ -291,10 +305,17 @@ def _one_hot(ctx):
     ctx.set_output("Out", (x.long().unsqueeze(-1) == classes).float())
 
 
+def _matmul_promoted(a, b):
+    """torch.matmul of the two operands promoted to their common dtype,
+    as jnp.einsum promotes (torch.matmul refuses a bf16/float32 pair)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
 def _naive_attention(q, k, v, mask, causal, sm_scale):
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    scores = _matmul_promoted(q, k.transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask
     if causal:
@@ -304,7 +325,7 @@ def _naive_attention(q, k, v, mask, causal, sm_scale):
         scores = torch.where(qpos >= kpos, scores,
                              torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs, v)
+    return _matmul_promoted(probs, v)
 
 
 @register_op("scaled_dot_product_attention", no_grad_slots=["Mask"])

@@ -5,7 +5,9 @@ On the CPU the port's wrapper takes its plain torch version; the CUDA
 kernel itself is checked against that plain version on the card by
 chip_smoke.py. Inputs come from a seeded numpy RandomState and go
 through both packages; O and lse are compared at float32 tolerance
-(rtol=1e-4, atol=1e-5).
+(rtol=1e-4, atol=1e-5). In bfloat16 (the dtype the NMT step reaches
+flash in under AMP) O is held per element by one bf16 ulp plus 1e-5 of
+its sum of |terms| (ROADMAP B1's rule), lse at 1e-5.
 """
 import importlib
 
@@ -108,3 +110,46 @@ def test_kernel_input_checks_raise(bad):
         bias = torch.zeros(1, 1, 1, 8, dtype=torch.float64)
     with pytest.raises((TypeError, ValueError)):
         port_fa._check_inputs(q, k, v, bias)
+
+
+# -- bfloat16 ---------------------------------------------------------------
+
+def hold_bf16(got, want, limit, what):
+    """B1's bf16 rule per element: |got - want| <= one bf16 ulp (at the
+    larger of the two) + `limit` (1e-5 of the sum of |terms|, from
+    port_fa.bf16_limits)."""
+    got, want = got.double(), want.double()
+    slack = port_fa.bf16_spacing(torch.maximum(got.abs(), want.abs())) \
+        + limit
+    over = (got - want).abs() - slack
+    assert float(over.max()) <= 0, \
+        f"{what}: {int((over > 0).sum())} elements over, worst by " \
+        f"{float(over.max()):.3e}"
+
+
+@pytest.mark.parametrize("causal,bias_kind", [(False, "full"),
+                                              (True, "keyrow")])
+def test_plain_matches_pallas_bf16(causal, bias_kind):
+    """bf16 q, k, v: the twin rounds P to bf16 before P.V and returns a
+    bf16 O, as the Pallas kernel does. Both round P at the row's max (the
+    Pallas kernel's key block covers the row), so O is held by B1's rule
+    without the operand-rounding term of bf16_limits; lse (float32) at
+    1e-5."""
+    q, k, v, bias = _inputs(2, 2, 80, 80, 16, bias_kind, seed=5)
+    qb, kb, vb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    o_ref, lse_ref = _ref_fa._fwd(
+        qb, kb, vb, None if bias is None else jnp.asarray(bias),
+        1.0 / np.sqrt(16), causal, 128, 128, True)
+    assert o_ref.dtype == jnp.bfloat16
+    tq, tk, tv = (torch.from_numpy(np.asarray(a.astype(jnp.float32)))
+                  .to(torch.bfloat16) for a in (qb, kb, vb))
+    tb = None if bias is None else torch.from_numpy(bias)
+    o, lse = port_fa.flash_attention_fwd_plain(tq, tk, tv, tb, causal=causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    limit = port_fa.bf16_limits(tq, tk, tv, tb, torch.zeros_like(tq), lse,
+                                torch.zeros_like(lse), causal,
+                                rounding=False)["o"]
+    o_ref = torch.from_numpy(np.asarray(o_ref.astype(jnp.float32)))
+    hold_bf16(o, o_ref, limit, "O")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0],
+                               rtol=1e-5, atol=1e-5)

@@ -151,3 +151,44 @@ def test_bwd_kernel_input_checks_raise(bad):
         delta = delta.double()
     with pytest.raises(ValueError):
         port_fa._check_bwd_inputs(q, k, v, None, do, lse, delta, "bwd")
+
+
+# -- bfloat16 ---------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,bias_shape", [(True, "keyrow"),
+                                               (False, (2, 1, 40, 56))])
+def test_plain_bwd_matches_pallas_bf16(causal, bias_shape):
+    """bf16 q, k, v, O and dO (the port's bf16 forward), float32 lse: the
+    twins round p and ds to bf16 before p^T.dO, ds.K and ds^T.Q and
+    return dq, dk and dv in bf16, as the Pallas kernels do; each is held
+    per element by one bf16 ulp plus 1e-5 of its sum of |terms|
+    (ROADMAP B1's rule: port_fa.bf16_limits without its operand-rounding
+    term; the two round p and ds computed in the same order here)."""
+    from test_torch_flash_attention import hold_bf16
+    sq, sk = (48, 48) if bias_shape == "keyrow" else (40, 56)
+    q, k, v, bias, do = _inputs(2, 2, sq, sk, 32, bias_shape, seed=6)
+    tq, tk, tv, tdo = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+    tb = _t(bias)
+    scale = 1.0 / np.sqrt(32)
+    o, lse = port_fa.flash_attention_fwd_plain(tq, tk, tv, tb,
+                                               causal=causal)
+    assert o.dtype == torch.bfloat16
+
+    def jx(t):
+        if t is None:
+            return None
+        a = jnp.asarray(t.float().numpy())
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+    ref = _ref_fa._bwd((jx(tq), jx(tk), jx(tv), jx(tb), jx(o),
+                        jnp.asarray(lse.numpy())[..., None]),
+                       jx(tdo), scale, causal, BLOCK, BLOCK, True, False)
+    got = port_fa.flash_attention_bwd_plain(tq, tk, tv, tb, o, lse, tdo,
+                                            causal=causal, sm_scale=scale)
+    delta = port_fa._delta(o, tdo)
+    limits = port_fa.bf16_limits(tq, tk, tv, tb, tdo, lse, delta, causal,
+                                 scale, rounding=False)
+    for name, r, g in zip(("dq", "dk", "dv"), ref[:3], got[:3]):
+        assert r.dtype == jnp.bfloat16 and g.dtype == torch.bfloat16, name
+        hold_bf16(g, torch.from_numpy(np.asarray(r.astype(jnp.float32))),
+                  limits[name], name)

@@ -18,21 +18,34 @@ against the plain twins of ops/kernels/flash_attention.py run in
 float64: every head dim, Sq != Sk, Sq = 1, lengths that are not tile
 multiples, key-row, dense and head-broadcast biases, causal and not, and
 a fully masked row, and dq's bias_grad mode (the full-shape ds, zeros on
-the tiles the causal skip never computes). Five mutants must be caught:
+the tiles the causal skip never computes). Seven mutants must be caught:
 3xTF32 with its lo products dropped, the pack's permutation of each group
 of 8 off by one (in the forward and in dq), dV or dq summed in one
-truncating accumulator over a long reduction, and dq's lo and hi*hi
-passes interleaved (its error against float64 grows). A model of the truncation
-pins the promotion threshold (kPromoteAfter). It
-says nothing about speed or about the device compiler; chip_smoke.py
-runs the real kernels on the card.
+truncating accumulator over a long reduction, and the lo and hi*hi
+passes interleaved in dq, in the forward and in dk/dv (the error
+against float64 grows). A model of the truncation
+pins the promotion threshold (kPromoteAfter).
 
-Tolerance: the kernels against the float64 twin, max |diff| <= 1e-5 of
-max(max |twin|, 1) for each output (O, lse, dq, ds, dk, dv): 3xTF32 keeps
-about float32's digits, the float32 twin would differ by ~1e-6. The
-masked row is held against the float32 twin: its -1e9 bias absorbs the
-scores in float32 (a uniform softmax, as the reference computes), not in
-float64.
+The bfloat16 entry points (the same sources; bf16 operands read straight
+from the inputs or from a bf16 cols plane, one bf16 pass a k-step, P and
+dS rounded to bf16 as the A fragments of their products, bf16 outputs)
+are held against the bf16 twins by ROADMAP B1's rule over every head
+dim, Sq != Sk, lengths off the 64-row tiles, biases and causal; with
+q = 0 (every live p exactly 1 in both) the forward is held without the
+rounding term; a mutant that takes P's bf16 fragments from the wrong
+accumulator rows must be caught. It says nothing about speed or about
+the device compiler; chip_smoke.py runs the real kernels on the card.
+
+Tolerance: the float32 kernels against the float64 twin, max |diff| <=
+1e-5 of max(max |twin|, 1) for each output (O, lse, dq, ds, dk, dv):
+3xTF32 keeps about float32's digits, the float32 twin would differ by
+~1e-6. The masked row is held against the float32 twin: its -1e9 bias
+absorbs the scores in float32 (a uniform softmax, as the reference
+computes), not in float64. The bf16 kernels against the bf16 twins, per
+element: one bf16 ulp at the larger of the two plus 1e-5 of the
+output's sum of |terms| plus one ulp of each rounded operand (p or ds)
+times its partner (1.5 for O's p, rounded at another scale):
+flash_attention.bf16_limits.
 """
 import ctypes
 import re
@@ -51,6 +64,12 @@ FWD = CSRC / "flash_attention_fwd.cu"
 BWD = CSRC / "flash_attention_bwd.cu"
 TILES = "flash_tiles.cuh"
 RTOL = 1e-5
+# how many times the lo-first pass order's mean error an interleaved
+# order errs, at least, under the emulated truncation of the tensor
+# cores' sums (measured on the CPU: forward 2.35x, dk/dv 2.56x; dq's
+# test asks 1.5x too)
+FWD_LO_FIRST_GAIN = 1.5
+DKV_LO_FIRST_GAIN = 1.5
 
 
 def _compile(out: Path, which, text=None, tiles_text=None):
@@ -202,10 +221,14 @@ def test_dq_bias_grad_matches_float64_twin(libs):
 
 
 # 3xTF32 with its lo products dropped in the forward's Q.K^T: one TF32 pass
-_DROP_LO = [("""        sm90::wgmma<kBK, false>(s, ql[kq], kk, kq > 0);
-        sm90::wgmma<kBK, false>(s, qh[kq], kl, 1);
-        sm90::wgmma<kBK, false>(s, qh[kq], kk, 1);
-""", """        sm90::wgmma<kBK, false>(s, qh[kq], kk, kq > 0);
+_DROP_LO = [("""          if (pass == 0) {
+            sm90::wgmma<kBK, false>(s, ql[kq], kk, kq > 0);
+            sm90::wgmma<kBK, false>(s, qh[kq], kl, 1);
+          } else {
+            sm90::wgmma<kBK, false>(s, qh[kq], kk, 1);
+          }
+""", """          if (pass == 1)
+            sm90::wgmma<kBK, false>(s, qh[kq], kk, kq > 0);
 """)]
 
 # the pack's permutation of each group of 8 off by one place: every key
@@ -220,8 +243,8 @@ _NO_PROMOTION = [
 """, """        float (&part)[C::kN / 2] =
             *reinterpret_cast<float(*)[C::kN / 2]>(sum + n0 / 2);
 """),
-    ("""          sm90::wgmma<C::kN, false>(part, fl[j], bj, j > 0);""",
-     """          sm90::wgmma<C::kN, false>(part, fl[j], bj, 1);"""),
+    ("""              sm90::wgmma<C::kN, false>(part, fl[j], bj, j > 0);""",
+     """              sm90::wgmma<C::kN, false>(part, fl[j], bj, 1);"""),
     ("""        for (int i = 0; i < C::kN / 2; ++i) sum[n0 / 2 + i] += part[i];""",
      """        for (int i = 0; i < C::kN / 2; ++i) (void)part[i];"""),
 ]
@@ -381,6 +404,92 @@ def test_dq_lo_passes_first_cuts_the_truncation_error(tmp_path, libs):
     assert _dq_mean_error(bwd) > 1.5 * _dq_mean_error(libs[1])
 
 
+# the forward's and dk/dv's passes interleaved k-step by k-step (lo*hi,
+# hi*lo, hi*hi), the order both issued before dq's lo-first order came to
+# them
+_FWD_INTERLEAVED = [
+    ("""    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int kq = 0; kq < kQSteps; ++kq) {""",
+     """    for (int kq = 0; kq < kQSteps; ++kq)
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {"""),
+    ("""    for (int pass = 0; pass < 2; ++pass)  // lo passes first, as for S
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j) {""",
+     """    for (int j = 0; j < kPSteps; ++j)
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {"""),
+]
+_DKV_INTERLEAVED = [
+    ("""      for (int pass = 0; pass < 2; ++pass)  // lo passes first, as dq's
+#pragma unroll
+        for (int i = 0; i < C::kGroup; ++i) {""",
+     """      for (int i = 0; i < C::kGroup; ++i)
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {"""),
+    ("""        for (int pass = 0; pass < 2; ++pass)  // lo passes first
+#pragma unroll
+          for (int j = 0; j < kQSteps; ++j) {""",
+     """          for (int j = 0; j < kQSteps; ++j)
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {"""),
+]
+
+
+def _scored_inputs(seed=12):
+    """Two 64-row blocks over 512 keys, D = 64, scores of a few units (q
+    scaled by 3): the float64 twin's inputs and outputs."""
+    rng = np.random.default_rng(seed)
+    b, h, sq, sk, d = 1, 2, 128, 512, 64
+    q = torch.from_numpy(3 * rng.standard_normal((b, h, sq, d), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32))
+            for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32))
+    args64 = (q.double(), k.double(), v.double(), None)
+    o64, lse64 = fa.flash_attention_fwd_plain(*args64, False, 0.125)
+    return (q, k, v, do), args64, o64, lse64
+
+
+def _mean_error(got, want):
+    return float((got.double() - want).abs().mean()) / float(
+        want.abs().max())
+
+
+def _fwd_mean_error(fwd):
+    (q, k, v, _), _, o64, _ = _scored_inputs()
+    o, _ = _fwd(fwd, q, k, v, None, False, 0.125)
+    return _mean_error(o, o64)
+
+
+def _dkv_mean_error(bwd):
+    (q, k, v, do), args64, o64, lse64 = _scored_inputs()
+    delta64 = fa._delta(o64, do.double())
+    dk, dv = _bwd(bwd, "dkv", q, k, v, None, do, lse64.float(),
+                  delta64.float(), False, 0.125)
+    dk64, dv64 = fa.flash_attention_bwd_dkv_plain(*args64, do.double(),
+                                                  lse64, delta64, False,
+                                                  0.125)
+    return _mean_error(dk, dk64) + _mean_error(dv, dv64)
+
+
+def test_fwd_lo_passes_first_cuts_the_truncation_error(tmp_path, libs):
+    """The forward issues every lo pass of S = Q.K^T and of P.V before the
+    hi*hi passes, as dq does; with the passes interleaved k-step by
+    k-step it errs at least FWD_LO_FIRST_GAIN times more."""
+    fwd = _compile(tmp_path, "fwd", mutate(FWD.read_text(), _FWD_INTERLEAVED))
+    assert _fwd_mean_error(fwd) > FWD_LO_FIRST_GAIN * _fwd_mean_error(libs[0])
+
+
+def test_dkv_lo_passes_first_cuts_the_truncation_error(tmp_path, libs):
+    """dk/dv issues every lo pass of S^T, dP^T, dV and dK before the hi*hi
+    passes, as dq does; with the passes interleaved k-step by k-step it
+    errs at least DKV_LO_FIRST_GAIN times more (dk and dv together)."""
+    bwd = _compile(tmp_path, "bwd", mutate(BWD.read_text(), _DKV_INTERLEAVED))
+    assert _dkv_mean_error(bwd) > DKV_LO_FIRST_GAIN * _dkv_mean_error(
+        libs[1])
+
+
 def test_dq_no_promotion_on_a_long_reduction_is_caught(tmp_path, libs):
     """dq over 2048 keys in one truncating accumulator misses the limit
     that the per-tile promotion holds."""
@@ -411,3 +520,139 @@ def test_promotion_threshold_holds_the_float32_limit():
     assert err(after // 3 * 8, 0) <= RTOL / 2
     assert err(2048, 0) > RTOL
     assert err(2048, 4) <= RTOL / 10
+
+
+# -- bfloat16 ---------------------------------------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).contiguous()
+
+
+def _fwd16(lib, q, k, v, bias, causal, scale):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias, strides = fa._bias_strides(bias, (b, h, sq, sk), "test")
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, sq)
+    scratch = torch.empty(lib.flash_attention_fwd_bf16_scratch_bytes(
+        b, h, sq, sk, d), dtype=torch.uint8)
+    err = lib.flash_attention_fwd_bf16(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o), _ptr(lse),
+        _ptr(scratch), b, h, sq, sk, d, *strides, int(causal), scale, None)
+    assert err == 0
+    return o, lse
+
+
+def _bwd16(lib, which, q, k, v, bias, do, lse, delta, causal, scale):
+    """dq or (dk, dv) of the bf16 entry points."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias, strides = fa._bias_strides(bias, (b, h, sq, sk), "test")
+    if which == "dq":
+        out1, out2 = torch.empty_like(q), None
+    else:
+        out1, out2 = torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(getattr(
+        lib, f"flash_attention_bwd_{which}_bf16_scratch_bytes")(
+            b, h, sq, sk, d), dtype=torch.uint8)
+    err = getattr(lib, f"flash_attention_bwd_{which}_bf16")(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
+        _ptr(delta), _ptr(out1), _ptr(out2), _ptr(scratch), b, h, sq, sk, d,
+        *strides, int(causal), scale, None)
+    assert err == 0
+    return out1 if which == "dq" else (out1, out2)
+
+
+def _hold16(got, want, limit, what):
+    """ROADMAP B1's bf16 rule per element: one bf16 ulp at the larger of
+    the two, plus `limit` (fa.bf16_limits)."""
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    got, want = got.double(), want.double()
+    over = (got - want).abs() - fa.bf16_spacing(
+        torch.maximum(got.abs(), want.abs())) - limit
+    assert float(over.max()) <= 0, \
+        f"{what}: {int((over > 0).sum())} elements over, worst by " \
+        f"{float(over.max()):.3e}"
+
+
+def _run16(libs, b, h, sq, sk, d, bias_shape, causal, seed, zero_q=False):
+    """The bf16 kernels and their bf16 twins on one case: {output:
+    (kernel, twin, limit)} and the kernel's and twin's lse."""
+    fwd, bwd = libs
+    q, k, v, do, bias = _inputs(b, h, sq, sk, d, bias_shape, seed)
+    if zero_q:   # every live score 0: every live p exactly 1 in both
+        q = torch.zeros_like(q)
+    q, k, v, do = (_bf16(t) for t in (q, k, v, do))
+    scale = 1.0 / np.sqrt(d)
+    o_t, lse_t = fa.flash_attention_fwd_plain(q, k, v, bias, causal, scale)
+    o, lse = _fwd16(fwd, q, k, v, bias, causal, scale)
+    delta = fa._delta(o_t, do).contiguous()
+    lim = fa.bf16_limits(q, k, v, bias, do, lse_t, delta, causal, scale,
+                         rounding=not zero_q)
+    out = {"O": (o, o_t, lim["o"])}
+    out["dq"] = (_bwd16(bwd, "dq", q, k, v, bias, do, lse_t, delta, causal,
+                        scale),
+                 fa.flash_attention_bwd_dq_plain(q, k, v, bias, do, lse_t,
+                                                 delta, causal, scale)[0],
+                 lim["dq"])
+    dk, dv = _bwd16(bwd, "dkv", q, k, v, bias, do, lse_t, delta, causal,
+                    scale)
+    dk_t, dv_t = fa.flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse_t,
+                                                  delta, causal, scale)
+    out["dk"], out["dv"] = (dk, dk_t, lim["dk"]), (dv, dv_t, lim["dv"])
+    return out, (lse, lse_t)
+
+
+# (B, H, Sq, Sk, D, bias shape or None, causal): every head dim, Sq != Sk,
+# lengths off the 64-row tiles, key-row, dense and head-broadcast biases
+CASES16 = [
+    (1, 2, 70, 50, 16, (1, 2, 70, 50), False),
+    (2, 1, 45, 77, 32, (2, 1, 1, 77), True),
+    (1, 1, 100, 130, 64, None, True),
+    (1, 2, 65, 40, 128, (1, 2, 1, 40), False),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,bias_shape,causal", CASES16)
+def test_bf16_kernels_match_bf16_twins(libs, b, h, sq, sk, d, bias_shape,
+                                       causal):
+    """The bf16 forward, dq and dk/dv against their bf16 twins (which
+    round P and dS to bf16 before their products, as the Pallas kernels
+    do) by B1's rule with bf16_limits' operand-rounding term (the kernel
+    and its twin compute p and ds in another order; the forward rounds p
+    at another scale); lse at 1e-5."""
+    outs, (lse, lse_t) = _run16(libs, b, h, sq, sk, d, bias_shape, causal,
+                                sq + sk + d)
+    what = f"B{b} H{h} Sq{sq} Sk{sk} D{d} bias {bias_shape} causal {causal}"
+    for name, (got, want, limit) in outs.items():
+        _hold16(got, want, limit, f"{name} {what}")
+    assert float((lse - lse_t).abs().max()) <= RTOL * max(
+        float(lse_t.abs().max()), 1.0)
+
+
+def test_bf16_forward_masks_hold_without_rounding_slack(libs):
+    """With q = 0 every live score is 0 and every live p exactly 1 in the
+    kernel and its twin, so O is held without the rounding term: a key
+    masked or kept wrongly (bias, causal, a tile edge, Sk) moves O by a
+    whole 1/l of a value."""
+    outs, _ = _run16(libs, 2, 1, 70, 130, 64, (2, 1, 1, 130), True, 8,
+                     zero_q=True)
+    _hold16(*outs["O"], "O")
+
+
+# the bf16 A fragment of an accumulator with its rows g and g + 8 swapped
+_BF16_FRAGMENT_OFF = [
+    ("  a[0] = sm90::bf16x2_rn(acc[8 * j], acc[8 * j + 1]);\n"
+     "  a[1] = sm90::bf16x2_rn(acc[8 * j + 2], acc[8 * j + 3]);",
+     "  a[1] = sm90::bf16x2_rn(acc[8 * j], acc[8 * j + 1]);\n"
+     "  a[0] = sm90::bf16x2_rn(acc[8 * j + 2], acc[8 * j + 3]);")]
+
+
+def test_bf16_fragment_mutant_is_caught(tmp_path, libs):
+    """P's bf16 fragments taken from the wrong accumulator rows (the
+    helper dq and dk/dv take dS's and P's from too) move O by O(1)."""
+    tiles = mutate((CSRC / TILES).read_text(), _BF16_FRAGMENT_OFF)
+    mutant = (_compile(tmp_path, "fwd", tiles_text=tiles), libs[1])
+    outs, _ = _run16(mutant, 1, 1, 70, 90, 32, (1, 1, 1, 90), False, 5)
+    with pytest.raises(AssertionError):
+        _hold16(*outs["O"], "O")
