@@ -160,10 +160,33 @@ launch counts include what every graph replay launches.
      holds them, its step-1 loss against phase 14's float32 arm (see
      AMP_RESNET_LOSS_RTOL), no kernel launched; per arm ms a step, busy
      share of profiled steps and peak memory, float32 beside AMP.
- 16. JSON lines of the kernels, serving, the three earlier trainings,
+ 16. RNNs under AMP (bench.py's default precision): phase 5's LSTM LM,
+     a stacked_lstm_net classifier at its published defaults over phase
+     5's feed, phase 6's GRU NMT and that NMT with bias-free gru ops (its
+     x stays bf16), 5 compiled steps each under amp_guard() beside the
+     float32 arm: exactly the fused-RNN launches of RNN_AMP_LAUNCHES (the
+     bf16 LSTM kernels only, 2+2 a LM step; the NMT's float32 GRU
+     kernels; the bias-free NMT's bf16 GRU kernels), the compiled key
+     captured as a CUDA graph, the step-1 loss within RNN_AMP_LOSS_RTOL
+     of the float32 arm's, every step-1 gradient held against the same
+     step through the fused-RNN twins (AMP_TWIN_FACTOR, as phase 15
+     holds flash); ms a step, busy share and peak memory of both arms.
+     Phase 2 holds the bf16 arms of the fused LSTM and GRU kernels
+     against their twins (the programs' AMP mixes at the LM's and the
+     book model's shapes, and a subset of the coverage cases), timed
+     beside the twins, torch.nn.LSTM / nn.GRU in bf16 and their bounds.
+ 17. the dense optimizers: phase 5's LSTM LM in float32 minimized by
+     Adagrad, Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl and
+     LarsMomentum, each on one of the seven learning-rate schedules
+     (set_lr_in_scope), and ModelAverage over SGD, 2 compiled steps each,
+     every parameter and accumulator after a step held against the
+     float64 update from the fetched gradients (OPT_RTOL); ModelAverage's
+     apply and restore once.
+ 18. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
-     micro, the Trainer, phase 14 (`compiled`) and phase 15 (`amp`),
-     then, last, the JSON result line.
+     micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
+     16 (`rnn_amp`) and phase 17 (`optimizers`), then, last, the JSON
+     result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -358,6 +381,22 @@ GRU_PER_STEP_MS = {("fused_gru_fwd", "ragged"): "1.3773-1.4124",
 # kernel name fragments of a fused-GRU call in a profile
 GRU_KERNELS = {"forward": "gru_fwd_persistent", "backward recurrence":
                "gru_bwd_persistent", "dW": "gru_dw_"}
+
+# phase 2, the bf16 arms of the fused LSTM and GRU (the Pallas kernels on
+# bf16 streams: float32 arithmetic, every stream rounded at store). Each
+# kernel against its plain twin in the same dtypes, the backward fed the
+# kernel's own forward outputs: every bf16 output within one bf16 ulp of
+# the stored value plus 1e-5 of its sum of |terms| (fused_lstm.bf16_excess
+# <= 1, fused_lstm.step_terms), every float32 one (dW, db, the gates, the
+# NMT mix's streams) by _max_err as the float32 rows. The main cases are
+# the programs' AMP mixes at the LM's and the book model's shapes: LSTM
+# bf16 streams with float32 w, b and bf16 h0, c0 (phase 16's LM); GRU all
+# streams bf16 with float32 w and bf16 h0 (the bias-free NMT); and the
+# NMT's own mix, float32 streams with a bf16 h0, which runs the float32
+# kernels. Then a subset of the coverage cases: a zero-length row, B = 1,
+# H off a tile edge, and H 2048 streamed from L2.
+LSTM_BF16_CASES = [LSTM_COVERAGE_CASES[i] for i in (0, 3, 5, 6)]
+GRU_BF16_CASES = [GRU_COVERAGE_CASES[i] for i in (0, 2, 6, 8)]
 
 
 # the fused conv + BN kernels (paddle_tpu/ops/pallas/fused_conv.py) at the
@@ -578,6 +617,68 @@ AMP_RESNET_LOSS_RTOL = 5e-2
 # them untimed), then CVE_PROFILED profiled steps for the busy share (the
 # NMT arms take phase 4's TRAIN_STEPS)
 AMP_STEPS = 5
+
+# phase 16, the RNN programs under AMP: phase 5's LSTM LM, a
+# stacked_lstm_net classifier at its published defaults (hidden 512, emb
+# 512, 3 layers, the middle one reversed) over phase 5's vocabulary, feed
+# and batch, phase 6's GRU NMT, and that NMT with both GRUs built as gru
+# ops without their Bias input (the op's Bias is optional in both
+# packages; dynamic_gru(bias_attr=False) still creates one there, so the
+# bias-free program is built from the op): its x stays bf16 under AMP,
+# where the NMT's float32 bias promotes it. Each runs RNN_AMP_STEPS
+# compiled steps under amp_guard() beside its float32 arm (same weights
+# and feed), from the same seed.
+STACKED_CFG = dict(vocab_size=LSTM_CFG["vocab_size"], hid_dim=512,
+                   emb_dim=512, stacked_num=3, class_dim=2, lr=1e-3)
+RNN_AMP_STEPS = TRAIN_STEPS
+# the fused-RNN launches a step under AMP, and nothing else of theirs: bf16
+# LSTM kernels only (zero float32 LSTM launches), one forward and one
+# backward a layer; the NMT's float32 GRU kernels (its streams are float32
+# after the bias add); the bias-free NMT's bf16 GRU kernels
+RNN_AMP_LAUNCHES = {
+    "lstm_lm": {"fused_lstm_fwd_bf16": 2, "fused_lstm_bwd_bf16": 2},
+    "stacked_lstm_net": {"fused_lstm_fwd_bf16": 3, "fused_lstm_bwd_bf16": 3},
+    "gru_nmt": {"fused_gru_fwd": 2, "fused_gru_bwd": 2},
+    "gru_nmt_nobias": {"fused_gru_fwd_bf16": 2, "fused_gru_bwd_bf16": 2}}
+# each AMP arm's step-1 loss within this relative distance of its float32
+# arm's: bf16 products and activations move a cross entropy by well under
+# 1% at these widths (from seeded initial weights the LM's logits are
+# near 0 and its loss, ~ln(10000) a token, may not move at all), a wrong
+# cast or gate by O(1); and some step-1 gradient differs from the float32
+# arm's (else nothing was rounded). Every step-1 gradient of the AMP arm
+# is held against
+# the same step with the fused-RNN kernels swapped for their plain twins
+# (rnn_twins), at AMP_TWIN_FACTOR times that step's distance from the
+# float32 arm, as phase 15 holds flash: kernel and twin sum in another
+# order, so one may round a stored value on a rounding boundary to the
+# other neighbour; a wrong mask, gate or rounding moves a gradient by O(1)
+RNN_AMP_LOSS_RTOL = 2e-2
+
+# phase 17, the dense optimizers: phase 5's LSTM LM in float32 minimized by
+# each class for OPT_STEPS compiled steps, its learning rate one of the
+# seven schedules (set_lr_in_scope before each step); ModelAverage over
+# phase 5's SGD at lr 1.0 (its window closes at the second update). Every
+# parameter and accumulator after a step is held against the same
+# update computed in float64 on the host (the program's update ops, in
+# order, over the fetched gradients and the state before the step),
+# within OPT_RTOL of the element plus OPT_ATOL_FRAC of the tensor's
+# largest value: float32 on the card against float64, a few roundings of
+# the update's expression (LARS's norms sum a million squares); a wrong
+# slot, attr or schedule moves an update by O(1) of itself.
+OPT_STEPS = 2
+OPT_RTOL, OPT_ATOL_FRAC = 1e-4, 1e-6
+OPT_CLASSES = [
+    ("AdagradOptimizer", {}, ("exponential_decay", (0.1, 1, 0.5))),
+    ("AdamaxOptimizer", {}, ("noam_decay", (512, 4000, 100.0))),
+    ("DecayedAdagradOptimizer", {}, ("inverse_time_decay", (0.1, 1, 0.5))),
+    ("AdadeltaOptimizer", {}, ("polynomial_decay", (1.0, 4))),
+    ("RMSPropOptimizer", {"momentum": 0.5},
+     ("piecewise_decay", ([1], [0.01, 0.005]))),
+    ("FtrlOptimizer", {"l1": 1e-4, "l2": 1e-4},
+     ("natural_exp_decay", (0.1, 1, 0.5))),
+    ("LarsMomentumOptimizer", {}, ("cosine_decay", (1.0, 1, 4))),
+    ("ModelAverage", {"average_window_rate": 0.5, "min_average_window": 2,
+                      "max_average_window": 3}, None)]
 
 # DeepFM's three dispatch arms (K = 1, K = 4, K = 1 with prefetch 2) and a
 # rerun of the K = 1 arm run the same ops in the same order on the same
@@ -896,22 +997,27 @@ def lm_lengths(seed=0):
 LSTM_PATH_RATE = TF32_FLOPS_PER_S / 3
 
 
-def lstm_bound(t, b, h, lengths_sum, backward, rate=LSTM_PATH_RATE):
+def lstm_bound(t, b, h, lengths_sum, backward, rate=LSTM_PATH_RATE,
+               stream_bytes=4):
     """Least time for one fused-LSTM call on this card: 2*L*H*4H FLOP
     forward, 3x that backward (recompute, dh_prev, dW), L the sum of the
     lengths, at `rate` FLOP/s (3xTF32 on the tensor cores by default;
-    FP32_FLOPS_PER_S for the FMA units); vs the bytes of its inputs read
-    once and outputs written once over HBM rate."""
+    FP32_FLOPS_PER_S for the FMA units; the bf16 arm's products are
+    float32 too); vs the bytes of its inputs read once and outputs
+    written once over HBM rate, the [T,B,.] streams at `stream_bytes` an
+    element (2: the bf16 arm), the rest at 4."""
     fwd = 2.0 * lengths_sum * h * 4 * h
     bwd = 3.0 * fwd
     seq, state, x, w = t * b * h, b * h, t * b * 4 * h, h * 4 * h + 4 * h
+    s = stream_bytes
     if backward:
         # in: x, w, b, h0, c0, lengths, h_all, c_all, dh_all, dc_all,
         # dh_last, dc_last; out: dx, dw, db, dh0, dc0
-        nbytes, flops = 4.0 * (2 * x + 2 * w + 6 * state + b + 4 * seq), bwd
+        nbytes, flops = s * (2 * x + 4 * seq) + 4.0 * (
+            2 * w + 6 * state + b), bwd
     else:
         # in: x, w, b, h0, c0, lengths; out: h_all, c_all, h_last, c_last
-        nbytes, flops = 4.0 * (x + w + 4 * state + b + 2 * seq), fwd
+        nbytes, flops = s * (x + 2 * seq) + 4.0 * (w + 4 * state + b), fwd
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -963,7 +1069,9 @@ def lstm_library(inputs, cts):
     W_ih the permutation of the identity that reorders the gates i, c_hat,
     f, o into PyTorch's i, f, g, o (so it also runs a 4H x 4H input
     product the kernel does not), W_hh and b_ih the reordered w and b,
-    b_hh 0. Returns (forward fn, backward fn, max |h_all - kernel's|)."""
+    b_hh 0, in x's dtype (bf16: cuDNN's bf16 LSTM, which also rounds its
+    state and products to bf16). Returns (forward fn, backward fn, max
+    |h_all - kernel's|)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
     from paddle_tpu_torch.ops.kernels.fused_lstm import fused_lstm_fwd
@@ -979,8 +1087,10 @@ def lstm_library(inputs, cts):
         lstm.weight_hh_l0.copy_(w.t()[order])
         lstm.bias_ih_l0.copy_(bias[order])
         lstm.bias_hh_l0.zero_()
+    lstm = lstm.to(x.dtype)
     xl = x.clone().requires_grad_(True)
     lens_cpu = lengths.cpu().long()
+    h0, c0 = h0.to(x.dtype), c0.to(x.dtype)
 
     def fwd():
         packed = pack_padded_sequence(xl, lens_cpu, enforce_sorted=False)
@@ -988,12 +1098,135 @@ def lstm_library(inputs, cts):
         return pad_packed_sequence(out, total_length=t)[0]
 
     out = fwd()
-    err = (out - fused_lstm_fwd(*inputs)[0]).abs().max().item()
+    err = (out.float() - fused_lstm_fwd(*inputs)[0].float()).abs().max(
+        ).item()
     wrt = (xl,) + tuple(lstm.parameters())
 
     def bwd():
         return torch.autograd.grad(out, wrt, cts[0], retain_graph=True)
     return fwd, bwd, err
+
+
+def _rnn_holds(got, want, names, terms):
+    """Each kernel output against its twin's: bf16 ones by the bf16 rule
+    (terms[name], see fused_lstm.step_terms), float32 ones as _max_err
+    holds them. Returns (max |err|, the worst bf16 excess, ok)."""
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    import torch
+    err, excess, ok = 0.0, 0.0, True
+    for name, g, w in zip(names, got, want):
+        if g is None and w is None:
+            continue
+        if g.dtype != w.dtype:
+            raise SystemExit(f"{name}: the kernel gives {g.dtype}, the twin "
+                             f"{w.dtype}")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+        if g.dtype == torch.bfloat16:
+            r = fl.bf16_excess(g, w, terms[name])
+            excess, ok = max(excess, r), ok and r <= 1.0
+        else:
+            ok = ok and _max_err([g], [w])[1]
+    return err, excess, ok
+
+
+def _lstm_bf16_case(gen, t, b, h, lens, state, cotangents):
+    """LSTM inputs in the LM's AMP mix (bf16 x, h0, c0 and cotangents;
+    float32 w and b) and the kernel-vs-twin holds: (forward (err, excess,
+    ok), backward (err, excess, ok), inputs, cotangents, kernel forward)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    inputs, cts = _lstm_inputs(gen, t, b, h, lens, state, cotangents)
+    x, w, bias, h0, c0, lengths = inputs
+    bf = torch.bfloat16
+    inputs = (x.to(bf), w, bias, h0.to(bf), c0.to(bf), lengths)
+    cts = tuple(None if c is None else c.to(bf) for c in cts)
+    fwd_k = fl.fused_lstm_fwd(*inputs)
+    fwd_p = fl.fused_lstm_fwd_plain(*inputs)
+    bwd_k = fl.fused_lstm_bwd(*inputs, *fwd_k[:2], *cts)
+    bwd_p = fl.fused_lstm_bwd_plain(*inputs, *fwd_k[:2], *cts)
+    torch.cuda.synchronize()
+    h_prev = torch.cat([inputs[3][None].float(), fwd_p[0][:-1].float()])
+    fwd_terms = fl.step_terms(h_prev, w, inputs[0], bias)
+    dh_all, dc_all = fl.fold_last(
+        torch.zeros_like(fwd_k[0]) if cts[0] is None else cts[0],
+        torch.zeros_like(fwd_k[1]) if cts[1] is None else cts[1],
+        cts[2], cts[3], lengths)
+    bwd_terms = fl.step_terms(bwd_p[0].float(), w.t(), dh_all, dc_all)
+    fwd = _rnn_holds(fwd_k, fwd_p, ("h_all", "c_all", "h_last", "c_last"),
+                     dict.fromkeys(("h_all", "c_all", "h_last", "c_last"),
+                                   fwd_terms))
+    bwd = _rnn_holds(bwd_k, bwd_p, ("dx", "dw", "db", "dh0", "dc0"),
+                     dict.fromkeys(("dx", "dh0", "dc0"), bwd_terms))
+    return fwd, bwd, inputs, cts, fwd_k
+
+
+def check_lstm_bf16(card):
+    """The bf16 arm of the fused-LSTM kernels (fused_lstm_{fwd,bwd}_bf16)
+    against the twins in the LM's AMP mix at its shape (T64 B64 H512, the
+    ragged lengths), timed beside the twins, torch.nn.LSTM in bf16 and the
+    bound (the float32 products' rate, bf16 streams' bytes); then over
+    LSTM_BF16_CASES. Returns (rows, {kernel: max |err|})."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    t, b, h = LSTM_T, LSTM_BATCH, LSTM_CFG["hid_dim"]
+    lens = lm_lengths()[1]
+    fwd, bwd, inputs, cts, outs = _lstm_bf16_case(gen, t, b, h, lens, False,
+                                                  False)
+    if not (fwd[2] and bwd[2]):
+        raise SystemExit(f"fused LSTM bf16 kernels disagree with their "
+                         f"twins at T={t} B={b} H={h}: forward {fwd}, "
+                         f"backward {bwd} (max |err|, bf16 excess, ok)")
+    bwd_args = inputs + tuple(outs[:2]) + cts
+    reruns = [fl.fused_lstm_fwd(*inputs) + fl.fused_lstm_bwd(*bwd_args)
+              for _ in range(2)]
+    if not all(torch.equal(x, y) for x, y in zip(*reruns)):
+        raise SystemExit("fused LSTM bf16 kernels: a rerun is not bitwise "
+                         "equal")
+    lib_fwd, lib_bwd, lib_err = lstm_library(inputs, cts)
+    l_sum = int(np.sum(lens))
+    rows = {}
+    for name, run, plain, lib_fn, hold, backward in (
+            ("fused_lstm_fwd_bf16", lambda: fl.fused_lstm_fwd(*inputs),
+             lambda: fl.fused_lstm_fwd_plain(*inputs), lib_fwd, fwd, False),
+            ("fused_lstm_bwd_bf16", lambda: fl.fused_lstm_bwd(*bwd_args),
+             lambda: fl.fused_lstm_bwd_plain(*bwd_args), lib_bwd, bwd,
+             True)):
+        ms = cuda_ms(run, iters=10)
+        plain_ms = cuda_ms(plain, iters=5)
+        library_ms = cuda_ms(lib_fn, iters=10)
+        bound_ms, bound_by = lstm_bound(t, b, h, l_sum, backward,
+                                        stream_bytes=2)
+        rows[(name, "ragged")] = dict(
+            max_abs_err=hold[0], allowance_ratio=hold[1], ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_max_abs_err=lib_err)
+        print(f"[{card}] {name} T={t} B={b} H={h} ragged (sum {l_sum}): "
+              f"max_abs_err={hold[0]:.3e} bf16 excess={hold[1]:.3f} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} nn.LSTM bf16 "
+              f"library_ms={library_ms:.4f} (its h_all vs the kernel's: "
+              f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by})",
+              flush=True)
+    parts = kernel_device_ms(lambda: fl.fused_lstm_bwd(*bwd_args),
+                             LSTM_KERNELS)
+    rows[("fused_lstm_bwd_bf16", "ragged")].update(
+        recurrence_device_ms=parts["backward recurrence"],
+        dw_device_ms=parts["dW"])
+    print(f"  fused_lstm_bwd_bf16 device ms: {parts}", flush=True)
+    errs = {"fused_lstm_fwd_bf16": fwd[0], "fused_lstm_bwd_bf16": bwd[0]}
+    for t, b, h, lens, state, cotangents in LSTM_BF16_CASES:
+        fwd, bwd, _, _, _ = _lstm_bf16_case(gen, t, b, h, lens, state,
+                                            cotangents)
+        print(f"fused_lstm bf16 T={t} B={b} H={h} lengths={list(lens)[:8]} "
+              f"h0/c0={state} cotangents={cotangents}: forward max_abs_err "
+              f"{fwd[0]:.3e} excess {fwd[1]:.3f}, backward {bwd[0]:.3e} "
+              f"excess {bwd[1]:.3f}", flush=True)
+        if not (fwd[2] and bwd[2]):
+            raise SystemExit(f"fused LSTM bf16 kernels disagree with their "
+                             f"twins at T={t} B={b} H={h} lengths={lens}")
+        errs["fused_lstm_fwd_bf16"] = max(errs["fused_lstm_fwd_bf16"], fwd[0])
+        errs["fused_lstm_bwd_bf16"] = max(errs["fused_lstm_bwd_bf16"], bwd[0])
+    return rows, errs
 
 
 def check_lstm(card):
@@ -1103,23 +1336,27 @@ def gru_lengths(seed=0):
     return ids, src_lens, trg_lens
 
 
-def gru_bound(t, b, h, lengths_sum, backward):
+def gru_bound(t, b, h, lengths_sum, backward, bf16=False):
     """Least time for one fused-GRU call on this card: 2*L*H*3H FLOP
     forward; 2x that backward, which reads the forward's saved gates and
     so recomputes nothing (d_rh = dc W_c^T, [du, dr] W_ur^T, dW_ur, dW_c:
     2*L*H*6H), L the sum of the lengths, over the fp32 rate; vs the bytes
     of the function's inputs read once and outputs written once over HBM
-    rate."""
+    rate. bf16: the [T,B,.] streams at 2 bytes, and the backward's
+    function takes x in place of the gates, which it must recompute at
+    the stored h_all (one forward's products more: 3x the forward)."""
     fwd = 2.0 * lengths_sum * h * 3 * h
     seq, state, g3, w = t * b * h, b * h, t * b * 3 * h, h * 3 * h
+    s = 2 if bf16 else 4
     if backward:
-        # in: gates, w, h0, lengths, h_all, dh_all, dh_last;
+        # in: gates (bf16: x), w, h0, lengths, h_all, dh_all, dh_last;
         # out: dx, dw, dh0
-        nbytes, flops = 4.0 * (2 * g3 + 2 * w + 3 * state + b + 2 * seq), \
-            2.0 * fwd
+        nbytes = (s + 4) * g3 if not bf16 else 2 * s * g3
+        nbytes, flops = nbytes + s * 2 * seq + 4.0 * (
+            2 * w + 3 * state + b), (3.0 if bf16 else 2.0) * fwd
     else:
         # in: x, w, h0, lengths; out: h_all, h_last
-        nbytes, flops = 4.0 * (g3 + w + 2 * state + b + seq), fwd
+        nbytes, flops = s * (g3 + seq) + 4.0 * (w + 2 * state + b), fwd
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -1173,16 +1410,18 @@ def gru_yardstick(inputs, cts):
     product (r * (W_hn h + b_hn)), where the reference's GRU multiplies
     (r * h) by W_c. Input size 1, so that its recurrent products (2 H 3H
     FLOP a row and step, as the kernel's) carry the work, on the packed
-    sequence with the kernel's lengths and h0. Returns (forward fn,
-    backward fn)."""
+    sequence with the kernel's lengths and h0, in x's dtype. Returns
+    (forward fn, backward fn)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
     x, w, h0, lengths = inputs
     t, b, g = x.shape
     h = g // 3
-    gru = torch.nn.GRU(1, h).to(DEVICE)
-    xl = torch.zeros(t, b, 1, device=DEVICE).normal_().requires_grad_(True)
+    gru = torch.nn.GRU(1, h).to(DEVICE).to(x.dtype)
+    xl = torch.zeros(t, b, 1, device=DEVICE, dtype=x.dtype).normal_(
+        ).requires_grad_(True)
     lens_cpu = lengths.cpu().long().clamp(min=1)
+    h0 = h0.to(x.dtype)
 
     def fwd():
         packed = pack_padded_sequence(xl, lens_cpu, enforce_sorted=False)
@@ -1212,6 +1451,131 @@ def kernel_device_ms(fn, groups, iters=5):
     return {part: sum(ms for name, ms, _ in device_kernels(prof)
                       if frag in name) / iters
             for part, frag in groups.items()}
+
+
+def _gru_bf16_case(gen, t, b, h, lens, state, last, mix):
+    """GRU inputs in an AMP mix and the kernel-vs-twin holds. mix "bf16":
+    every stream bf16 (x, cotangents), float32 w, bf16 h0 (the bias-free
+    NMT); "nmt": float32 streams with a bf16 h0 (the book NMT under AMP,
+    the float32 kernels). Returns (forward (err, excess, ok), backward
+    (err, excess, ok), inputs, cotangents, kernel forward)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_gru as fg
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    inputs, cts = _gru_inputs(gen, t, b, h, lens, state, last)
+    x, w, h0, lengths = inputs
+    bf = torch.bfloat16
+    sdt = bf if mix == "bf16" else torch.float32
+    inputs = (x.to(sdt), w, h0.to(bf), lengths)
+    cts = tuple(None if c is None else c.to(sdt) for c in cts)
+    recompute = sdt == bf
+    fwd_k = fg.fused_gru_fwd(*inputs)
+    fwd_p = fg.fused_gru_fwd_plain(*inputs)
+    saved = (None, inputs[0]) if recompute else (fwd_k[2], None)
+    bwd_k = fg.fused_gru_bwd(w, inputs[2], lengths, fwd_k[0], saved[0],
+                             *cts, x=saved[1])
+    bwd_p = fg.fused_gru_bwd_plain(w, inputs[2], lengths, fwd_k[0],
+                                   saved[0], *cts, x=saved[1])
+    torch.cuda.synchronize()
+    h_prev = torch.cat([inputs[2][None].float(), fwd_p[0][:-1].float()])
+    fwd_terms = fl.step_terms(h_prev, w, inputs[0])
+    dh_all, _ = fg.fold_last(cts[0], cts[1], lengths)
+    bwd_terms = fl.step_terms(bwd_p[0].float(), w.t(), dh_all)
+    fwd = _rnn_holds(fwd_k, fwd_p, ("h_all", "h_last", "gates"),
+                     dict.fromkeys(("h_all", "h_last"), fwd_terms))
+    if not recompute:   # the float32 forward, as phase 2's float32 rows
+        fwd = fwd[:2] + (fwd[0] <= GRU_FWD_ATOL,)
+    bwd = _rnn_holds(bwd_k, bwd_p, ("dx", "dw", "dh0"),
+                     dict.fromkeys(("dx", "dh0"), bwd_terms))
+    return fwd, bwd, inputs, cts, fwd_k
+
+
+def check_gru_bf16(card):
+    """The bf16 arm of the fused-GRU kernels (fused_gru_{fwd,bwd}_bf16,
+    the backward recomputing the gates at the stored h_all) against the
+    twins with every stream bf16 at the book model's shape (T80 B64 H512,
+    the source lengths), timed beside the twins, torch.nn.GRU in bf16 (a
+    same-FLOP yardstick, not the function) and the bound; the book NMT's
+    own AMP mix (float32 streams, bf16 h0: the float32 kernels) at that
+    shape; then both mixes over GRU_BF16_CASES. Returns (rows, {kernel:
+    max |err|})."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_gru as fg
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    t, b, h = GRU_T, GRU_BATCH, GRU_NMT_CFG["hid_dim"]
+    lens = gru_lengths()[1]
+    errs = {"fused_gru_fwd_bf16": 0.0, "fused_gru_bwd_bf16": 0.0,
+            "fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
+    rows = {}
+    for mix in ("bf16", "nmt"):
+        fwd, bwd, inputs, cts, outs = _gru_bf16_case(gen, t, b, h, lens,
+                                                     False, False, mix)
+        print(f"fused_gru {mix} mix T={t} B={b} H={h} ragged: forward "
+              f"max_abs_err {fwd[0]:.3e} excess {fwd[1]:.3f}, backward "
+              f"{bwd[0]:.3e} excess {bwd[1]:.3f}", flush=True)
+        if not (fwd[2] and bwd[2]):
+            raise SystemExit(f"fused GRU kernels disagree with their twins "
+                             f"in the {mix} mix at T={t} B={b} H={h}")
+        suffix = "_bf16" if mix == "bf16" else ""
+        errs["fused_gru_fwd" + suffix] = fwd[0]
+        errs["fused_gru_bwd" + suffix] = bwd[0]
+        if mix != "bf16":
+            continue
+        bwd_args = (inputs[1], inputs[2], inputs[3], outs[0], None) + cts
+        reruns = [fg.fused_gru_fwd(*inputs)
+                  + fg.fused_gru_bwd(*bwd_args, x=inputs[0])
+                  for _ in range(2)]
+        if not all(torch.equal(x, y) for x, y in zip(*reruns)):
+            raise SystemExit("fused GRU bf16 kernels: a rerun is not "
+                             "bitwise equal")
+        yard_fwd, yard_bwd = gru_yardstick(inputs, cts)
+        l_sum = int(np.sum(lens))
+        for name, run, plain, yard, hold, backward in (
+                ("fused_gru_fwd_bf16", lambda: fg.fused_gru_fwd(*inputs),
+                 lambda: fg.fused_gru_fwd_plain(*inputs), yard_fwd, fwd,
+                 False),
+                ("fused_gru_bwd_bf16",
+                 lambda: fg.fused_gru_bwd(*bwd_args, x=inputs[0]),
+                 lambda: fg.fused_gru_bwd_plain(*bwd_args, x=inputs[0]),
+                 yard_bwd, bwd, True)):
+            ms = cuda_ms(run, iters=10)
+            plain_ms = cuda_ms(plain, iters=5)
+            yard_ms = cuda_ms(yard, iters=10)
+            bound_ms, bound_by = gru_bound(t, b, h, l_sum, backward, True)
+            rows[(name, "ragged")] = dict(
+                max_abs_err=hold[0], allowance_ratio=hold[1], ms=ms,
+                plain_ms=plain_ms, library_ms=None, yardstick_ms=yard_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[{card}] {name} T={t} B={b} H={h} ragged (sum {l_sum}): "
+                  f"max_abs_err={hold[0]:.3e} bf16 excess={hold[1]:.3f} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} nn.GRU bf16 "
+                  f"yardstick_ms={yard_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by})", flush=True)
+        parts = kernel_device_ms(
+            lambda: fg.fused_gru_bwd(*bwd_args, x=inputs[0]),
+            dict(GRU_KERNELS, recompute="gru_gates_"))
+        rows[("fused_gru_bwd_bf16", "ragged")].update(
+            recompute_device_ms=parts["recompute"],
+            recurrence_device_ms=parts["backward recurrence"],
+            dw_device_ms=parts["dW"])
+        print(f"  fused_gru_bwd_bf16 device ms: {parts}", flush=True)
+    for t, b, h, lens, state, last in GRU_BF16_CASES:
+        for mix in ("bf16", "nmt"):
+            fwd, bwd, _, _, _ = _gru_bf16_case(gen, t, b, h, lens, state,
+                                               last, mix)
+            print(f"fused_gru {mix} mix T={t} B={b} H={h} lengths="
+                  f"{list(lens)[:8]} h0={state} h_last cotangent={last}: "
+                  f"forward {fwd[0]:.3e} excess {fwd[1]:.3f}, backward "
+                  f"{bwd[0]:.3e} excess {bwd[1]:.3f}", flush=True)
+            if not (fwd[2] and bwd[2]):
+                raise SystemExit(f"fused GRU kernels disagree with their "
+                                 f"twins in the {mix} mix at T={t} B={b} "
+                                 f"H={h} lengths={lens}")
+            suffix = "_bf16" if mix == "bf16" else ""
+            for kind, hold in (("fwd", fwd), ("bwd", bwd)):
+                key = f"fused_gru_{kind}{suffix}"
+                errs[key] = max(errs[key], hold[0])
+    return rows, errs
 
 
 def check_gru(card):
@@ -1741,7 +2105,8 @@ def train_arm(main, startup, loss, weights, feed, params, card, label,
               flush=True)
     print(f"[{card}] train {label}: {capture_note(exe)}", flush=True)
     out = dict(losses=losses, step_ms=step_ms, peak_bytes=max(peaks),
-               grads=grads, relu_signs=signs)
+               grads=grads, relu_signs=signs,
+               captured=sum(c.captured for c in exe._cache.values()))
     if profiled:
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
@@ -2222,22 +2587,43 @@ def train_lstm(card):
     return summary, launches
 
 
-def build_gru_nmt():
+def gru_without_bias(x, size):
+    """A gru op with no Bias input (the op takes it as optional, as the
+    reference's gru_op.cc does): weight [size, 3 size] and the ragged
+    hidden states, built as dynamic_gru builds them."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    helper = LayerHelper("dynamic_gru")
+    w = helper.create_parameter(helper.param_attr, shape=[size, 3 * size],
+                                dtype="float32")
+    hidden = helper.create_tmp_variable("float32", lod_level=1,
+                                        shape=[-1, size])
+    last_h = helper.create_tmp_variable("float32", shape=[-1, size])
+    helper.append_op(type="gru", inputs={"Input": x, "Weight": w},
+                     outputs={"Hidden": hidden, "LastH": last_h},
+                     attrs={"is_reverse": False,
+                            "gate_activation": "sigmoid",
+                            "activation": "tanh"})
+    return hidden
+
+
+def build_gru_nmt(bias=True):
     """The book chapter's program (tests/test_book.py:166-184) with the
-    port's layers at GRU_NMT_CFG: (main, startup, logits, loss)."""
+    port's layers at GRU_NMT_CFG, each GRU without its Bias input unless
+    `bias` (gru_without_bias): (main, startup, logits, loss)."""
     from paddle_tpu_torch import framework, layers, optimizer
     v, emb, hid = (GRU_NMT_CFG[k] for k in ("dict_size", "emb_dim",
                                              "hid_dim"))
+    gru = layers.dynamic_gru if bias else gru_without_bias
     main, startup = framework.Program(), framework.Program()
     with framework.isolated_name_scope(), \
             framework.program_guard(main, startup):
         src = layers.data("src", [1], dtype="int64", lod_level=1)
         trg = layers.data("trg", [1], dtype="int64", lod_level=1)
         lbl = layers.data("lbl", [1], dtype="int64", lod_level=1)
-        enc = layers.dynamic_gru(layers.fc(layers.embedding(
-            src, size=[v, emb]), size=3 * hid), size=hid)
-        dec = layers.dynamic_gru(layers.fc(layers.embedding(
-            trg, size=[v, emb]), size=3 * hid), size=hid)
+        enc = gru(layers.fc(layers.embedding(src, size=[v, emb]),
+                            size=3 * hid), size=hid)
+        dec = gru(layers.fc(layers.embedding(trg, size=[v, emb]),
+                            size=3 * hid), size=hid)
         ctx = layers.scaled_dot_product_attention(dec, enc, enc)
         logits = layers.fc(layers.concat([dec, ctx], axis=-1), size=v)
         tok_loss = layers.softmax_with_cross_entropy(logits, lbl)
@@ -4283,6 +4669,290 @@ def train_amp(card, flash32, f32_profiled, resnet32):
     return summary, rows, launches
 
 
+@contextlib.contextmanager
+def rnn_twins():
+    """The fused-LSTM and fused-GRU wrappers (float32 and bf16 arms alike)
+    swapped for their plain twins while inside (on CUDA tensors too; no
+    launch is counted)."""
+    from paddle_tpu_torch.ops.kernels import fused_gru as fg
+    from paddle_tpu_torch.ops.kernels import fused_lstm as fl
+    swaps = [(fl, "fused_lstm_fwd", fl.fused_lstm_fwd_plain),
+             (fl, "fused_lstm_bwd", fl.fused_lstm_bwd_plain),
+             (fg, "fused_gru_fwd", fg.fused_gru_fwd_plain),
+             (fg, "fused_gru_bwd", fg.fused_gru_bwd_plain)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, twin in swaps:
+        setattr(m, n, twin)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(swaps, saved):
+            setattr(m, n, fn)
+
+
+def rnn_amp_program(name):
+    """Phase 16's program `name` at full width and its feed: (main,
+    startup, loss, feed)."""
+    from paddle_tpu_torch import framework, layers, optimizer
+    from paddle_tpu_torch.core.lod import RaggedPair
+    from paddle_tpu_torch.models import lstm_lm
+    if name.startswith("gru_nmt"):
+        main, startup, _, loss = build_gru_nmt(bias=name == "gru_nmt")
+        (src, trg, lbl), src_lens, trg_lens = gru_lengths()
+        return main, startup, loss, {
+            "src": RaggedPair(src, src_lens),
+            "trg": RaggedPair(trg, trg_lens),
+            "lbl": RaggedPair(lbl, trg_lens)}
+    ids, lens = lm_lengths()
+    words = RaggedPair(ids, lens)
+    if name == "lstm_lm":
+        with framework.isolated_name_scope():
+            main, startup, f = lstm_lm.build_train(**LSTM_CFG)
+        return main, startup, f["loss"], {"words": words,
+                                          "targets": words}
+    cfg = dict(STACKED_CFG)
+    lr = cfg.pop("lr")
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        data = layers.data("words", [1], dtype="int64", lod_level=1)
+        label = layers.data("label", [1], dtype="int64")
+        pred = lstm_lm.stacked_lstm_net(data, **cfg)
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        optimizer.AdamOptimizer(learning_rate=lr).minimize(loss)
+    label = np.random.RandomState(5).randint(
+        0, cfg["class_dim"], (LSTM_BATCH, 1)).astype(np.int64)
+    return main, startup, loss, {"words": words, "label": label}
+
+
+def train_rnn_amp(card):
+    """Phase 16: the RNN programs (RNN_AMP_LAUNCHES) at full width under
+    amp_guard(), each beside its float32 arm and the same AMP step through
+    the fused-RNN twins (rnn_twins): launches, step-1 loss and gradients
+    held as RNN_AMP_LOSS_RTOL says, the compiled key captured as a CUDA
+    graph (the wrappers' dtype conversions inside it), ms a step, busy
+    share and peak memory of both arms. Returns the phase's summary and
+    its launches (summed over the AMP arms)."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    summary, total = {}, {}
+    for name, want in RNN_AMP_LAUNCHES.items():
+        main, startup, loss, feed = rnn_amp_program(name)
+        weights = seeded_weights(startup, seed=0)
+        params = [p.name for p in main.all_parameters()]
+        arms = {}
+        kernels.reset_launch_counts()
+        arms["f32"] = train_arm(main, startup, loss, weights, feed, params,
+                                card, f"{name} float32",
+                                profiled=CVE_PROFILED)
+        with amp.amp_guard():
+            kernels.reset_launch_counts()
+            arms["amp"] = train_arm(main, startup, loss, weights, feed,
+                                    params, card, f"{name} AMP",
+                                    profiled=CVE_PROFILED)
+            with rnn_twins():
+                twin = pinned_relu_grads(main, startup, loss, weights, feed,
+                                         params, arms["amp"]["relu_signs"])
+        a, c = arms["amp"], arms["f32"]
+        launches = {n: k for n, k in a["launches"].items() if k}
+        rnn = {n: k for n, k in launches.items()
+               if n.startswith(("fused_lstm", "fused_gru"))}
+        expect = {n: k * RNN_AMP_STEPS for n, k in want.items()}
+        print(f"[{card}] {name} AMP launches {launches}", flush=True)
+        if rnn != expect:
+            raise SystemExit(f"{name} AMP launched {rnn} of the fused-RNN "
+                             f"kernels, expected {expect}")
+        if not a["captured"]:
+            raise SystemExit(f"{name} AMP: no compiled key was captured as "
+                             "a CUDA graph")
+        for n, k in launches.items():
+            total[n] = total.get(n, 0) + k
+        rel = abs(a["losses"][0] - c["losses"][0]) / abs(c["losses"][0])
+        if not rel <= RNN_AMP_LOSS_RTOL:
+            raise SystemExit(f"{name} AMP step-1 loss {a['losses'][0]} vs "
+                             f"float32 {c['losses'][0]}: relative distance "
+                             f"{rel:.3e}, over {RNN_AMP_LOSS_RTOL}")
+
+        def gap(x, y):
+            return float(np.linalg.norm(np.asarray(x, np.float64)
+                                        - np.asarray(y, np.float64)))
+        if not any(gap(a["grads"][p], c["grads"][p]) for p in params):
+            raise SystemExit(f"{name} AMP: every step-1 gradient equals the "
+                             "float32 arm's; nothing was rounded")
+        ratios = {p: gap(a["grads"][p], twin[p])
+                  / max(gap(twin[p], c["grads"][p]), 1e-30) for p in params}
+        worst = max(ratios, key=ratios.get)
+        print(f"[{card}] {name} AMP: step-1 loss {a['losses'][0]:.6f} vs "
+              f"float32 {c['losses'][0]:.6f} (relative {rel:.3e}); "
+              f"|kernels - twins| / |twins - f32| up to "
+              f"{ratios[worst]:.3f} ({worst}; factor {AMP_TWIN_FACTOR})",
+              flush=True)
+        fails = {p: r for p, r in ratios.items() if not r <= AMP_TWIN_FACTOR}
+        if fails:
+            raise SystemExit(f"{name} AMP gradients over {AMP_TWIN_FACTOR}x "
+                             f"the twins' distance: {fails}")
+        out = {"launches_per_step": {n: k / RNN_AMP_STEPS
+                                     for n, k in launches.items()},
+               "loss_rel_to_f32": rel, "twin_ratio_max": ratios[worst],
+               "twin_ratio_argmax": worst, "captured": a["captured"]}
+        for label, arm in arms.items():
+            out[label] = {"losses": arm["losses"],
+                          "step_ms": _median_ms(arm["step_ms"]),
+                          "busy": arm["busy"],
+                          "peak_bytes": arm["peak_bytes"]}
+            print(f"[{card}] {name} {label}: {out[label]['step_ms']:.2f} ms "
+                  f"a step, {100 * arm['busy']:.1f}% busy, peak "
+                  f"{arm['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        summary[name] = out
+        del arms, a, c, twin, main, startup, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary, total
+
+
+# the ops that update a program's state after its backward
+UPDATE_OPS = ("sgd", "momentum", "adam", "adagrad", "adamax", "adadelta",
+              "rmsprop", "decayed_adagrad", "ftrl", "lars_momentum",
+              "average_accumulates")
+
+
+def _update_ops(main):
+    """The ops of `main` that update state after the backward, in program
+    order: each optimizer's update op, Adamax's beta1_pow scale (in
+    place) and ModelAverage's average_accumulates."""
+    return [op for op in main.desc.global_block.ops
+            if op.type in UPDATE_OPS or op.type == "scale"
+            and op.input("X") == op.output("Out")]
+
+
+def float64_updates(ops, state, grads):
+    """`ops` run on the host in float64 over the state before a step and
+    its fetched gradients ({name: numpy}): the state after it."""
+    import torch
+    from paddle_tpu_torch.core.registry import ExecutionContext, OpRegistry
+    env = {n: torch.from_numpy(np.asarray(v)).to(
+        torch.float64 if np.asarray(v).dtype.kind == "f" else None)
+        for n, v in list(state.items()) + list(grads.items())}
+    for op in ops:
+        ctx = ExecutionContext(op, env, {"device": "cpu"})
+        OpRegistry.get(op.type).compute(ctx)
+        env.update(ctx.outputs)
+    return {n: env[n].numpy() for n in state}
+
+
+def train_optimizers(card):
+    """Phase 17: OPT_CLASSES on phase 5's LSTM LM in float32, OPT_STEPS
+    compiled steps each, every state update held against float64_updates;
+    then ModelAverage's apply (the averages, from the accumulators) and
+    restore (the parameters back bit for bit). Returns the phase's
+    summary."""
+    import torch
+    from paddle_tpu_torch import (Executor, Scope, framework, layers,
+                                  learning_rate_decay, optimizer,
+                                  scope_guard)
+    from paddle_tpu_torch.core.lod import RaggedPair
+    from paddle_tpu_torch.models import lstm_lm
+    t0 = time.perf_counter()
+    ids, lens = lm_lengths()
+    feed = {"words": RaggedPair(ids, lens), "targets": RaggedPair(ids, lens)}
+    cfg = {k: v for k, v in LSTM_CFG.items() if k != "lr"}
+    summary = {}
+    for name, kwargs, schedule in OPT_CLASSES:
+        main, startup = framework.Program(), framework.Program()
+        with framework.isolated_name_scope(), \
+                framework.program_guard(main, startup):
+            w = layers.data("words", [1], dtype="int64", lod_level=1)
+            tg = layers.data("targets", [1], dtype="int64", lod_level=1)
+            loss, _ = lstm_lm.language_model(w, tg, **cfg)
+            if name == "ModelAverage":
+                _, params_grads = optimizer.SGDOptimizer(
+                    learning_rate=1.0).minimize(loss)
+                opt = optimizer.ModelAverage(params_grads, **kwargs)
+            else:
+                lr = getattr(learning_rate_decay, schedule[0])(*schedule[1])
+                opt = getattr(optimizer, name)(learning_rate=lr, **kwargs)
+                opt.minimize(loss)
+        ops = _update_ops(main)
+        names = sorted({n for op in ops for n in op.output_names()})
+        reads = sorted(set(names) | {n for op in ops
+                                     for n in op.input_names()
+                                     if not n.endswith("@GRAD")})
+        params = [p.name for p in main.all_parameters()]
+        exe, scope = Executor(), Scope()
+        exe.run(startup, scope=scope)
+        weights = seeded_weights(startup, seed=0)
+        for p in params:   # the accumulators keep their startup values
+            scope.set(p, torch.from_numpy(weights[p]).to(
+                scope.get(p).device))
+        worst, losses = 0.0, []
+        for step in range(OPT_STEPS):
+            opt.set_lr_in_scope(step, scope)
+            before = {n: scope.get(n).cpu().numpy().copy()
+                      for n in reads}
+            out = exe.run(main, feed=feed, scope=scope,
+                          fetch_list=[loss.name]
+                          + [p + "@GRAD" for p in params])
+            losses.append(float(out[0].reshape(-1)[0]))
+            want = float64_updates(ops, before, {
+                p + "@GRAD": g for p, g in zip(params, out[1:])})
+            for n in names:
+                got = scope.get(n).cpu().numpy().astype(np.float64)
+                ref = np.asarray(want[n], np.float64)
+                limit = OPT_RTOL * np.abs(ref) + OPT_ATOL_FRAC * max(
+                    float(np.abs(ref).max()), 1e-30)
+                excess = float((np.abs(got - ref) / limit).max())
+                worst = max(worst, excess)
+                if not excess <= 1.0:
+                    raise SystemExit(f"{name} step {step}: {n} is "
+                                     f"{excess:.2f}x its allowance from the "
+                                     "float64 update")
+        out = {"losses": losses, "allowance_ratio_max": worst,
+               "updated_vars": len(names),
+               "update_ops": sorted({op.type for op in ops}),
+               "schedule": schedule[0] if schedule else None}
+        if name == "ModelAverage":
+            trained = {p: scope.get(p).cpu().numpy().copy() for p in params}
+            acc = opt._accumulators
+            with scope_guard(scope):
+                with opt.apply(exe):
+                    gap = 0.0
+                    for p in params:
+                        s = sum(scope.get(acc[k][p].name).cpu().numpy()
+                                .astype(np.float64)
+                                for k in ("sum_1", "sum_2", "sum_3"))
+                        n = sum(int(scope.get(acc[k][p].name).cpu()[0])
+                                for k in ("num_accumulates",
+                                          "old_num_accumulates"))
+                        avg = scope.get(p).cpu().numpy()
+                        gap = max(gap, float(np.abs(avg - s / n).max()
+                                             / max(np.abs(s / n).max(),
+                                                   1e-30)))
+                for p in params:
+                    if not np.array_equal(scope.get(p).cpu().numpy(),
+                                          trained[p]):
+                        raise SystemExit(f"ModelAverage restore: {p} is "
+                                         "not its trained value")
+            if not gap <= OPT_RTOL:
+                raise SystemExit(f"ModelAverage apply: the averages sit "
+                                 f"{gap:.3e} from the accumulators' mean")
+            out["apply_rel_gap"] = gap
+        note = (f"; apply/restore, averages within "
+                f"{out['apply_rel_gap']:.2e}" if name == "ModelAverage"
+                else "")
+        print(f"[{card}] {name}: losses {losses}, {len(names)} state vars "
+              f"of {out['update_ops']} held against float64 (worst "
+              f"{worst:.3f} of the allowance){note}", flush=True)
+        summary[name] = out
+        del exe, scope
+        torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4323,6 +4993,13 @@ def main() -> int:
     attn_bwd, bwd_coverage_err = check_attention_bwd(card)
     lstm_rows, lstm_coverage_err = check_lstm(card)
     gru_rows, gru_coverage_err = check_gru(card)
+    lstm_bf16_rows, lstm_bf16_err = check_lstm_bf16(card)
+    gru_bf16_rows, gru_bf16_err = check_gru_bf16(card)
+    lstm_rows.update(lstm_bf16_rows)
+    lstm_coverage_err.update(lstm_bf16_err)
+    gru_rows.update(gru_bf16_rows)
+    for name, err in gru_bf16_err.items():
+        gru_coverage_err[name] = max(gru_coverage_err.get(name, 0.0), err)
     conv_rows, conv_coverage_err = check_fused_conv(card)
     mega_coverage_err = check_megakernel(card)
 
@@ -4401,7 +5078,13 @@ def main() -> int:
         card, flash32, training["profiled_step"], compiled["resnet50"])
     del flash32
 
-    # -- 16. result lines ------------------------------------------------------
+    # -- 16. RNNs under AMP: the LSTM LM, stacked_lstm_net, both GRU NMTs ----
+    rnn_amp, rnn_amp_launches = train_rnn_amp(card)
+
+    # -- 17. the dense optimizers and the learning-rate schedules ----------
+    optimizers = train_optimizers(card)
+
+    # -- 18. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -4418,7 +5101,8 @@ def main() -> int:
                       "megakernel_chain": mega_launches[name],
                       "roll_micro": micro_launches[name],
                       "trainer": trainer_launches[name],
-                      "amp_training": amp_launches[name]}
+                      "amp_training": amp_launches[name],
+                      "rnn_amp_training": rnn_amp_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -4474,7 +5158,12 @@ def main() -> int:
             "shape": AMP_MAIN_CASES[name],
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "allowance_ratio")}})
-    for name, line in (("fused_lstm_fwd", 35), ("fused_lstm_bwd", 66)):
+    # the bf16 rows (the kernels' bf16 arm): bound_ms at the float32
+    # products' rate with the bf16 streams' bytes, library_ms the bf16
+    # torch.nn.LSTM; the GRU's library_ms is null as in float32
+    for name, line in (("fused_lstm_fwd", 35), ("fused_lstm_bwd", 66),
+                       ("fused_lstm_fwd_bf16", 35),
+                       ("fused_lstm_bwd_bf16", 66)):
         case = lstm_rows[(name, LSTM_MAIN_CASE)]
         rows.append({
             "name": name, "route": "cuda",
@@ -4487,11 +5176,14 @@ def main() -> int:
                                     "library_ms", "fma_bound_ms",
                                     "fma_bound_by", "barrier_floor_ms",
                                     "plan", "recurrence_device_ms",
-                                    "dw_device_ms") if k in case}})
+                                    "dw_device_ms", "allowance_ratio",
+                                    "library_max_abs_err") if k in case}})
     # no PyTorch call computes the GRU's function (torch.nn.GRU resets
     # after the recurrent product): library_ms is null, and the nn.GRU
     # same-FLOP yardstick rides beside it
-    for name, line in (("fused_gru_fwd", 44), ("fused_gru_bwd", 63)):
+    for name, line in (("fused_gru_fwd", 44), ("fused_gru_bwd", 63),
+                       ("fused_gru_fwd_bf16", 44),
+                       ("fused_gru_bwd_bf16", 63)):
         case = gru_rows[(name, GRU_MAIN_CASE)]
         rows.append({
             "name": name, "route": "cuda",
@@ -4503,7 +5195,8 @@ def main() -> int:
             **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "yardstick_ms",
                                     "barrier_floor_ms", "plan",
-                                    "recurrence_device_ms", "dw_device_ms")
+                                    "recurrence_device_ms", "dw_device_ms",
+                                    "recompute_device_ms", "allowance_ratio")
                if k in case}})
     # the fused conv kernels at stage 1 of the chain, float32 (3xTF32),
     # with the bfloat16 kernel's numbers beside them; ms, plain_ms and
@@ -4587,6 +5280,8 @@ def main() -> int:
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"compiled": compiled}))
     print(json.dumps({"amp": amp_summary}))
+    print(json.dumps({"rnn_amp": rnn_amp}))
+    print(json.dumps({"optimizers": optimizers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

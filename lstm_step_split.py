@@ -177,7 +177,7 @@ extern "C" int split_mma_rate(long long* cycles, float* sink, int blocks,
 
 
 SOURCE = "fused_lstm.cu"
-COPY = "grid::cp_async16(dst, a + (size_t)r * H + k);"
+COPY = "grid::cp_async16(dst, a32 + (size_t)r * H + k);"
 MMA = """  grid::mma_tf32(la, al, bh);
   grid::mma_tf32(lb, ah, bl);
   grid::mma_tf32(hi, ah, bh);"""

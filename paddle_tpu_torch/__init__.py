@@ -32,3 +32,4 @@ from .io import load_param_arrays  # noqa: F401
 from . import reader, resilience  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .reader import batch  # noqa: F401
+from . import learning_rate_decay, optimizer  # noqa: F401

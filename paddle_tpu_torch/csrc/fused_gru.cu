@@ -1,8 +1,9 @@
-// Fused GRU time loop, forward and backward, float32, for Hopper (sm_90a).
+// Fused GRU time loop, forward and backward, for Hopper (sm_90a), on
+// float32 or bfloat16 streams.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/fused_gru.py:
-//   fused_gru_fwd_f32  <- _run_fwd / _fwd_kernel
-//   fused_gru_bwd_f32  <- _fused_gru_bwd / _bwd_kernel
+//   fused_gru_fwd_f32, fused_gru_fwd_bf16  <- _run_fwd / _fwd_kernel
+//   fused_gru_bwd_f32, fused_gru_bwd_bf16  <- _fused_gru_bwd / _bwd_kernel
 // and computes what they compute, masking included:
 //   x [T,B,3H] pre-projected gates with the bias folded in, time-major,
 //   gate order u (update), r (reset), c (candidate); w [H,3H] packs
@@ -21,6 +22,21 @@
 // h_all, which is 0 past a row's length), dx_t is 0 there, and a dead row
 // passes its dh carry on untouched. The caller folds the h_last cotangent
 // into dh_all at max(len-1, 0) and adds it to dh0 for a zero-length row.
+//
+// bf16 arm (the Pallas kernels' semantics on bf16 x): the streams x,
+// h_all, dh_all and dx are bfloat16 (rnn_tile.cuh bf16), widened to
+// float32 at load and rounded to nearest even at store; w, h0 and dw, dh0
+// are float32 here (the wrapper converts those small tensors). Every
+// product and sum and the recurrent state stay float32: the forward's
+// ping-pong is two float32 buffers (the wrapper rounds h_last). The
+// saved-gates shortcut does not hold there: _bwd_kernel recomputes the
+// gates from x and the stored, ROUNDED h_all, and the forward's gates came
+// from its float32 state. So the bf16 backward first recomputes them
+// (gru_gates_kernel: every step at once, as two tiled products over the
+// T*B rows, since no step depends on another there), then runs the same
+// recurrence on them, which leaves the float32 dgates in a scratch (the
+// operand of its products and of dW, as _bwd_kernel's dgates are
+// float32) beside the rounded dx.
 //
 // Design: one persistent launch walks all T steps. The TPU kernel runs a
 // sequential grid over t with h and all of W resident in VMEM. W (3 MB at
@@ -124,9 +140,13 @@
 
 namespace {
 
+using rnn_tile::bf16;
+using rnn_tile::from_float;
 using rnn_tile::kThreads;
+using rnn_tile::ldg_f;
 using rnn_tile::sigmoidf;
 using rnn_tile::Tile;
+using rnn_tile::to_float;
 
 constexpr int kRows = 16;   // rows of a tile
 constexpr int kUnits = 16;  // hidden units of a tile
@@ -146,7 +166,8 @@ constexpr int kMaxSlots = 4;        // tiles of a block with a slot
 // a forward slot, one float a thread each: x_u, x_r, x_c of step t (the
 // cp.async prefetch), then u and h_{t-1} carried from stage 1 to stage 2
 constexpr int kSlot = 5 * kThreads;
-// dW: 64 rows of W x 64 gate columns, over T*B
+// dW: 64 rows of W x 64 gate columns, over T*B; the bf16 backward's gate
+// recompute: 64 of the T*B rows x 64 gate columns, over H
 using DwTile = Tile<64, 64, 1, 16>;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -316,12 +337,13 @@ __device__ __forceinline__ void tile_product(const float* a, size_t lda,
   }
 }
 
+template <class S>
 struct FwdArgs {
-  const float* x;
+  const S* x;
   const float* w;
   const float* h0;
   const int* lengths;
-  float* h_all;
+  S* h_all;
   float* h_last;
   float* h_pong;
   float* gates;
@@ -330,8 +352,9 @@ struct FwdArgs {
   int T, B, H, q_res, a_cap, slots;
 };
 
+template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_fwd_persistent_kernel(const FwdArgs p) {
+gru_fwd_persistent_kernel(const FwdArgs<S> p) {
   extern __shared__ float smem[];
   const int B = p.B, H = p.H, G = 3 * H;
   const Tiles tiles(B, H);
@@ -355,20 +378,25 @@ gru_fwd_persistent_kernel(const FwdArgs p) {
   auto slot = [&](int i, int part) -> float& {
     return xs[i * kSlot + part * kThreads + threadIdx.x];
   };
-  // x_t of this thread's element of tile i into its slot
+  // x_t of this thread's element of tile i into its slot (float32 by
+  // cp.async; bf16 widened by plain loads)
   auto prefetch = [&](int t, int i) {
     const int row = tiles.row0(tiles.begin + i) + r;
     const int j = tiles.unit0(tiles.begin + i) + q;
     if (row >= B || j >= H) return;
-    const float* src = p.x + ((size_t)t * B + row) * G + j;
-    for (int gate = 0; gate < 3; ++gate)
-      grid::cp_async4(&slot(i, gate), src + gate * H);
+    const S* src = p.x + ((size_t)t * B + row) * G + j;
+    for (int gate = 0; gate < 3; ++gate) {
+      if constexpr (sizeof(S) == 4)
+        grid::cp_async4(&slot(i, gate), src + gate * H);
+      else
+        slot(i, gate) = ldg_f(src + gate * H);
+    }
   };
   for (int i = 0; i < n_slot; ++i) prefetch(0, i);
   grid::cp_async_commit();
   auto x_at = [&](int t, int i, int row, int j, int gate) {
     return i < n_slot ? slot(i, gate)
-                      : p.x[((size_t)t * B + row) * G + gate * H + j];
+                      : ldg_f(p.x + ((size_t)t * B + row) * G + gate * H + j);
   };
   // h_t goes to h_last for t = T-1 and alternates buffers before it
   auto state = [&](int t) {
@@ -378,7 +406,7 @@ gru_fwd_persistent_kernel(const FwdArgs p) {
     const float* hp = t == 0 ? p.h0 : state(t - 1);
     float* hn = state(t);
     float* gates_t = p.gates + (size_t)t * B * G;
-    float* h_all_t = p.h_all + (size_t)t * B * H;
+    S* h_all_t = p.h_all + (size_t)t * B * H;
     grid::cp_async_wait_all();
     // stage 1: u and r of each tile, rh = r h_{t-1}
     for (int i = 0; i < n_tiles; ++i) {
@@ -442,7 +470,7 @@ gru_fwd_persistent_kernel(const FwdArgs p) {
         const float h_new = u * hpv + (1.f - u) * c;
         gr[2 * H + j] = c;
         const bool alive = t < len;
-        h_all_t[at] = alive ? h_new : 0.f;
+        h_all_t[at] = from_float<S>(alive ? h_new : 0.f);
         hn[at] = alive ? h_new : hpv;
         if (i < n_slot && t + 1 < p.T) prefetch(t + 1, i);
       }
@@ -452,14 +480,16 @@ gru_fwd_persistent_kernel(const FwdArgs p) {
   }
 }
 
+template <class S>
 struct BwdArgs {
   const float* w;
   const float* h0;
   const int* lengths;
-  const float* h_all;
+  const S* h_all;
   const float* gates;
-  const float* dh_all;
-  float* dx;
+  const S* dh_all;
+  float* dx;    // the float32 dgates (bf16: scratch beside dx_s)
+  S* dx_s;      // bf16: the rounded dx (float32: unused)
   float* carry;
   float* dh_cur;
   float* d_rh;
@@ -473,8 +503,9 @@ struct PrepIn {
   float dh_out, u, c, hp;
 };
 
+template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_bwd_persistent_kernel(const BwdArgs p) {
+gru_bwd_persistent_kernel(const BwdArgs<S> p) {
   extern __shared__ float smem[];
   const int B = p.B, H = p.H, G = 3 * H;
   const size_t bh = (size_t)B * H;
@@ -499,23 +530,29 @@ gru_bwd_persistent_kernel(const BwdArgs p) {
         in ? p.w[(size_t)k * G + (c_part ? 2 * H : 0) + g] : 0.f;
   }
   auto h_prev = [&](int t, size_t at) {
-    return t == 0 ? p.h0[at] : p.h_all[(t - 1) * bh + at];
+    return t == 0 ? p.h0[at] : to_float(p.h_all[(t - 1) * bh + at]);
   };
   auto prep_in = [&](int t, int row, int k) {
     const size_t at = (size_t)row * H + k;
     const float* gr = p.gates + ((size_t)t * B + row) * G;
-    return PrepIn{t < p.lengths[row], p.dh_all[t * bh + at], gr[k],
-                  gr[2 * H + k], h_prev(t, at)};
+    return PrepIn{t < p.lengths[row], to_float(p.dh_all[t * bh + at]),
+                  gr[k], gr[2 * H + k], h_prev(t, at)};
+  };
+  // dx at index e: the float32 dgate, and on bf16 streams its rounding
+  auto store_dx = [&](size_t e, float v) {
+    p.dx[e] = v;
+    if constexpr (sizeof(S) == 2) p.dx_s[e] = from_float<S>(v);
   };
   // prep of step t on element (row, k): the masked dh, du_pre and dc_pre
   auto prep = [&](int t, int row, int k, const PrepIn& in, float carry) {
     const size_t at = (size_t)row * H + k;
     const float dh = in.alive ? in.dh_out + carry : 0.f;
     p.dh_cur[at] = dh;
-    float* dxr = p.dx + ((size_t)t * B + row) * G;
-    dxr[k] = in.alive ? dh * (in.hp - in.c) * in.u * (1.f - in.u) : 0.f;
-    dxr[2 * H + k] =
-        in.alive ? dh * (1.f - in.u) * (1.f - in.c * in.c) : 0.f;
+    const size_t e = ((size_t)t * B + row) * G;
+    store_dx(e + k,
+             in.alive ? dh * (in.hp - in.c) * in.u * (1.f - in.u) : 0.f);
+    store_dx(e + 2 * H + k,
+             in.alive ? dh * (1.f - in.u) * (1.f - in.c * in.c) : 0.f);
   };
   for (int i = tiles.begin; i < tiles.end; ++i) {
     const int row = tiles.row0(i) + r, k = tiles.unit0(i) + q;
@@ -547,8 +584,8 @@ gru_bwd_persistent_kernel(const BwdArgs p) {
           as);
       if (valid) {
         const float drh = as[r * kUnits + q];
-        dx_t[(size_t)row * G + H + k] =
-            alive ? drh * hpv * rg * (1.f - rg) : 0.f;
+        store_dx((size_t)t * B * G + (size_t)row * G + H + k,
+                 alive ? drh * hpv * rg * (1.f - rg) : 0.f);
         p.d_rh[at] = drh;
       }
     }
@@ -607,10 +644,12 @@ gru_barrier_kernel(unsigned* sync, int B, int H, int barriers) {
 // split = z / 2 sums rows [split * rows, (split + 1) * rows) of the R =
 // T*B rows into parts[split]: part 0 dW_ur = sum_r hprev[r]^T dx[r, :2H],
 // part 1 dW_c = sum_r (r_gate[r] hprev[r])^T dx[r, 2H:]; hprev[r] = h0[r]
-// for r < B, else h_all[r - B]. The splits give the card enough blocks;
-// gru_dw_sum_kernel adds them in split order (no atomics).
+// for r < B, else h_all[r - B] (of the stream type S); dx is the float32
+// dgates. The splits give the card enough blocks; gru_dw_sum_kernel adds
+// them in split order (no atomics).
+template <class S>
 __global__ void __launch_bounds__(kThreads)
-gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ h_all,
+gru_dw_kernel(const float* __restrict__ h0, const S* __restrict__ h_all,
               const float* __restrict__ gates, const float* __restrict__ dx,
               float* __restrict__ parts, int R, int B, int H, int rows) {
   __shared__ __align__(16) float smem[DwTile::kSmem];
@@ -628,7 +667,7 @@ gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ h_all,
         const int k = k0 + kk, r = r0 + rr;
         if (k >= H) return 0.f;
         const float hp = r < B ? h0[(size_t)r * H + k]
-                               : h_all[(size_t)(r - B) * H + k];
+                               : to_float(h_all[(size_t)(r - B) * H + k]);
         return part == 0 ? hp : gates[(size_t)r * G + H + k] * hp;
       },
       [&](int rr, int c) {
@@ -658,6 +697,57 @@ gru_dw_sum_kernel(const float* __restrict__ parts, float* __restrict__ dw,
   float sum = parts[e];
   for (int s = 1; s < splits; ++s) sum += parts[(size_t)s * n + e];
   dw[e] = sum;
+}
+
+// The gates of a bf16 backward, recomputed as _bwd_kernel recomputes them,
+// from x and h_{t-1} read from the stored (rounded) h_all, for all T*B
+// rows r at once (hprev[r] = h0[r] for r < B, else h_all[r - B]; x row r
+// is step r / B): part 0 writes u, r = sigmoid(x_ur + hprev W_ur) (gate
+// columns [0, 2H)), then part 1 (a second launch) c = tanh(x_c + (r hprev)
+// W_c) (columns [2H, 3H)), into gates [T*B, 3H] float32. A block computes
+// 64 rows x 64 columns with DwTile's FMA product over K = H.
+template <class S>
+__global__ void __launch_bounds__(kThreads)
+gru_gates_kernel(const S* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ h0, const S* __restrict__ h_all,
+                 float* gates, int R, int B, int H, int part) {
+  __shared__ __align__(16) float smem[DwTile::kSmem];
+  const int G = 3 * H, cols = part == 0 ? 2 * H : H;
+  const int col0 = part == 0 ? 0 : 2 * H;
+  const int r0 = blockIdx.y * 64, g0 = blockIdx.x * 64;
+  if (g0 >= cols) return;
+  auto hprev = [&](int r, int k) {
+    return r < B ? h0[(size_t)r * H + k]
+                 : to_float(h_all[(size_t)(r - B) * H + k]);
+  };
+  float acc[4][4];
+  DwTile::product<true, false>(
+      H,
+      [&](int rr, int k) {
+        const int r = r0 + rr;
+        if (r >= R) return 0.f;
+        return part == 0 ? hprev(r, k)
+                         : gates[(size_t)r * G + H + k] * hprev(r, k);
+      },
+      [&](int k, int c) {
+        const int g = g0 + c;
+        return g < cols ? w[(size_t)k * G + col0 + g] : 0.f;
+      },
+      smem, acc);
+  const int gy = threadIdx.x / 16, gx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + gy * 4 + i;
+    if (r >= R) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int g = g0 + gx * 4 + j;
+      if (g >= cols) continue;
+      const size_t e = (size_t)r * G + col0 + g;
+      const float v = to_float(x[e]) + acc[i][j];
+      gates[e] = part == 0 ? sigmoidf(v) : tanhf(v);
+    }
+  }
 }
 
 // Row splits of the dW reduction: enough for ~4 blocks an SM, at least 64
@@ -727,6 +817,64 @@ cudaError_t plan_launch(Kernel kernel, bool backward, int T, int B, int H,
 // Words of the barriers' counters at batch B (see grid::Barrier).
 int sync_words(int B) { return grid::kSyncWords * cdiv(B, kRows); }
 
+// The forward (see fused_gru_fwd_f32) on streams of type S.
+template <class S>
+int gru_fwd(const S* x, const float* w, const float* h0, const int* lengths,
+            S* h_all, float* h_last, float* gates, float* rh, float* h_pong,
+            unsigned* sync, int T, int B, int H, int* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      plan_launch(gru_fwd_persistent_kernel<S>, false, T, B, H, plan);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
+  if (err != cudaSuccess) return err;
+  const FwdArgs<S> a{x,      w,     h0, lengths, h_all, h_last,
+                     h_pong, gates, rh, sync,    T,     B,
+                     H,      plan[5], plan[6], plan[7]};
+  err = grid::launch_cooperative(gru_fwd_persistent_kernel<S>, plan[3],
+                                 kThreads, plan[4], s, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward (see fused_gru_bwd_f32) on streams of type S, from the
+// float32 gates: dx receives the float32 dgates, dx_s (bf16) their
+// rounding.
+template <class S>
+int gru_bwd(const float* w, const float* h0, const int* lengths,
+            const S* h_all, const float* gates, const S* dh_all, float* dx,
+            S* dx_s, float* dw, float* dh0, float* dh_cur, float* d_rh,
+            float* dw_parts, unsigned* sync, int T, int B, int H, int splits,
+            int* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      plan_launch(gru_bwd_persistent_kernel<S>, true, T, B, H, plan);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(dh0, 0, (size_t)B * H * sizeof(float), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
+  if (err != cudaSuccess) return err;
+  const BwdArgs<S> a{w,     h0,     lengths, h_all, gates, dh_all,
+                     dx,    dx_s,   dh0,     dh_cur, d_rh, sync,
+                     T,     B,      H,       plan[5], plan[6]};
+  err = grid::launch_cooperative(gru_bwd_persistent_kernel<S>, plan[3],
+                                 kThreads, plan[4], s, a);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int R = T * B, rows = cdiv(R, splits);
+  const dim3 grid_dw(cdiv(2 * H, 64), cdiv(H, 64), 2 * cdiv(R, rows));
+  gru_dw_kernel<S><<<grid_dw, kThreads, 0, s>>>(h0, h_all, gates, dx,
+                                                dw_parts, R, B, H, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = H * 3 * H;
+  const dim3 grid_sum(cdiv(n, kThreads));
+  gru_dw_sum_kernel<<<grid_sum, kThreads, 0, s>>>(dw_parts, dw, cdiv(R, rows),
+                                                  n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -744,19 +892,19 @@ int fused_gru_fwd_f32(const float* x, const float* w, const float* h0,
                       const int* lengths, float* h_all, float* h_last,
                       float* gates, float* rh, float* h_pong, unsigned* sync,
                       int T, int B, int H, int* plan, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      plan_launch(gru_fwd_persistent_kernel, false, T, B, H, plan);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
-  if (err != cudaSuccess) return err;
-  const FwdArgs a{x,    w,    h0,   lengths, h_all,   h_last,
-                  h_pong, gates, rh, sync,   T,       B,
-                  H,    plan[5], plan[6], plan[7]};
-  err = grid::launch_cooperative(gru_fwd_persistent_kernel, plan[3],
-                                 kThreads, plan[4], s, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return gru_fwd<float>(x, w, h0, lengths, h_all, h_last, gates, rh, h_pong,
+                        sync, T, B, H, plan, stream);
+}
+
+// The same on bf16 streams x and h_all (torch.bfloat16 data); w, h0, the
+// state h_last and h_pong, gates and rh are float32.
+int fused_gru_fwd_bf16(const void* x, const float* w, const float* h0,
+                       const int* lengths, void* h_all, float* h_last,
+                       float* gates, float* rh, float* h_pong, unsigned* sync,
+                       int T, int B, int H, int* plan, void* stream) {
+  return gru_fwd<bf16>(static_cast<const bf16*>(x), w, h0, lengths,
+                       static_cast<bf16*>(h_all), h_last, gates, rh, h_pong,
+                       sync, T, B, H, plan, stream);
 }
 
 // Words (unsigned) of the sync buffer the entry points take at batch B.
@@ -778,32 +926,36 @@ int fused_gru_bwd_f32(const float* w, const float* h0, const int* lengths,
                       float* dh_cur, float* d_rh, float* dw_parts,
                       unsigned* sync, int T, int B, int H, int splits,
                       int* plan, void* stream) {
+  return gru_bwd<float>(w, h0, lengths, h_all, gates, dh_all, dx, nullptr,
+                        dw, dh0, dh_cur, d_rh, dw_parts, sync, T, B, H,
+                        splits, plan, stream);
+}
+
+// The same on bf16 streams x, h_all, dh_all and dx (torch.bfloat16 data),
+// from x in place of the forward's gates: gates [T,B,3H] is float32
+// scratch, where the gates are recomputed at the stored h_all
+// (gru_gates_kernel) first, and dgates [T,B,3H] float32 scratch for the
+// unrounded dgates; w, h0, dw and dh0 are float32.
+int fused_gru_bwd_bf16(const void* x, const float* w, const float* h0,
+                       const int* lengths, const void* h_all, float* gates,
+                       const void* dh_all, void* dx, float* dgates, float* dw,
+                       float* dh0, float* dh_cur, float* d_rh,
+                       float* dw_parts, unsigned* sync, int T, int B, int H,
+                       int splits, int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      plan_launch(gru_bwd_persistent_kernel, true, T, B, H, plan);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(dh0, 0, (size_t)B * H * sizeof(float), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
-  if (err != cudaSuccess) return err;
-  const BwdArgs a{w,    h0,   lengths, h_all, gates, dh_all, dx,
-                  dh0,  dh_cur, d_rh, sync,  T,     B,      H,
-                  plan[5], plan[6]};
-  err = grid::launch_cooperative(gru_bwd_persistent_kernel, plan[3],
-                                 kThreads, plan[4], s, a);
-  if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int R = T * B, rows = cdiv(R, splits);
-  const dim3 grid_dw(cdiv(2 * H, 64), cdiv(H, 64), 2 * cdiv(R, rows));
-  gru_dw_kernel<<<grid_dw, kThreads, 0, s>>>(h0, h_all, gates, dx, dw_parts,
-                                             R, B, H, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = H * 3 * H;
-  const dim3 grid_sum(cdiv(n, kThreads));
-  gru_dw_sum_kernel<<<grid_sum, kThreads, 0, s>>>(dw_parts, dw, cdiv(R, rows),
-                                                  n);
-  return cudaGetLastError();
+  const int R = T * B;
+  const dim3 grid_gates(cdiv(2 * H, 64), cdiv(R, 64));
+  for (int part = 0; part < 2; ++part) {
+    gru_gates_kernel<bf16><<<grid_gates, kThreads, 0, s>>>(
+        static_cast<const bf16*>(x), w, h0, static_cast<const bf16*>(h_all),
+        gates, R, B, H, part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return gru_bwd<bf16>(w, h0, lengths, static_cast<const bf16*>(h_all),
+                       gates, static_cast<const bf16*>(dh_all), dgates,
+                       static_cast<bf16*>(dx), dw, dh0, dh_cur, d_rh,
+                       dw_parts, sync, T, B, H, splits, plan, stream);
 }
 
 // The barrier floor of the forward (backward != 0: the backward) at these
@@ -813,8 +965,10 @@ int fused_gru_barrier_floor(unsigned* sync, int T, int B, int H,
                             int backward, int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      backward ? plan_launch(gru_bwd_persistent_kernel, true, T, B, H, plan)
-               : plan_launch(gru_fwd_persistent_kernel, false, T, B, H, plan);
+      backward
+          ? plan_launch(gru_bwd_persistent_kernel<float>, true, T, B, H, plan)
+          : plan_launch(gru_fwd_persistent_kernel<float>, false, T, B, H,
+                        plan);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gru_barrier_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,8 +1,9 @@
-// Fused LSTM time loop, forward and backward, float32, for Hopper (sm_90a).
+// Fused LSTM time loop, forward and backward, for Hopper (sm_90a), on
+// float32 or bfloat16 streams.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/fused_lstm.py:
-//   fused_lstm_fwd_f32  <- _run_fwd / _fwd_kernel
-//   fused_lstm_bwd_f32  <- _fused_lstm_bwd / _bwd_kernel
+//   fused_lstm_fwd_f32, fused_lstm_fwd_bf16  <- _run_fwd / _fwd_kernel
+//   fused_lstm_bwd_f32, fused_lstm_bwd_bf16  <- _fused_lstm_bwd / _bwd_kernel
 // and computes what they compute, masking included:
 //   x [T,B,4H] pre-projected gates, time-major, gate order i, c_hat, f, o;
 //   w [H,4H]; b [4H]; h0, c0 [B,H]; lengths [B] int32.
@@ -17,6 +18,20 @@
 // are 0 there, and a dead row passes its dh and dc carries on untouched.
 // The caller folds the h_last/c_last cotangents into dh_all/dc_all at
 // max(len-1, 0).
+//
+// bf16 arm (the Pallas kernels' semantics on bf16 x): the [T,B,.] streams
+// x, h_all, c_all, dh_all, dc_all and dx are all bfloat16 (rnn_tile.cuh
+// bf16), read as bf16 and widened to float32 at load, rounded to nearest
+// even at store; w, b, h0, c0 and the results dw, db, dh0, dc0 are float32
+// here (the wrapper converts those small tensors to and from their own
+// dtypes). Every product and sum and the recurrent state stay float32:
+// the same 3xTF32 path. So the forward's state ping-pong is two float32
+// buffers (h_last and h_pong; the wrapper rounds h_last and c_last, which
+// gives the bits of the reference's gather from the rounded h_all); the
+// backward recomputes its gates from the ROUNDED h_all and c_all (as
+// _bwd_kernel reads them), and keeps the unrounded float32 dgates in a
+// [T,B,4H] scratch beside the rounded dx, which dW and db are summed from
+// (as _bwd_kernel sums them from its float32 dgates).
 //
 // Design: one persistent cooperative launch walks all T steps, with the
 // W strips resident in shared memory and the products on the tensor cores
@@ -135,8 +150,12 @@
 
 namespace {
 
+using rnn_tile::bf16;
+using rnn_tile::from_float;
 using rnn_tile::kThreads;
+using rnn_tile::ldg_f;
 using rnn_tile::sigmoidf;
+using rnn_tile::to_float;
 
 constexpr int kRows = 16;              // rows of a tile (mma's m)
 constexpr int kUnits = 16;             // hidden units of a tile
@@ -148,7 +167,7 @@ constexpr int kRedLd = kCols + 8;      // floats of a row of a partial
 constexpr int kDgLd = kCols + 4;       // floats of a row of the dgates
 constexpr int kAFloats = kWarps * kRows * kALd;
 constexpr int kRedFloats = kWarps * kRows * kRedLd;
-constexpr int kXFloats = kRows * kCols;  // one x slot
+constexpr int kXFloats = kRows * kCols;  // values of one x slot
 constexpr int kDgFloats = kRows * kDgLd;
 constexpr int kStepFloats = 8 * kCols;   // a k-step (8 rows) of the strip
 constexpr int kPlan = 7;
@@ -225,17 +244,22 @@ __device__ __forceinline__ void mma3(float (&hi)[4], float (&la)[4],
 // This warp's share of a tile's gate product: sum[j] holds the 16 x 8
 // n-tile j (strip columns 8j..8j+7, fragment layout of grid_sync.cuh) of
 // A[16 x H] W_strip[H x 64] over the warp's k-steps. A's row r (< rows)
-// is at a + r H: a state other blocks wrote before the barrier, copied
-// through L2. W rows of k-steps below q_res come from the resident strip
-// ws, the rest from w in device memory. abuf is the warp's A buffer.
-__device__ void gate_product(const float* a, int rows, int H, int j0,
-                             int q_res, const float* ws, const float* w,
-                             float* abuf, float (&sum)[8][4]) {
+// is at a + r H. float32 A: a state other blocks wrote before the
+// barrier, copied through L2. bf16 A (the backward's stored h_all, saved
+// data): loaded in pairs and widened into abuf. W rows of k-steps below
+// q_res come from the resident strip ws, the rest from w in device
+// memory. abuf is the warp's A buffer.
+template <class A>
+__device__ void gate_product(const A* a, int rows, int H, int j0, int q_res,
+                             const float* ws, const float* w, float* abuf,
+                             float (&sum)[8][4]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int steps = cdiv(H, 8);
   const int s0 = warp * steps / kWarps, s1 = (warp + 1) * steps / kWarps;
-  const bool vec = ((reinterpret_cast<size_t>(a) | (size_t)H * 4) & 15) == 0;
+  const bool vec = sizeof(A) == 4 &&
+      ((reinterpret_cast<size_t>(a) | (size_t)H * 4) & 15) == 0;
+  const bool pairs = ((reinterpret_cast<size_t>(a) & 3) | (H & 1)) == 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -287,6 +311,7 @@ __device__ void gate_product(const float* a, int rows, int H, int j0,
       // rest: a lane copies chunk q = lane % 16 of 8 rows, and the first
       // half is multiplied while the rest lands
       const int half = (n + 1) / 2, q = lane % 16, k = k0 + 4 * q;
+      const float* a32 = reinterpret_cast<const float*>(a);
       for (int part = 0; part < 2; ++part) {
         if ((q < 2 * half) == (part == 0) && q < 2 * n) {
 #pragma unroll
@@ -294,7 +319,7 @@ __device__ void gate_product(const float* a, int rows, int H, int j0,
             const int r = lane / 16 + 2 * i;
             float* dst = abuf + r * kALd + 4 * q;
             if (r < rows && k < H)
-              grid::cp_async16(dst, a + (size_t)r * H + k);
+              grid::cp_async16(dst, a32 + (size_t)r * H + k);
             else
               *reinterpret_cast<float4*>(dst) =
                   make_float4(0.f, 0.f, 0.f, 0.f);
@@ -308,13 +333,45 @@ __device__ void gate_product(const float* a, int rows, int H, int j0,
       grid::cp_async_wait(0);
       __syncwarp();
       multiply(half, n);
-    } else {
+    } else if constexpr (sizeof(A) == 4) {
       for (int idx = lane; idx < kRows * 8 * kChunk; idx += 32) {
         const int r = idx / (8 * kChunk), kk = idx % (8 * kChunk);
         const int k = k0 + kk;
         if (kk < 8 * n)
           abuf[r * kALd + kk] =
               (r < rows && k < H) ? grid::load_cg(a + (size_t)r * H + k) : 0.f;
+      }
+      __syncwarp();
+      multiply(0, n);
+    } else {
+      // bf16: a lane's 16 words of two values (one 4-byte load each
+      // where aligned) are all loaded first, so that their latencies
+      // overlap, then widened into abuf
+      constexpr int kWords = kRows * 4 * kChunk / 32;
+      unsigned words[kWords];
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int idx = lane + 32 * i;
+        const int r = idx / (4 * kChunk), kk = 2 * (idx % (4 * kChunk));
+        const int k = k0 + kk;
+        const A* at = a + (size_t)r * H + k;
+        words[i] = 0u;
+        if (kk < 8 * n && r < rows) {
+          if (pairs && k < H) {
+            words[i] = __ldg(reinterpret_cast<const unsigned*>(at));
+          } else {
+            if (k < H) words[i] = at[0].bits;
+            if (k + 1 < H) words[i] |= (unsigned)at[1].bits << 16;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int idx = lane + 32 * i;
+        const int r = idx / (4 * kChunk), kk = 2 * (idx % (4 * kChunk));
+        if (kk >= 8 * n) continue;
+        abuf[r * kALd + kk] = __uint_as_float(words[i] << 16);
+        abuf[r * kALd + kk + 1] = __uint_as_float(words[i] & 0xffff0000u);
       }
       __syncwarp();
       multiply(0, n);
@@ -360,34 +417,55 @@ __device__ __forceinline__ void gate_sums(const float* red, int r, int u,
   }
 }
 
-// x_t of tile (r0, j0) into `slot` [16][64] by cp.async: one 16-byte copy
-// a thread where the rows are 16-byte aligned (vec), else four 4-byte
-// copies; rows past B and units past H are left as they are.
-__device__ __forceinline__ void prefetch_x(const float* x_t, int r0, int j0,
-                                           int B, int H, bool vec,
-                                           float* slot) {
+// x_t of tile (r0, j0) into `slot` [16][64] (of the stream type S) by
+// cp.async. float32: one 16-byte copy a thread where the rows are 16-byte
+// aligned (vec), else four 4-byte copies. bf16: two 4-byte copies (pairs)
+// where the rows are 4-byte aligned (vec), else plain loads. Rows past B
+// and units past H are left as they are.
+template <class S>
+__device__ __forceinline__ void prefetch_x(const S* x_t, int r0, int j0,
+                                           int B, int H, bool vec, S* slot) {
   const int tid = threadIdx.x;
   const int r = tid / 16, q = tid % 16 / 4, j = j0 + 4 * (tid % 4);
   if (r0 + r >= B) return;
-  const float* src = x_t + (size_t)(r0 + r) * 4 * H + q * H + j;
-  float* dst = slot + r * kCols + q * kUnits + 4 * (tid % 4);
-  if (vec) {
-    if (j < H) grid::cp_async16(dst, src);
+  const S* src = x_t + (size_t)(r0 + r) * 4 * H + q * H + j;
+  S* dst = slot + r * kCols + q * kUnits + 4 * (tid % 4);
+  if constexpr (sizeof(S) == 4) {
+    if (vec) {
+      if (j < H) grid::cp_async16(dst, src);
+    } else {
+      for (int e = 0; e < 4; ++e)
+        if (j + e < H) grid::cp_async4(dst + e, src + e);
+    }
+  } else if (vec) {  // H is even: a pair is in or out whole
+    for (int e = 0; e < 4; e += 2)
+      if (j + e < H)
+        grid::cp_async4(reinterpret_cast<float*>(dst + e),
+                        reinterpret_cast<const float*>(src + e));
   } else {
     for (int e = 0; e < 4; ++e)
-      if (j + e < H) grid::cp_async4(dst + e, src + e);
+      if (j + e < H) dst[e] = src[e];
   }
 }
 
+// Whether the x slots' copies of stream x can take their vector form.
+template <class S>
+__device__ __forceinline__ bool x_vector(const S* x, int H) {
+  return sizeof(S) == 4
+             ? ((reinterpret_cast<size_t>(x) & 15) | (H & 3)) == 0
+             : ((reinterpret_cast<size_t>(x) & 3) | (H & 1)) == 0;
+}
+
+template <class S>
 struct FwdArgs {
-  const float* x;
+  const S* x;
   const float* w;
   const float* b;
   const float* h0;
   const float* c0;
   const int* lengths;
-  float* h_all;
-  float* c_all;
+  S* h_all;
+  S* c_all;
   float* h_last;
   float* c_last;
   float* h_pong;
@@ -395,8 +473,9 @@ struct FwdArgs {
   int T, B, H, q_res;
 };
 
+template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_fwd_persistent_kernel(const FwdArgs p) {
+lstm_fwd_persistent_kernel(const FwdArgs<S> p) {
   extern __shared__ float smem[];
   const int B = p.B, H = p.H, G = 4 * H;
   const Tiles tiles(B, H);
@@ -405,11 +484,12 @@ lstm_fwd_persistent_kernel(const FwdArgs p) {
   float* abuf = ws + (size_t)p.q_res * kStepFloats +
                 (threadIdx.x / 32) * kRows * kALd;
   float* red = ws + (size_t)p.q_res * kStepFloats + kAFloats;
-  float* xs = red + kRedFloats;
+  // two x slots of kXFloats floats, each [16][64] of the stream type
+  S* xs = reinterpret_cast<S*>(red + kRedFloats);
   const int r = threadIdx.x / kUnits, u = threadIdx.x % kUnits;
   const int n_tiles = tiles.end - tiles.begin;
   const int j_strip = tiles.unit0(tiles.begin);
-  const bool x_vec = ((reinterpret_cast<size_t>(p.x) & 15) | (H & 3)) == 0;
+  const bool x_vec = x_vector(p.x, H);
   load_strip(ws, p.w, j_strip, H, p.q_res);
   if (n_tiles > 0)
     prefetch_x(p.x, tiles.row0(tiles.begin), j_strip, B, H, x_vec, xs);
@@ -471,8 +551,9 @@ lstm_fwd_persistent_kernel(const FwdArgs p) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float xv =
-              i == 0 ? xs[(t & 1) * kXFloats + r * kCols + q * kUnits + u]
-                     : __ldg(p.x + (size_t)t * B * G + (size_t)row * G +
+              i == 0 ? to_float(xs[(t & 1) * kXFloats + r * kCols +
+                                   q * kUnits + u])
+                     : ldg_f(p.x + (size_t)t * B * G + (size_t)row * G +
                              q * H + j);
           gate[q] = (xv + gate[q]) + bias[q];
         }
@@ -488,8 +569,8 @@ lstm_fwd_persistent_kernel(const FwdArgs p) {
           h_reg = alive ? h_new : hpv;
           c_reg = alive ? c_new : cpv;
         } else {
-          p.h_all[seq + at] = alive ? h_new : 0.f;
-          p.c_all[seq + at] = alive ? c_new : 0.f;
+          p.h_all[seq + at] = from_float<S>(alive ? h_new : 0.f);
+          p.c_all[seq + at] = from_float<S>(alive ? c_new : 0.f);
           p.c_last[at] = alive ? c_new : cpv;
         }
       }
@@ -499,8 +580,8 @@ lstm_fwd_persistent_kernel(const FwdArgs p) {
     // wait
     const unsigned arrived = t + 1 < p.T ? barrier.arrive() : 0u;
     if (valid0) {
-      p.h_all[seq + at0] = out_h;
-      p.c_all[seq + at0] = out_c;
+      p.h_all[seq + at0] = from_float<S>(out_h);
+      p.c_all[seq + at0] = from_float<S>(out_c);
     }
     if (t + 1 < p.T) {
       prefetch_x(p.x + (size_t)(t + 1) * B * G, tiles.row0(tiles.begin),
@@ -601,18 +682,20 @@ __device__ void partial_product(const float* dg, const float* ws,
   }
 }
 
+template <class S>
 struct BwdArgs {
-  const float* x;
+  const S* x;
   const float* w;
   const float* b;
   const float* h0;
   const float* c0;
   const int* lengths;
-  const float* h_all;
-  const float* c_all;
-  const float* dh_all;
-  const float* dc_all;
-  float* dx;
+  const S* h_all;
+  const S* c_all;
+  const S* dh_all;
+  const S* dc_all;
+  S* dx;
+  float* dgates;  // bf16: the float32 dgates [T,B,4H] (dW's operand)
   float* dh0;
   float* dc0;
   float* partials;
@@ -620,10 +703,11 @@ struct BwdArgs {
   int T, B, H, q_res;
 };
 
+template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_bwd_persistent_kernel(const BwdArgs p) {
+lstm_bwd_persistent_kernel(const BwdArgs<S> p) {
   extern __shared__ float smem[];
-  const int B = p.B, H = p.H, G = 4 * H, S = cdiv(H, kUnits);
+  const int B = p.B, H = p.H, G = 4 * H, strips = cdiv(H, kUnits);
   const size_t bh = (size_t)B * H;
   const Tiles tiles(B, H);
   const grid::Barrier barrier(p.sync, tiles.groups, tiles.n);
@@ -631,12 +715,12 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
   float* abuf = ws + (size_t)p.q_res * kStepFloats +
                 (threadIdx.x / 32) * kRows * kALd;
   float* red = ws + (size_t)p.q_res * kStepFloats + kAFloats;
-  float* xs = red + kRedFloats;
-  float* dg = xs + 2 * kXFloats;
+  S* xs = reinterpret_cast<S*>(red + kRedFloats);
+  float* dg = red + kRedFloats + 2 * kXFloats;
   const int r = threadIdx.x / kUnits, u = threadIdx.x % kUnits;
   const int n_tiles = tiles.end - tiles.begin;
   const int j_strip = tiles.unit0(tiles.begin);
-  const bool x_vec = ((reinterpret_cast<size_t>(p.x) & 15) | (H & 3)) == 0;
+  const bool x_vec = x_vector(p.x, H);
   load_strip(ws, p.w, j_strip, H, p.q_res);
   if (n_tiles > 0)
     prefetch_x(p.x + (size_t)(p.T - 1) * B * G, tiles.row0(tiles.begin),
@@ -645,7 +729,7 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
   __syncthreads();  // the strip is in place
   // step t's partials of dh_prev from strip s (row stride H)
   auto partial = [&](int t, int s) {
-    return p.partials + ((size_t)(t & 1) * S + s) * bh;
+    return p.partials + ((size_t)(t & 1) * strips + s) * bh;
   };
   const bool p_vec =
       ((reinterpret_cast<size_t>(p.partials) & 15) | (H & 3)) == 0;
@@ -660,14 +744,14 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
     const size_t at = (size_t)(r0 + r) * H + j0 + u;
     const bool in = r0 + r < B && j0 + u < H;
     if (!p_vec) {
-      for (int k = 0; k < S; ++k)
+      for (int k = 0; k < strips; ++k)
         if (in) s = k == 0 ? grid::load_cg(partial(t, k) + at)
                            : s + grid::load_cg(partial(t, k) + at);
       return s;
     }
     float* buf = ws + (size_t)p.q_res * kStepFloats;
-    for (int k0 = 0; k0 < S; k0 += 32) {
-      const int n = min(32, S - k0);
+    for (int k0 = 0; k0 < strips; k0 += 32) {
+      const int n = min(32, strips - k0);
       __syncthreads();  // buf's last readers are done
       for (int idx = threadIdx.x; idx < n * kRows * 4; idx += kThreads) {
         const int k = idx / (kRows * 4), rr = idx / 4 % kRows, q = idx % 4;
@@ -691,7 +775,7 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
   float dh_reg = 0.f, dc_reg = 0.f;
   unsigned arrived = 0;
   for (int t = p.T - 1; t >= 0; --t) {
-    const float* hp = t == 0 ? p.h0 : p.h_all + (size_t)(t - 1) * bh;
+    const S* hp = p.h_all + (size_t)(t > 0 ? t - 1 : 0) * bh;
     const size_t seq = (size_t)t * bh;
     for (int i = 0; i < n_tiles; ++i) {
       const int r0 = tiles.row0(tiles.begin + i);
@@ -707,9 +791,9 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
       if (valid) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) bias[q] = __ldg(p.b + q * H + j);
-        cpv = t == 0 ? p.c0[at] : p.c_all[seq - bh + at];
-        dh_out = p.dh_all[seq + at];
-        dc_out = p.dc_all[seq + at];
+        cpv = t == 0 ? p.c0[at] : to_float(p.c_all[seq - bh + at]);
+        dh_out = to_float(p.dh_all[seq + at]);
+        dc_out = to_float(p.dc_all[seq + at]);
         if (i > 0) {
           dh_c = p.dh0[at];
           dc_c = p.dc0[at];
@@ -717,8 +801,12 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
       }
       if (i > 0) __syncthreads();  // the last tile has read red and dg
       float sum[8][4];
-      gate_product(hp + (size_t)r0 * H, min(kRows, B - r0), H, j0, q_res,
-                   ws, p.w, abuf, sum);
+      if (t == 0)  // h_{-1} = h0, float32
+        gate_product(p.h0 + (size_t)r0 * H, min(kRows, B - r0), H, j0,
+                     q_res, ws, p.w, abuf, sum);
+      else
+        gate_product(hp + (size_t)r0 * H, min(kRows, B - r0), H, j0, q_res,
+                     ws, p.w, abuf, sum);
       store_partial(sum, red);
       // step t+1's partials are in once its barrier has completed
       if (i == 0 && t + 1 < p.T) barrier.wait(arrived);
@@ -735,8 +823,9 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float xv =
-              i == 0 ? xs[(t & 1) * kXFloats + r * kCols + q * kUnits + u]
-                     : __ldg(p.x + seq * 4 + (size_t)row * G + q * H + j);
+              i == 0 ? to_float(xs[(t & 1) * kXFloats + r * kCols +
+                                   q * kUnits + u])
+                     : ldg_f(p.x + seq * 4 + (size_t)row * G + q * H + j);
           gate[q] = (xv + gate[q]) + bias[q];
         }
         const float ig = sigmoidf(gate[0]), cand = tanhf(gate[1]);
@@ -752,9 +841,14 @@ lstm_bwd_persistent_kernel(const BwdArgs p) {
         dgate[1] = alive ? dc * ig * (1.f - cand * cand) : 0.f;
         dgate[2] = alive ? dc * cpv * fg * (1.f - fg) : 0.f;
         dgate[3] = alive ? dh * tc * og * (1.f - og) : 0.f;
-        float* dxr = p.dx + seq * 4 + (size_t)row * G;
+        S* dxr = p.dx + seq * 4 + (size_t)row * G;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dxr[q * H + j] = dgate[q];
+        for (int q = 0; q < 4; ++q) dxr[q * H + j] = from_float<S>(dgate[q]);
+        if constexpr (sizeof(S) == 2) {
+          float* dgr = p.dgates + seq * 4 + (size_t)row * G;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dgr[q * H + j] = dgate[q];
+        }
         dc_c = alive ? dc * fg : dc_c;
         if (i == 0) {
           dh_reg = dh_c;
@@ -808,7 +902,8 @@ lstm_barrier_kernel(unsigned* sync, int B, int H, int barriers) {
 // over its row split [split * rows, ...) of the R = T*B rows,
 // dw[m][n] = sum_r hprev[r][m] dx[r][n] and, in the blocks of the first
 // 64 W rows, db[n] = sum_r dx[r][n]; hprev[r] = h0[r] for r < B, else
-// h_all[r - B]. 64 rows a stage in a ring of `ring` stages (4 where the
+// h_all[r - B] (of the stream type S: bf16 rows are widened into the
+// stage by plain loads); dx is the float32 dgates. 64 rows a stage in a ring of `ring` stages (4 where the
 // shared memory holds them) filled by cp.async, ring - 1 stages ahead of
 // the one multiplied (one block an SM: the ring, not other blocks, hides
 // L2's latency); warp (wm, wn)
@@ -836,8 +931,9 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int valid,
   }
 }
 
+template <class S>
 __global__ void __launch_bounds__(kThreads)
-lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ h_all,
+lstm_dw_kernel(const float* __restrict__ h0, const S* __restrict__ h_all,
                const float* __restrict__ dx, float* dw_out, float* db_out,
                size_t stride, int R, int B, int H, int rows, int ring) {
   extern __shared__ float smem[];
@@ -848,10 +944,14 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ h_all,
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / 4, wn = warp % 4;
   const bool vec_a =
-      (((reinterpret_cast<size_t>(h0) | reinterpret_cast<size_t>(h_all)) &
+      (((reinterpret_cast<size_t>(h0) |
+         (sizeof(S) == 4 ? reinterpret_cast<size_t>(h_all) : 0)) &
         15) |
        (H & 3)) == 0;
   const bool vec_b = (reinterpret_cast<size_t>(dx) & 15) == 0;
+  // bf16 rows of h_all: 8-byte loads of four values
+  const bool vec_s =
+      ((reinterpret_cast<size_t>(h_all) & 7) | (H & 3)) == 0;
   auto load_stage = [&](int r0, float* st) {
     float* as = st;
     float* bs = st + kDwK * kDwALd;
@@ -859,8 +959,26 @@ lstm_dw_kernel(const float* __restrict__ h0, const float* __restrict__ h_all,
       const int kk = idx / (kDwM / 4), m = m0 + 4 * (idx % (kDwM / 4));
       const int r = r0 + kk;
       const bool in = r < r_end && m < H;
-      const float* row =
-          r < B ? h0 + (size_t)r * H : h_all + (size_t)(r - B) * H;
+      if constexpr (sizeof(S) == 2) {
+        if (in && r >= B) {
+          const S* src = h_all + (size_t)(r - B) * H + m;
+          float* dst = as + kk * kDwALd + m - m0;
+          if (vec_s && m + 3 < H) {  // four values in one 8-byte load
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                __uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                __uint_as_float(v.y << 16),
+                __uint_as_float(v.y & 0xffff0000u));
+          } else {
+            for (int e = 0; e < 4; ++e)
+              dst[e] = m + e < H ? to_float(src[e]) : 0.f;
+          }
+          continue;
+        }
+      }
+      const float* row = r < B ? h0 + (size_t)r * H
+                               : reinterpret_cast<const float*>(h_all) +
+                                     (size_t)(r - B) * H;
       const float* src = in ? row + m : h0;
       copy4(as + kk * kDwALd + m - m0, src, in ? H - m : 0, vec_a);
     }
@@ -1010,6 +1128,90 @@ cudaError_t plan_launch(Kernel kernel, bool backward, int T, int B, int H,
 // Words of the barriers' counters at batch B (see grid::Barrier).
 int sync_words(int B) { return grid::kSyncWords * cdiv(B, kRows); }
 
+// The forward (see fused_lstm_fwd_f32) on streams of type S.
+template <class S>
+int lstm_fwd(const S* x, const float* w, const float* b, const float* h0,
+             const float* c0, const int* lengths, S* h_all, S* c_all,
+             float* h_last, float* c_last, float* h_pong, unsigned* sync,
+             int T, int B, int H, int* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      plan_launch(lstm_fwd_persistent_kernel<S>, false, T, B, H, plan);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
+  if (err != cudaSuccess) return err;
+  const FwdArgs<S> a{x,     w,     b,      h0,     c0,     lengths,
+                     h_all, c_all, h_last, c_last, h_pong, sync,
+                     T,     B,     H,      cdiv(plan[5], 8)};
+  err = grid::launch_cooperative(lstm_fwd_persistent_kernel<S>, plan[3],
+                                 kThreads, plan[4], s, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward (see fused_lstm_bwd_f32) on streams of type S; dgates is
+// where the recurrence leaves the float32 dgates for dW and db (dx itself
+// for float32 streams).
+template <class S>
+int lstm_bwd(const S* x, const float* w, const float* b, const float* h0,
+             const float* c0, const int* lengths, const S* h_all,
+             const S* c_all, const S* dh_all, const S* dc_all, S* dx,
+             float* dgates, float* dw, float* db, float* dh0, float* dc0,
+             float* partials, float* dw_parts, unsigned* sync, int T, int B,
+             int H, int splits, int* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      plan_launch(lstm_bwd_persistent_kernel<S>, true, T, B, H, plan);
+  if (err != cudaSuccess) return err;
+  const size_t bh = (size_t)B * H;
+  err = cudaMemsetAsync(dh0, 0, bh * sizeof(float), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(dc0, 0, bh * sizeof(float), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
+  if (err != cudaSuccess) return err;
+  const BwdArgs<S> a{x,      w,      b,        h0,  c0,  lengths,
+                     h_all,  c_all,  dh_all,   dc_all, dx, dgates,
+                     dh0,    dc0,    partials, sync, T,   B,
+                     H,      cdiv(plan[5], 8)};
+  err = grid::launch_cooperative(lstm_bwd_persistent_kernel<S>, plan[3],
+                                 kThreads, plan[4], s, a);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int R = T * B, G = 4 * H, rows = cdiv(R, splits);
+  // the dW ring: kDwRing stages where they fit, at least 2
+  int dev = 0, smem_max = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int fit = smem_max / (int)(sizeof(float) * kDwStage);
+  const int ring = fit < 2 ? 2 : (fit < kDwRing ? fit : kDwRing);
+  const size_t smem = sizeof(float) * ring * kDwStage;
+  err = cudaFuncSetAttribute(lstm_dw_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_dw(cdiv(G, kDwN), cdiv(H, kDwM), cdiv(R, rows));
+  if (splits == 1) {
+    lstm_dw_kernel<S><<<grid_dw, kThreads, smem, s>>>(
+        h0, h_all, dgates, dw, db, 0, R, B, H, rows, ring);
+    return cudaGetLastError();
+  }
+  const size_t part = (size_t)(H + 1) * G;
+  lstm_dw_kernel<S><<<grid_dw, kThreads, smem, s>>>(
+      h0, h_all, dgates, dw_parts, dw_parts + (size_t)H * G, part, R, B, H,
+      rows, ring);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = (int)part;
+  const dim3 grid_sum(cdiv(n, kThreads));
+  lstm_dw_sum_kernel<<<grid_sum, kThreads, 0, s>>>(dw_parts, dw, db,
+                                                   cdiv(R, rows), H * G, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1041,19 +1243,20 @@ int fused_lstm_fwd_f32(const float* x, const float* w, const float* b,
                        float* h_all, float* c_all, float* h_last,
                        float* c_last, float* h_pong, unsigned* sync, int T,
                        int B, int H, int* plan, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      plan_launch(lstm_fwd_persistent_kernel, false, T, B, H, plan);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
-  if (err != cudaSuccess) return err;
-  const FwdArgs a{x,     w,     b,      h0,     c0,     lengths,
-                  h_all, c_all, h_last, c_last, h_pong, sync,
-                  T,     B,     H,      cdiv(plan[5], 8)};
-  err = grid::launch_cooperative(lstm_fwd_persistent_kernel, plan[3],
-                                 kThreads, plan[4], s, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return lstm_fwd<float>(x, w, b, h0, c0, lengths, h_all, c_all, h_last,
+                         c_last, h_pong, sync, T, B, H, plan, stream);
+}
+
+// The same on bf16 streams x, h_all, c_all (torch.bfloat16 data); w, b,
+// h0, c0 and the state h_last, c_last, h_pong are float32.
+int fused_lstm_fwd_bf16(const void* x, const float* w, const float* b,
+                        const float* h0, const float* c0, const int* lengths,
+                        void* h_all, void* c_all, float* h_last,
+                        float* c_last, float* h_pong, unsigned* sync, int T,
+                        int B, int H, int* plan, void* stream) {
+  return lstm_fwd<bf16>(static_cast<const bf16*>(x), w, b, h0, c0, lengths,
+                        static_cast<bf16*>(h_all), static_cast<bf16*>(c_all),
+                        h_last, c_last, h_pong, sync, T, B, H, plan, stream);
 }
 
 // Backward: dh_all, dc_all [T,B,H] are the output cotangents with the
@@ -1071,56 +1274,31 @@ int fused_lstm_bwd_f32(const float* x, const float* w, const float* b,
                        float* partials, float* dw_parts, unsigned* sync,
                        int T, int B, int H, int splits, int* plan,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      plan_launch(lstm_bwd_persistent_kernel, true, T, B, H, plan);
-  if (err != cudaSuccess) return err;
-  const size_t bh = (size_t)B * H;
-  err = cudaMemsetAsync(dh0, 0, bh * sizeof(float), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(dc0, 0, bh * sizeof(float), s);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(sync, 0, sizeof(unsigned) * sync_words(B), s);
-  if (err != cudaSuccess) return err;
-  const BwdArgs a{x,     w,      b,      h0, c0,  lengths,  h_all,
-                  c_all, dh_all, dc_all, dx, dh0, dc0,      partials,
-                  sync,  T,      B,      H,  cdiv(plan[5], 8)};
-  err = grid::launch_cooperative(lstm_bwd_persistent_kernel, plan[3],
-                                 kThreads, plan[4], s, a);
-  if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int R = T * B, G = 4 * H, rows = cdiv(R, splits);
-  // the dW ring: kDwRing stages where they fit, at least 2
-  int dev = 0, smem_max = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const int fit = smem_max / (int)(sizeof(float) * kDwStage);
-  const int ring = fit < 2 ? 2 : (fit < kDwRing ? fit : kDwRing);
-  const size_t smem = sizeof(float) * ring * kDwStage;
-  err = cudaFuncSetAttribute(
-      lstm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_dw(cdiv(G, kDwN), cdiv(H, kDwM), cdiv(R, rows));
-  if (splits == 1) {
-    lstm_dw_kernel<<<grid_dw, kThreads, smem, s>>>(h0, h_all, dx, dw, db, 0,
-                                                   R, B, H, rows, ring);
-    return cudaGetLastError();
-  }
-  const size_t part = (size_t)(H + 1) * G;
-  lstm_dw_kernel<<<grid_dw, kThreads, smem, s>>>(
-      h0, h_all, dx, dw_parts, dw_parts + (size_t)H * G, part, R, B, H, rows,
-      ring);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = (int)part;
-  const dim3 grid_sum(cdiv(n, kThreads));
-  lstm_dw_sum_kernel<<<grid_sum, kThreads, 0, s>>>(dw_parts, dw, db,
-                                                   cdiv(R, rows), H * G, n);
-  return cudaGetLastError();
+  return lstm_bwd<float>(x, w, b, h0, c0, lengths, h_all, c_all, dh_all,
+                         dc_all, dx, dx, dw, db, dh0, dc0, partials, dw_parts,
+                         sync, T, B, H, splits, plan, stream);
 }
+
+// The same on bf16 streams x, h_all, c_all, dh_all, dc_all and dx
+// (torch.bfloat16 data); w, b, h0, c0, dw, db, dh0 and dc0 are float32,
+// and dgates (float32 [T,B,4H]) is scratch: the unrounded dgates, which
+// dW and db are summed from.
+int fused_lstm_bwd_bf16(const void* x, const float* w, const float* b,
+                        const float* h0, const float* c0, const int* lengths,
+                        const void* h_all, const void* c_all,
+                        const void* dh_all, const void* dc_all, void* dx,
+                        float* dw, float* db, float* dh0, float* dc0,
+                        float* partials, float* dw_parts, float* dgates,
+                        unsigned* sync, int T, int B, int H, int splits,
+                        int* plan, void* stream) {
+  return lstm_bwd<bf16>(
+      static_cast<const bf16*>(x), w, b, h0, c0, lengths,
+      static_cast<const bf16*>(h_all), static_cast<const bf16*>(c_all),
+      static_cast<const bf16*>(dh_all), static_cast<const bf16*>(dc_all),
+      static_cast<bf16*>(dx), dgates, dw, db, dh0, dc0, partials, dw_parts,
+      sync, T, B, H, splits, plan, stream);
+}
+
 
 // The barrier floor of the forward (backward != 0: the backward) at these
 // shapes: its grid, block and shared memory, stepping through its plan's
@@ -1129,8 +1307,10 @@ int fused_lstm_barrier_floor(unsigned* sync, int T, int B, int H,
                              int backward, int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      backward ? plan_launch(lstm_bwd_persistent_kernel, true, T, B, H, plan)
-               : plan_launch(lstm_fwd_persistent_kernel, false, T, B, H, plan);
+      backward
+          ? plan_launch(lstm_bwd_persistent_kernel<float>, true, T, B, H, plan)
+          : plan_launch(lstm_fwd_persistent_kernel<float>, false, T, B, H,
+                        plan);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(lstm_barrier_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

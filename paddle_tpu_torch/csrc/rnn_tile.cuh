@@ -1,8 +1,8 @@
-// The 256-thread block and the sigmoid of the recurrent kernels
-// (csrc/fused_lstm.cu, csrc/fused_gru.cu), and the block-wide tiled
-// product of csrc/fused_gru.cu's dW reduction. Plain CUDA C++ (no PyTorch
-// headers), included by both sources; the build hashes it with each of
-// them.
+// The 256-thread block, the sigmoid and the bfloat16 stream values of the
+// recurrent kernels (csrc/fused_lstm.cu, csrc/fused_gru.cu), and the
+// block-wide tiled product of csrc/fused_gru.cu's dW reduction and gate
+// recompute. Plain CUDA C++ (no PyTorch headers), included by both
+// sources; the build hashes it with each of them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +14,43 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// A bfloat16 value as its 16 bits (torch.bfloat16's layout). The kernels'
+// bf16 arm reads and writes its [T, B, .] streams in this type and
+// computes in float32, as the Pallas kernels do: every value is widened
+// at load (exact) and rounded to nearest even at store.
+struct bf16 {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+
+// v rounded to the stream type S: float as it is, bf16 to nearest even
+// (a NaN stays a quiet NaN).
+template <class S>
+__device__ __forceinline__ S from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) {
+  const unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return bf16{static_cast<unsigned short>((u >> 16) | 0x40u)};
+  return bf16{
+      static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+
+// A read-only input (never written during the launch) through the
+// non-coherent path, widened to float32.
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const bf16* p) {
+  return to_float(bf16{__ldg(&p->bits)});
 }
 
 // Block-wide product of a TR x K operand A and a K x TC operand B, for one

@@ -12,8 +12,10 @@ from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_fwd, flash_attention_fwd_bf16,
                               flash_attention_fwd_plain)
 from .fused_conv import conv1x1_bn_act, conv3x3_bn_act  # noqa: F401
-from .fused_gru import fused_gru_bwd, fused_gru_fwd  # noqa: F401
-from .fused_lstm import fused_lstm_bwd, fused_lstm_fwd  # noqa: F401
+from .fused_gru import (fused_gru_bwd, fused_gru_bwd_bf16,  # noqa: F401
+                        fused_gru_fwd, fused_gru_fwd_bf16)
+from .fused_lstm import (fused_lstm_bwd, fused_lstm_bwd_bf16,  # noqa: F401
+                         fused_lstm_fwd, fused_lstm_fwd_bf16)
 
 #: every kernel wrapper of the port, for launch accounting
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
@@ -24,8 +26,12 @@ KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd_dkv_bf16": flash_attention_bwd_dkv_bf16,
            "fused_lstm_fwd": fused_lstm_fwd,
            "fused_lstm_bwd": fused_lstm_bwd,
+           "fused_lstm_fwd_bf16": fused_lstm_fwd_bf16,
+           "fused_lstm_bwd_bf16": fused_lstm_bwd_bf16,
            "fused_gru_fwd": fused_gru_fwd,
            "fused_gru_bwd": fused_gru_bwd,
+           "fused_gru_fwd_bf16": fused_gru_fwd_bf16,
+           "fused_gru_bwd_bf16": fused_gru_bwd_bf16,
            "fused_conv1x1": conv1x1_bn_act,
            "fused_conv3x3": conv3x3_bn_act,
            "block_megakernel": bottleneck_block,

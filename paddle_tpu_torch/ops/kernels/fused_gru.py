@@ -11,8 +11,20 @@ bias folded in, time-major, gate order u (update), r (reset), c
 lengths [B] int32. h = u h_prev + (1 - u) tanh(x_c + (r h_prev) W_c). A
 row freezes past its length and its h_all there is 0; h_last is the
 state at length-1 (h0 for a zero-length row). The forward also returns
-gates [T, B, 3H] (u, r, c of every step), which the backward reads where
-the reference recomputes them. On the card each call is ONE persistent
+gates [T, B, 3H] (u, r, c of every step, float32), which the backward of
+float32 streams reads where the reference recomputes them (the same
+values).
+
+Dtypes, as the Pallas kernels take them: the streams x, h_all (backward
+dh_all, dx) are all float32 or all bfloat16; w and h0 each float32 or
+bfloat16. Every value is widened to float32 at load, the state and every
+product and sum stay float32, and each output is rounded to its dtype at
+store: h_all, h_last, dx to the streams', dw to w's, dh0 to h0's (dW
+summed from the float32 dgates). On bf16 streams the backward recomputes
+the gates from x and the stored, rounded h_all, as the Pallas backward
+reads them: the forward's gates came from its float32 state and differ.
+The twins do the same in torch; the wrappers give the CUDA kernels w and
+h0 in float32 and round their results. On the card each call is ONE persistent
 launch that walks all T steps (the backward adds the dW reduction):
 each block keeps its strip of W in shared memory for the whole call, and
 grid-wide barriers stand between the two dependent stages of a step.
@@ -37,7 +49,7 @@ from typing import Tuple
 import torch
 
 from . import build
-from .fused_lstm import _alive
+from .fused_lstm import DTYPES, _alive, _f32
 
 _SOURCE = "fused_gru.cu"
 
@@ -46,8 +58,11 @@ _SOURCE = "fused_gru.cu"
 
 def fused_gru_fwd_plain(x, w, h0, lengths):
     """A torch loop over t with the forward kernels' arithmetic:
-    (h_all [T,B,H], h_last [B,H], gates [T,B,3H])."""
-    t_max, hidden = x.shape[0], w.shape[0]
+    (h_all [T,B,H], h_last [B,H], gates [T,B,3H]), in float32 from the
+    widened inputs, h_all and h_last rounded to x's dtype (gates stay
+    float32)."""
+    t_max, hidden, dtype = x.shape[0], w.shape[0], x.dtype
+    x, w, h0 = _f32(x, w, h0)
     w_ur, w_c = w[:, :2 * hidden], w[:, 2 * hidden:]
     alive = _alive(lengths, t_max)
     h = h0
@@ -62,13 +77,29 @@ def fused_gru_fwd_plain(x, w, h0, lengths):
         h_all.append(torch.where(alive[t], h_new, torch.zeros_like(h_new)))
         gates.append(torch.cat([u, r, c], 1))
         h = torch.where(alive[t], h_new, h)
-    return torch.stack(h_all), h, torch.stack(gates)
+    return torch.stack(h_all).to(dtype), h.to(dtype), torch.stack(gates)
+
+
+def gates_plain(x, w, h0, h_all):
+    """u, r, c [T,B,3H] (float32) of every step from x_t and h_{t-1} read
+    from the stored h_all (h0 at t = 0), as the Pallas backward
+    recomputes them: all T steps at once (no recurrence), the products in
+    float32 from the widened inputs."""
+    hidden = w.shape[0]
+    x, w, h0, h_all = _f32(x, w, h0, h_all)
+    h_prev = torch.cat([h0[None], h_all[:-1]])
+    ur = h_prev @ w[:, :2 * hidden]
+    u = torch.sigmoid(x[..., :hidden] + ur[..., :hidden])
+    r = torch.sigmoid(x[..., hidden:2 * hidden] + ur[..., hidden:])
+    c = torch.tanh(x[..., 2 * hidden:] + (r * h_prev) @ w[:, 2 * hidden:])
+    return torch.cat([u, r, c], -1)
 
 
 def fold_last(dh_all, dh_last, lengths):
     """(dh_all with the h_last cotangent added at max(len-1, 0) for the
-    rows of nonzero length, the part of dh_last that goes straight to
-    dh0: its zero-length rows), as the reference's _fused_gru_bwd folds
+    rows of nonzero length, in dh_all's dtype (a bf16 add rounds as the
+    reference's .at[].add does), the part of dh_last that goes straight
+    to dh0: its zero-length rows), as the reference's _fused_gru_bwd folds
     them; a None cotangent is zero."""
     if dh_last is None:
         return dh_all, None
@@ -77,20 +108,28 @@ def fold_last(dh_all, dh_last, lengths):
     empty = (lengths == 0)[:, None]
     stream = dh_all.clone()
     stream[idx, rows] = stream[idx, rows] + torch.where(
-        empty, torch.zeros_like(dh_last), dh_last)
+        empty, torch.zeros_like(dh_last), dh_last).to(stream.dtype)
     return stream, torch.where(empty, dh_last, torch.zeros_like(dh_last))
 
 
 def fused_gru_bwd_plain(w, h0, lengths, h_all, gates, dh_all,
-                        dh_last=None):
+                        dh_last=None, x=None):
     """A reverse torch loop with the backward kernels' arithmetic:
-    (dx [T,B,3H], dw [H,3H], dh0 [B,H]). It reads u, r, c from `gates`,
-    masks dh before every product, takes d_rh = dc_pre W_c^T and dh_prev
-    = dh u + d_rh r + [du_pre, dr_pre] W_ur^T per step, and sums dW over
-    all T*B rows after the loop, as the kernels do. A None cotangent is
-    zero."""
+    (dx [T,B,3H], dw [H,3H], dh0 [B,H]). It reads u, r, c from `gates`
+    (float32 streams: the forward's), or recomputes them from `x` and the
+    stored h_all (gates_plain; bf16 streams pass x and no gates), masks dh
+    before every product, takes d_rh = dc_pre W_c^T and dh_prev = dh u +
+    d_rh r + [du_pre, dr_pre] W_ur^T per step, and sums dW over all T*B
+    rows of the float32 dgates after the loop, as the kernels do; all in
+    float32, dx rounded to the streams' dtype, dw to w's, dh0 to h0's
+    (plus a zero-length row's h_last cotangent, promoted as jnp adds it).
+    A None cotangent is zero."""
     dh_all = torch.zeros_like(h_all) if dh_all is None else dh_all
     dh_all, dh0_direct = fold_last(dh_all, dh_last, lengths)
+    if x is not None:
+        gates = gates_plain(x, w, h0, h_all)
+    out_dtypes = (h_all.dtype, w.dtype, h0.dtype)
+    w, h0, h_all, dh_all = _f32(w, h0, h_all, dh_all)
     t_max, bsz, g3 = gates.shape
     hidden = g3 // 3
     w_ur, w_c = w[:, :2 * hidden], w[:, 2 * hidden:]
@@ -118,8 +157,10 @@ def fused_gru_bwd_plain(w, h0, lengths, h_all, gates, dh_all,
     dx2 = dx.reshape(rows, g3)
     dw = torch.cat([hp.t() @ dx2[:, :2 * hidden],
                     rh.t() @ dx2[:, 2 * hidden:]], 1)
-    dh0 = carry if dh0_direct is None else carry + dh0_direct
-    return dx, dw, dh0
+    dh0 = carry.to(out_dtypes[2])
+    if dh0_direct is not None:
+        dh0 = dh0 + dh0_direct
+    return dx.to(out_dtypes[0]), dw.to(out_dtypes[1]), dh0
 
 
 # -- the kernels ------------------------------------------------------------
@@ -127,14 +168,19 @@ def fused_gru_bwd_plain(w, h0, lengths, h_all, gates, dh_all,
 def _library() -> ctypes.CDLL:
     lib = build.library(_SOURCE)
     if not getattr(lib, "_paddle_bound", False):
-        lib.fused_gru_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 2)
-        lib.fused_gru_fwd_f32.restype = ctypes.c_int
+        for kind in ("f32", "bf16"):
+            fwd = getattr(lib, f"fused_gru_fwd_{kind}")
+            fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p] * 2)
+            fwd.restype = ctypes.c_int
         lib.fused_gru_bwd_f32.argtypes = (
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 2)
         lib.fused_gru_bwd_f32.restype = ctypes.c_int
+        lib.fused_gru_bwd_bf16.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 2)
+        lib.fused_gru_bwd_bf16.restype = ctypes.c_int
         lib.fused_gru_dw_splits.argtypes = [ctypes.c_int] * 3
         lib.fused_gru_dw_splits.restype = ctypes.c_int
         lib.fused_gru_sync_words.argtypes = [ctypes.c_int]
@@ -154,9 +200,11 @@ PLAN_FIELDS = ("tiles", "blocks_per_sm", "sms", "grid", "smem_bytes",
 
 
 def _check(who, lead, w, h0, lengths, **more):
-    """Raise unless every tensor is what the kernels take: float32 (int32
-    lengths), contiguous, on one device, with the layout's shapes, which
-    the [T, B, 3H] tensor more[lead] (x or gates) sets."""
+    """Raise unless every tensor is what the kernels take: the streams
+    (`more` but gates, which is float32) all float32 or all bfloat16, w
+    and h0 each float32 or bfloat16, int32 lengths; contiguous, on one
+    device, with the layout's shapes, which the [T, B, 3H] tensor
+    more[lead] (x or gates) sets."""
     seq = more[lead]
     if seq.ndim != 3 or seq.shape[2] % 3 or seq.shape[0] < 1 or \
             seq.shape[1] < 1 or seq.shape[2] < 3:
@@ -168,16 +216,17 @@ def _check(who, lead, w, h0, lengths, **more):
                   h_all=(t_max, bsz, hidden), gates=(t_max, bsz, g3),
                   dh_all=(t_max, bsz, hidden))
     tensors = dict(w=w, h0=h0, **more)
+    streams = {n: t.dtype for n, t in more.items() if n != "gates"}
+    if len(set(streams.values())) > 1:
+        raise ValueError(f"{who}: the streams must all be float32 or all "
+                         f"bfloat16, got {streams}")
     for name, t in tensors.items():
-        if t.dtype == torch.bfloat16:
-            raise ValueError(
-                f"{who}: {name} is bfloat16: the fused-GRU kernels' bf16 arm "
-                "is not ported yet (the Pallas kernels take bf16 and "
-                "compute in float32); the CUDA kernels take float32 only")
-        if t.device != seq.device or t.dtype != torch.float32 or \
+        dtypes = (torch.float32,) if name == "gates" else DTYPES
+        if t.device != seq.device or t.dtype not in dtypes or \
                 not t.is_contiguous() or tuple(t.shape) != shapes[name]:
             raise ValueError(
-                f"{who}: {name} must be a contiguous float32 "
+                f"{who}: {name} must be a contiguous "
+                f"{' or '.join(str(d)[6:] for d in dtypes)} "
                 f"{shapes[name]} tensor on {seq.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device} (contiguous: "
                 f"{t.is_contiguous()})")
@@ -203,85 +252,162 @@ def _launch(who, entry, device, *args):
                                 PLAN_FIELDS, who, device, *args)
 
 
+def _entry(kind, dtype):
+    return f"fused_gru_{kind}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+
+
 def fused_gru_fwd(x, w, h0, lengths
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GRU over T steps: (h_all [T,B,H], h_last [B,H], gates [T,B,3H]).
-    CUDA tensors run the persistent forward kernel (float32, contiguous,
-    int32 lengths — anything else raises); CPU tensors run
-    fused_gru_fwd_plain; meta tensors get outputs of the right shape."""
+    """GRU over T steps: (h_all [T,B,H], h_last [B,H] in x's dtype, gates
+    [T,B,3H] float32). CUDA tensors run the persistent forward kernel of
+    x's dtype (float32 or bf16, contiguous, int32 lengths — anything else
+    raises), with w and h0 in float32 and the state's h_last rounded
+    after it; CPU tensors run fused_gru_fwd_plain; meta tensors get
+    outputs of the right shape."""
     if x.device.type == "meta":
         t_max, bsz, g3 = x.shape
-        return (x.new_empty((t_max, bsz, g3 // 3)), h0.new_empty(h0.shape),
-                x.new_empty(x.shape))
+        return (x.new_empty((t_max, bsz, g3 // 3)), x.new_empty(h0.shape),
+                x.new_empty(x.shape, dtype=torch.float32))
     if not x.is_cuda:
         return fused_gru_fwd_plain(x, w, h0, lengths)
-    _check("fused_gru_fwd", "x", w, h0, lengths, x=x)
+    if x.dtype == torch.bfloat16:
+        return fused_gru_fwd_bf16(x, w, h0, lengths)
+    out = _run_fwd("fused_gru_fwd", x, w, h0, lengths)
+    fused_gru_fwd.launches += 1
+    return out
+
+
+def fused_gru_fwd_bf16(x, w, h0, lengths):
+    """fused_gru_fwd's bf16-stream kernel (its own launch count): bf16 x on
+    a card (anything else there raises); CPU tensors run
+    fused_gru_fwd_plain."""
+    if not x.is_cuda:
+        return fused_gru_fwd_plain(x, w, h0, lengths)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_gru_fwd_bf16: x is {x.dtype}")
+    out = _run_fwd("fused_gru_fwd_bf16", x, w, h0, lengths)
+    fused_gru_fwd_bf16.launches += 1
+    return out
+
+
+def _run_fwd(who, x, w, h0, lengths):
+    _check(who, "x", w, h0, lengths, x=x)
     t_max, bsz, g3 = x.shape
     hidden = g3 // 3
+    w, h0 = _f32(w, h0)
     h_all = torch.empty((t_max, bsz, hidden), dtype=x.dtype, device=x.device)
-    gates = torch.empty_like(x)
+    gates = torch.empty_like(x, dtype=torch.float32)
+    # the float32 state's ping-pong (h_last, h_pong) and rh
     h_last, rh, h_pong = (torch.empty_like(h0) for _ in range(3))
     sync = _sync_words(bsz, x.device)
-    _launch("fused_gru_fwd", "fused_gru_fwd_f32", x.device,
+    _launch(who, _entry("fwd", x.dtype), x.device,
             x.data_ptr(), w.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
             h_all.data_ptr(), h_last.data_ptr(), gates.data_ptr(),
             rh.data_ptr(), h_pong.data_ptr(), sync.data_ptr(), t_max, bsz,
             hidden)
-    fused_gru_fwd.launches += 1
-    return h_all, h_last, gates
+    return h_all, h_last.to(x.dtype), gates
 
 
 #: kernel launches since the count was last set to 0 (one per call of the
 #: C function, which launches the one persistent kernel that walks all T
 #: steps; the plain and meta paths do not count)
 fused_gru_fwd.launches = 0
+fused_gru_fwd_bf16.launches = 0
 
 
-def fused_gru_bwd(w, h0, lengths, h_all, gates, dh_all, dh_last=None):
-    """The backward of fused_gru_fwd, from its h_all and gates, for the
-    output cotangents dh_all [T,B,H] and dh_last [B,H] (None is zero):
-    (dx [T,B,3H], dw [H,3H], dh0 [B,H]). The last-state cotangent is
-    folded in torch (fold_last); CUDA tensors then run the persistent
-    backward kernel and the dW reduction (same conditions as
-    fused_gru_fwd; W is read as it is, no transposed copy), CPU tensors
-    fused_gru_bwd_plain."""
-    if gates.device.type == "meta":
-        return gates.new_empty(gates.shape), w.new_empty(w.shape), \
-            h0.new_empty(h0.shape)
-    if not gates.is_cuda:
-        return fused_gru_bwd_plain(w, h0, lengths, h_all, gates, dh_all,
-                                   dh_last)
+def fused_gru_bwd(w, h0, lengths, h_all, gates, dh_all, dh_last=None,
+                  x=None):
+    """The backward of fused_gru_fwd for the output cotangents dh_all
+    [T,B,H] and dh_last [B,H] (None is zero): (dx [T,B,3H] in the
+    streams' dtype, dw [H,3H] in w's, dh0 [B,H] in h0's). float32 streams
+    read the forward's gates; bf16 streams pass x (and gates None), from
+    which the gates are recomputed at the stored h_all. The last-state
+    cotangent is folded in torch (fold_last); CUDA tensors then run the
+    backward kernels of the streams' dtype (bf16: the gate recompute
+    first) and the dW reduction (same conditions as fused_gru_fwd; W is
+    read as it is, no transposed copy), CPU tensors fused_gru_bwd_plain."""
+    if h_all.device.type == "meta":
+        t_max, bsz, hidden = h_all.shape
+        return h_all.new_empty((t_max, bsz, 3 * hidden)), \
+            w.new_empty(w.shape), h0.new_empty(h0.shape)
+    bf16 = h_all.dtype == torch.bfloat16
+    if bf16 and x is None:
+        raise ValueError("fused_gru_bwd: bf16 streams recompute the gates "
+                         "from x, and x was not given")
+    args = (w, h0, lengths, h_all, None if bf16 else gates, dh_all, dh_last,
+            x if bf16 else None)
+    if not h_all.is_cuda:
+        return fused_gru_bwd_plain(*args)
+    if bf16:
+        return fused_gru_bwd_bf16(*args)
+    out = _run_bwd("fused_gru_bwd", *args)
+    fused_gru_bwd.launches += 1
+    return out
+
+
+def fused_gru_bwd_bf16(w, h0, lengths, h_all, gates, dh_all, dh_last=None,
+                       x=None):
+    """fused_gru_bwd's bf16-stream kernels (their own launch count): bf16
+    streams and x on a card (anything else there raises; gates is not
+    read); CPU tensors run fused_gru_bwd_plain."""
+    if not h_all.is_cuda:
+        return fused_gru_bwd_plain(w, h0, lengths, h_all, None, dh_all,
+                                   dh_last, x)
+    if h_all.dtype != torch.bfloat16 or x is None:
+        raise TypeError(f"fused_gru_bwd_bf16: h_all is {h_all.dtype}, x "
+                        f"{None if x is None else x.dtype}")
+    out = _run_bwd("fused_gru_bwd_bf16", w, h0, lengths, h_all, None,
+                   dh_all, dh_last, x)
+    fused_gru_bwd_bf16.launches += 1
+    return out
+
+
+def _run_bwd(who, w, h0, lengths, h_all, gates, dh_all, dh_last, x):
+    bf16 = h_all.dtype == torch.bfloat16
     dh_all = torch.zeros_like(h_all) if dh_all is None else \
         dh_all.contiguous()
     dh_all, dh0_direct = fold_last(dh_all, dh_last, lengths)
-    _check("fused_gru_bwd", "gates", w, h0, lengths, gates=gates,
-           h_all=h_all, dh_all=dh_all)
-    t_max, bsz, g3 = gates.shape
-    hidden = g3 // 3
-    dx = torch.empty_like(gates)
+    saved = dict(x=x) if bf16 else dict(gates=gates)
+    _check(who, "x" if bf16 else "gates", w, h0, lengths, h_all=h_all,
+           dh_all=dh_all, **saved)
+    t_max, bsz, hidden = h_all.shape
+    out_dtypes = (w.dtype, h0.dtype)
+    w, h0 = _f32(w, h0)
+    dx = torch.empty((t_max, bsz, 3 * hidden), dtype=h_all.dtype,
+                     device=h_all.device)
     dw = torch.empty_like(w)
     dh0, dh_cur, d_rh = (torch.empty_like(h0) for _ in range(3))
     # the dW reduction's partial sums, one [H, 3H] a row split
-    with torch.cuda.device(gates.device):
+    with torch.cuda.device(h_all.device):
         splits = _library().fused_gru_dw_splits(t_max, bsz, hidden)
     dw_parts = torch.empty((splits,) + tuple(w.shape), dtype=w.dtype,
                            device=w.device)
-    sync = _sync_words(bsz, gates.device)
-    _launch("fused_gru_bwd", "fused_gru_bwd_f32", gates.device,
-            w.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
-            h_all.data_ptr(), gates.data_ptr(), dh_all.data_ptr(),
-            dx.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dh_cur.data_ptr(),
+    sync = _sync_words(bsz, h_all.device)
+    if bf16:
+        # float32 scratch: the recomputed gates and the unrounded dgates
+        gates = torch.empty(dx.shape, dtype=torch.float32, device=dx.device)
+        dgates = torch.empty_like(gates)
+        args = (x.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                lengths.data_ptr(), h_all.data_ptr(), gates.data_ptr(),
+                dh_all.data_ptr(), dx.data_ptr(), dgates.data_ptr())
+    else:
+        args = (w.data_ptr(), h0.data_ptr(), lengths.data_ptr(),
+                h_all.data_ptr(), gates.data_ptr(), dh_all.data_ptr(),
+                dx.data_ptr())
+    _launch(who, _entry("bwd", h_all.dtype), h_all.device,
+            *args, dw.data_ptr(), dh0.data_ptr(), dh_cur.data_ptr(),
             d_rh.data_ptr(), dw_parts.data_ptr(), sync.data_ptr(), t_max,
             bsz, hidden, splits)
-    fused_gru_bwd.launches += 1
+    dh0 = dh0.to(out_dtypes[1])
     if dh0_direct is not None:
         dh0 = dh0 + dh0_direct
-    return dx, dw, dh0
+    return dx, dw.to(out_dtypes[0]), dh0
 
 
 #: one per call of the C function, which launches the persistent kernel
 #: of the recurrence and then the dW reduction (row splits, then their sum)
 fused_gru_bwd.launches = 0
+fused_gru_bwd_bf16.launches = 0
 
 
 def barrier_floor(t_max, bsz, hidden, backward, device):
@@ -299,28 +425,33 @@ def barrier_floor(t_max, bsz, hidden, backward, device):
 class FusedGRU(torch.autograd.Function):
     """The fused GRU with its backward kernels — the counterpart of the
     reference's ``jax.custom_vjp`` around ``fused_gru``. forward saves
-    w, h0, lengths, h_all and the gates (the backward reads no x); an
-    output that gets no cotangent counts as zeros; lengths gets no
-    gradient."""
+    w, h0, lengths, h_all and, for float32 streams, the gates (the
+    backward then reads no x), for bf16 streams x (the backward
+    recomputes the gates from it and the rounded h_all); an output that
+    gets no cotangent counts as zeros; lengths gets no gradient."""
 
     @staticmethod
     def forward(ctx, x, w, h0, lengths):
         h_all, h_last, gates = fused_gru_fwd(x, w, h0, lengths)
-        ctx.save_for_backward(w, h0, lengths, h_all, gates)
+        ctx.recompute = x.dtype == torch.bfloat16
+        ctx.save_for_backward(w, h0, lengths, h_all,
+                              x if ctx.recompute else gates)
         ctx.set_materialize_grads(False)
         return h_all, h_last
 
     @staticmethod
     def backward(ctx, dh_all, dh_last):
-        w, h0, lengths, h_all, gates = ctx.saved_tensors
+        w, h0, lengths, h_all, saved = ctx.saved_tensors
+        gates, x = (None, saved) if ctx.recompute else (saved, None)
         dx, dw, dh0 = fused_gru_bwd(
             w, h0, lengths, h_all, gates,
-            None if dh_all is None else dh_all.contiguous(), dh_last)
+            None if dh_all is None else dh_all.contiguous(), dh_last, x)
         return dx, dw, dh0, None
 
 
 def fused_gru(x, w, h0, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable fused GRU: (h_all [T,B,H], h_last [B,H]) for
     x [T,B,3H], w [H,3H], h0 [B,H] and int32 lengths [B] (see FusedGRU).
-    The CUDA kernels need contiguous float32 tensors."""
+    The CUDA kernels need contiguous tensors: float32 or bfloat16 x, w
+    and h0 each float32 or bfloat16."""
     return FusedGRU.apply(x, w, h0, lengths)

@@ -313,9 +313,15 @@ def _matmul_promoted(a, b):
 
 
 def _naive_attention(q, k, v, mask, causal, sm_scale):
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
-        q.shape[-1])
-    scores = _matmul_promoted(q, k.transpose(-1, -2)) * scale
+    scores = _matmul_promoted(q, k.transpose(-1, -2))
+    if sm_scale is None:
+        # the reference scales by 1 / np.sqrt(d), a numpy float64 scalar,
+        # which promotes bf16 scores to float32 (JAX runs without x64);
+        # a `scale` attr is a Python float and keeps their dtype
+        if scores.dtype == torch.bfloat16:
+            scores = scores.float()
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = scores * sm_scale
     if mask is not None:
         scores = scores + mask
     if causal:

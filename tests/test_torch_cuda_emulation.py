@@ -489,6 +489,7 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct uint2 { unsigned x, y; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -531,6 +532,11 @@ inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, 4);
   return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
 }
 // gru_step_split.py's phase marks: a clock that only grows, and a
 // symbol set from the host

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import fused_gru as fg
+from paddle_tpu_torch.ops.kernels import fused_lstm as fl
 from test_torch_cuda_emulation import compile_grid_cuda
 
 SOURCE = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc" \
@@ -73,6 +74,10 @@ def compile_source(out: Path, text: str) -> ctypes.CDLL:
     lib.fused_gru_bwd_f32.argtypes = ([ctypes.c_void_p] * 13
                                       + [ctypes.c_int] * 4
                                       + [ctypes.c_void_p] * 2)
+    lib.fused_gru_fwd_bf16.argtypes = lib.fused_gru_fwd_f32.argtypes
+    lib.fused_gru_bwd_bf16.argtypes = ([ctypes.c_void_p] * 15
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p] * 2)
     lib.fused_gru_dw_splits.argtypes = [ctypes.c_int] * 3
     lib.fused_gru_sync_words.argtypes = [ctypes.c_int]
     lib.fused_gru_barrier_floor.argtypes = ([ctypes.c_void_p]
@@ -159,6 +164,86 @@ def check(inputs, cts, outs, grads, lens):
     # a zero-length row's dh_last reaches dh0 unchanged
     np.testing.assert_array_equal(grads[2][zero].numpy(),
                                   cts[1][zero].numpy())
+
+
+def _bf16(*shape):
+    return torch.full(shape, float("nan"), dtype=torch.bfloat16)
+
+
+def run_bf16(lib, inputs, cts):
+    """The bf16 entry points on the emulated card: bf16 x and cotangents
+    (the streams), float32 w and h0 as the wrapper passes them; the
+    backward reads the plain forward's bf16 h_all and x (no gates: it
+    recomputes them). Returns (h_all, h_last rounded as the wrapper
+    rounds it), (dx, dw, dh0 with the zero-length rows' dh_last added),
+    and the backward's recomputed-gates and float32-dgates scratch."""
+    x, w, h0, lengths = inputs
+    t, b, g3 = x.shape
+    h = g3 // 3
+    lib.emu_configure(SMS, SMEM)
+    h_all, h_last, gates = _bf16(t, b, h), _nan(b, h), _nan(t, b, 3 * h)
+    scratch = [_nan(b, h) for _ in range(4)]
+    sync = torch.full((lib.fused_gru_sync_words(b),), 7, dtype=torch.int32)
+    plan = (ctypes.c_int * 9)()
+    assert lib.fused_gru_fwd_bf16(
+        *_ptrs(*inputs, h_all, h_last, gates, *scratch[:2], sync), t, b, h,
+        ctypes.addressof(plan), None) == 0
+    want = fg.fused_gru_fwd_plain(*inputs)
+    dh_all, dh0_direct = fg.fold_last(cts[0], cts[1], lengths)
+    dx, dw, dh0 = _bf16(t, b, 3 * h), _nan(h, 3 * h), _nan(b, h)
+    recomputed, dgates = _nan(t, b, 3 * h), _nan(t, b, 3 * h)
+    splits = lib.fused_gru_dw_splits(t, b, h)
+    dw_parts = _nan(splits, h, 3 * h)
+    assert lib.fused_gru_bwd_bf16(
+        *_ptrs(x, w, h0, lengths, want[0], recomputed, dh_all, dx, dgates,
+               dw, dh0, *scratch[2:], dw_parts, sync), t, b, h, splits,
+        ctypes.addressof(plan), None) == 0
+    return ((h_all, h_last.to(torch.bfloat16)), (dx, dw, dh0 + dh0_direct),
+            recomputed, dgates)
+
+
+# (T, B, H, lengths) of the bf16 arm: a zero-length row, B above one row
+# tile, H off the tile edge and across two gate-recompute tiles
+BF16_CASES = [(3, 2, 16, [3, 0]), (4, 18, 24, [i % 5 for i in range(18)])]
+
+
+@pytest.mark.parametrize("t,b,h,lens", BF16_CASES)
+def test_cuda_source_bf16_matches_plain_twins(lib, t, b, h, lens):
+    """The bf16 entry points against the twins in bf16 (bf16 streams,
+    float32 w and h0): h_all, h_last and dx within one bf16 ulp plus 1e-5
+    of their sum of |terms|, dW and dh0 at the float32 tolerance. The
+    backward recomputes the gates at the stored, rounded h_all (its
+    scratch equals the twin's recompute, not the forward's gates) and
+    sums dW from the float32 dgates (dW from the rounded dx would miss)."""
+    inputs, cts = _inputs(t, b, h, lens, seed=31 + h)
+    inputs = (inputs[0].bfloat16(),) + inputs[1:]
+    cts = [c.bfloat16() for c in cts]
+    outs, grads, recomputed, dgates = run_bf16(lib, inputs, cts)
+    x, w, h0, lengths = inputs
+    want = fg.fused_gru_fwd_plain(*inputs)
+    h_prev = torch.cat([h0[None], want[0][:-1].float()])
+    fwd_terms = fl.step_terms(h_prev, w, x)
+    for name, got, ref in zip(("h_all", "h_last"), outs, want):
+        assert got.dtype == torch.bfloat16
+        assert fl.bf16_excess(got, ref, fwd_terms) <= 1.0, name
+    gates = fg.gates_plain(x, w, h0, want[0])
+    np.testing.assert_allclose(recomputed.numpy(), gates.numpy(), rtol=0,
+                               atol=ATOL)
+    assert float((want[2] - gates).abs().max()) > 10 * ATOL
+    ref = fg.fused_gru_bwd_plain(w, h0, lengths, want[0], None, *cts, x=x)
+    dh_all, _ = fg.fold_last(cts[0], cts[1], lengths)
+    bwd_terms = fl.step_terms(ref[0].float(), w.t(), dh_all)
+    assert grads[0].dtype == torch.bfloat16
+    assert fl.bf16_excess(grads[0], ref[0], bwd_terms) <= 1.0, "dx"
+    for name, got, r in zip(("dw", "dh0"), grads[1:], ref[1:]):
+        np.testing.assert_allclose(
+            got.numpy(), r.numpy(), rtol=0,
+            atol=ATOL * max(float(r.abs().max()), 1.0), err_msg=name)
+    assert torch.equal(dgates.to(torch.bfloat16), grads[0])
+    rows = h_prev.reshape(-1, h)
+    rounded = rows.t() @ grads[0].float().reshape(-1, 3 * h)[:, :2 * h]
+    assert float((rounded - ref[1][:, :2 * h]).abs().max()) > \
+        ATOL * max(float(ref[1].abs().max()), 1.0)
 
 
 @pytest.mark.parametrize("t,b,h,lens", CASES)

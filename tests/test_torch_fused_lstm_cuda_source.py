@@ -220,6 +220,85 @@ def test_barrier_floor_runs_the_plans_grid(lib):
                 assert (int(sync[i]) >> 31) & 1 == barriers % 2
 
 
+def _bf16(t):
+    return torch.full(t, float("nan"), dtype=torch.bfloat16)
+
+
+def run_bf16(lib, inputs, cts):
+    """The bf16 entry points on the emulated card: bf16 x and cotangents
+    (the streams), float32 w, b, h0, c0 as the wrapper passes them; the
+    backward reads the plain forward's bf16 h_all and c_all. Returns
+    (h_all, c_all, and h_last, c_last rounded as the wrapper rounds
+    them),
+    (dx, dw, db, dh0, dc0), the float32 dgates scratch."""
+    x, w, bias, h0, c0, lengths = inputs
+    t, b, g4 = x.shape
+    h = g4 // 4
+    lib.emu_configure(SMS, SMEM)
+    h_all, c_all = _bf16((t, b, h)), _bf16((t, b, h))
+    state = [_nan(b, h) for _ in range(3)]
+    sync = torch.full((lib.fused_lstm_sync_words(b),), 7, dtype=torch.int32)
+    plan = (ctypes.c_int * 7)()
+    assert lib.fused_lstm_fwd_bf16(
+        *_ptrs(*inputs, h_all, c_all, *state, sync), t, b, h,
+        ctypes.addressof(plan), None) == 0
+    want = fl.fused_lstm_fwd_plain(*inputs)
+    dh_all, dc_all = fl.fold_last(*cts, lengths)
+    grads = [_bf16(x.shape)] + [_nan(*a.shape) for a in (w, bias, h0, c0)]
+    partials = _nan(lib.fused_lstm_partial_floats(b, h))
+    splits = lib.fused_lstm_dw_splits(t, b, h)
+    dw_parts = _nan(splits, (h + 1) * g4)
+    dgates = _nan(t, b, g4)
+    assert lib.fused_lstm_bwd_bf16(
+        *_ptrs(x, w, bias, h0, c0, lengths, want[0], want[1], dh_all, dc_all,
+               *grads, partials, dw_parts, dgates, sync), t, b, h, splits,
+        ctypes.addressof(plan), None) == 0
+    return ([h_all, c_all] + [s.to(torch.bfloat16) for s in state[:2]],
+            grads, dgates)
+
+
+# (T, B, H, lengths) of the bf16 arm: a zero-length row, B above one row
+# tile, H off the tile edge
+BF16_CASES = [(3, 2, 16, [3, 0]), (4, 18, 24, [i % 5 for i in range(18)])]
+
+
+@pytest.mark.parametrize("t,b,h,lens", BF16_CASES)
+def test_cuda_source_bf16_matches_plain_twins(lib, t, b, h, lens):
+    """The bf16 entry points against the twins in bf16 (bf16 streams,
+    float32 w, b, h0, c0): bf16 outputs within one bf16 ulp plus 1e-5 of
+    their sum of |terms|, the float32 ones (dW, db, dh0, dc0) at the
+    float32 tolerance. dW is summed from the float32 dgates, which the
+    kernel leaves in its scratch: dW from the rounded dx would miss."""
+    inputs, cts = _inputs(t, b, h, lens, seed=21 + h)
+    inputs = (inputs[0].bfloat16(),) + inputs[1:]
+    cts = [c.bfloat16() for c in cts]
+    outs, grads, dgates = run_bf16(lib, inputs, cts)
+    want = fl.fused_lstm_fwd_plain(*inputs)
+    x, w, bias, h0, c0, lengths = inputs
+    h_prev = torch.cat([h0[None], want[0][:-1].float()])
+    fwd_terms = fl.step_terms(h_prev, w, x, bias)
+    for name, got, ref in zip(("h_all", "c_all", "h_last", "c_last"), outs,
+                              want):
+        assert got.dtype == torch.bfloat16
+        assert fl.bf16_excess(got, ref, fwd_terms) <= 1.0, name
+    ref = fl.fused_lstm_bwd_plain(*inputs, want[0], want[1], *cts)
+    dh_all, dc_all = fl.fold_last(*cts, lengths)
+    bwd_terms = fl.step_terms(ref[0].float(), w.t(), dh_all, dc_all)
+    assert grads[0].dtype == torch.bfloat16
+    assert fl.bf16_excess(grads[0], ref[0], bwd_terms) <= 1.0, "dx"
+    for name, got, r in zip(("dw", "db", "dh0", "dc0"), grads[1:], ref[1:]):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(
+            got.numpy(), r.numpy(), rtol=0,
+            atol=ATOL * max(float(r.abs().max()), 1.0), err_msg=name)
+    # the scratch holds the unrounded dgates, whose rounding is dx
+    assert torch.equal(dgates.to(torch.bfloat16), grads[0])
+    rows = h_prev.reshape(-1, h)
+    rounded = rows.t() @ grads[0].float().reshape(-1, 4 * h)
+    assert float((rounded - ref[1]).abs().max()) > \
+        ATOL * max(float(ref[1].abs().max()), 1.0)
+
+
 # the lo passes of 3xTF32 into the hi*hi accumulator, k-step by k-step
 _LO_INTO_HI = [("""  grid::mma_tf32(la, al, bh);
   grid::mma_tf32(lb, ah, bl);""", """  grid::mma_tf32(hi, al, bh);
