@@ -13,8 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
   2. each kernel against its plain torch version on the card, at the
      shapes the serving and training paths give it and over a sweep (of
      head dims, lengths, biases and causal for attention; of H, B, T,
-     zero-length rows, initial states and last-state cotangents for the
-     fused LSTM and the fused GRU; of the ResNet-50 bottleneck shapes,
+     zero-length rows (the rows of a nested_sequence_flatten among
+     them: 16 of 64 of length 0), initial states and last-state
+     cotangents for the fused LSTM and the fused GRU; of the ResNet-50 bottleneck shapes,
      ragged row tiles, 1x1 images, odd channel counts, the affine, ReLU
      and statistics on and off for the fused convs; of the ResNet-50
      stages 2-4 at tiles 1, 2 and 4, 1x1 and 3x3 images, Cm 64, groups
@@ -182,11 +183,26 @@ launch counts include what every graph replay launches.
      every parameter and accumulator after a step held against the
      float64 update from the fetched gradients (OPT_RTOL); ModelAverage's
      apply and restore once.
- 18. JSON lines of the kernels, serving, the three earlier trainings,
+ 18. the sequence programs (SEQ_CFG): the book's sentiment program
+     (sequence_conv with relu, max pool, dynamic_lstm,
+     sequence_last_step; IMDB vocabulary 5149, emb 128, hidden 512,
+     batch 128 of lengths in [32, 256]) and the hierarchical LSTM of
+     tests/test_nested_lod.py at the same widths (32 documents of 1-8
+     sentences of 4-64 tokens through DataFeeder at lod_level 2: the
+     inner LSTM runs over the flatten's length-0 rows). Each: the kernel
+     route in float32, its fused-LSTM launches exactly 1 + 1 and 2 + 2 a
+     compiled step, the key captured, a profiled step; step 1 against
+     the port's CPU path by phase 8's rule, its ReLUs and max pools
+     pinned to the card's (the sentiment on its first SEQ_CPU_ROWS
+     rows); the compiled arm against the eager one bit for bit over two
+     alternating feeds (phase 14's rule); 5 steps under amp_guard() by
+     phase 16's rule (the bf16 LSTM kernels only); the kernel route
+     against the scan route by phase 5's rule.
+ 19. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
      micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
-     16 (`rnn_amp`) and phase 17 (`optimizers`), then, last, the JSON
-     result line.
+     16 (`rnn_amp`), phase 17 (`optimizers`) and phase 18
+     (`sequence_models`), then, last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -303,10 +319,24 @@ LSTM_BATCH, LSTM_T = 64, 64
 LSTM_STEPS = 5
 # the kernel table's row: the LM's shape with the bench's ragged lengths
 LSTM_MAIN_CASE = "ragged"
+def nested_rows(t, docs=16, slots=4):
+    """Row lengths as RaggedNested.flatten makes them: `docs` documents of
+    4, 3, 2, 3, ... sentences over `slots` sub-sequence slots each, every
+    padding slot a length-0 row (16 of the 64 rows at the defaults), the
+    live rows 1..t tokens long."""
+    subs = [(4, 3, 2, 3)[d % 4] for d in range(docs)]
+    return [1 + (5 * d + 3 * s) % t if s < subs[d] else 0
+            for d in range(docs) for s in range(slots)]
+
+
+NESTED_ROWS = nested_rows(16)
 # fused-LSTM sweep: (T, B, H, lengths, nonzero h0/c0, nonzero dc_all and
 # last-state cotangents): H 16/128, B=1, T=1, zero-length rows, an H and
 # B off every tile edge; H 1024 and 2048, whose W strips do not fit in
-# shared memory (the persistent kernels stream the rest from L2)
+# shared memory (the persistent kernels stream the rest from L2); the rows
+# of a nested_sequence_flatten (NESTED_ROWS: 16 of 64 rows of length 0),
+# at the hierarchical program's state (zero h0/c0, Hidden-only cotangent)
+# and with every state and cotangent nonzero
 LSTM_COVERAGE_CASES = [
     (8, 4, 16, [0, 3, 8, 1], True, True),
     (5, 3, 128, [5, 2, 4], True, True),
@@ -315,6 +345,8 @@ LSTM_COVERAGE_CASES = [
     (1, 5, 128, [1, 0, 1, 1, 0], True, True),
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
     (5, 8, 2048, [5, 3, 0, 5, 1, 4, 5, 2], True, True),
+    (16, 64, 512, NESTED_ROWS, False, False),
+    (16, 64, 128, NESTED_ROWS, True, True),
 ]
 # the times of the per-step kernels the persistent ones replaced (one
 # launch a step forward, two backward; PERF.md rows 4-5, NVIDIA H100 80GB
@@ -358,7 +390,8 @@ GRU_MAIN_CASE = "ragged"
 # fused-GRU sweep: (T, B, H, lengths, nonzero h0, h_last cotangent): H
 # 64/256/512 and one off every tile edge, B 1/7/64, T 1/5/80, zero-length
 # and full rows; H 1024 and 2048, whose W strips do not fit in shared
-# memory (the persistent kernels stream the rest from L2)
+# memory (the persistent kernels stream the rest from L2); the rows of a
+# nested_sequence_flatten (NESTED_ROWS: 16 of 64 rows of length 0)
 GRU_COVERAGE_CASES = [
     (5, 7, 64, [5, 0, 3, 1, 5, 2, 0], True, True),
     (1, 7, 256, [1, 0, 1, 1, 0, 1, 1], True, True),
@@ -369,6 +402,7 @@ GRU_COVERAGE_CASES = [
     (16, 40, 100, [i % 17 for i in range(40)], True, True),
     (5, 8, 1024, [5, 0, 3, 5, 1, 4, 5, 2], True, True),
     (5, 8, 2048, [5, 3, 0, 5, 1, 4, 5, 2], True, True),
+    (16, 64, 512, NESTED_ROWS, False, True),
 ]
 # the times of the per-step kernels the persistent ones replaced (two
 # launches a step; PERF.md rows 6-7, NVIDIA H100 80GB HBM3, 700.00 W),
@@ -394,9 +428,10 @@ GRU_KERNELS = {"forward": "gru_fwd_persistent", "backward recurrence":
 # streams bf16 with float32 w and bf16 h0 (the bias-free NMT); and the
 # NMT's own mix, float32 streams with a bf16 h0, which runs the float32
 # kernels. Then a subset of the coverage cases: a zero-length row, B = 1,
-# H off a tile edge, and H 2048 streamed from L2.
-LSTM_BF16_CASES = [LSTM_COVERAGE_CASES[i] for i in (0, 3, 5, 6)]
-GRU_BF16_CASES = [GRU_COVERAGE_CASES[i] for i in (0, 2, 6, 8)]
+# H off a tile edge, H 2048 streamed from L2, and the rows of a
+# nested_sequence_flatten (16 of 64 of length 0).
+LSTM_BF16_CASES = [LSTM_COVERAGE_CASES[i] for i in (0, 3, 5, 6, 7, 8)]
+GRU_BF16_CASES = [GRU_COVERAGE_CASES[i] for i in (0, 2, 6, 8, 9)]
 
 
 # the fused conv + BN kernels (paddle_tpu/ops/pallas/fused_conv.py) at the
@@ -567,7 +602,9 @@ CVE_NMT_CFG = dict(TRAIN_CFG, n_layer=2)
 CVE_HALVED = {"nmt": ("flash_attention_fwd", ("flash_attention_bwd_dq",
                                               "flash_attention_bwd_dkv")),
               "lstm_lm": ("fused_lstm_fwd", ("fused_lstm_bwd",)),
-              "gru_nmt": ("fused_gru_fwd", ("fused_gru_bwd",))}
+              "gru_nmt": ("fused_gru_fwd", ("fused_gru_bwd",)),
+              "sentiment": ("fused_lstm_fwd", ("fused_lstm_bwd",)),
+              "hierarchical": ("fused_lstm_fwd", ("fused_lstm_bwd",))}
 # phase 15, bf16 AMP. The bf16 flash kernels against their bf16 twins at
 # phase 2's serving case (S1024, causal, the key-row mask of ATTN_CASES)
 # and phase 4's training shapes (key-row mask and dense decoder bias):
@@ -688,6 +725,29 @@ OPT_CLASSES = [
 # against a CPU step whose ReLUs take the card's masks, rtol 1e-4, atol
 # 1e-5 * max|g|; the free CPU step by 2-norm <= TRAIN_GRAD_NORM_RTOL)
 DEEPFM_LOSS_RTOL = 1e-4
+
+# phase 18, the sequence programs of slice 17 at full width. (a) The
+# book's sentiment program (tests/test_book.py test_understand_sentiment:
+# sequence_conv with relu -> max pool; fc -> dynamic_lstm ->
+# sequence_last_step; concat -> fc -> softmax cross entropy; Adam 5e-3) at
+# the IMDB vocabulary (paddle_tpu/dataset/imdb.py:15) and the widths of
+# the Fluid book's stacked_lstm_net (emb 128, hidden 512), batch 128 of
+# lengths uniform in [32, 256]. (b) The hierarchical LSTM of
+# tests/test_nested_lod.py (the embedding of a 2-level LoD feed ->
+# nested_sequence_flatten -> fc -> dynamic_lstm -> sequence_last_step ->
+# nested_sequence_pack -> fc -> dynamic_lstm -> sequence_last_step -> fc
+# -> softmax cross entropy; Adam 1e-2) at the same widths: 32 documents of
+# 1-8 sentences of 4-64 tokens, through DataFeeder at lod_level 2 (its
+# flatten hands the inner LSTM a length-0 row for every padding slot).
+SEQ_CFG = dict(vocab=5149, emb=128, hid=512)
+SEQ_LR = {"sentiment": 5e-3, "hierarchical": 1e-2}
+SEQ_SENT_BATCH, SEQ_SENT_LENS = 128, (32, 256)
+SEQ_DOCS, SEQ_SENTS, SEQ_TOKS = 32, (1, 8), (4, 64)
+# the sentiment rows phase 18 holds the card against the port's CPU path on
+SEQ_CPU_ROWS = 8
+# fused-LSTM launches a compiled step: one forward and one backward an
+# lstm op (float32 kernels, and under AMP the bf16 ones only)
+SEQ_LSTM_OPS = {"sentiment": 1, "hierarchical": 2}
 
 
 def card_line() -> str:
@@ -1107,8 +1167,9 @@ def lstm_library(inputs, cts):
     return fwd, bwd, err
 
 
-def _rnn_holds(got, want, names, terms):
-    """Each kernel output against its twin's: bf16 ones by the bf16 rule
+def _rnn_holds(got, want, names, terms, rounded=()):
+    """Each kernel output against its twin's: bf16 ones, and those named
+    in `rounded` (rounded to bf16 and then widened), by the bf16 rule
     (terms[name], see fused_lstm.step_terms), float32 ones as _max_err
     holds them. Returns (max |err|, the worst bf16 excess, ok)."""
     from paddle_tpu_torch.ops.kernels import fused_lstm as fl
@@ -1121,7 +1182,7 @@ def _rnn_holds(got, want, names, terms):
             raise SystemExit(f"{name}: the kernel gives {g.dtype}, the twin "
                              f"{w.dtype}")
         err = max(err, (g.float() - w.float()).abs().max().item())
-        if g.dtype == torch.bfloat16:
+        if g.dtype == torch.bfloat16 or name in rounded:
             r = fl.bf16_excess(g, w, terms[name])
             excess, ok = max(excess, r), ok and r <= 1.0
         else:
@@ -1485,8 +1546,13 @@ def _gru_bf16_case(gen, t, b, h, lens, state, last, mix):
                      dict.fromkeys(("h_all", "h_last"), fwd_terms))
     if not recompute:   # the float32 forward, as phase 2's float32 rows
         fwd = fwd[:2] + (fwd[0] <= GRU_FWD_ATOL,)
+    # a bf16 h0's dh0 is rounded to bf16 by both, and where a zero-length
+    # row passes its float32 h_last cotangent straight to dh0 the sum is
+    # float32, as the reference's (_fused_gru_bwd: bf16 + float32): it
+    # stays a bf16-rounded value for the other rows
     bwd = _rnn_holds(bwd_k, bwd_p, ("dx", "dw", "dh0"),
-                     dict.fromkeys(("dx", "dh0"), bwd_terms))
+                     dict.fromkeys(("dx", "dh0"), bwd_terms),
+                     rounded=("dh0",) if inputs[2].dtype == bf else ())
     return fwd, bwd, inputs, cts, fwd_k
 
 
@@ -2067,6 +2133,16 @@ def flash_twins():
          fa.flash_attention_bwd_dkv_bf16) = saved
 
 
+def host_dense(value, feed):
+    """A fetched value as the dense array the program computed: a ragged
+    fetch (a LoDTensor of its valid rows) padded back to the time steps
+    of the feed's ragged values, zero past each row's length."""
+    if not hasattr(value, "lod"):
+        return value
+    t = max(v.data.shape[1] for v in feed.values() if hasattr(v, "lengths"))
+    return value.to_padded(max_len=t)[0]
+
+
 def train_arm(main, startup, loss, weights, feed, params, card, label,
               profiled=0):
     """TRAIN_STEPS Adam steps from `weights` in a fresh scope; the first
@@ -2096,8 +2172,8 @@ def train_arm(main, startup, loss, weights, feed, params, card, label,
         losses.append(float(out[0].reshape(-1)[0]))
         if step == 0:
             grads = dict(zip(params, out[1:1 + len(params)]))
-            signs = {n: x > 0 for n, x in zip(relu_in,
-                                               out[1 + len(params):])}
+            signs = {n: host_dense(x, feed) > 0 for n, x in
+                     zip(relu_in, out[1 + len(params):])}
         if not np.isfinite(losses[-1]):
             raise SystemExit(f"{label} arm: loss {losses[-1]} at step {step}")
         print(f"[{card}] train {label} step {step}: loss {losses[-1]:.6f} "
@@ -4953,6 +5029,339 @@ def train_optimizers(card):
     return summary
 
 
+def build_sequence_program(name):
+    """Phase 18's program `name` at full width (SEQ_CFG): (main, startup,
+    loss, the data vars)."""
+    from paddle_tpu_torch import framework, layers, optimizer
+    v, emb, hid = SEQ_CFG["vocab"], SEQ_CFG["emb"], SEQ_CFG["hid"]
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        label = layers.data("label", [1], dtype="int64")
+        if name == "sentiment":
+            words = layers.data("words", [1], dtype="int64", lod_level=1)
+            e = layers.embedding(words, size=[v, emb])
+            conv = layers.sequence_conv(e, num_filters=hid, filter_size=3,
+                                        act="relu")
+            pooled = layers.sequence_pool(conv, pool_type="max")
+            h, _ = layers.dynamic_lstm(layers.fc(e, size=4 * hid),
+                                       size=4 * hid)
+            feat = layers.concat([pooled, layers.sequence_last_step(h)],
+                                 axis=-1)
+            data = words
+        else:
+            docs = layers.data("docs", [1], dtype="int64", lod_level=2)
+            toks = layers.nested_sequence_flatten(
+                layers.embedding(docs, size=[v, emb]))
+            h, _ = layers.dynamic_lstm(layers.fc(toks, size=4 * hid),
+                                       size=4 * hid)
+            sents = layers.nested_sequence_pack(
+                layers.sequence_last_step(h), docs)
+            h2, _ = layers.dynamic_lstm(layers.fc(sents, size=4 * hid),
+                                        size=4 * hid)
+            feat = layers.sequence_last_step(h2)
+            data = docs
+        logits = layers.fc(feat, size=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        optimizer.AdamOptimizer(learning_rate=SEQ_LR[name]).minimize(loss)
+    return main, startup, loss, (data, label)
+
+
+def sequence_feeds(name, data_vars):
+    """Phase 18's two feeds of `name`, drawn from RandomState(0) and (1),
+    and the first one's live tokens and rows: the sentiment batch as a
+    RaggedPair (ids past a row's length are 0, as a LoDTensor pads them),
+    the documents through DataFeeder at lod_level 2 (its buckets: tokens
+    to a multiple of 16, sentence slots to a multiple of 4)."""
+    from paddle_tpu_torch import DataFeeder
+    from paddle_tpu_torch.core.lod import RaggedPair
+    vocab = SEQ_CFG["vocab"]
+    feeds = []
+    for seed in range(2):
+        rng = np.random.RandomState(seed)
+        if name == "sentiment":
+            b, (lo, hi) = SEQ_SENT_BATCH, SEQ_SENT_LENS
+            ids = rng.randint(1, vocab, (b, hi, 1)).astype(np.int64)
+            lens = rng.randint(lo, hi + 1, (b,)).astype(np.int32)
+            ids[np.arange(hi)[None, :] >= lens[:, None]] = 0
+            feeds.append({"words": RaggedPair(ids, lens),
+                          "label": rng.randint(0, 2, (b, 1))
+                          .astype(np.int64)})
+            continue
+        batch = []
+        for _ in range(SEQ_DOCS):
+            doc = [rng.randint(1, vocab, rng.randint(SEQ_TOKS[0],
+                                                     SEQ_TOKS[1] + 1))
+                   .tolist() for _ in range(rng.randint(SEQ_SENTS[0],
+                                                        SEQ_SENTS[1] + 1))]
+            batch.append((doc, [rng.randint(0, 2)]))
+        feeds.append(DataFeeder(list(data_vars)).feed(batch))
+    first = feeds[0]["words" if name == "sentiment" else "docs"]
+    if name == "sentiment":
+        info = dict(rows=SEQ_SENT_BATCH, live_tokens=int(first.lengths.sum()),
+                    shape=list(first.data.shape))
+    else:
+        rows = first.tok_lengths * (np.arange(first.data.shape[1])[None, :]
+                                    < first.sub_lengths[:, None])
+        info = dict(rows=int(rows.size), zero_rows=int((rows == 0).sum()),
+                    live_tokens=int(rows.sum()),
+                    shape=list(first.data.shape))
+    return feeds, info
+
+
+def pinned_grads(main, startup, loss, weights, feed, params, signs, picks,
+                 device):
+    """pinned_relu_grads, with every max sequence_pool over a var in
+    `picks` (name -> float [n, t, c] weights: 1/k on the k positions that
+    attain the card's maximum, 0 elsewhere) taking the card's picks too:
+    a near tie that rounding breaks the other way on `device` would move
+    a gradient by O(1) of one example's share."""
+    import torch
+    from paddle_tpu_torch.core.registry import OpRegistry
+    pool = OpRegistry.get("sequence_pool")
+    free_pool = pool.compute
+    weights_of = {n: torch.from_numpy(w).to(device) for n, w in picks.items()}
+
+    def pinned_pool(ctx):
+        name = ctx.op.input("X")[0]
+        if ctx.attr("pooltype", "").upper() != "MAX" or name not in picks:
+            return free_pool(ctx)
+        ctx.set_output("Out", (ctx.input("X").data * weights_of[name]).sum(1))
+
+    pool.compute = pinned_pool
+    try:
+        return pinned_relu_grads(main, startup, loss, weights, feed, params,
+                                 signs, device=device)
+    finally:
+        pool.compute = free_pool
+
+
+def max_pool_picks(main, values, feed):
+    """For each max sequence_pool of `main` whose input was fetched in
+    `values` (a LoDTensor) from a step on `feed`, the card's picks as
+    pinned_grads takes them."""
+    out = {}
+    for op in main.desc.global_block.ops:
+        name = op.input("X")[0] if op.type == "sequence_pool" else None
+        if name in values and op.attrs.get("pooltype", "").upper() == "MAX":
+            x = host_dense(values[name], feed)
+            lens = np.asarray([len(r) for r in values[name].sequences()])
+            valid = np.arange(x.shape[1])[None, :, None] < lens[:, None, None]
+            x = np.where(valid, x, -np.inf)
+            hit = x == x.max(axis=1, keepdims=True)
+            out[name] = (hit / hit.sum(axis=1, keepdims=True)).astype(
+                np.float32)
+    return out
+
+
+def card_vs_cpu_feed(name, feed):
+    """The feed phase 18 holds the card against the port's CPU path on:
+    the hierarchical batch whole; the sentiment batch's first
+    SEQ_CPU_ROWS rows (the host's T256 scan takes ~28 s a step at batch
+    128, as phase 9 cuts ResNet-50 to batch 4 for its CPU arm)."""
+    from paddle_tpu_torch.core.lod import RaggedPair
+    if name != "sentiment":
+        return feed
+    n = SEQ_CPU_ROWS
+    return {"words": RaggedPair(feed["words"].data[:n],
+                                feed["words"].lengths[:n]),
+            "label": feed["label"][:n]}
+
+
+def hold_card_vs_cpu(what, main, startup, loss, weights, feed, params,
+                     card):
+    """Phase 8's rule on one step of `feed`: the card's loss against the
+    port's CPU path within MNIST_LOSS_RTOL; the card's gradients per
+    element against a CPU step whose ReLUs and max pools take the card's
+    masks and picks, at rtol TRAIN_GRAD_RTOL and atol the larger of
+    TRAIN_GRAD_ATOL_FRAC * max|g| and TRAIN_GRAD_NOISE_FACTOR times how
+    far that CPU step moves from weights one ulp away (phase 4's noise
+    floor: the biases under the LSTM sum its dgates over every token of
+    a T256 recurrence, and the two routes' roundings reach ~1e-5 * max|g|
+    there); and by 2-norm against the free CPU step
+    (TRAIN_GRAD_NORM_RTOL)."""
+    t0 = time.perf_counter()
+    relu_in = relu_inputs(main)
+    pools = [op.input("X")[0] for op in main.desc.global_block.ops
+             if op.type == "sequence_pool"
+             and op.attrs.get("pooltype", "").upper() == "MAX"]
+    gpu, _, _ = steps_arm(main, startup, loss, weights, feed, params, card,
+                          f"{what} card", 1, extra=relu_in + pools)
+    firsts = gpu["first_step"]
+    signs = {n: host_dense(firsts[n], feed) > 0 for n in relu_in}
+    picks = max_pool_picks(main, {n: firsts[n] for n in pools}, feed)
+    cpu, _, _ = steps_arm(main, startup, loss, weights, feed, params, card,
+                          f"{what} CPU", 1, device="cpu")
+
+    def pinned_at(w):
+        if signs or picks:
+            return pinned_grads(main, startup, loss, w, feed, params, signs,
+                                picks, "cpu")
+        return steps_arm(main, startup, loss, w, feed, params, card,
+                         f"{what} CPU", 1, device="cpu")[0]["grads"]
+
+    pinned = cpu["grads"] if not (signs or picks) else pinned_at(weights)
+    nudged = pinned_at(_nudged(weights, params))
+    rel = abs(gpu["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    worst, norm_gap, fails, by_noise = 0.0, 0.0, [], {}
+    for p in params:
+        g, r = gpu["grads"][p], pinned[p]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        diff = float(np.abs(g - r).max())
+        noise = float(np.abs(r - nudged[p]).max())
+        atol = max(TRAIN_GRAD_ATOL_FRAC * scale,
+                   TRAIN_GRAD_NOISE_FACTOR * noise)
+        if atol > TRAIN_GRAD_ATOL_FRAC * scale:
+            by_noise[p] = (diff / scale, noise / scale)
+        worst = max(worst, diff / scale)
+        norm_gap = max(norm_gap, _norm_gap(g, cpu["grads"][p]))
+        if not np.allclose(g, r, rtol=TRAIN_GRAD_RTOL, atol=atol):
+            fails.append(p)
+        if p in fails or p in by_noise:
+            print(f"  {p}@GRAD: max |diff| {diff / scale:.3e} * max|g|, "
+                  f"one-ulp nudge {noise / scale:.3e} * max|g|", flush=True)
+    print(f"[{card}] {what} card vs CPU, step 1: loss {gpu['losses'][0]:.7f}"
+          f" vs {cpu['losses'][0]:.7f} (relative {rel:.3e}); gradients of "
+          f"{len(params)} parameters against the pinned CPU step: worst "
+          f"{worst:.3e} * max|g|, {len(by_noise)} held at the nudge's "
+          f"noise floor; 2-norm gap to the free CPU step {norm_gap:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not rel <= MNIST_LOSS_RTOL or fails or \
+            not norm_gap <= TRAIN_GRAD_NORM_RTOL:
+        raise SystemExit(f"{what} card vs CPU: loss relative {rel:.3e}, "
+                         f"{fails} differ per element, 2-norm gap "
+                         f"{norm_gap:.3e}")
+    return dict(loss_rel=rel, grad_max_diff_frac_pinned=worst,
+                grad_norm_gap_free=norm_gap, cpu_loss=cpu["losses"][0],
+                held_at_noise_floor=by_noise)
+
+
+def train_sequence_models(card):
+    """Phase 18: the sentiment program and the hierarchical LSTM at full
+    width (SEQ_CFG). Per program: the kernel route in float32 (the fused
+    LSTM launched exactly SEQ_LSTM_OPS forward and backward a compiled
+    step, the key captured); step 1 against the port's CPU path by phase
+    8's rule; the compiled arm against the eager one bit for bit over two
+    alternating feeds (phase 14's rule); TRAIN_STEPS steps under
+    amp_guard() by phase 16's rule (the bf16 LSTM kernels only); and the
+    kernel route against the scan route by phase 5's rule. Returns the
+    phase's summary and its launches (the float32 and AMP arms)."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    summary, total = {"card": card, "config": dict(SEQ_CFG)}, {}
+    for name, ops in SEQ_LSTM_OPS.items():
+        t1 = time.perf_counter()
+        main, startup, loss, data_vars = build_sequence_program(name)
+        weights = seeded_weights(startup, seed=0)
+        params = [p.name for p in main.all_parameters()]
+        feeds, info = sequence_feeds(name, data_vars)
+        feed = feeds[0]
+        print(f"{name}: {len(main.desc.global_block.ops)} ops, "
+              f"{sum(weights[p].size for p in params)} parameters, feed "
+              f"{info}", flush=True)
+
+        kernels.reset_launch_counts()
+        f32 = train_arm(main, startup, loss, weights, feed, params, card,
+                        f"{name} float32", profiled=CVE_PROFILED)
+        launches = {n: k for n, k in f32["launches"].items() if k}
+        want = {"fused_lstm_fwd": ops * TRAIN_STEPS,
+                "fused_lstm_bwd": ops * TRAIN_STEPS}
+        print(f"[{card}] {name} float32 launches {launches}", flush=True)
+        if launches != want or not f32["captured"]:
+            raise SystemExit(f"{name}: launches {launches}, expected {want}"
+                             f"; captured {f32['captured']}")
+        profiled = profile_step(main, startup, loss, weights, feed, card,
+                                f"{name} float32", groups=LSTM_KERNELS)
+        card_cpu = hold_card_vs_cpu(name, main, startup, loss, weights,
+                                    card_vs_cpu_feed(name, feed), params,
+                                    card)
+
+        pair = cve_training_pair(name, main, startup, loss, weights, feeds,
+                                 card)
+        if not pair["compiled"]["captured"]:
+            raise SystemExit(f"{name}: the compiled arm was not captured")
+
+        with amp.amp_guard():
+            kernels.reset_launch_counts()
+            a = train_arm(main, startup, loss, weights, feed, params, card,
+                          f"{name} AMP", profiled=CVE_PROFILED)
+            with rnn_twins():
+                twin = pinned_relu_grads(main, startup, loss, weights, feed,
+                                         params, a["relu_signs"])
+        amp_launches = {n: k for n, k in a["launches"].items() if k}
+        want_amp = {"fused_lstm_fwd_bf16": ops * TRAIN_STEPS,
+                    "fused_lstm_bwd_bf16": ops * TRAIN_STEPS}
+        print(f"[{card}] {name} AMP launches {amp_launches}", flush=True)
+        if amp_launches != want_amp or not a["captured"]:
+            raise SystemExit(f"{name} AMP: launches {amp_launches}, "
+                             f"expected {want_amp}; captured "
+                             f"{a['captured']}")
+        rel = abs(a["losses"][0] - f32["losses"][0]) / abs(f32["losses"][0])
+
+        def gap(x, y):
+            return float(np.linalg.norm(np.asarray(x, np.float64)
+                                        - np.asarray(y, np.float64)))
+        ratios = {p: gap(a["grads"][p], twin[p])
+                  / max(gap(twin[p], f32["grads"][p]), 1e-30)
+                  for p in params}
+        worst = max(ratios, key=ratios.get)
+        print(f"[{card}] {name} AMP: step-1 loss {a['losses'][0]:.6f} vs "
+              f"float32 {f32['losses'][0]:.6f} (relative {rel:.3e}); "
+              f"|kernels - twins| / |twins - f32| up to {ratios[worst]:.3f} "
+              f"({worst}; factor {AMP_TWIN_FACTOR})", flush=True)
+        if not rel <= RNN_AMP_LOSS_RTOL or \
+                not any(gap(a["grads"][p], f32["grads"][p]) for p in params) \
+                or ratios[worst] > AMP_TWIN_FACTOR:
+            raise SystemExit(f"{name} AMP: loss relative {rel:.3e}; twin "
+                             f"ratios over {AMP_TWIN_FACTOR}: "
+                             f"{ {p: r for p, r in ratios.items() if r > AMP_TWIN_FACTOR} }")
+
+        _stamp_pallas(main, "lstm", "0")
+        kernels.reset_launch_counts()
+        with knob("PADDLE_TPU_PALLAS_LSTM", "0"):
+            scan, _, _ = steps_arm(main, startup, loss, weights, feed,
+                                   params, card, f"{name} scan", TRAIN_STEPS)
+        if any(k for n, k in kernels.launch_counts().items()
+               if n.startswith("fused_lstm")):
+            raise SystemExit(f"{name}: the scan route launched the fused "
+                             "LSTM")
+        loss_rel, grad_worst = hold_routes(f32, scan, params, card, name)
+
+        for n, k in list(launches.items()) + list(amp_launches.items()):
+            total[n] = total.get(n, 0) + k
+        out = {"feed": info, "launches_per_step": {
+                   "float32": {n: k / TRAIN_STEPS for n, k in
+                               launches.items()},
+                   "amp": {n: k / TRAIN_STEPS for n, k in
+                           amp_launches.items()}},
+               "card_vs_cpu": card_cpu, "compiled_vs_eager": pair,
+               "profiled_step": profiled,
+               "kernel_vs_scan": {"loss_rel_diff_max": loss_rel,
+                                  "grad_max_diff_frac": grad_worst},
+               "amp_loss_rel_to_f32": rel, "twin_ratio_max": ratios[worst],
+               "twin_ratio_argmax": worst}
+        for label, arm in (("f32", f32), ("amp", a), ("scan", scan)):
+            out[label] = {"losses": arm["losses"],
+                          "step_ms": _median_ms(arm["step_ms"]),
+                          "peak_bytes": arm["peak_bytes"],
+                          **({"busy": arm["busy"]} if "busy" in arm else {})}
+            print(f"[{card}] {name} {label}: {out[label]['step_ms']:.2f} ms a"
+                  f" step" + (f", {100 * arm['busy']:.1f}% busy"
+                              if "busy" in arm else "")
+                  + f", peak {arm['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        out["program_s"] = time.perf_counter() - t1
+        summary[name] = out
+        del f32, a, scan, twin, pair, profiled, main, startup, weights, feeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"[{card}] phase 18: {summary['phase_s']:.1f} s", flush=True)
+    return summary, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5084,7 +5493,10 @@ def main() -> int:
     # -- 17. the dense optimizers and the learning-rate schedules ----------
     optimizers = train_optimizers(card)
 
-    # -- 18. result lines ------------------------------------------------------
+    # -- 18. the sentiment program and the hierarchical LSTM ---------------
+    sequence_models, seq_launches = train_sequence_models(card)
+
+    # -- 19. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -5102,7 +5514,8 @@ def main() -> int:
                       "roll_micro": micro_launches[name],
                       "trainer": trainer_launches[name],
                       "amp_training": amp_launches[name],
-                      "rnn_amp_training": rnn_amp_launches.get(name, 0)}
+                      "rnn_amp_training": rnn_amp_launches.get(name, 0),
+                      "sequence_models": seq_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -5282,6 +5695,7 @@ def main() -> int:
     print(json.dumps({"amp": amp_summary}))
     print(json.dumps({"rnn_amp": rnn_amp}))
     print(json.dumps({"optimizers": optimizers}))
+    print(json.dumps({"sequence_models": sequence_models}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

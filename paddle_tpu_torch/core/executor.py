@@ -18,7 +18,7 @@ list, the AMP flag, iterations, stacked_feed, donate_state), held in a
   forward op is not in the block as its ``fwd_op`` copy describes it (a
   ``clone(for_test=True)`` re-stamps ``is_test`` on the op, not the copy)
   replays its copy, as the eager arm does (`CompiledProgram.replayed`);
-  one with sub-block closures (A4) is refused;
+  one with sub-block closures (A4b) is refused;
 - each value dropped from the step's environment after its last reader,
   except the fetches and the written state (autograd keeps what a
   recorded graph saved): the role of XLA's buffer assignment;
@@ -60,7 +60,12 @@ K times (K replays once captured), state chained from one run to the
 next; ``sync=False`` returns a ``StepResult`` whose fetches convert to
 the host only when read.
 
-Not ported yet: While probing (A4), and the cost/memory reports and the
+Feeds and fetches may be ragged at any LoD depth: a LoDTensor feed with
+one, two or more LoD levels runs as a RaggedPair, RaggedNested or
+RaggedTree (core/lod.py), and a ragged fetch comes back as a LoDTensor
+with its LoD.
+
+Not ported yet: While probing (A4b), and the cost/memory reports and the
 rewrite pipeline (A6).
 """
 from __future__ import annotations
@@ -75,7 +80,8 @@ from .. import flags
 from ..amp import amp_enabled
 from . import dispatch
 from .ir import BlockDesc, OpDesc, Program, SUB_BLOCK_ATTRS
-from .lod import LoDTensor, RaggedPair
+from .lod import (RAGGED_TYPES, LoDTensor, RaggedNested, RaggedPair,
+                  RaggedTree, ragged_like, ragged_parts, with_data)
 from .registry import OpRegistry, run_op
 from .scope import Scope, global_scope
 
@@ -112,23 +118,39 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _lod_value(value: LoDTensor):
+    """A LoDTensor in its padded in-graph form, on the host: a RaggedPair
+    (one LoD level), RaggedNested (two) or RaggedTree (three or more) of
+    numpy arrays (paddle_tpu/core/executor.py _to_device_value), or its
+    dense data when it has no LoD."""
+    if len(value.lod) > 2:
+        data, lengths = value.to_tree_padded()
+        return RaggedTree(data, lengths)
+    if len(value.lod) == 2:
+        return RaggedNested(*value.to_nested_padded())
+    if value.lod:
+        return RaggedPair(*value.to_padded())
+    return value.data
+
+
+def _ragged_on(value, put):
+    """The ragged value `value` with `put` applied to each of its
+    tensors, the lengths as int32."""
+    data, *lengths = ragged_parts(value)
+    return ragged_like(value, [put(data)]
+                       + [put(l).to(torch.int32) for l in lengths])
+
+
 def to_device_value(value, device: torch.device):
-    """A feed value in its in-graph form on `device`: a LoDTensor with one
-    LoD level, or a RaggedPair of arrays, becomes a RaggedPair of the
-    padded data and int32 lengths (paddle_tpu/core/executor.py
-    _to_device_value); anything else goes through to_tensor. Deeper LoD
-    is not ported yet."""
+    """A feed value in its in-graph form on `device`: a LoDTensor becomes
+    a RaggedPair, RaggedNested or RaggedTree of the padded data and int32
+    lengths by its number of LoD levels, and a ragged value of arrays
+    goes up as it is (paddle_tpu/core/executor.py _to_device_value);
+    anything else goes through to_tensor."""
     if isinstance(value, LoDTensor):
-        if len(value.lod) > 1:
-            raise NotImplementedError(
-                "the port feeds level-1 LoD only; nested LoD (RaggedNested"
-                "/RaggedTree) is not ported yet")
-        if not value.lod:
-            return to_tensor(value.data, device)
-        value = RaggedPair(*value.to_padded())
-    if isinstance(value, RaggedPair):
-        return RaggedPair(to_tensor(value.data, device),
-                          to_tensor(value.lengths, device).to(torch.int32))
+        value = _lod_value(value)
+    if isinstance(value, RAGGED_TYPES):
+        return _ragged_on(value, lambda t: to_tensor(t, device))
     return to_tensor(value, device)
 
 
@@ -207,11 +229,9 @@ def device_feed(feed: Dict[str, Any], device=None) -> DeviceFeed:
         out = DeviceFeed()
         for k, v in feed.items():
             if isinstance(v, LoDTensor):
-                v = to_device_value(v, torch.device("cpu"))
-            if isinstance(v, RaggedPair):
-                out[k] = RaggedPair(
-                    pinned_upload(v.data, device),
-                    pinned_upload(v.lengths, device).to(torch.int32))
+                v = _lod_value(v)
+            if isinstance(v, RAGGED_TYPES):
+                out[k] = _ragged_on(v, lambda t: pinned_upload(t, device))
             else:
                 out[k] = pinned_upload(v, device)
         return out
@@ -221,18 +241,20 @@ def device_feed(feed: Dict[str, Any], device=None) -> DeviceFeed:
     return out
 
 
-def _feed_tensors(value):
-    return [value.data, value.lengths] if isinstance(value, RaggedPair) \
-        else [value]
-
-
 def to_host_value(value, return_numpy: bool = True):
-    """A fetched value on the host: a RaggedPair comes back as a LoDTensor
-    of its valid rows, anything else as a numpy array (as the tensor
-    itself with return_numpy=False)."""
-    if isinstance(value, RaggedPair):
-        return LoDTensor.from_padded(to_numpy(value.data),
-                                     value.lengths.cpu().numpy())
+    """A fetched value on the host: a ragged value comes back as a
+    LoDTensor of its valid rows with its LoD (one, two or depth levels),
+    anything else as a numpy array (as the tensor itself with
+    return_numpy=False)."""
+    if isinstance(value, RAGGED_TYPES):
+        data, *lengths = ragged_parts(value)
+        data = to_numpy(data)
+        lengths = [l.cpu().numpy() for l in lengths]
+        if isinstance(value, RaggedPair):
+            return LoDTensor.from_padded(data, *lengths)
+        if isinstance(value, RaggedNested):
+            return LoDTensor.from_nested_padded(data, *lengths)
+        return LoDTensor.from_tree_padded(data, lengths)
     return to_numpy(value) if return_numpy else value
 
 
@@ -249,6 +271,12 @@ def _abstractify(value):
     if isinstance(value, RaggedPair):
         return ("ragged", tuple(value.data.shape), _dtype_name(value.data),
                 tuple(value.lengths.shape))
+    if isinstance(value, RaggedNested):
+        return ("ragged2", tuple(value.data.shape), _dtype_name(value.data),
+                tuple(value.tok_lengths.shape))
+    if isinstance(value, RaggedTree):
+        return ("raggedk", value.depth, tuple(value.data.shape),
+                _dtype_name(value.data))
     return (tuple(value.shape), _dtype_name(value))
 
 
@@ -259,8 +287,10 @@ def _dtype_name(value) -> str:
 def feed_signature(feed_vals) -> Tuple:
     """Hashable (name, abstract shape/dtype) signature of a feed dict —
     the per-request part of the executor's compile key. Feed values must
-    already be in device form (`to_device_value`: a ragged value is a
-    RaggedPair, ("ragged", data shape, dtype, lengths shape)); numpy
+    already be in device form (`to_device_value`). A RaggedPair is
+    ("ragged", data shape, dtype, lengths shape), a RaggedNested
+    ("ragged2", data shape, dtype, tok_lengths shape) and a RaggedTree
+    ("raggedk", depth, data shape, dtype), as in the reference; numpy
     arrays and anything else with .shape/.dtype work too."""
     return tuple(sorted((k, _abstractify(v)) for k, v in feed_vals.items()))
 
@@ -349,21 +379,22 @@ class StepResult:
 
 
 def _detached(value):
-    if isinstance(value, RaggedPair):
-        return RaggedPair(value.data.detach(), value.lengths)
+    if isinstance(value, RAGGED_TYPES):
+        return with_data(value, value.data.detach())
     return value.detach() if isinstance(value, torch.Tensor) else value
 
 
 def _clone(value):
-    if isinstance(value, RaggedPair):
-        return RaggedPair(value.data.clone(), value.lengths.clone())
-    return value.clone()
+    """A copy of a tensor or a ragged value: its data and every lengths
+    tensor (a captured step's static feed holds them all)."""
+    return ragged_like(value, [t.clone() for t in ragged_parts(value)])
 
 
 def _copy_into(static, value, what: str) -> None:
-    """static.copy_(value), for a tensor or a RaggedPair, after checking
-    that the two agree in shape and dtype."""
-    for dst, src in zip(_feed_tensors(static), _feed_tensors(value)):
+    """static.copy_(value), for a tensor or a ragged value (its data and
+    every lengths tensor), after checking that the two agree in shape
+    and dtype."""
+    for dst, src in zip(ragged_parts(static), ragged_parts(value)):
         if dst.shape != src.shape or dst.dtype != src.dtype:
             raise ValueError(
                 f"{what}: a {src.dtype} {tuple(src.shape)} tensor cannot "
@@ -408,7 +439,7 @@ class _Plan:
                 raise NotImplementedError(
                     f"op {j} (__vjp__ of {op.attrs['fwd_op']['type']!r}) "
                     "differentiates a sub-block: the compiled executor does "
-                    "not run sub-blocks yet (ROADMAP A4); run the program "
+                    "not run sub-blocks yet (ROADMAP A4b); run the program "
                     "with Executor(compiled=False)")
             fwd = op.attrs["fwd_op"]
             i = latest.get(_outputs_key(fwd["type"], fwd["outputs"]))
@@ -559,7 +590,7 @@ class Executor:
             feed_vals = dict(feed)
             if feed.ready is not None:
                 await_upload(feed.ready, [t for v in feed_vals.values()
-                                          for t in _feed_tensors(v)],
+                                          for t in ragged_parts(v)],
                              self.device)
             return feed_vals
         return {k: to_device_value(v, self.device) for k, v in feed.items()}
@@ -595,7 +626,8 @@ class Executor:
         fetches as numpy arrays.
 
         feed values: numpy arrays, python scalars, tensors, or ragged
-        values (LoDTensor, RaggedPair); a `device_feed` dict is used as
+        values (LoDTensor with any number of LoD levels, RaggedPair,
+        RaggedNested, RaggedTree); a `device_feed` dict is used as
         it is. fetch_list entries: var names or objects with a `.name`; a
         ragged fetch comes back as a LoDTensor. return_numpy=False
         returns dense fetches as the device tensors.
@@ -770,7 +802,7 @@ class Executor:
                 scope.set(n, v)
         fixed = set(statics)
         fixed.update(t.data_ptr() for v in compiled.static_feed.values()
-                     for t in _feed_tensors(v))
+                     for t in ragged_parts(v))
         fixed.update(v.data_ptr() for outs in self._const_cache.values()
                      for v in outs.values() if isinstance(v, torch.Tensor))
 
@@ -778,7 +810,7 @@ class Executor:
             """v itself, or a copy of it when its memory is a static
             buffer or a cached constant (state must own its memory)."""
             if any(t.numel() and t.data_ptr() in fixed
-                   for t in _feed_tensors(v)):
+                   for t in ragged_parts(v)):
                 return _clone(v)
             return v
 

@@ -9,15 +9,18 @@ OpDescs; every other op gets the generic ``__vjp__`` grad op, which
 replays the compute rule under torch autograd (the eager executor), or
 reads the autograd graph its forward op recorded (the compiled one).
 
-Ragged values (core/lod.py RaggedPair) reach only the ops registered
-``ragged_aware``; every other op sees their dense data, and its outputs
-are re-wrapped with the first ragged input's lengths (run_op).
+Ragged values (core/lod.py RaggedPair, RaggedNested, RaggedTree) reach
+only the ops registered ``ragged_aware``; every other op sees their
+dense data, and its outputs are re-wrapped with the first ragged
+input's lengths (run_op).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
-from .lod import RaggedPair
+import torch
+
+from .lod import RAGGED_TYPES, ragged_lead, with_data
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -35,7 +38,7 @@ class OpDef:
                  constant: bool = False, ragged_aware: bool = False,
                  capturable: bool = True):
         self.type = type
-        # ragged_aware ops receive RaggedPair values as-is; other ops get
+        # ragged_aware ops receive ragged values as-is; other ops get
         # dense .data views and their outputs are re-wrapped (see run_op).
         self.ragged_aware = ragged_aware
         # compute(ctx) -> None; reads ctx.input/attr, writes ctx.set_output.
@@ -97,11 +100,12 @@ def run_op(op, env: Dict[str, Any], extra: Optional[Dict] = None
            ) -> Dict[str, Any]:
     """Run one op's compute rule against env; returns {name: value}.
 
-    A ragged-aware op sees RaggedPair values as they are. Any other op
-    sees their dense padded data, and each of its outputs whose leading
-    (batch, time) dims match the first ragged input's comes back as a
-    RaggedPair with that input's lengths: the reference's LoD rule
-    "output lod = input lod" on the padded representation
+    A ragged-aware op sees ragged values as they are. Any other op sees
+    their dense padded data, and each of its dense outputs whose leading
+    ragged dims (batch, time; batch, sub, token for a RaggedNested; the
+    depth + 1 of a RaggedTree) match the first ragged input's comes back
+    ragged with that input's lengths: the reference's LoD rule "output
+    lod = input lod" on the padded representation
     (paddle_tpu/core/registry.py run_op)."""
     opdef = OpRegistry.get(op.type)
     if opdef.ragged_aware:
@@ -112,7 +116,7 @@ def run_op(op, env: Dict[str, Any], extra: Optional[Dict] = None
     local = env
     for name in op.input_names():
         v = env.get(name)
-        if isinstance(v, RaggedPair):
+        if isinstance(v, RAGGED_TYPES):
             if ragged_src is None:
                 ragged_src = v
                 local = dict(env)
@@ -121,10 +125,11 @@ def run_op(op, env: Dict[str, Any], extra: Optional[Dict] = None
     opdef.compute(ctx)
     if ragged_src is None:
         return ctx.outputs
-    lead = tuple(ragged_src.data.shape[:2])
-    return {k: RaggedPair(v, ragged_src.lengths)
-            if hasattr(v, "ndim") and v.ndim >= 2
-            and tuple(v.shape[:2]) == lead else v
+    n = ragged_lead(ragged_src)
+    lead = tuple(ragged_src.data.shape[:n])
+    return {k: with_data(ragged_src, v)
+            if isinstance(v, torch.Tensor) and v.ndim >= n
+            and tuple(v.shape[:n]) == lead else v
             for k, v in ctx.outputs.items()}
 
 

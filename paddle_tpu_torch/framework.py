@@ -169,12 +169,14 @@ class Block:
 # Build-time shape inference: run the op's compute rule on tensors of the
 # "meta" device (shapes and dtypes, no data, no FLOPs) — the PyTorch
 # counterpart of the JAX package's jax.eval_shape trace. The dynamic
-# batch dim (-1) maps to a distinctive dummy extent and back; a level-1
-# ragged input is a RaggedPair whose data has a dummy time dim after the
-# batch dim, and a ragged output drops that dim and keeps lod_level 1,
-# as in the JAX package.
+# batch dim (-1) maps to a distinctive dummy extent and back; a ragged
+# input's data has dummy ragged dims after the batch dim (a time dim at
+# level 1, sub-sequence dims and a time dim deeper), and a ragged output
+# drops them and keeps its lod_level, as in the JAX package. A batch dim
+# made by flattening a nested batch (batch * sub) maps back to -1 too.
 _DUMMY_BATCH = 97
 _DUMMY_TIME = 13
+_DUMMY_SUB = 7
 
 #: OpDesc attr recording that shape inference could not cover this op
 #: (and why) — the same attr the JAX package stamps.
@@ -256,39 +258,61 @@ def infer_op_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc):
     int}} with dummy extents mapped back to -1, or None when inference
     could not run — then ``skip`` carries the reason."""
     import torch
-    from .core.lod import RaggedPair
+    from .core.lod import RaggedNested, RaggedPair, RaggedTree
     from .core.registry import run_op
     from .ops.core_ops import torch_dtype
+
+    def meta(shape, dtype):
+        return torch.empty(list(shape), dtype=dtype, device="meta")
 
     env = {}
     for name in op.input_names():
         v = block_desc.find_var_recursive(name)
         if v is None or v.shape is None or v.dtype is None:
             return None, f"input {name!r} has no declared shape/dtype"
-        if v.lod_level > 1:
-            return None, f"input {name!r} has nested LoD (not ported)"
         shape = [(_DUMMY_BATCH if d == -1 else int(d)) for d in v.shape]
         dt = torch_dtype(v.dtype)
-        if v.lod_level == 1:
+        if v.lod_level >= 3:
+            k = v.lod_level
+            env[name] = RaggedTree(
+                meta([shape[0]] + [_DUMMY_SUB] * (k - 1) + [_DUMMY_TIME]
+                     + shape[1:], dt),
+                [meta([shape[0]] + [_DUMMY_SUB] * i, torch.int32)
+                 for i in range(k)])
+        elif v.lod_level == 2:
+            env[name] = RaggedNested(
+                meta([shape[0], _DUMMY_SUB, _DUMMY_TIME] + shape[1:], dt),
+                meta([shape[0]], torch.int32),
+                meta([shape[0], _DUMMY_SUB], torch.int32))
+        elif v.lod_level == 1:
             env[name] = RaggedPair(
-                torch.empty([shape[0], _DUMMY_TIME] + shape[1:], dtype=dt,
-                            device="meta"),
-                torch.empty([shape[0]], dtype=torch.int32, device="meta"))
+                meta([shape[0], _DUMMY_TIME] + shape[1:], dt),
+                meta([shape[0]], torch.int32))
         else:
-            env[name] = torch.empty(shape, dtype=dt, device="meta")
+            env[name] = meta(shape, dt)
     try:
         outs = run_op(op, env, extra={"device": torch.device("meta")})
     except Exception as e:  # noqa: BLE001 — any rule failure means "skip"
         return None, f"trace failed: {type(e).__name__}: {e}"
     from .core.ir import canon_dtype
+    batch = (_DUMMY_BATCH, _DUMMY_BATCH * _DUMMY_SUB)
     result = {}
     for name, t in outs.items():
-        lod = 1 if isinstance(t, RaggedPair) else 0
-        if lod:
-            t = t.data
-        dims = [d for i, d in enumerate(t.shape) if not (lod and i == 1)]
-        result[name] = {"shape": [(-1 if d == _DUMMY_BATCH else int(d))
-                                  for d in dims],
+        if isinstance(t, RaggedTree):
+            lod, ragged = t.depth, range(1, t.depth + 1)
+        elif isinstance(t, RaggedNested):
+            lod, ragged = 2, (1, 2)
+        elif isinstance(t, RaggedPair):
+            lod, ragged = 1, (1,)
+        else:
+            lod, ragged = 0, ()
+        # as the reference maps them: a RaggedNested's batch dim is the
+        # batch alone; elsewhere a flattened batch is a batch too
+        batch_dims = batch[:1] if lod == 2 else batch
+        t = t.data if lod else t
+        result[name] = {"shape": [(-1 if d in batch_dims else int(d))
+                                  for i, d in enumerate(t.shape)
+                                  if i not in ragged],
                         "dtype": canon_dtype(t.dtype), "lod_level": lod}
     return result, None
 

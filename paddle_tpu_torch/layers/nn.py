@@ -5,8 +5,13 @@ machine-translation chapter, and the conv models (MNIST, ResNet, VGG):
 fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
 layer_norm, dropout, cross_entropy, softmax_with_cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, accuracy,
-topk, sequence_pool, relu, softmax, mean, reduce_sum,
-elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention.
+topk, relu, softmax, mean, reduce_sum,
+elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention;
+and the sequence layers: sequence_pool, sequence_first_step,
+sequence_last_step, sequence_reverse, nested_sequence_flatten,
+nested_sequence_pack, sequence_conv, sequence_softmax, sequence_expand,
+sequence_reshape, sequence_mask, sequence_pad, sequence_unpad, row_conv,
+warpctc, lstm_unit, gru_unit, dynamic_lstmp and ctc_greedy_decoder.
 Each function appends the same ops, with the same attrs and var names,
 as its JAX-package counterpart."""
 from __future__ import annotations
@@ -23,6 +28,12 @@ __all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "conv2d",
            "accuracy",
            "topk", "sequence_pool", "relu", "softmax", "mean",
            "reduce_sum",
+           "sequence_first_step", "sequence_last_step", "sequence_reverse",
+           "nested_sequence_flatten", "nested_sequence_pack",
+           "sequence_conv", "sequence_softmax", "sequence_expand",
+           "sequence_reshape", "sequence_mask", "sequence_pad",
+           "sequence_unpad", "row_conv", "warpctc", "lstm_unit",
+           "gru_unit", "dynamic_lstmp", "ctc_greedy_decoder",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "scale",
            "scaled_dot_product_attention"]
@@ -371,6 +382,247 @@ def sequence_pool(input, pool_type):
     helper.append_op(type="sequence_pool", inputs={"X": input},
                      outputs={"Out": out},
                      attrs={"pooltype": ptype})
+    return out
+
+
+def sequence_first_step(input):
+    helper = LayerHelper("sequence_first_step")
+    out = helper.create_tmp_variable(
+        input.dtype, shape=list(input.shape) if input.shape else None)
+    helper.append_op(type="sequence_first_step", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_last_step(input):
+    helper = LayerHelper("sequence_last_step")
+    out = helper.create_tmp_variable(
+        input.dtype, shape=list(input.shape) if input.shape else None)
+    helper.append_op(type="sequence_last_step", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_reverse(x, name=None):
+    """Reverse each sequence's valid steps (reference:
+    sequence_reverse_op.h)."""
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    helper.append_op(type="sequence_reverse", inputs={"X": x},
+                     outputs={"Y": out})
+    return out
+
+
+def nested_sequence_flatten(input):
+    """Nested ragged -> one level shallower (level-2
+    paragraph->sentence->token becomes a level-1 batch of sub-sequences;
+    deeper LoD peels one level per call). See ops/sequence_ops.py."""
+    helper = LayerHelper("nested_sequence_flatten")
+    out = helper.create_tmp_variable(
+        input.dtype, lod_level=max(1, (input.lod_level or 2) - 1))
+    helper.append_op(type="nested_sequence_flatten", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def nested_sequence_pack(input, ref):
+    """Per-sub-sequence dense rows -> level-1 ragged over the outer level
+    of `ref` (a level-2 ragged variable)."""
+    helper = LayerHelper("nested_sequence_pack")
+    # batch dim becomes the outer level; feature dims carry over (shape
+    # inference can't see that input's batch is n*max_sub of ref)
+    shape = ([-1] + list(input.shape[1:])) if input.shape else None
+    out = helper.create_tmp_variable(input.dtype, lod_level=1, shape=shape)
+    helper.append_op(type="nested_sequence_pack",
+                     inputs={"X": input, "Ref": ref},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None):
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    dtype = input.dtype
+    in_dim = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[filter_size * in_dim, num_filters],
+                                dtype=dtype)
+    pre_bias = helper.create_tmp_variable(dtype, lod_level=1)
+    helper.append_op(type="sequence_conv",
+                     inputs={"X": input, "Filter": w},
+                     outputs={"Out": pre_bias},
+                     attrs={"contextLength": filter_size,
+                            "contextStart": -(filter_size // 2),
+                            "contextStride": filter_stride})
+    pre_act = helper.append_bias_op(pre_bias, size=num_filters)
+    return helper.append_activation(pre_act)
+
+
+def sequence_softmax(input):
+    helper = LayerHelper("sequence_softmax")
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op(type="sequence_softmax", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1):
+    helper = LayerHelper("sequence_expand")
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    helper.append_op(type="sequence_expand", inputs={"X": x, "Y": y},
+                     outputs={"Out": out}, attrs={"ref_level": ref_level})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op(type="sequence_reshape", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"new_dim": new_dim})
+    return out
+
+
+def sequence_mask(x, maxlen, dtype="float32"):
+    helper = LayerHelper("sequence_mask")
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="sequence_mask", inputs={"X": x},
+                     outputs={"Y": out}, attrs={"maxlen": maxlen})
+    return out
+
+
+def sequence_pad(x, pad_value=None, maxlen=None):
+    helper = LayerHelper("sequence_pad")
+    out = helper.create_tmp_variable(x.dtype)
+    length = helper.create_tmp_variable("int64")
+    helper.append_op(type="sequence_pad", inputs={"X": x},
+                     outputs={"Out": out, "Length": length})
+    return out, length
+
+
+def sequence_unpad(x, length):
+    helper = LayerHelper("sequence_unpad")
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    helper.append_op(type="sequence_unpad",
+                     inputs={"X": x, "Length": length},
+                     outputs={"Out": out})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    dtype = input.dtype
+    d = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=dtype)
+    out = helper.create_tmp_variable(dtype, lod_level=1)
+    helper.append_op(type="row_conv",
+                     inputs={"X": input, "Filter": w},
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss over ragged logits/labels (reference: warpctc_op.cc wraps
+    the warp-ctc CUDA lib; here the alpha recursion in torch ops)."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="warpctc",
+                     inputs={"Logits": input, "Label": label},
+                     outputs={"Loss": loss},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+# -- single-step RNN cells (reference: nn.py lstm_unit:  gru_unit:) ---------
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: projects [x_t, h_prev] to 4*d gates then applies the
+    cell update (reference: nn.py lstm_unit — built on lstm_unit op)."""
+    helper = LayerHelper("lstm_unit", name=name)
+    d = cell_t_prev.shape[-1]
+    concat_in = fc(x_t, size=4 * d, bias_attr=bias_attr,
+                   param_attr=param_attr)
+    h_proj = fc(hidden_t_prev, size=4 * d, bias_attr=False)
+    gates = helper.create_tmp_variable(x_t.dtype)
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": concat_in, "Y": h_proj},
+                     outputs={"Out": gates})
+    c = helper.create_tmp_variable(x_t.dtype)
+    h = helper.create_tmp_variable(x_t.dtype)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": gates, "C_prev": cell_t_prev},
+                     outputs={"C": c, "H": h},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """One GRU step (reference: nn.py gru_unit). size = 3*d."""
+    helper = LayerHelper("gru_unit")
+    d = size // 3
+    weight = helper.create_parameter(attr=param_attr, shape=[d, 3 * d],
+                                     dtype=input.dtype)
+    bias = helper.create_parameter(attr=bias_attr, shape=[1, 3 * d],
+                                   dtype=input.dtype, is_bias=True)
+    gate = helper.create_tmp_variable(input.dtype)
+    reset_h = helper.create_tmp_variable(input.dtype)
+    hid = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="gru_unit",
+                     inputs={"Input": input, "HiddenPrev": hidden,
+                             "Weight": weight, "Bias": bias},
+                     outputs={"Gate": gate, "ResetHiddenPrev": reset_h,
+                              "Hidden": hid},
+                     attrs={"activation": activation,
+                            "gate_activation": gate_activation})
+    return hid, reset_h, gate
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=False, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  name=None):
+    """Projected LSTM over ragged input (reference: nn.py dynamic_lstmp:
+    input already projected to [*, 4*d]; recurrence on the p-dim
+    projection)."""
+    helper = LayerHelper("dynamic_lstmp", name=name)
+    d = size // 4
+    weight = helper.create_parameter(attr=param_attr, shape=[proj_size, 4 * d],
+                                     dtype=input.dtype)
+    proj_weight = helper.create_parameter(attr=param_attr,
+                                          shape=[d, proj_size],
+                                          dtype=input.dtype)
+    # peepholes pack W_ic/W_fc/W_oc after the gate bias (reference layout)
+    bias_size = 7 * d if use_peepholes else 4 * d
+    bias = helper.create_parameter(attr=bias_attr, shape=[1, bias_size],
+                                   dtype=input.dtype, is_bias=True)
+    proj = helper.create_tmp_variable(input.dtype, lod_level=input.lod_level)
+    cell = helper.create_tmp_variable(input.dtype, lod_level=input.lod_level)
+    last_h = helper.create_tmp_variable(input.dtype)
+    last_c = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="lstmp",
+                     inputs={"Input": input, "Weight": weight,
+                             "ProjWeight": proj_weight, "Bias": bias},
+                     outputs={"Projection": proj, "Cell": cell,
+                              "LastH": last_h, "LastC": last_c},
+                     attrs={"gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation,
+                            "proj_activation": proj_activation,
+                            "use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse})
+    return proj, cell
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    out = helper.create_tmp_variable("int32", lod_level=1)
+    helper.append_op(type="ctc_greedy_decoder", inputs={"Input": input},
+                     outputs={"Out": out}, attrs={"blank": blank})
     return out
 
 

@@ -1,11 +1,12 @@
 """Composite network helpers: the port's copy of the conv helpers of
 ``paddle_tpu/nets.py`` (simple_img_conv_pool, img_conv_group), which the
-MNIST and VGG models build with."""
+MNIST and VGG models build with, and sequence_conv_pool (sequence_conv
+then sequence_pool), the text classifiers' convolution."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -42,3 +43,11 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
+                       pool_type="max", param_attr=None):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size, act=act,
+                                    param_attr=param_attr)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..core.ir import OpDesc
-from ..core.lod import RaggedPair
+from ..core.lod import RAGGED_TYPES, with_data
 from ..core.registry import register_op, run_op
 
 _TORCH_DTYPE = {
@@ -138,7 +138,7 @@ def _scale(ctx):
 # -- the generic grad op ----------------------------------------------------
 
 def _dense(v):
-    return v.data if isinstance(v, RaggedPair) else v
+    return v.data if isinstance(v, RAGGED_TYPES) else v
 
 
 def vjp_leaves(names, values, need_grad):
@@ -155,8 +155,7 @@ def vjp_leaves(names, values, need_grad):
             leaf = _dense(v).detach().requires_grad_(True)
             leaves.append(leaf)
             wrapped.append(v)
-            v = RaggedPair(leaf, v.lengths) if isinstance(v, RaggedPair) \
-                else leaf
+            v = with_data(v, leaf)
         env[n] = v
     return env, leaves, wrapped
 
@@ -180,8 +179,7 @@ def vjp_grads(outs, grad_out_names, out_grads, leaves, wrapped,
     out = []
     for g, leaf, v in zip(grads, leaves, wrapped):
         g = torch.zeros_like(leaf) if g is None else g.detach()
-        out.append(RaggedPair(g, v.lengths) if isinstance(v, RaggedPair)
-                   else g)
+        out.append(with_data(v, g))
     return out
 
 

@@ -292,10 +292,13 @@ def test_data_feeder_max_lens_truncates():
     w = feed["words"]
     assert w.data.shape == (2, 4, 1)
     np.testing.assert_array_equal(np.asarray(w.lengths), [4, 2])
-    with pytest.raises(NotImplementedError, match="A4"):
-        DataFeeder([nested]).feed([([[1, 2], [3]],)])
-    with pytest.raises(NotImplementedError, match="A4"):
-        DataFeeder([words], sub_pad_multiple=8)
+    # nested columns take the same cap on their token level, and their
+    # sub-sequence level buckets up to sub_pad_multiple
+    n = DataFeeder([nested], max_lens={"nested": 1},
+                   sub_pad_multiple=8).feed([([[1, 2], [3]],)])["nested"]
+    assert n.data.shape == (1, 8, 1, 1)
+    np.testing.assert_array_equal(n.sub_lengths, [2])
+    np.testing.assert_array_equal(n.tok_lengths[0, :3], [1, 1, 0])
 
 
 def test_trainer_test_preserves_step_counter():
