@@ -198,11 +198,32 @@ launch counts include what every graph replay launches.
      alternating feeds (phase 14's rule); 5 steps under amp_guard() by
      phase 16's rule (the bf16 LSTM kernels only); the kernel route
      against the scan route by phase 5's rule.
- 19. JSON lines of the kernels, serving, the three earlier trainings,
+ 19. control flow (ops/control_flow_ops.py), float32, compiled: the
+     book's machine-translation program (a dynamic_lstm encoder, a
+     DynamicRNN decoder: fc([word, state], tanh) -> fc(softmax) a step;
+     dictionary 30000, embedding and hidden 512, phase 6's B64 feed of
+     lengths in [10, 80]) and the book's dyn_rnn_lstm classifier (the
+     LSTM written out in a DynamicRNN step; phase 18's sentiment widths
+     and feed). Each: exactly 1 + 1 (MT) and 0 (dyn_rnn_lstm) fused-LSTM
+     launches a compiled step, the key captured, a profiled step; step 1
+     against the port's CPU path on its first CF_CPU_ROWS rows by phase
+     8's rule; the compiled arm against the eager one bit for bit over
+     two alternating feeds (phase 14's rule); for the MT program the
+     kernel route against the scan route by phase 5's rule and the
+     DynamicRNN decoder's share of the device time. Then the WhileGrad
+     programs of tests/test_while_grad_dynamic.py: _build's applied
+     gradient against 2 (s - target) n, one compile key per trip-count
+     bucket, each captured and replayed; the dynamic While in a
+     DynamicRNN against central differences of its host replica; a cond
+     program and the forward-only unbounded While compiled but named in
+     uncaptured_ops (an IfElse beside them captured); each compiled
+     against eager bit for bit.
+ 20. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
      micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
-     16 (`rnn_amp`), phase 17 (`optimizers`) and phase 18
-     (`sequence_models`), then, last, the JSON result line.
+     16 (`rnn_amp`), phase 17 (`optimizers`), phase 18
+     (`sequence_models`) and phase 19 (`control_flow`), then, last, the
+     JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -748,6 +769,43 @@ SEQ_CPU_ROWS = 8
 # fused-LSTM launches a compiled step: one forward and one backward an
 # lstm op (float32 kernels, and under AMP the bf16 ones only)
 SEQ_LSTM_OPS = {"sentiment": 1, "hierarchical": 2}
+
+# Phase 19: control flow (ops/control_flow_ops.py), float32, the compiled
+# executor. (a) The Fluid book's machine-translation train program (ch. 8:
+# encoder embedding -> fc(4H, tanh) -> dynamic_lstm -> sequence_last_step;
+# decoder a DynamicRNN over the target embedding, memory(init=encoder
+# last), fc([word, pre_state], H, tanh) -> fc(V, softmax) a step;
+# cross_entropy -> mean; Adam at phase 6's lr) at phase 6's width
+# (dictionary 30000 both sides, embedding and hidden 512) and feed (B64,
+# source and target lengths in [10, 80]). (b) The book's dyn_rnn_lstm
+# sentiment classifier (ch. 6: embedding -> fc(H, tanh), a DynamicRNN step
+# that writes the LSTM out: four gate_common fc pairs, sigmoid gates and
+# a tanh cell, two memories; sequence_last_step -> fc(2, softmax), cross
+# entropy -> mean; Adam) at phase 18's sentiment widths and feed. (c) The
+# WhileGrad programs of tests/test_while_grad_dynamic.py: _build (:19)
+# and the dynamic While inside a DynamicRNN (:264). (d) Routes that are
+# not captured: the dynamic While in a cond branch (:322) and the
+# forward-only unbounded While (:101), beside the IfElse of
+# tests/test_dynamic_rnn.py:89, which is.
+CF_MT_CFG = dict(vocab=GRU_NMT_CFG["dict_size"], emb=GRU_NMT_CFG["emb_dim"],
+                 hid=GRU_NMT_CFG["hid_dim"], lr=GRU_NMT_CFG["lr"])
+CF_SENT_CFG = dict(vocab=SEQ_CFG["vocab"], emb=SEQ_CFG["emb"],
+                   hid=SEQ_CFG["hid"], lr=SEQ_LR["sentiment"])
+# the rows of (a) and (b) held against the port's CPU path (the time axis
+# cut to their longest row)
+CF_CPU_ROWS = 4
+# fused-LSTM launches a compiled step: (a) one lstm op forward and
+# backward, (b) none (its LSTM is written out in the step)
+CF_LSTM_OPS = {"mt": 1, "dyn_rnn_lstm": 0}
+# steps of each compiled-vs-eager arm of (a) and (b): CVE_WARM untimed,
+# then one that reads a parameter set from outside (phase 14's rule); no
+# profiled steps (torch.profiler's events of an eager step of (b), ~10^5
+# ops, take tens of seconds to sum)
+CF_CVE_STEPS = 4
+# (c): the analytic gradient 2 (s - target) n of _build, and the
+# dynamic While in a DynamicRNN against central differences of its host
+# replica (eps 1e-3), as tests/test_while_grad_dynamic.py holds them
+CF_ANALYTIC_RTOL, CF_FD_RTOL = 1e-4, 1e-3
 
 
 def card_line() -> str:
@@ -4154,13 +4212,14 @@ def train_trainer(card):
 
 
 def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
-            donate=True, steps=CVE_STEPS):
+            donate=True, steps=CVE_STEPS, profiled=CVE_PROFILED):
     """Phase 14's arm of one training path: CVE_STEPS + CVE_PROFILED
     steps over `feeds` (step i takes feeds[i % len(feeds)]) from `weights`
     in a fresh scope on the card, through Executor(compiled=compiled,
     donate_state=donate). Steps after the first CVE_WARM are timed (host
     clock around Executor.run, which ends synchronized) and their kernel
-    launches counted; the last CVE_PROFILED run under torch.profiler.
+    launches counted; the last `profiled` (CVE_PROFILED) run under
+    torch.profiler (none: no busy share).
     Before step CVE_WARM + 1 (a replay, on the compiled arm) the last
     parameter is set into the scope from outside, halved: the replay must
     read it. Returns the losses, ms a step (median), busy share, peak
@@ -4196,13 +4255,15 @@ def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
     timed = steps - CVE_WARM
     launches = {n: c / timed for n, c in kernels.launch_counts().items()
                 if c}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps, steps + CVE_PROFILED):
-            step(i)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+    busy = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps, steps + profiled):
+                step(i)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
     if not np.all(np.isfinite(losses)):
         raise SystemExit(f"{label}: losses {losses}")
     out = dict(losses=losses, step_ms=float(np.median(step_ms[CVE_WARM:])),
@@ -4214,7 +4275,8 @@ def cve_arm(main, startup, loss, weights, feeds, card, label, compiled,
                note=capture_note(exe) if compiled else "eager")
     print(f"[{card}] {label}: {out['step_ms']:.2f} ms a step (median of "
           f"{timed}; steps {[round(m, 1) for m in step_ms]}), "
-          f"{100 * busy:.1f}% busy over {CVE_PROFILED} profiled steps, peak "
+          + (f"{100 * busy:.1f}% busy over {profiled} profiled steps, "
+             if profiled else "") + f"peak "
           f"{out['peak_bytes'] / 2**30:.3f} GiB, launches a step {launches};"
           f" {out['note']}", flush=True)
     return out
@@ -4255,7 +4317,8 @@ def cve_hold(what, eager, compiled, card, halved=None):
 
 
 def cve_training_pair(what, main, startup, loss, weights, feeds, card,
-                      no_donate=False, steps=CVE_STEPS):
+                      no_donate=False, steps=CVE_STEPS,
+                      profiled=CVE_PROFILED):
     """The eager and the compiled arm of `what` (and, with `no_donate`, a
     compiled arm with donate_state=False, held against the eager arm the
     same way), each in a fresh executor and scope."""
@@ -4267,7 +4330,8 @@ def cve_training_pair(what, main, startup, loss, weights, feeds, card,
                                     ("compiled, donate_state=False", True,
                                      False))[:3 if no_donate else 2]:
         arms[label] = cve_arm(main, startup, loss, weights, feeds, card,
-                              f"{what} {label}", compiled, donate, steps)
+                              f"{what} {label}", compiled, donate, steps,
+                              profiled)
         gc.collect()
         torch.cuda.empty_cache()
     if no_donate:
@@ -5362,6 +5426,513 @@ def train_sequence_models(card):
     return summary, total
 
 
+def build_cf_program(name):
+    """Phase 19's program `name` ("mt" or "dyn_rnn_lstm") at full width
+    (CF_MT_CFG, CF_SENT_CFG): (main, startup, loss, the data vars)."""
+    from paddle_tpu_torch import framework, layers, optimizer
+    cf = layers.control_flow
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        if name == "mt":
+            v, emb, hid = (CF_MT_CFG[k] for k in ("vocab", "emb", "hid"))
+            src = layers.data("src", [1], dtype="int64", lod_level=1)
+            trg = layers.data("trg", [1], dtype="int64", lod_level=1)
+            lbl = layers.data("lbl", [1], dtype="int64", lod_level=1)
+            enc_in = layers.fc(layers.embedding(src, size=[v, emb]),
+                               size=4 * hid, act="tanh")
+            enc, _ = layers.dynamic_lstm(enc_in, size=4 * hid)
+            enc_last = layers.sequence_last_step(enc)
+            trg_emb = layers.embedding(trg, size=[v, emb])
+            drnn = cf.DynamicRNN()
+            with drnn.block():
+                word = drnn.step_input(trg_emb)
+                pre = drnn.memory(init=enc_last)
+                state = layers.fc([word, pre], size=hid, act="tanh")
+                drnn.update_memory(pre, state)
+                drnn.output(layers.fc(state, size=v, act="softmax"))
+            loss = layers.mean(layers.cross_entropy(drnn(), lbl))
+            lr, data = CF_MT_CFG["lr"], (src, trg, lbl)
+        else:
+            v, emb, hid = (CF_SENT_CFG[k] for k in ("vocab", "emb", "hid"))
+            words = layers.data("words", [1], dtype="int64", lod_level=1)
+            label = layers.data("label", [1], dtype="int64")
+            sentence = layers.fc(layers.embedding(words, size=[v, emb]),
+                                 size=hid, act="tanh")
+            rnn = cf.DynamicRNN()
+            with rnn.block():
+                word = rnn.step_input(sentence)
+                prev_hidden = rnn.memory(value=0.0, shape=[hid])
+                prev_cell = rnn.memory(value=0.0, shape=[hid])
+
+                def gate_common(ipt, hidden):
+                    return layers.fc(ipt, size=hid) + \
+                        layers.fc(hidden, size=hid, bias_attr=False)
+
+                forget_gate = layers.sigmoid(gate_common(word, prev_hidden))
+                input_gate = layers.sigmoid(gate_common(word, prev_hidden))
+                output_gate = layers.sigmoid(gate_common(word, prev_hidden))
+                cell_gate = layers.sigmoid(gate_common(word, prev_hidden))
+                cell = forget_gate * prev_cell + input_gate * cell_gate
+                hidden = output_gate * layers.tanh(cell)
+                rnn.update_memory(prev_cell, cell)
+                rnn.update_memory(prev_hidden, hidden)
+                rnn.output(hidden)
+            prediction = layers.fc(layers.sequence_last_step(rnn()), size=2,
+                                   act="softmax")
+            loss = layers.mean(layers.cross_entropy(prediction, label))
+            lr, data = CF_SENT_CFG["lr"], (words, label)
+        optimizer.AdamOptimizer(learning_rate=lr).minimize(loss)
+    return main, startup, loss, data
+
+
+def cf_feeds(name):
+    """Phase 19's two feeds of `name` and the first one's live tokens: the
+    MT batch as phase 6 draws it (gru_lengths, seeds 0 and 1), the
+    sentiment batch as phase 18 draws it."""
+    from paddle_tpu_torch.core.lod import RaggedPair
+    if name == "dyn_rnn_lstm":
+        feeds, info = sequence_feeds("sentiment", None)
+        return feeds, info
+    feeds = []
+    for seed in range(2):
+        (src, trg, lbl), src_lens, trg_lens = gru_lengths(seed)
+        feeds.append({"src": RaggedPair(src, src_lens),
+                      "trg": RaggedPair(trg, trg_lens),
+                      "lbl": RaggedPair(lbl, trg_lens)})
+    first = feeds[0]
+    return feeds, dict(rows=GRU_BATCH, t=GRU_T,
+                       live_tokens={"source": int(first["src"].lengths.sum()),
+                                    "target": int(first["trg"].lengths.sum())})
+
+
+def first_rows(feed, n):
+    """The feed's first `n` rows, each ragged value's time axis cut to
+    the longest of them (the CPU arm's feed; the card runs it too)."""
+    from paddle_tpu_torch.core.lod import RaggedPair
+    out = {}
+    for k, v in feed.items():
+        if isinstance(v, RaggedPair):
+            t = int(np.max(v.lengths[:n]))
+            out[k] = RaggedPair(v.data[:n, :t], v.lengths[:n])
+        else:
+            out[k] = v[:n]
+    return out
+
+
+def decoder_share(main, startup, loss, weights, feed, card):
+    """The device time of the dynamic_rnn op (its forward and the
+    backward its __vjp__ op pulls through the forward's record) as a
+    share of one step's device time: a fresh executor's first run of the
+    key (planned, not captured: a graph replay's kernels carry no host
+    range) under torch.profiler, the op's two halves in record_function
+    ranges (autograd's worker threads off for the run, so the backward's
+    kernels launch inside its range)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.core.registry import OpRegistry
+    from paddle_tpu_torch.ops import core_ops
+    opdef = OpRegistry.get("dynamic_rnn")
+    compute, grads = opdef.compute, core_ops.vjp_grads
+    outs = {n for op in main.desc.global_block.ops
+            if op.type == "dynamic_rnn" for n in op.output_names()}
+
+    def ranged_compute(ctx):
+        with record_function("cf::dynamic_rnn forward"):
+            return compute(ctx)
+
+    def ranged_grads(recorded, *args, **kw):
+        if outs & set(recorded):
+            with record_function("cf::dynamic_rnn backward"):
+                return grads(recorded, *args, **kw)
+        return grads(recorded, *args, **kw)
+
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    torch.cuda.synchronize()
+    opdef.compute, core_ops.vjp_grads = ranged_compute, ranged_grads
+    try:
+        with torch.autograd.set_multithreading_enabled(False), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+    finally:
+        opdef.compute, core_ops.vjp_grads = compute, grads
+    halves = {}
+    for e in prof.key_averages():
+        if e.key.startswith("cf::") and \
+                getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            halves[e.key] = halves.get(e.key, 0.0) + us / 1e3
+    total = sum(ms for k, ms, _ in device_kernels(prof)
+                if not k.startswith("cf::"))
+    share = sum(halves.values()) / total if total else 0.0
+    print(f"[{card}] mt decoder (dynamic_rnn) device time: "
+          + ", ".join(f"{k[4:]} {ms:.2f} ms" for k, ms in halves.items())
+          + f" of {total:.2f} ms a step ({100 * share:.1f}%; an uncaptured "
+          "run)", flush=True)
+    if not halves or not 0.0 < share <= 1.0:
+        raise SystemExit(f"mt decoder share: {halves} of {total} ms")
+    return dict(share=share, device_ms=halves, step_device_ms=total)
+
+
+def build_while_grad(name, lr):
+    """tests/test_while_grad_dynamic.py's `name` on the port: "while_sum"
+    (_build at :19, x0 0.3, target 2), "while_in_drnn" (:264, p0 0.25),
+    "while_in_cond" (:322, x0 0.3) or "forward_only" (:101). Returns
+    (main, startup, fetch vars, the parameter's name)."""
+    from paddle_tpu_torch import framework, initializer, layers, optimizer
+    cf = layers.control_flow
+    main, startup = framework.Program(), framework.Program()
+
+    def param(pname, v):
+        return layers.create_parameter(
+            shape=[1], dtype="float32", name=pname,
+            default_initializer=initializer.ConstantInitializer(v))
+
+    def walk(limit, step, t=None):
+        if t is None:
+            t = layers.fill_constant([1], "float32", 0.0)
+            t.stop_gradient = False
+        cond = cf.less_than_v(t, limit)
+        w = cf.While(cond)
+        with w.block():
+            layers.assign(layers.elementwise_add(t, step), output=t)
+            cf.less_than_v(t, limit, cond=cond)
+        return t, w
+
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        if name == "forward_only":
+            i = layers.fill_constant([1], "float32", 0.0)
+            lim = layers.data("lim", [1], dtype="float32")
+            cond = cf.less_than_v(i, lim)
+            w = cf.While(cond)
+            with w.block():
+                layers.increment(i, value=1.0, in_place=True)
+                cf.less_than_v(i, lim, cond=cond)
+            return main, startup, [i, w.steps], None
+        if name == "while_sum":
+            x = param("xparam", 0.3)
+            s, w = walk(layers.data("thr", [1], dtype="float32"), x)
+            loss = layers.reduce_sum(layers.square(layers.elementwise_sub(
+                s, layers.fill_constant([1], "float32", 2.0))))
+            fetch = [loss, w.steps]
+        elif name == "while_in_drnn":
+            p = param("p_drnn_nest", 0.25)
+            xs = layers.data("x", [1], dtype="float32", lod_level=1)
+            drnn = cf.DynamicRNN()
+            with drnn.block():
+                x_t = drnn.step_input(xs)
+                prev = drnn.memory(shape=[1], value=0.0)
+                t, _ = walk(layers.reshape(x_t, [1]), p)
+                nxt = layers.elementwise_add(prev, layers.reshape(t, [1, 1]))
+                drnn.update_memory(prev, nxt)
+                drnn.output(nxt)
+            drnn()
+            loss = layers.reduce_sum(layers.square(drnn.last_memory()))
+            fetch = [loss]
+        else:
+            x = param("xp_cond", 0.3)
+            thr_out = layers.data("thr_out", [1], dtype="float32")
+            thr_in = layers.data("thr_in", [1], dtype="float32")
+            s = layers.fill_constant([1], "float32", 0.0)
+            s.stop_gradient = False
+            cond_o = cf.less_than_v(s, thr_out)
+            w = cf.While(cond_o)
+            with w.block():
+                pred = cf.less_than_v(
+                    s, layers.fill_constant([1], "float32", 0.6))
+                inc = cf.cond_op(pred, lambda: walk(thr_in, x)[0],
+                                 lambda: layers.scale(x, scale=2.0))
+                layers.assign(layers.elementwise_add(s, inc), output=s)
+                cf.less_than_v(s, thr_out, cond=cond_o)
+            loss = layers.reduce_sum(layers.square(s))
+            fetch = [loss, w.steps]
+        optimizer.SGDOptimizer(learning_rate=lr).minimize(loss)
+    return main, startup, fetch, main.all_parameters()[0].name
+
+
+def if_else_rows():
+    """tests/test_dynamic_rnn.py:89 on the port: (main, startup, fetch)."""
+    from paddle_tpu_torch import framework, layers
+    cf = layers.control_flow
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        x = layers.data("x", [1], dtype="float32")
+        ie = cf.IfElse(layers.greater_than(
+            x, layers.fill_constant([1], "float32", 0.0)))
+        with ie.true_block():
+            ie.output(ie.input(x) * 2.0)
+        with ie.false_block():
+            ie.output(ie.input(x) - 1.0)
+        out = ie()
+    return main, startup, [out]
+
+
+def cf_arm(main, startup, fetch, feeds, compiled, param=None):
+    """The runs of `feeds` through a fresh Executor(DEVICE,
+    compiled=compiled) and scope: (each run's fetches, the parameter
+    before and after each run, the executor)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope
+    exe, scope = Executor(DEVICE, compiled=compiled), Scope()
+    exe.run(startup, scope=scope)
+    outs, params = [], []
+
+    def value():
+        return float(scope.get(param).reshape(-1)[0]) if param else None
+
+    params.append(value())
+    for feed in feeds:
+        outs.append([np.asarray(getattr(v, "data", v)) for v in
+                     exe.run(main, feed=feed, fetch_list=fetch, scope=scope)])
+        params.append(value())
+    torch.cuda.synchronize()
+    return outs, params, exe
+
+
+def cf_bitwise(what, compiled, eager, card):
+    (c_outs, c_params, _), (e_outs, e_params, _) = compiled, eager
+    same = len(c_outs) == len(e_outs) and c_params == e_params and all(
+        c.dtype == e.dtype and np.array_equal(c, e)
+        for cs, es in zip(c_outs, e_outs) for c, e in zip(cs, es))
+    if not same:
+        raise SystemExit(f"{what}: compiled {c_outs} {c_params} vs eager "
+                         f"{e_outs} {e_params}")
+    print(f"[{card}] {what}: compiled arm bit for bit equal to the eager "
+          f"arm ({len(c_outs)} runs)", flush=True)
+
+
+def cf_host_walk(x, limit):
+    t, n = 0.0, 0
+    while t < limit:
+        t, n = t + x, n + 1
+    return t, n
+
+
+def cf_while_grads(card):
+    """Phase 19 (c) and (d): the WhileGrad programs and the routes that
+    are not captured, each compiled against eager bit for bit."""
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.ops import kernels
+    out = {}
+    kernels.reset_launch_counts()
+    # (c) _build: the applied gradient of one step against 2 (s - t) n
+    lr = 0.05
+    main, startup, fetch, p = build_while_grad("while_sum", lr)
+    feeds = [{"thr": np.asarray([1.0], np.float32)}]
+    arms = {c: cf_arm(main, startup, fetch, feeds, c, p)
+            for c in (True, False)}
+    cf_bitwise("while_sum one step", arms[True], arms[False], card)
+    (outs, params, _), want = arms[True], 2 * (1.2 - 2.0) * 4
+    g = (params[0] - params[1]) / lr
+    print(f"[{card}] while_sum: {int(outs[0][1])} passes, applied gradient "
+          f"{g:.6f} vs analytic {want:.6f}", flush=True)
+    if int(outs[0][1]) != 4 or not abs(g - want) <= CF_ANALYTIC_RTOL * \
+            abs(want):
+        raise SystemExit(f"while_sum: {outs} gradient {g} vs {want}")
+    out["while_sum_grad"] = dict(applied=g, analytic=want)
+
+    # (c) _build at lr 0: one miss per trip-count bucket, then replays
+    main, startup, fetch, p = build_while_grad("while_sum", 0.0)
+    trips = (1.0, 1.0, 1.0, 2.0, 2.0, 2.0, 1.0)
+    feeds = [{"thr": np.asarray([v], np.float32)} for v in trips]
+    arms = {c: cf_arm(main, startup, fetch, feeds, c, p)
+            for c in (True, False)}
+    cf_bitwise("while_sum buckets", arms[True], arms[False], card)
+    outs, _, exe = arms[True]
+    keys = {k[6]: c for k, c in exe._cache.items()
+            if k[0] == main.desc.uid}
+    steps = [int(o[1]) for o in outs]
+    losses = [float(o[0]) for o in outs]
+    print(f"[{card}] while_sum buckets: passes {steps}, keys "
+          f"{ {str(b): c.captured for b, c in keys.items()} } (captured), "
+          f"cache {exe.cache_stats}", flush=True)
+    if steps != [4, 4, 4, 7, 7, 7, 4] or \
+            sorted(map(str, keys)) != ["(('while_0', 4),)",
+                                       "(('while_0', 8),)"] or \
+            not all(c.captured for c in keys.values()) or \
+            exe.cache_stats != {"hits": 5, "misses": 3} or \
+            not np.allclose(losses, [(0.3 * n - 2.0) ** 2 for n in steps],
+                            rtol=1e-4):
+        raise SystemExit(f"while_sum buckets: {steps} {losses} {keys} "
+                         f"{exe.cache_stats}")
+    out["while_sum_buckets"] = dict(passes=steps,
+                                    cache_stats=dict(exe.cache_stats),
+                                    captured=len(keys))
+
+    # (c) the dynamic While inside a DynamicRNN: 3 steps, each against
+    # central differences of the host replica
+    lr, eps = 2e-4, 1e-3
+    main, startup, fetch, p = build_while_grad("while_in_drnn", lr)
+    rows = [np.asarray([[0.4], [0.9], [0.2]], np.float32)]
+    feeds = [{"x": LoDTensor.from_sequences(rows)}] * 3
+    arms = {c: cf_arm(main, startup, fetch, feeds, c, p)
+            for c in (True, False)}
+    cf_bitwise("while_in_drnn", arms[True], arms[False], card)
+    _, params, exe = arms[True]
+
+    def host(v):
+        return sum(cf_host_walk(v, r)[0] for r in (0.4, 0.9, 0.2)) ** 2
+
+    worst = 0.0
+    for x0, x1 in zip(params, params[1:]):
+        g, fd = (x0 - x1) / lr, (host(x0 + eps) - host(x0 - eps)) / (2 * eps)
+        worst = max(worst, abs(g - fd) / abs(fd))
+    captured = exe.last_compiled.captured
+    print(f"[{card}] while_in_drnn: applied gradients against central "
+          f"differences, worst relative {worst:.3e}; key captured "
+          f"{captured}", flush=True)
+    if not worst <= CF_FD_RTOL or not captured:
+        raise SystemExit(f"while_in_drnn: {worst} captured {captured}")
+    out["while_in_drnn"] = dict(fd_rel_worst=worst, params=params)
+
+    # (d) cond and the forward-only While run compiled, not captured; the
+    # IfElse is captured
+    for name, feeds, want in (
+            ("while_in_cond", [{"thr_out": np.asarray([1.5], np.float32),
+                                "thr_in": np.asarray([1.0], np.float32)}]
+             * 3, ("cond",)),
+            ("forward_only", [{"lim": np.asarray([5.0], np.float32)}] * 3,
+             ("while",)),
+            ("if_else_rows", [{"x": np.asarray([[1.0], [-2.0], [3.0],
+                                                [-4.0]], np.float32)}] * 3,
+             ())):
+        if name == "if_else_rows":
+            (main, startup, fetch), p = if_else_rows(), None
+        else:
+            main, startup, fetch, p = build_while_grad(name, 0.001)
+        arms = {c: cf_arm(main, startup, fetch, feeds, c, p)
+                for c in (True, False)}
+        cf_bitwise(name, arms[True], arms[False], card)
+        compiled = arms[True][2].last_compiled
+        print(f"[{card}] {name}: uncaptured_ops {compiled.uncaptured_ops}, "
+              f"captured {compiled.captured}", flush=True)
+        if compiled.uncaptured_ops != want or compiled.captured == bool(want):
+            raise SystemExit(f"{name}: {compiled.uncaptured_ops} captured "
+                             f"{compiled.captured}, expected {want}")
+        out[name] = dict(uncaptured_ops=list(compiled.uncaptured_ops),
+                         captured=compiled.captured,
+                         outs=[[o.tolist() for o in run]
+                               for run in arms[True][0]])
+    stray = {n: k for n, k in kernels.launch_counts().items() if k}
+    if stray:
+        raise SystemExit(f"the WhileGrad programs launched {stray}")
+    return out
+
+
+def train_control_flow(card, sentiment):
+    """Phase 19: (a) the book's MT program with its DynamicRNN decoder and
+    (b) the dyn_rnn_lstm classifier at full width, each: TRAIN_STEPS
+    compiled steps in float32 (exactly CF_LSTM_OPS fused-LSTM forward and
+    backward launches a step, the key captured) with a profiled step;
+    step 1 against the port's CPU path on its first CF_CPU_ROWS rows by
+    phase 8's rule; the compiled arm against the eager one bit for bit
+    over two alternating feeds (phase 14's rule); for (a) the kernel
+    route against the scan route by phase 5's rule and the decoder's
+    share of the device time. Then (c) and (d) (cf_while_grads).
+    `sentiment` is phase 18's sentiment summary, whose float32 step (the
+    fused-LSTM kernels) (b) is set beside. Returns the phase's summary
+    and its launches."""
+    import gc
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    summary, total = {"card": card, "mt_config": dict(CF_MT_CFG),
+                      "dyn_rnn_lstm_config": dict(CF_SENT_CFG)}, {}
+    for name, ops in CF_LSTM_OPS.items():
+        t1 = time.perf_counter()
+        main, startup, loss, _ = build_cf_program(name)
+        weights = seeded_weights(startup, seed=0)
+        params = [p.name for p in main.all_parameters()]
+        feeds, info = cf_feeds(name)
+        feed = feeds[0]
+        print(f"{name}: {len(main.desc.global_block.ops)} ops, "
+              f"{sum(weights[p].size for p in params)} parameters, feed "
+              f"{info}", flush=True)
+
+        kernels.reset_launch_counts()
+        f32 = train_arm(main, startup, loss, weights, feed, params, card,
+                        f"{name} float32", profiled=CVE_PROFILED)
+        launches = {n: k for n, k in f32["launches"].items() if k}
+        want = {k: ops * TRAIN_STEPS for k in ("fused_lstm_fwd",
+                                                "fused_lstm_bwd") if ops}
+        print(f"[{card}] {name} float32 launches {launches}", flush=True)
+        if launches != want or not f32["captured"]:
+            raise SystemExit(f"{name}: launches {launches}, expected {want}"
+                             f"; captured {f32['captured']}")
+        # (b)'s busy share is train_arm's: its top kernels are the step's
+        # small GEMMs and elementwise ops
+        profiled = profile_step(main, startup, loss, weights, feed, card,
+                                f"{name} float32", groups=LSTM_KERNELS) \
+            if ops else None
+        card_cpu = hold_card_vs_cpu(name, main, startup, loss, weights,
+                                    first_rows(feed, CF_CPU_ROWS), params,
+                                    card)
+        pair = cve_training_pair(name, main, startup, loss, weights, feeds,
+                                 card, steps=CF_CVE_STEPS, profiled=0)
+        if not pair["compiled"]["captured"]:
+            raise SystemExit(f"{name}: the compiled arm was not captured")
+        out = {"feed": info, "launches_per_step": {
+                   n: k / TRAIN_STEPS for n, k in launches.items()},
+               "card_vs_cpu": card_cpu, "compiled_vs_eager": pair}
+        if profiled:
+            out["profiled_step"] = profiled
+        arms = [("f32", f32)]
+        if ops:
+            out["decoder"] = decoder_share(main, startup, loss, weights,
+                                           feed, card)
+            _stamp_pallas(main, "lstm", "0")
+            kernels.reset_launch_counts()
+            with knob("PADDLE_TPU_PALLAS_LSTM", "0"):
+                scan, _, _ = steps_arm(main, startup, loss, weights, feed,
+                                       params, card, f"{name} scan",
+                                       TRAIN_STEPS)
+            if any(k for n, k in kernels.launch_counts().items() if k):
+                raise SystemExit(f"{name}: the scan route launched "
+                                 f"{kernels.launch_counts()}")
+            loss_rel, grad_worst = hold_routes(f32, scan, params, card, name)
+            out["kernel_vs_scan"] = {"loss_rel_diff_max": loss_rel,
+                                     "grad_max_diff_frac": grad_worst}
+            arms.append(("scan", scan))
+        for label, arm in arms:
+            out[label] = {"losses": arm["losses"],
+                          "step_ms": _median_ms(arm["step_ms"]),
+                          "peak_bytes": arm["peak_bytes"],
+                          **({"busy": arm["busy"]} if "busy" in arm else {})}
+            print(f"[{card}] {name} {label}: {out[label]['step_ms']:.2f} ms a"
+                  f" step" + (f", {100 * arm['busy']:.1f}% busy"
+                              if "busy" in arm else "")
+                  + f", peak {arm['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        if not ops:
+            fused_ms = sentiment["f32"]["step_ms"]
+            out["sentiment_fused_lstm_step_ms"] = fused_ms
+            print(f"[{card}] dyn_rnn_lstm {out['f32']['step_ms']:.2f} ms a "
+                  f"step (the LSTM in a DynamicRNN step) vs phase 18's "
+                  f"sentiment {fused_ms:.2f} ms (the fused-LSTM kernels)",
+                  flush=True)
+        for n, k in launches.items():
+            total[n] = total.get(n, 0) + k
+        out["program_s"] = time.perf_counter() - t1
+        summary[name] = out
+        del f32, arms, pair, profiled, main, startup, weights, feeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    summary["while_grad"] = cf_while_grads(card)
+    summary["while_grad"]["program_s"] = time.perf_counter() - t1
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"[{card}] phase 19: {summary['phase_s']:.1f} s", flush=True)
+    return summary, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5496,7 +6067,11 @@ def main() -> int:
     # -- 18. the sentiment program and the hierarchical LSTM ---------------
     sequence_models, seq_launches = train_sequence_models(card)
 
-    # -- 19. result lines ------------------------------------------------------
+    # -- 19. control flow: the MT decoder, dyn_rnn_lstm, the WhileGrad ------
+    control_flow, cf_launches = train_control_flow(
+        card, sequence_models["sentiment"])
+
+    # -- 20. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -5515,7 +6090,8 @@ def main() -> int:
                       "trainer": trainer_launches[name],
                       "amp_training": amp_launches[name],
                       "rnn_amp_training": rnn_amp_launches.get(name, 0),
-                      "sequence_models": seq_launches.get(name, 0)}
+                      "sequence_models": seq_launches.get(name, 0),
+                      "control_flow": cf_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -5696,6 +6272,7 @@ def main() -> int:
     print(json.dumps({"rnn_amp": rnn_amp}))
     print(json.dumps({"optimizers": optimizers}))
     print(json.dumps({"sequence_models": sequence_models}))
+    print(json.dumps({"control_flow": control_flow}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

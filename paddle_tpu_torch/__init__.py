@@ -16,7 +16,10 @@ the event loop over readers (reader/, data_feeder.py), with
 asynchronous dispatch, iterations=K and checkpoints
 (distributed/checkpoint.py); models/deepfm.py builds DeepFM. amp.py
 turns on bf16 automatic mixed precision (PADDLE_TPU_AMP=1 or
-amp.amp_guard()). It imports neither jax nor paddle_tpu.
+amp.amp_guard()). layers/control_flow.py builds StaticRNN, DynamicRNN,
+IfElse and While programs (ops/control_flow_ops.py runs them, an
+unbounded While's gradient through the executor's probe-and-replay
+WhileGrad). It imports neither jax nor paddle_tpu.
 """
 from . import amp  # noqa: F401
 from . import ops  # noqa: F401  (registers every ported op)

@@ -10,8 +10,9 @@ compute rule under torch autograd — exact gradients with no per-op
 adjoint code. The descs it appends are the JAX package's, so a program
 with its backward serializes to the same JSON in both packages. Eager
 torch has no CSE, so each ``__vjp__`` recomputes its forward op once.
-The JAX package's While-specific refusal is left out: the port has no
-While op yet.
+A sub-block op's closure reads (at every nesting level) become extra
+``__vjp__`` inputs, and an in-place carry's pre-op value is snapshotted
+for the replay, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -137,6 +138,25 @@ def _generic_grad_op(op: OpDesc, block: BlockDesc, acc: _GradAccumulator,
         in_need_grad.append(need)
     if not any(in_need_grad):
         return None
+
+    if op.type == "while" and \
+            not (isinstance(op.attrs.get("max_steps"), int)
+                 and op.attrs.get("max_steps", 0) > 0) and \
+            not op.attrs.get("dynamic_bound"):
+        # the host-driven While route has no gradient in the JAX package
+        # (lax.while_loop); the reference's WhileGrad (while_op.cc:96)
+        # replays step scopes. The trainable paths: While(cond,
+        # max_steps=N), a While built by the current layer
+        # (dynamic_bound: the executor's probe-and-replay bakes a bucketed
+        # bound into a masked loop), or DynamicRNN / StaticRNN. Only While
+        # ops built without the dynamic_bound attr land here.
+        raise NotImplementedError(
+            "gradients through this unbounded While loop are not "
+            "supported: pass max_steps=N to While (bounded, "
+            "differentiable scan lowering), rebuild it with the current "
+            "While layer (executor probe-and-replay), use DynamicRNN / "
+            "StaticRNN for recurrences, or mark the loop's inputs "
+            "stop_gradient")
 
     out_grad_names = [acc.materialize(n)
                       for n, h in zip(fwd_out_names, out_has_grad) if h]

@@ -17,11 +17,14 @@ list, the AMP flag, iterations, stacked_feed, donate_state), held in a
   CSE gives the reference: no second forward. A ``__vjp__`` op whose
   forward op is not in the block as its ``fwd_op`` copy describes it (a
   ``clone(for_test=True)`` re-stamps ``is_test`` on the op, not the copy)
-  replays its copy, as the eager arm does (`CompiledProgram.replayed`);
-  one with sub-block closures (A4b) is refused;
+  replays its copy, as the eager arm does (`CompiledProgram.replayed`).
+  A sub-block op (While, DynamicRNN, ...) records the same way, its
+  closure values (the outer parameters its body reads) among the
+  leaves;
 - each value dropped from the step's environment after its last reader,
-  except the fetches and the written state (autograd keeps what a
-  recorded graph saved): the role of XLA's buffer assignment;
+  a sub-block's reads counted at the op that runs it, except the
+  fetches and the written state (autograd keeps what a recorded graph
+  saved): the role of XLA's buffer assignment;
 - on a CUDA card, the whole planned step captured once as a
   ``torch.cuda.CUDAGraph`` and replayed: the first run of a key runs the
   plan eagerly (it is also the warm-up: cuBLAS and cuDNN handles, kernel
@@ -34,8 +37,9 @@ list, the AMP flag, iterations, stacked_feed, donate_state), held in a
   the scope from outside between runs is copied in before the replay;
   fetches are copied out of the graph's outputs. The kernel wrappers'
   launch counts the capture added are credited on every replay. A
-  program holding an op registered capturable=False (a random op seeding
-  a host generator) is compiled but never captured:
+  program holding an op, in any block, that cannot be captured (a
+  random op seeding a host generator; cond, which reads its predicate
+  on the host; a While with no bound) is compiled but never captured:
   `CompiledProgram.uncaptured_ops` names those ops. A capture or replay
   error raises; nothing is rerouted.
 
@@ -65,12 +69,29 @@ one, two or more LoD levels runs as a RaggedPair, RaggedNested or
 RaggedTree (core/lod.py), and a ragged fetch comes back as a LoDTensor
 with its LoD.
 
-Not ported yet: While probing (A4b), and the cost/memory reports and the
-rewrite pipeline (A6).
+Control flow (ops/control_flow_ops.py): every op gets the program in
+``extra["program"]``, and a sub-block runs through the same op runner.
+The probe-and-replay WhileGrad is the JAX package's: when a ``__vjp__``
+op differentiates an unbounded While (directly or nested in a replayed
+While, DynamicRNN, StaticRNN, cond or IfElse), both executors first run
+the forward prefix up to the last such op once, with its state writes
+discarded (`_probe_while_bounds`), read each trip count and bucket it to
+a power of two; the step then runs with those bounds in
+``extra["while_bounds"]`` (the masked-loop route of each While), and the
+bounds are part of the compile key. The probe runs before the key's
+graph replays, outside it. A bounded While's Exhausted flag is fetched
+with every run of its block and checked one run later (a warning, once
+per program and flag), or at once under PADDLE_TPU_CHECK_WHILE_BOUND=1
+(an error); `close()` and interpreter exit check the last ones.
+
+Not ported yet: the cost/memory reports and the rewrite pipeline (A6).
 """
 from __future__ import annotations
 
+import atexit
 import threading
+import warnings
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,10 +103,32 @@ from . import dispatch
 from .ir import BlockDesc, OpDesc, Program, SUB_BLOCK_ATTRS
 from .lod import (RAGGED_TYPES, LoDTensor, RaggedNested, RaggedPair,
                   RaggedTree, ragged_like, ragged_parts, with_data)
-from .registry import OpRegistry, run_op
+from .registry import OpRegistry, op_capturable, run_op
 from .scope import Scope, global_scope
 
 STEP_VAR = "@step_counter@"
+
+# A bounded While that hit max_steps with its condition still true warns
+# once per (program, flag) by default; PADDLE_TPU_CHECK_WHILE_BOUND=1
+# raises instead (read at import, as in the JAX package).
+CHECK_WHILE_BOUND = flags.get("PADDLE_TPU_CHECK_WHILE_BOUND") == "1"
+_WARNED_WHILE_FLAGS: set = set()
+
+
+def _check_while_flag(key, value, raise_: bool):
+    """key = (program uid, flag var name); value = the fetched bool."""
+    if not bool(np.asarray(to_numpy(value)
+                           if isinstance(value, torch.Tensor)
+                           else value).reshape(-1)[0]):
+        return
+    msg = (f"bounded While loop flag {key[1]!r}: the loop hit max_steps "
+           "with its condition still true — it was truncated; raise "
+           "max_steps")
+    if raise_:
+        raise RuntimeError(msg)
+    if key not in _WARNED_WHILE_FLAGS:
+        _WARNED_WHILE_FLAGS.add(key)
+        warnings.warn(msg, RuntimeWarning, stacklevel=4)
 
 
 def donate_state_default() -> bool:
@@ -325,6 +368,156 @@ def _collect_state_names(program: Program, block: BlockDesc,
     return reads, writes
 
 
+class _BlockPrefix:
+    """A view of a block truncated to its first `n` ops (the WhileGrad
+    probe runs only the forward prefix up to the last dynamic While)."""
+
+    def __init__(self, block: BlockDesc, n: int):
+        self._block = block
+        self.ops = list(block.ops[:n])
+
+    def __getattr__(self, name):
+        return getattr(self._block, name)
+
+
+def _dynamic_while_targets(block: BlockDesc):
+    """{while_id: steps_var_name} for every unbounded While a ``__vjp__``
+    op replays — directly, or NESTED inside a replayed While /
+    DynamicRNN / StaticRNN / cond / IfElse (their ops max-accumulate
+    nested trip counts into NestedSteps outputs) — plus the index one
+    past the last such forward op, the probe prefix length
+    (paddle_tpu/core/executor.py _dynamic_while_targets)."""
+    def op_key(t, attrs):
+        if t == "while":
+            return ("while", attrs.get("while_id"))
+        if t in ("dynamic_rnn", "static_rnn"):
+            return (t, attrs.get("sub_block_idx"))
+        if t in ("cond", "if_else"):
+            return (t, attrs.get("true_block_idx"),
+                    attrs.get("false_block_idx"))
+        return None
+
+    grad_keys = set()
+    for op in block.ops:
+        if op.type != "__vjp__":
+            continue
+        fwd = op.attrs.get("fwd_op") or {}
+        key = op_key(fwd.get("type"), fwd.get("attrs") or {})
+        if key is not None:
+            grad_keys.add(key)
+    if not grad_keys:
+        return {}, 0
+    targets, prefix = {}, 0
+    for i, op in enumerate(block.ops):
+        key = op_key(op.type, op.attrs)
+        if key is None or key not in grad_keys:
+            continue
+        found = False
+        if op.type == "while" and op.attrs.get("dynamic_bound") and \
+                int(op.attrs.get("max_steps", 0) or 0) <= 0:
+            steps = op.outputs.get("Steps")
+            if not steps:
+                raise RuntimeError(
+                    f"dynamic While {op.attrs.get('while_id')!r} has no "
+                    "Steps output — rebuild the program with the "
+                    "current While layer")
+            targets[op.attrs["while_id"]] = steps[0]
+            found = True
+        nested = op.attrs.get("nested_while_ids") or []
+        if nested:
+            ns_vars = op.outputs.get("NestedSteps") or []
+            if len(ns_vars) != len(nested):
+                raise RuntimeError(
+                    f"{op.type} op has nested dynamic Whiles {nested} "
+                    "but no matching NestedSteps outputs — rebuild the "
+                    "program with the current control-flow layers")
+            targets.update(zip(nested, ns_vars))
+            found = True
+        if found:
+            prefix = i + 1
+    return targets, prefix
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length() if n > 1 else 1
+
+
+def _sub_blocks(program: Program, op: OpDesc) -> List[BlockDesc]:
+    return [program.blocks[op.attrs[a]] for a in SUB_BLOCK_ATTRS
+            if isinstance(op.attrs.get(a), int)
+            and 0 <= op.attrs[a] < len(program.blocks)]
+
+
+def _stateful_ops_in(program: Program, ops) -> List[str]:
+    """Op types registered stateful (host-side effects: the channel ops,
+    go) reachable from `ops`, sub-blocks included. The WhileGrad probe
+    re-runs its forward prefix, so a stateful op there would fire twice
+    a step — refused rather than silently doubled."""
+    found: List[str] = []
+
+    def visit(op_list):
+        for op in op_list:
+            if OpRegistry.has(op.type) and OpRegistry.get(op.type).stateful:
+                found.append(op.type)
+            for blk in _sub_blocks(program, op):
+                visit(blk.ops)
+
+    visit(ops)
+    return found
+
+
+def _uncaptured_ops(program: Program, ops, while_bounds) -> Tuple[str, ...]:
+    """Sorted op types among `ops`, their sub-blocks and the forward ops
+    their ``__vjp__`` ops replay, that cannot be captured into a CUDA
+    graph under `while_bounds` (registry.op_capturable)."""
+    found = set()
+
+    def visit(op_list):
+        for op in op_list:
+            if op.type == "__vjp__":
+                op = OpDesc.from_dict(op.attrs["fwd_op"])
+            if not op_capturable(op, while_bounds):
+                found.add(op.type)
+            for blk in _sub_blocks(program, op):
+                visit(blk.ops)
+
+    visit(ops)
+    return tuple(sorted(found))
+
+
+def _outer_reads(program: Program, op: OpDesc) -> List[str]:
+    """Names a sub-block op reads from the environment around it beyond
+    its own inputs: every name its sub-blocks (at any depth) read before
+    writing it, and a While's carried names. The plan keeps them alive
+    until the op has run."""
+    out: List[str] = list(op.attrs.get("carried_names") or [])
+
+    def visit(blk: BlockDesc):
+        local = set(blk.vars)
+        for sub in blk.ops:
+            out.extend(n for n in sub.input_names() if n not in local)
+            for b in _sub_blocks(program, sub):
+                visit(b)
+            local.update(sub.output_names())
+
+    for blk in _sub_blocks(program, op):
+        visit(blk)
+    return out
+
+
+# Bounded-While truncation flags are checked one run later (so the
+# warning never waits for the step in flight); the ones left at
+# interpreter exit are checked then, so a truncation on the process's
+# last run still warns without Executor.close().
+_LIVE_EXECUTORS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+@atexit.register
+def _flush_deferred_while_flags():
+    for ex in list(_LIVE_EXECUTORS):
+        ex._flush_while_flags()
+
+
 class StepResult:
     """Undelivered fetches of an asynchronous ``Executor.run(...,
     sync=False)``.
@@ -425,28 +618,37 @@ class _Plan:
     (plain, constant, forward recorded for a ``__vjp__`` op, ``__vjp__``
     reading that record), and the names dropped after it."""
 
-    def __init__(self, block: BlockDesc, keep):
+    def __init__(self, program: Program, block: BlockDesc, keep,
+                 while_bounds=None):
         ops = list(block.ops)
         fwd_of: Dict[int, int] = {}     # __vjp__ op index -> forward index
-        need: Dict[int, List[bool]] = {}  # forward index -> in_need_grad
-        latest: Dict[Tuple, int] = {}
+        # forward index -> (in_need_grad, the __vjp__'s closure names)
+        need: Dict[int, Tuple[List[bool], List[str]]] = {}
+        writers: Dict[Tuple, List[int]] = {}  # outputs key -> op indices
+        producer: Dict[str, int] = {}
         self.replayed: List[int] = []
         for j, op in enumerate(ops):
             if op.type != "__vjp__":
-                latest[_outputs_key(op.type, op.outputs)] = j
+                writers.setdefault(_outputs_key(op.type, op.outputs),
+                                   []).append(j)
+                producer.update((n, j) for n in op.output_names())
                 continue
-            if op.attrs.get("closure_names"):
-                raise NotImplementedError(
-                    f"op {j} (__vjp__ of {op.attrs['fwd_op']['type']!r}) "
-                    "differentiates a sub-block: the compiled executor does "
-                    "not run sub-blocks yet (ROADMAP A4b); run the program "
-                    "with Executor(compiled=False)")
             fwd = op.attrs["fwd_op"]
-            i = latest.get(_outputs_key(fwd["type"], fwd["outputs"]))
-            flags_ = list(op.attrs["in_need_grad"])
-            if i is not None and _same_op(ops[i], fwd) and \
-                    need.setdefault(i, flags_) == flags_:
-                fwd_of[j] = i
+            cands = [i for i in writers.get(
+                _outputs_key(fwd["type"], fwd["outputs"]), ())
+                if _same_op(ops[i], fwd)]
+            # an op that writes its own input (a While carry, an in-place
+            # array_write or increment) is the first such op after the
+            # assign that snapshotted its pre-op value (backward.py
+            # _snapshot_pre_value); otherwise the latest writer
+            snaps = [producer[n] for n in op.input("FwdIn")
+                     if "@PRE." in n and n in producer]
+            cands = [i for i in cands if i > max(snaps)][:1] if snaps \
+                else cands[-1:]
+            flags_ = (list(op.attrs["in_need_grad"]),
+                      list(op.attrs.get("closure_names") or []))
+            if cands and need.setdefault(cands[0], flags_) == flags_:
+                fwd_of[j] = cands[0]
             else:
                 self.replayed.append(j)
         # the last __vjp__ op reading a record drops it
@@ -459,13 +661,16 @@ class _Plan:
                 i = fwd_of[j]
                 kind, arg = _VJP, (i, last_vjp[i] == j)
                 reads = op.input("OutGrad")
-            elif j in need:
-                kind, arg = _RECORD, need[j]
-                reads = op.input_names()
             else:
-                kind = _CONST if opdef.constant and not any(
-                    n in keep for n in op.output_names()) else _RUN
-                arg, reads = None, op.input_names()
+                if j in need:
+                    kind, arg = _RECORD, need[j]
+                else:
+                    kind = _CONST if opdef.constant and not any(
+                        n in keep for n in op.output_names()) else _RUN
+                    arg = None
+                fwd = OpDesc.from_dict(op.attrs["fwd_op"]) \
+                    if op.type == "__vjp__" else op
+                reads = op.input_names() + _outer_reads(program, fwd)
             self.steps.append((op, kind, arg))
             for n in reads + op.output_names():
                 last[n] = j
@@ -473,9 +678,7 @@ class _Plan:
         for n, j in last.items():
             if n not in keep:
                 self.drops[j].append(n)
-        self.uncaptured_ops = tuple(sorted({
-            op.type for op in ops
-            if not OpRegistry.get(op.type).capturable}))
+        self.uncaptured_ops = _uncaptured_ops(program, ops, while_bounds)
 
 
 class CompiledProgram:
@@ -485,13 +688,17 @@ class CompiledProgram:
 
     `captured` is True once the step has been captured; it stays False on
     the CPU and for a program holding an op in `uncaptured_ops` (the op
-    types registered capturable=False). `replayed` lists the ``__vjp__``
-    op types that replay their forward op instead of reading its record."""
+    types, in any block, that cannot be captured under the key's While
+    bounds). `replayed` lists the ``__vjp__`` op types that replay their
+    forward op instead of reading its record."""
 
     def __init__(self, plan: _Plan, stamped: Program, read_names,
-                 write_names, fetch_names, ro_names=(), rw_names=()):
+                 write_names, fetch_names, ro_names=(), rw_names=(),
+                 while_bounds=None):
         self.plan = plan
         self.stamped = stamped
+        # the probed While bounds of this key ({while_id: bound}) or None
+        self.while_bounds = while_bounds
         self.read_names = list(read_names)
         self.write_names = list(write_names)
         self.fetch_names = list(fetch_names)
@@ -549,6 +756,15 @@ class Executor:
         self.cache_stats: Dict[str, int] = {"hits": 0, "misses": 0}
         # the CompiledProgram of the most recent compiled run
         self.last_compiled: Optional[CompiledProgram] = None
+        # (program uid, version, prefix length) -> the state the WhileGrad
+        # probe reads, and the part of it the prefix writes
+        self._probe_cache: Dict[Tuple, Tuple[List[str], List[str]]] = {}
+        # (program uid, version) -> the stateful op types of the block
+        self._stateful_cache: Dict[Tuple, List[str]] = {}
+        # bounded-While Exhausted flags of earlier runs, not checked yet:
+        # ((program uid, flag name), value, the event after its run)
+        self._deferred_flags: List[Tuple[Tuple, Any, Any]] = []
+        _LIVE_EXECUTORS.add(self)
 
     @staticmethod
     def compile_key(program, feed_sig, fetch_names, block_idx: int = 0,
@@ -560,9 +776,9 @@ class Executor:
         (paddle_tpu/core/executor.py Executor.compile_key). `feed_sig`
         comes from `feed_signature`; `amp=None` reads the ambient AMP
         state (amp.py), as run() does, so a run under amp_guard and one
-        outside it are two keys. While bounds are not ported yet:
-        `while_bounds` is None. `donate=None` reads the process
-        default."""
+        outside it are two keys. `while_bounds` is the WhileGrad probe's
+        {while_id: bound} (None without one): each trip-count bucket is a
+        key of its own. `donate=None` reads the process default."""
         if hasattr(program, "desc"):
             program = program.desc
         return (program.uid, program.version, feed_sig,
@@ -617,6 +833,112 @@ class Executor:
                 "zero-length scan would return zero-initialized "
                 "fetches without running anything")
 
+    def _probe_while_bounds(self, program: Program, feed_vals, scope: Scope,
+                            step: int):
+        """Probe-and-replay WhileGrad, phase 1 (reference analog:
+        while_op.cc:96 step scopes, which RECORD per-step state; here,
+        as in the JAX package, the forward prefix up to the last
+        differentiated dynamic While RE-RUNS to measure each trip count,
+        and the step then runs with the bucketed bounds as masked loops).
+        The prefix's state writes are discarded (an op that writes in
+        place writes a copy). Returns {while_id: bound} or None."""
+        block = program.global_block
+        targets, prefix = _dynamic_while_targets(block)
+        if not targets:
+            return None
+        stateful = _stateful_ops_in(program, block.ops[:prefix])
+        if stateful:
+            raise RuntimeError(
+                "cannot differentiate an unbounded While in a program "
+                f"whose forward prefix has stateful ops {sorted(set(stateful))}: "
+                "the trip-count probe re-executes that prefix, which "
+                "would fire each channel/select/go op twice per step. "
+                "Give the While an explicit max_steps, or move the CSP "
+                "ops after the last dynamic While.")
+        pkey = (program.uid, program.version, prefix)
+        names = self._probe_cache.get(pkey)
+        if names is None:
+            reads, writes = _collect_state_names(
+                program, _BlockPrefix(block, prefix), scope)
+            names = (reads, [n for n in reads if n in set(writes)])
+            self._probe_cache[pkey] = names
+        reads, rw = names
+        env = {n: scope.get(n) for n in reads}
+        env.update((n, _clone(env[n])) for n in rw)
+        env.update(feed_vals)
+        extra = {"device": self.device, "step": step, "program": program}
+        with torch.no_grad():
+            for op in block.ops[:prefix]:
+                env.update(run_op(op, env, extra))
+        return {wid: _next_pow2(int(env[n].reshape(-1)[0]))
+                for wid, n in targets.items()}
+
+    def _prepare(self, source: Program, program: Program, feed_vals, scope,
+                 step: int, iterations: int, stacked_feed: bool):
+        """The WhileGrad probe's bounds for this run (None without a
+        differentiated dynamic While), after the refusals of the JAX
+        executor: iterations > 1 with probed bounds, and iterations > 1
+        with stateful ops."""
+        probe_feed = {k: v[0] for k, v in feed_vals.items()} \
+            if stacked_feed else feed_vals
+        bounds = self._probe_while_bounds(program, probe_feed, scope, step)
+        if iterations > 1:
+            if bounds:
+                raise RuntimeError(
+                    "iterations > 1 is incompatible with unbounded-While "
+                    "gradients: the trip-count probe measures the initial "
+                    "state only, but later iterations may need a larger "
+                    "bound. Run steps one at a time.")
+            skey = (source.uid, source.version)
+            stateful = self._stateful_cache.get(skey)
+            if stateful is None:
+                stateful = _stateful_ops_in(program,
+                                            program.global_block.ops)
+                self._stateful_cache[skey] = stateful
+            if stateful:
+                raise RuntimeError(
+                    f"iterations > 1 with stateful ops "
+                    f"{sorted(set(stateful))}: host-side channel/select/go "
+                    "ops inside a repeated step are unverified. Run steps "
+                    "one at a time.")
+        return bounds
+
+    def _check_flags(self, source: Program, names, values) -> None:
+        """The Exhausted flags `values` of this run (named `names`):
+        checked at once under CHECK_WHILE_BOUND, else deferred, and the
+        deferred flags whose runs have finished checked now."""
+        if CHECK_WHILE_BOUND:
+            for n, v in zip(names, values):
+                _check_while_flag((source.uid, n), v, raise_=True)
+            return
+        still = []
+        for key, v, ev in self._deferred_flags:
+            if ev is None or ev.query():
+                _check_while_flag(key, v, raise_=False)
+            else:
+                still.append((key, v, ev))
+        if names:
+            ev = None
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+            still.extend(((source.uid, n), v, ev)
+                         for n, v in zip(names, values))
+        self._deferred_flags = still
+
+    def _flush_while_flags(self) -> None:
+        flags_, self._deferred_flags = self._deferred_flags, []
+        for key, v, _ in flags_:
+            _check_while_flag(key, v, raise_=False)
+
+    def close(self) -> None:
+        """Check the Exhausted flags still deferred (a warning each, as
+        the run after would give), and drop the compiled keys."""
+        self._flush_while_flags()
+        self._cache.clear()
+        self._probe_cache.clear()
+        self._stateful_cache.clear()
+
     def run(self, program, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None, return_numpy: bool = True,
@@ -648,33 +970,63 @@ class Executor:
         state in place (the eager arm's KV-cache ops too), so a lazy
         handle would read a later step's values. Fetch such vars with
         sync=True, or (compiled) build the Executor with
-        donate_state=False."""
+        donate_state=False.
+
+        The Exhausted flag of every bounded While of the block is
+        fetched with the run and checked (see CHECK_WHILE_BOUND)."""
         if hasattr(program, "desc"):  # accept the python builder wrapper
             program = program.desc
-        if not self.compiled:
-            return self._run_eager(program, feed, fetch_list, scope,
-                                   return_numpy, iterations, stacked_feed,
-                                   sync)
         source, program = program, self._dispatched(program)
         scope = global_scope() if scope is None else scope
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
+        n_user = len(fetch_names)
+        # appended even when the caller fetches one too: the checked tail
+        # must be complete
+        fetch_names += [op.outputs["Exhausted"][0]
+                        for op in program.global_block.ops
+                        if op.type == "while" and op.outputs.get("Exhausted")]
         feed_vals = self._feed_values(feed or {})
         self._check_iterations(feed_vals, iterations, stacked_feed)
+        counter = scope.find(STEP_VAR)
+        step = 0 if counter is None else int(counter)
+        bounds = self._prepare(source, program, feed_vals, scope, step,
+                               iterations, stacked_feed)
+        if not self.compiled:
+            fetched = self._run_eager(source, program, feed_vals,
+                                      fetch_names, n_user, scope,
+                                      iterations, stacked_feed, sync, step,
+                                      bounds)
+        else:
+            fetched = self._run_compiled(source, program, feed_vals,
+                                         fetch_names, n_user, scope,
+                                         iterations, stacked_feed, sync,
+                                         step, bounds)
+        scope.set(STEP_VAR, torch.tensor(step + iterations,
+                                         dtype=torch.int32))
+        result = self._result(fetched[:n_user], fetch_names[:n_user],
+                              return_numpy, sync)
+        self._check_flags(source, fetch_names[n_user:], fetched[n_user:])
+        return result
+
+    def _run_compiled(self, source, program, feed_vals, fetch_names, n_user,
+                      scope, iterations, stacked_feed, sync, step, bounds):
         key = self.compile_key(source, feed_signature(feed_vals),
-                               fetch_names, iterations=iterations,
+                               fetch_names, while_bounds=bounds,
+                               iterations=iterations,
                                stacked_feed=stacked_feed,
                                donate=self.donate_state)
         compiled = self._cache.get(key)
         if compiled is None or compiled.stamped is not program:
             self.cache_stats["misses"] += 1
-            compiled = self._compile(program, fetch_names, scope)
+            compiled = self._compile(program, fetch_names, scope, bounds)
             self._cache[key] = compiled
         else:
             self.cache_stats["hits"] += 1
         self.last_compiled = compiled
         if not sync and self.donate_state:
-            aliased = [n for n in fetch_names if n in compiled.rw_names]
+            aliased = [n for n in fetch_names[:n_user]
+                       if n in compiled.rw_names]
             if aliased:
                 raise ValueError(
                     f"sync=False cannot fetch donated state vars "
@@ -683,8 +1035,6 @@ class Executor:
                     "sync=True, or build the Executor with "
                     "donate_state=False.")
 
-        counter = scope.find(STEP_VAR)
-        step = 0 if counter is None else int(counter)
         captures = self.device.type == "cuda" and \
             not compiled.uncaptured_ops
         for i in range(iterations):
@@ -699,9 +1049,7 @@ class Executor:
                 fetched = self._step(source, compiled, feed_i, scope,
                                      step + i)
                 compiled.warm_threads.add(thread)
-        scope.set(STEP_VAR, torch.tensor(step + iterations,
-                                         dtype=torch.int32))
-        return self._result(fetched, fetch_names, return_numpy, sync)
+        return fetched
 
     def _result(self, fetched, fetch_names, return_numpy, sync):
         event = None
@@ -713,22 +1061,32 @@ class Executor:
         return result.fetches() if sync else result
 
     # -- the compiled path ---------------------------------------------------
-    def _compile(self, program: Program, fetch_names,
-                 scope: Scope) -> CompiledProgram:
+    def _compile(self, program: Program, fetch_names, scope: Scope,
+                 while_bounds=None) -> CompiledProgram:
         block = program.global_block
         read_names, write_names = _collect_state_names(program, block, scope)
         written = set(write_names)
-        plan = _Plan(block, set(fetch_names) | written)
+        plan = _Plan(program, block, set(fetch_names) | written,
+                     while_bounds)
         return CompiledProgram(
             plan, program, read_names, write_names, fetch_names,
             ro_names=[n for n in read_names if n not in written],
-            rw_names=[n for n in read_names if n in written])
+            rw_names=[n for n in read_names if n in written],
+            while_bounds=while_bounds)
+
+    def _extra(self, program: Program, step: int, while_bounds) -> Dict:
+        """The run-wide values every op of a run sees (registry
+        ExecutionContext)."""
+        extra = {"device": self.device, "step": step, "program": program}
+        if while_bounds:
+            extra["while_bounds"] = while_bounds
+        return extra
 
     def _run_plan(self, source: Program, compiled: CompiledProgram,
                   env: Dict[str, Any], step: int) -> None:
         """The planned step over `env`, as run number `step`."""
         plan = compiled.plan
-        extra = {"device": self.device, "step": step}
+        extra = self._extra(compiled.stamped, step, compiled.while_bounds)
         records: Dict[int, Tuple] = {}
         from ..ops.core_ops import vjp_grads, vjp_leaves, vjp_out_names
         with torch.no_grad():
@@ -742,9 +1100,13 @@ class Executor:
                         outs = run_op(op, env, extra)
                         self._const_cache[key] = outs
                 elif kind == _RECORD:
-                    names = op.input_names()
-                    local, leaves, wrapped = vjp_leaves(
-                        names, [env[n] for n in names], arg)
+                    # a sub-block op's closure values are leaves too
+                    need_grad, closure = arg
+                    names = op.input_names() + closure
+                    leaf_env, leaves, wrapped = vjp_leaves(
+                        names, [env[n] for n in names], need_grad)
+                    local = dict(env)
+                    local.update(leaf_env)
                     with torch.enable_grad():
                         recorded = run_op(op, local, extra)
                     records[j] = (recorded, leaves, wrapped)
@@ -869,50 +1231,38 @@ class Executor:
         return [_clone(v) for v in compiled.static_fetches]
 
     # -- the eager walk ------------------------------------------------------
-    def _run_eager(self, program, feed, fetch_list, scope, return_numpy,
-                   iterations, stacked_feed, sync):
-        source, program = program, self._dispatched(program)
-        scope = global_scope() if scope is None else scope
-        feed = feed or {}
-        fetch_names = [f if isinstance(f, str) else f.name
-                       for f in (fetch_list or [])]
+    def _run_eager(self, source, program, feed_vals, fetch_names, n_user,
+                   scope, iterations, stacked_feed, sync, step, bounds):
         block = program.global_block
         read_names, write_names = _collect_state_names(program, block, scope)
-        feed_vals = self._feed_values(feed)
-        self._check_iterations(feed_vals, iterations, stacked_feed)
         if not sync:
             rw = set(read_names) & set(write_names)
-            aliased = [n for n in fetch_names if n in rw]
+            aliased = [n for n in fetch_names[:n_user] if n in rw]
             if aliased:
                 raise ValueError(
                     f"sync=False cannot fetch donated state vars "
                     f"{aliased}: the lazy StepResult would hold a buffer "
                     "a later step may write in place (the KV-cache ops "
                     "do). Fetch them with sync=True.")
-
-        counter = scope.find(STEP_VAR)
-        step = 0 if counter is None else int(counter)
         for i in range(iterations):
             env: Dict[str, Any] = {n: scope.get(n) for n in read_names}
             env.update({k: v[i] for k, v in feed_vals.items()}
                        if stacked_feed else feed_vals)
-            self._run_block(source, block, env, write_names, step + i)
+            self._run_block(source, program, env, write_names, step + i,
+                            bounds)
             for n in write_names:
                 if n in env:
                     scope.set(n, env[n])
-        scope.set(STEP_VAR, torch.tensor(step + iterations,
-                                         dtype=torch.int32))
-        return self._result([env[n] for n in fetch_names], fetch_names,
-                            return_numpy, sync)
+        return [env[n] for n in fetch_names]
 
-    def _run_block(self, source: Program, block: BlockDesc,
-                   env: Dict[str, Any], write_names: List[str],
-                   step: int) -> None:
-        """Every op of `block` in order over `env`, as run number
-        `step` (random ops fold it into their seed)."""
-        extra = {"device": self.device, "step": step}
+    def _run_block(self, source: Program, program: Program,
+                   env: Dict[str, Any], write_names: List[str], step: int,
+                   while_bounds=None) -> None:
+        """Every op of the global block of `program` in order over `env`,
+        as run number `step` (random ops fold it into their seed)."""
+        extra = self._extra(program, step, while_bounds)
         with torch.no_grad():
-            for i, op in enumerate(block.ops):
+            for i, op in enumerate(program.global_block.ops):
                 opdef = OpRegistry.get(op.type)
                 if opdef.constant and not any(
                         n in write_names for n in op.output_names()):

@@ -36,7 +36,8 @@ class OpDef:
                  grad_maker: Optional[Callable] = None,
                  no_grad_slots: Optional[List[str]] = None,
                  constant: bool = False, ragged_aware: bool = False,
-                 capturable: bool = True):
+                 capturable=True, stateful: bool = False,
+                 infer_shape: Optional[Callable] = None):
         self.type = type
         # ragged_aware ops receive ragged values as-is; other ops get
         # dense .data views and their outputs are re-wrapped (see run_op).
@@ -54,9 +55,21 @@ class OpDef:
         # False for an op whose rule cannot be recorded into a CUDA graph
         # and replayed: it seeds a torch.Generator on the host from its
         # attrs or the step (manual_seed is refused during a capture, and
-        # a replay would repeat the captured draw). The executor compiles
-        # a program that holds one but does not capture it
+        # a replay would repeat the captured draw), or that reads a value
+        # on the host (cond's predicate). The executor compiles a program
+        # that holds one but does not capture it. A callable
+        # capturable(op, while_bounds) -> bool decides per op: a While is
+        # captured on its masked routes and not on its host-driven one
         self.capturable = capturable
+        # an op with host-side effects (the channel ops, go): the
+        # WhileGrad probe re-runs its forward prefix, so the executor
+        # refuses a stateful op there (and under iterations > 1)
+        self.stateful = stateful
+        # infer_shape(block_desc, op) -> {name: {"shape", "dtype",
+        # "lod_level"}}: an explicit build-time shape rule for an op the
+        # meta trace cannot run (the control-flow family, whose rules
+        # trace sub-blocks); framework._infer_shapes applies it
+        self.infer_shape = infer_shape
 
     def __repr__(self):
         return f"OpDef({self.type})"
@@ -84,16 +97,26 @@ class OpRegistry:
 
 
 def register_op(type: str, grad_maker=None, no_grad_slots=None,
-                constant=False, ragged_aware=False, capturable=True):
+                constant=False, ragged_aware=False, capturable=True,
+                stateful=False, infer_shape=None):
     """Decorator: register `fn(ctx)` as the compute rule for op `type`."""
     def deco(fn):
         OpRegistry.register(OpDef(type, fn, grad_maker=grad_maker,
                                   no_grad_slots=no_grad_slots,
                                   constant=constant,
                                   ragged_aware=ragged_aware,
-                                  capturable=capturable))
+                                  capturable=capturable,
+                                  stateful=stateful,
+                                  infer_shape=infer_shape))
         return fn
     return deco
+
+
+def op_capturable(op, while_bounds=None) -> bool:
+    """Whether the op `op` can be recorded into a CUDA graph under the
+    probed While bounds `while_bounds` (OpDef.capturable)."""
+    cap = OpRegistry.get(op.type).capturable
+    return bool(cap(op, while_bounds or {}) if callable(cap) else cap)
 
 
 def run_op(op, env: Dict[str, Any], extra: Optional[Dict] = None
@@ -137,9 +160,11 @@ class ExecutionContext:
     """Per-op view of the environment during execution.
 
     `extra` carries run-wide values: "device", the torch.device that
-    constant and random ops create their outputs on, and "step", the
+    constant and random ops create their outputs on, "step", the
     scope's step counter for this run (core/executor.py STEP_VAR), which
-    per-step random ops fold into their seed.
+    per-step random ops fold into their seed, and "program", the
+    program whose sub-blocks the control-flow ops run; with them
+    "while_bounds", the WhileGrad probe's bounds, when it ran.
     """
 
     __slots__ = ("op", "env", "_outputs", "extra")
@@ -175,6 +200,10 @@ class ExecutionContext:
         if not names:
             return  # optional output not wired
         self._outputs[names[index]] = value
+
+    def set_outputs(self, slot: str, values: List[Any]):
+        for i, v in enumerate(values):
+            self.set_output(slot, v, index=i)
 
     @property
     def outputs(self) -> Dict[str, Any]:

@@ -52,6 +52,12 @@ FLAGS: Dict[str, tuple] = {
         "owns (the scope points at them); \"0\" leaves the tensors a caller "
         "held before a run as they were (a copy a step). Part of the "
         "compile key"),
+    "PADDLE_TPU_CHECK_WHILE_BOUND": (
+        "0", "core/executor.py",
+        "\"1\" makes a bounded While that ended with its condition still "
+        "true (its Exhausted flag: max_steps truncated the loop) raise at "
+        "the run that fetched the flag; by default the flag is checked one "
+        "run later and warns once per (program, flag) (read at import)"),
     "PADDLE_TPU_DECODE_SLOTS": (
         "4", "serving/generation/model.py",
         "default in-flight slot count of a generation model's "

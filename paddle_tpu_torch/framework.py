@@ -199,14 +199,52 @@ class _SkipInference(Exception):
     """Inference preconditions unmet (unknown input shape/dtype)."""
 
 
+#: skip-reason prefix of an explicit rule that left outputs unresolved
+#: (the JAX package's framework.RULE_UNRESOLVED_PREFIX)
+RULE_UNRESOLVED_PREFIX = "explicit rule left outputs unresolved: "
+
+
 def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
     """Fill output VarDesc shapes/dtypes for a just-appended op, only
-    where the builder left them unknown. An op the meta trace cannot
-    run is marked with SHAPE_INFER_SKIPPED_ATTR."""
+    where the layer left them unknown.
+
+    The meta trace runs first; when it cannot, the op's explicit rule
+    (OpDef.infer_shape: the control-flow family, whose compute rules
+    trace sub-blocks) gets a chance. An op covered by neither, or whose
+    rule leaves an output unresolved, is marked with
+    SHAPE_INFER_SKIPPED_ATTR and the reason, word for word as the JAX
+    package marks it."""
     outs, skip = infer_op_outputs(block_desc, op)
-    if outs is None:
-        op.attrs[SHAPE_INFER_SKIPPED_ATTR] = str(skip)[:200]
+    if outs is not None:
+        op.attrs.pop(SHAPE_INFER_SKIPPED_ATTR, None)
+        _apply_inferred(block_desc, op, outs)
         return
+    rule = OpRegistry.get(op.type).infer_shape
+    if rule is not None:
+        try:
+            explicit = rule(block_desc, op)
+        except Exception as e:  # noqa: BLE001 — a failed rule is a skip
+            skip = f"explicit rule failed: {type(e).__name__}"
+        else:
+            if explicit:
+                _apply_inferred(block_desc, op, explicit)
+            unresolved = [
+                n for n in op.output_names() if n not in (explicit or ())
+                and (v := block_desc.find_var_recursive(n)) is not None
+                and (v.shape is None or v.dtype is None)]
+            if unresolved:
+                op.attrs[SHAPE_INFER_SKIPPED_ATTR] = \
+                    RULE_UNRESOLVED_PREFIX + str(unresolved[:3])
+            else:
+                op.attrs.pop(SHAPE_INFER_SKIPPED_ATTR, None)
+            return
+    op.attrs[SHAPE_INFER_SKIPPED_ATTR] = str(skip)[:200]
+
+
+def _apply_inferred(block_desc: ir.BlockDesc, op: ir.OpDesc, outs) -> None:
+    """Write inferred {name: {shape, dtype, lod_level}} onto the
+    VarDescs, filling only what the layer left unknown, and stamp
+    declared-vs-inferred conflicts on the op."""
     conflicts = []
     for name, spec in outs.items():
         v = block_desc.find_var_recursive(name)
@@ -221,6 +259,8 @@ def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
             v.dtype = spec["dtype"]
     if conflicts:
         op.attrs[SHAPE_INFER_CONFLICT_ATTR] = conflicts
+    else:
+        op.attrs.pop(SHAPE_INFER_CONFLICT_ATTR, None)
 
 
 def _conflicts(name, v, spec):
@@ -358,6 +398,22 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self._blocks[idx]
+
+    def create_block(self) -> Block:
+        """A new sub-block whose parent is the current block; it becomes
+        the current block (the control-flow layers build their bodies
+        in it)."""
+        parent = self.current_block()
+        bdesc = self.desc.append_block(parent.desc)
+        blk = Block(self, bdesc)
+        self._blocks.append(blk)
+        self._current_block_idx = bdesc.idx
+        return blk
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = \
+            self.current_block().desc.parent_idx
 
     @property
     def num_blocks(self) -> int:

@@ -1,10 +1,10 @@
 """LayerHelper: shared parameter/bias/activation plumbing for layer functions.
 
 The port's copy of ``paddle_tpu/layer_helper.py`` (without weight
-normalization and pipeline stacking, which no ported layer uses yet):
-creates parameters in the startup program (with initializer ops) and
-mirrors them into the main program, appends bias/activation ops after a
-layer's core op.
+normalization, which no ported layer uses yet): creates parameters in
+the startup program (with initializer ops) and mirrors them into the
+main program, stacks them per stage inside a PipelinedStack block,
+appends bias/activation ops after a layer's core op.
 """
 from __future__ import annotations
 
@@ -40,6 +40,13 @@ class ParamAttr:
         if arg is False:
             return None
         raise TypeError(f"bad param_attr {arg!r}")
+
+
+# Active parameter-stacking contexts (innermost last). While a
+# PipelinedStack block is being built, every parameter created inside it
+# gets a leading per-stage dim and is recorded — see
+# layers/control_flow.py PipelinedStack.
+_PARAM_STACK_CTX: list = []
 
 
 class LayerHelper:
@@ -87,6 +94,22 @@ class LayerHelper:
         else:
             init = XavierInitializer()
         name = attr.name or unique_name(f"{self.name}.w")
+        if _PARAM_STACK_CTX:
+            n_stages, record = _PARAM_STACK_CTX[-1]
+            # a fan-sensitive initializer scales from the PER-STAGE
+            # shape, not the stacked [n_stages, ...] one
+            from .initializer import XavierInitializer as _Xavier, \
+                fan_in_out_from_shape
+            if isinstance(init, _Xavier):
+                f_in, f_out = fan_in_out_from_shape(list(shape))
+                init = _Xavier(
+                    uniform=init.uniform,
+                    fan_in=init.fan_in if init.fan_in is not None else f_in,
+                    fan_out=init.fan_out if init.fan_out is not None
+                    else f_out,
+                    seed=init.seed)
+            shape = [n_stages] + list(shape)
+            record(name)
         # Parameter lives in BOTH programs: init op in startup, var in main.
         startup_block = self.startup_program.global_block()
         sp = startup_block.create_parameter(name=name, shape=shape,
@@ -102,6 +125,9 @@ class LayerHelper:
         return self.block.create_var(
             name=unique_name(f"{self.name}.tmp"), dtype=dtype,
             lod_level=lod_level, shape=shape)
+
+    def create_variable(self, **kw) -> framework.Variable:
+        return self.block.create_var(**kw)
 
     def create_global_variable(self, shape, dtype, name=None,
                                persistable=False,

@@ -6,7 +6,8 @@ fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
 layer_norm, dropout, cross_entropy, softmax_with_cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, accuracy,
 topk, relu, softmax, mean, reduce_sum,
-elementwise_add/sub/mul/div/max, scale, scaled_dot_product_attention;
+elementwise_add/sub/mul/div/max, scale, increment,
+scaled_dot_product_attention;
 and the sequence layers: sequence_pool, sequence_first_step,
 sequence_last_step, sequence_reverse, nested_sequence_flatten,
 nested_sequence_pack, sequence_conv, sequence_softmax, sequence_expand,
@@ -21,7 +22,8 @@ import math
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["fc", "embedding", "dynamic_lstm", "dynamic_gru", "conv2d",
+__all__ = ["fc", "embedding", "increment", "dynamic_lstm", "dynamic_gru",
+           "conv2d",
            "pool2d", "batch_norm", "layer_norm", "dropout",
            "cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "square_error_cost",
@@ -687,6 +689,14 @@ elementwise_sub = _binary("elementwise_sub")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
 elementwise_max = _binary("elementwise_max")
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="increment", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"step": float(value)})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,18 +1,21 @@
 """Unary, comparison and logical layers: the subset of
 ``paddle_tpu/layers/ops.py`` that the port's models build with (the
 decoder LM and the Transformer NMT model; sigmoid and square for
-DeepFM)."""
+DeepFM; tanh, the comparisons and the logical ops of the
+control-flow programs)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 from .nn import _unary
 
-_UNARY_OPS = ["sigmoid", "square"]
-_CMP_OPS = ["equal", "less_than", "less_equal"]
+_UNARY_OPS = ["sigmoid", "tanh", "square"]
+_CMP_OPS = ["equal", "not_equal", "less_than", "less_equal",
+            "greater_than", "greater_equal", "logical_and", "logical_or"]
 
 __all__ = list(_UNARY_OPS) + list(_CMP_OPS) + ["logical_not"]
 
 sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
 square = _unary("square")
 
 
@@ -28,9 +31,8 @@ def _make_cmp(op_type):
     return fn
 
 
-equal = _make_cmp("equal")
-less_than = _make_cmp("less_than")
-less_equal = _make_cmp("less_equal")
+for _op in _CMP_OPS:
+    globals()[_op] = _make_cmp(_op)
 
 
 def logical_not(x, name=None):

@@ -7,9 +7,19 @@ import numpy as np
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "concat", "assign", "fill_constant", "ones_like",
-           "reshape", "transpose", "unsqueeze", "gather", "one_hot",
-           "argmax", "range", "slice"]
+__all__ = ["create_parameter", "cast", "concat", "assign",
+           "fill_constant", "fill_constant_batch_size_like", "zeros_like",
+           "ones_like", "reshape", "transpose", "unsqueeze", "gather",
+           "one_hot", "argmax", "range", "slice"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    helper = LayerHelper("create_parameter")
+    from ..layer_helper import ParamAttr
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def cast(x, dtype):
@@ -67,6 +77,28 @@ def fill_constant(shape, dtype, value, out=None, name=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": input}, outputs={"Out": out},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    out = out or helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": x},
+                     outputs={"Out": out})
     return out
 
 

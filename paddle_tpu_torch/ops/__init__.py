@@ -7,3 +7,4 @@ from . import sequence_ops  # noqa: F401
 from . import cache_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401

@@ -48,6 +48,27 @@ def _fill_constant_like(ctx):
     ctx.set_output("Out", torch.full_like(x, ctx.attr("value", 0.0)))
 
 
+@register_op("fill_constant_batch_size_like", no_grad_slots=["Input"])
+def _fill_constant_batch_size_like(ctx):
+    """fill_constant whose dim `output_dim_idx` takes the extent of the
+    Input's dim `input_dim_idx` (DynamicRNN.memory(shape=) emits it)."""
+    x = ctx.input("Input")
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        x.shape[ctx.attr("input_dim_idx", 0)]
+    dtype = torch_dtype(ctx.attr("dtype", "float32"))
+    value = ctx.attr("value", 0.0)
+    if not (dtype.is_floating_point or dtype.is_complex):
+        value = int(value)
+    ctx.set_output("Out", torch.full(shape, value, dtype=dtype,
+                                     device=x.device))
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx):
+    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
+
+
 def _generator(ctx) -> torch.Generator:
     """An explicit generator for one random op, seeded from the op's
     `seed` attr — which Program.next_seed derives from the program's
@@ -135,6 +156,18 @@ def _scale(ctx):
         ctx.set_output("Out", (x + bias) * scale)
 
 
+@register_op("increment")
+def _increment(ctx):
+    """x + step in x's own dtype (an integer counter stays an integer
+    inside a While); the step is a python scalar, so a CUDA graph
+    captures the add."""
+    x = ctx.input("X")
+    step = ctx.attr("step", 1.0)
+    if not (x.dtype.is_floating_point or x.dtype.is_complex):
+        step = int(step)
+    ctx.set_output("Out", x + step)
+
+
 # -- the generic grad op ----------------------------------------------------
 
 def _dense(v):
@@ -209,6 +242,12 @@ def _vjp(ctx):
     the forward op itself under autograd and hands its graph to this op
     (core/executor.py), through the same vjp_leaves and vjp_grads.
 
+    A sub-block op (While, DynamicRNN, ...) reads outer vars by closure:
+    those ride along as extra FwdIn entries (attr closure_names, from
+    core/backward.py _sub_block_free_vars), so their gradients come back
+    too. The replay runs over the op's whole environment with the FwdIn
+    values bound to the forward names, as the JAX package's does.
+
     Ragged values, as the JAX package's op treats them: a ragged input's
     leaf is its dense data, re-wrapped with the same lengths before the
     forward rule runs; ragged outputs and cotangents enter autograd as
@@ -217,8 +256,10 @@ def _vjp(ctx):
     fwd = OpDesc.from_dict(ctx.attr("fwd_op"))
     replay_names = fwd.input_names() + list(ctx.attr("closure_names", [])
                                             or [])
-    env, leaves, wrapped = vjp_leaves(replay_names, ctx.inputs("FwdIn"),
-                                      ctx.attr("in_need_grad"))
+    local, leaves, wrapped = vjp_leaves(replay_names, ctx.inputs("FwdIn"),
+                                        ctx.attr("in_need_grad"))
+    env = dict(ctx.env)
+    env.update(local)
     with torch.enable_grad():
         outs = run_op(fwd, env, ctx.extra)
     grads = vjp_grads(outs, vjp_out_names(ctx.op), ctx.inputs("OutGrad"),

@@ -45,7 +45,7 @@ def _broadcast_y(x, y, axis: int):
     return y.reshape(shape)
 
 
-def _register_elementwise(name, fn):
+def _register_elementwise(name, fn, lax_name):
     @register_op(name)
     def _op(ctx, _fn=fn):
         x = ctx.input("X")
@@ -55,14 +55,26 @@ def _register_elementwise(name, fn):
         if amp_enabled() and {x.dtype, y.dtype} == {torch.bfloat16,
                                                      torch.float32}:
             x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
-        ctx.set_output("Out", _fn(x, y))
+        try:
+            out = _fn(x, y)
+        except RuntimeError:
+            try:
+                torch.broadcast_shapes(x.shape, y.shape)
+            except RuntimeError:
+                # lax's refusal, word for word (build-time shape
+                # inference records it on the op, as the reference's does)
+                raise TypeError(
+                    f"{lax_name} got incompatible shapes for broadcasting: "
+                    f"{tuple(x.shape)}, {tuple(y.shape)}.") from None
+            raise
+        ctx.set_output("Out", out)
 
 
-_register_elementwise("elementwise_add", lambda x, y: x + y)
-_register_elementwise("elementwise_sub", lambda x, y: x - y)
-_register_elementwise("elementwise_mul", lambda x, y: x * y)
-_register_elementwise("elementwise_div", lambda x, y: x / y)
-_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_add", lambda x, y: x + y, "add")
+_register_elementwise("elementwise_sub", lambda x, y: x - y, "sub")
+_register_elementwise("elementwise_mul", lambda x, y: x * y, "mul")
+_register_elementwise("elementwise_div", lambda x, y: x / y, "div")
+_register_elementwise("elementwise_max", torch.maximum, "max")
 
 
 def _prod(dims):
@@ -82,6 +94,12 @@ def _mul(ctx):
     yn = ctx.attr("y_num_col_dims", 1)
     x2 = x.reshape(_prod(x.shape[:xn]), _prod(x.shape[xn:]))
     y2 = y.reshape(_prod(y.shape[:yn]), _prod(y.shape[yn:]))
+    if x2.shape[1] != y2.shape[0]:
+        # lax.dot_general's refusal, word for word (build-time shape
+        # inference records it on the op, as the reference's does)
+        raise TypeError(
+            "dot_general requires contracting dimensions to have the same "
+            f"shape, got ({x2.shape[1]},) and ({y2.shape[0]},).")
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     ctx.set_output("Out", _mxu_matmul(x2, y2).reshape(out_shape))
 
@@ -167,8 +185,14 @@ def _register_cmp(name, fn):
 
 
 _register_cmp("equal", lambda x, y: x == y)
+_register_cmp("not_equal", lambda x, y: x != y)
 _register_cmp("less_than", lambda x, y: x < y)
 _register_cmp("less_equal", lambda x, y: x <= y)
+_register_cmp("greater_than", lambda x, y: x > y)
+_register_cmp("greater_equal", lambda x, y: x >= y)
+
+_register_cmp("logical_and", torch.logical_and)
+_register_cmp("logical_or", torch.logical_or)
 
 
 @register_op("logical_not", no_grad_slots=["X"])

@@ -48,6 +48,7 @@ from ..core.lod import RaggedNested, RaggedPair, RaggedTree
 from ..core.registry import register_op
 from .kernels.fused_gru import fused_gru
 from .kernels.fused_lstm import fused_lstm
+from .tensor_ops import jnp_reshape
 
 # Every op in this module but the one-step cells consumes/produces ragged
 # values natively.
@@ -197,15 +198,11 @@ def _nested_sequence_pack(ctx):
     n, s = ref.data.shape[:2]
     outer = ref.sub_lengths if isinstance(ref, RaggedNested) \
         else ref.lengths[0]
-    shape = (n, s) + tuple(x.shape[1:])
-    if math.prod(shape) != x.numel():
-        # jnp.reshape's refusal, word for word: build-time shape
-        # inference records it on the op as the reference's does (its
-        # trace cannot see that X's batch is n * max_sub of Ref's)
-        raise TypeError(
-            f"cannot reshape array of shape {tuple(x.shape)} (size "
-            f"{x.numel()}) into shape {shape} (size {math.prod(shape)})")
-    ctx.set_output("Out", RaggedPair(x.reshape(shape), outer))
+    # jnp_reshape refuses with jnp's message, which build-time shape
+    # inference records on the op as the reference's does (its trace
+    # cannot see that X's batch is n * max_sub of Ref's)
+    ctx.set_output("Out", RaggedPair(
+        jnp_reshape(x, (n, s) + tuple(x.shape[1:])), outer))
 
 
 @register_op_SEQ("sequence_softmax")

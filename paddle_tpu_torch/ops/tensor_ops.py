@@ -5,9 +5,29 @@ encoder-decoder run. transpose and slice return views, as XLA would
 fuse them away; the ops that need contiguous memory ask for it."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.registry import register_op
+
+
+def jnp_reshape(x, shape):
+    """x.reshape(shape), an impossible shape refused with jnp.reshape's
+    TypeError word for word: build-time shape inference records the
+    message on the op, as the reference's does."""
+    n, known = x.numel(), math.prod(d for d in shape if d != -1)
+    if -1 in shape:
+        if not known or n % known:
+            raise TypeError(
+                f"cannot reshape array of shape {tuple(x.shape)} (size {n}) "
+                f"into shape {shape} because the product of specified axis "
+                f"sizes ({known}) does not evenly divide {n}")
+    elif known != n:
+        raise TypeError(
+            f"cannot reshape array of shape {tuple(x.shape)} (size {n}) "
+            f"into shape {shape} (size {known})")
+    return x.reshape(shape)
 
 
 @register_op("reshape")
@@ -16,7 +36,7 @@ def _reshape(ctx):
     shape = list(ctx.attr("shape"))
     # Reference semantics: 0 means copy dim from input (reshape_op.cc).
     shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
-    ctx.set_output("Out", x.reshape(shape))
+    ctx.set_output("Out", jnp_reshape(x, shape))
 
 
 @register_op("transpose")

@@ -334,7 +334,7 @@ def test_programs_serialize_equal_and_register_every_op(runs):
     for op_type in PORTED:
         assert OpRegistry.get(op_type).no_grad_slots == \
             RefRegistry.get(op_type).no_grad_slots, op_type
-    assert len(OpRegistry._ops) == 95
+    assert len(OpRegistry._ops) == 112
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
