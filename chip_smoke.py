@@ -60,8 +60,9 @@ launch counts include what every graph replay launches.
      lstm op takes the fused-LSTM kernels), with the launch counts set to
      0 just before and read just after, and once with __pallas__="0"
      stamped on every lstm op and fwd_op copy under
-     PADDLE_TPU_PALLAS_LSTM=0 (the scan route: the executor stamps the
-     knob over an op's stamp when it is "1" or "force"). Losses and
+     PADDLE_TPU_PALLAS_LSTM=0 (the scan route: the rewrite pipeline
+     stamps the knob over an op's stamp when it is "1" or "force").
+     Losses and
      every parameter's step-1 gradient must agree per element; a
      profiled step gives the fused-LSTM kernels' device ms (forward,
      backward recurrence, dW) beside the step's. One forward and one
@@ -218,12 +219,33 @@ launch counts include what every graph replay launches.
      program and the forward-only unbounded While compiled but named in
      uncaptured_ops (an IfElse beside them captured); each compiled
      against eager bit for bit.
- 20. JSON lines of the kernels, serving, the three earlier trainings,
+ 20. the rewrite pipeline (paddle_tpu_torch/analysis/), on by default
+     in every phase above: (a) phase 4's NMT 6+6 built with the composed
+     attention chain (matmul, +mask, softmax, matmul) against the fused
+     build of the same weights, 5 compiled steps each, float32 and under
+     amp_guard(): the pipeline outlines exactly 18 sites, each step
+     launches exactly 18 of each flash kernel (the bf16 ones under AMP)
+     and nothing else, the key is captured, and losses and parameters
+     are bit for bit the fused build's; (b) the composed NMT at 2+2 with
+     PADDLE_TPU_OPTIMIZE=0 (cuBLAS matmuls and the softmax op, no
+     kernel) against the pipeline on: ms a step, busy share, peak, the
+     losses by phase 4's flash-vs-naive rule; (d) the gate's cost on the
+     host-bound paths: DeepFM through the Trainer at K = 1 and serving
+     decode at cache bucket 1024, PADDLE_TPU_VERIFY=0
+     PADDLE_TPU_OPTIMIZE=0 against the defaults in rounds taken in turns
+     (costs, parameters and tokens equal), and the gate's check and the
+     rewrite cache's lookup timed alone on this host. (c) For every path
+     of every phase: its pipeline runs (actions per pass, seconds at the
+     miss),
+     the largest static memory plan beside the card's peak allocation,
+     and the cost model's FLOPs a step of its largest key (phase 20's
+     arms also at their step time).
+ 21. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
      micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
      16 (`rnn_amp`), phase 17 (`optimizers`), phase 18
-     (`sequence_models`) and phase 19 (`control_flow`), then, last, the
-     JSON result line.
+     (`sequence_models`), phase 19 (`control_flow`) and phase 20
+     (`rewrite`), then, last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -806,6 +828,23 @@ CF_CVE_STEPS = 4
 # dynamic While in a DynamicRNN against central differences of its host
 # replica (eps 1e-3), as tests/test_while_grad_dynamic.py holds them
 CF_ANALYTIC_RTOL, CF_FD_RTOL = 1e-4, 1e-3
+
+# phase 20, the rewrite pipeline (paddle_tpu_torch/analysis/): the
+# composed NMT at phase 4's configuration outlines its 6 encoder
+# self-attentions, 6 decoder self- and 6 cross-attentions onto the flash
+# kernels: exactly REWRITE_SITES outlined sites and that many launches of
+# each flash kernel a compiled step, float32 and under AMP
+REWRITE_SITES = 18
+# (b): the pipeline's own cost at phase 14's 2+2 depth, the composed
+# build with PADDLE_TPU_OPTIMIZE=0 (cuBLAS matmuls and the softmax op)
+# against the same build with the pipeline on (6 outlined sites)
+REWRITE_2X2_SITES = 6
+# (d): the gate on the host-bound paths, off (PADDLE_TPU_VERIFY=0,
+# PADDLE_TPU_OPTIMIZE=0) and at the defaults, GATE_ROUNDS interleaved
+# rounds of each; serving decodes GATE_DECODE_STEPS steps a round at the
+# largest cache bucket
+GATE_ROUNDS = 4
+GATE_DECODE_STEPS = 20
 
 
 def card_line() -> str:
@@ -2608,8 +2647,9 @@ def steps_arm(main, startup, loss, weights, feed, params, card, label,
 @contextlib.contextmanager
 def knob(name, value):
     """Environment flag `name` set to `value` inside the block: both
-    executors stamp the kernel-dispatch knobs onto the program before a
-    run, over the stamps its ops carry (paddle_tpu_torch/core/dispatch.py)."""
+    executors read the knobs at every run (the rewrite pipeline stamps
+    the kernel-dispatch knobs onto the program it runs, over the stamps
+    its ops carry: paddle_tpu_torch/analysis/rewrite.py KernelDispatch)."""
     old = os.environ.get(name)
     os.environ[name] = value
     try:
@@ -5933,6 +5973,398 @@ def train_control_flow(card, sentiment):
     return summary, total
 
 
+# -- phase 20: the rewrite pipeline ----------------------------------------
+# (c): every compile-cache miss of every path the script drives, recorded
+# as it happens: the rewrite pipeline's summary (rewrite_program, wrapped)
+# and the memory plan and cost of the program that runs (Executor._reports,
+# wrapped), under the path main() names
+MISS_LOG: list = []
+CURRENT_PATH = ["setup"]
+
+
+def record_misses():
+    """Wrap rewrite_program and Executor._reports so each miss lands in
+    MISS_LOG under CURRENT_PATH (the wrappers return what they wrap)."""
+    from paddle_tpu_torch.analysis import rewrite
+    from paddle_tpu_torch.core.executor import Executor
+    pipeline, reports = rewrite.rewrite_program, Executor._reports
+
+    def logged_pipeline(*args, **kw):
+        res = pipeline(*args, **kw)
+        MISS_LOG.append({"path": CURRENT_PATH[0], "kind": "rewrite",
+                         "seconds": res.seconds, "changed": res.changed,
+                         "aborted": list(res.aborted),
+                         "passes": res.summary()["passes"]})
+        return res
+
+    def logged_reports(self, source, program, feed_vals, stacked_feed):
+        mem, cost = reports(self, source, program, feed_vals, stacked_feed)
+        MISS_LOG.append({"path": CURRENT_PATH[0], "kind": "reports",
+                         "program": source.uid,
+                         "peak_bytes": mem.peak_bytes if mem else None,
+                         "ideal_peak_bytes": mem.ideal_peak_bytes
+                         if mem else None,
+                         "flops": cost.flops if cost else None})
+        return mem, cost
+
+    rewrite.rewrite_program = logged_pipeline
+    Executor._reports = logged_reports
+
+
+def path_report(path, card):
+    """One path's misses: the pipeline's runs (actions per pass summed,
+    seconds), the largest static plan (arena and ideal peak) beside the
+    card's peak allocation since the path's last reset, and the cost
+    model's GFLOP a step of its largest key."""
+    import torch
+    rows = [r for r in MISS_LOG if r["path"] == path]
+    runs = [r for r in rows if r["kind"] == "rewrite"]
+    plans = [r for r in rows if r["kind"] == "reports"
+             and r["peak_bytes"] is not None]
+    passes: dict = {}
+    for r in runs:
+        for name, acts in r["passes"].items():
+            for act, n in acts.items():
+                key = f"{name}:{act}"
+                passes[key] = passes.get(key, 0) + n
+    top = max(plans, key=lambda r: r["peak_bytes"]) if plans else None
+    flops = max((r["flops"] or 0 for r in plans), default=0)
+    out = {"rewrites": len(runs),
+           "pipeline_s": sum(r["seconds"] for r in runs),
+           "pipeline_s_max": max((r["seconds"] for r in runs), default=0.0),
+           "aborted": sorted({a for r in runs for a in r["aborted"]}),
+           "actions": passes, "keys_planned": len(plans),
+           "static_peak_bytes": top["peak_bytes"] if top else None,
+           "static_ideal_peak_bytes": top["ideal_peak_bytes"] if top
+           else None,
+           "device_peak_bytes": torch.cuda.max_memory_allocated(),
+           "gflop_per_step_max_key": flops / 1e9}
+    print(f"[{card}] rewrite report, {path}: {out['rewrites']} pipeline "
+          f"runs ({out['pipeline_s']:.2f} s, longest "
+          f"{out['pipeline_s_max']:.2f} s; aborted {out['aborted']}), "
+          f"{out['keys_planned']} keys planned; largest static plan "
+          + (f"{top['peak_bytes'] / 2**30:.3f} GiB arena / "
+             f"{top['ideal_peak_bytes'] / 2**30:.3f} GiB ideal"
+             if top else "none")
+          + f" beside the card's peak "
+          f"{out['device_peak_bytes'] / 2**30:.3f} GiB; largest key "
+          f"{out['gflop_per_step_max_key']:.1f} GFLOP a step; actions "
+          f"{passes}", flush=True)
+    return out
+
+
+def rewrite_arm(main, startup, loss, weights, feed, card, label, steps,
+                profiled=0):
+    """`steps` steps of `main` from `weights` in a fresh scope and
+    executor on the card, one fetch list (the loss): one compile key,
+    warmed up by its first run and captured at its second. Returns the
+    losses, the parameters after the steps, ms a step (median of the
+    steps after the first two), the peak allocation, the launches a step
+    (the counts' growth over the steps), the busy share of `profiled`
+    more steps, and the key's analysis reports (rewrite summary, static
+    peak, cost-model FLOPs a step and their rate at the median step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.ops import kernels
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    launches = {n: (c - before[n]) / steps
+                for n, c in kernels.launch_counts().items() if c - before[n]}
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: losses {losses}")
+    params = params_of(main, scope)
+    busy = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled):
+                exe.run(main, feed=feed, fetch_list=[loss.name],
+                        scope=scope)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+    compiled = exe.last_compiled
+    ms = _median_ms(step_ms)
+    res = compiled.rewrite
+    arm = dict(
+        losses=losses, step_ms=ms, steps_ms=step_ms, peak_bytes=peak,
+        busy=busy, launches_per_step=launches, captured=compiled.captured,
+        params=params,
+        rewrite=None if res is None else {
+            "changed": res.changed, "seconds": res.seconds,
+            "aborted": res.aborted, "passes": res.summary()["passes"],
+            "outlined": res.count("fuse_attention", "outline")},
+        static_peak_bytes=compiled.memory.peak_bytes,
+        static_ideal_peak_bytes=compiled.memory.ideal_peak_bytes,
+        cost_flops=compiled.cost.flops,
+        cost_tflops_per_s=compiled.cost.flops / (ms / 1e3) / 1e12,
+        note=capture_note(exe))
+    print(f"[{card}] {label}: losses {[round(x, 6) for x in losses]}; "
+          f"{ms:.2f} ms a step (median of {steps - 2}; steps "
+          f"{[round(m, 1) for m in step_ms]})"
+          + (f", {100 * busy:.1f}% busy over {profiled} profiled steps"
+             if busy is not None else "")
+          + f"; launches a step {launches}; peak {peak / 2**30:.3f} GiB "
+          f"(static plan {compiled.memory.peak_bytes / 2**30:.3f} GiB "
+          f"arena, {compiled.memory.ideal_peak_bytes / 2**30:.3f} GiB "
+          f"ideal); cost model {compiled.cost.flops / 1e12:.3f} TFLOP a "
+          f"step = {arm['cost_tflops_per_s']:.1f} TFLOP/s at the median "
+          f"step; rewrite {arm['rewrite']}; {arm['note']}", flush=True)
+    return arm
+
+
+def nmt_feed(cfg, seed=0):
+    rng = np.random.RandomState(seed)
+    ln, vocab = cfg["max_len"], cfg["trg_vocab"]
+    feed = {n: rng.randint(1, vocab, (TRAIN_BATCH, ln, 1)).astype(np.int64)
+            for n in ("src_ids", "trg_ids", "trg_labels")}
+    feed["pos_ids"] = np.arange(ln).astype(np.int64)
+    return feed
+
+
+def hold_bitwise(what, got, want, card):
+    """`got` against `want` bit for bit: the losses and every
+    parameter."""
+    off = bitwise_gaps(got["params"], want["params"])
+    if got["losses"] != want["losses"] or off:
+        raise SystemExit(f"{what}: losses {got['losses']} vs "
+                         f"{want['losses']}; parameters {off[:8]} "
+                         f"({len(off)}) differ")
+    print(f"[{card}] {what}: bit for bit equal ({len(want['losses'])} "
+          f"losses, {len(want['params'])} parameters)", flush=True)
+
+
+def check_flash_launches(what, arm, names, per_step):
+    """Exactly `per_step` launches of each of `names` a step and no other
+    launch."""
+    want = {n: float(per_step) for n in names}
+    if arm["launches_per_step"] != want:
+        raise SystemExit(f"{what}: launches a step "
+                         f"{arm['launches_per_step']}, expected {want}")
+    if not arm["captured"]:
+        raise SystemExit(f"{what}: the compiled key was not captured "
+                         f"({arm['note']})")
+
+
+def composed_vs_fused(card):
+    """Phase 20 (a): the composed NMT 6+6 at phase 4's configuration
+    against the fused build of the same weights, float32 and under AMP:
+    18 outlined sites, 18 launches of each flash kernel a step, the key
+    captured, losses and parameters bit for bit."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import transformer
+    builds = {}
+    for impl in ("fused", "composed"):
+        with framework.isolated_name_scope():
+            builds[impl] = transformer.build_train(
+                **TRAIN_CFG, attention_impl=impl)
+    weights = seeded_weights(builds["fused"][1], seed=0)
+    feed = nmt_feed(TRAIN_CFG)
+    out = {}
+    for precision, names in (("f32", NMT_TRAINING_KERNELS),
+                             ("amp", AMP_NMT_KERNELS)):
+        guard = amp.amp_guard() if precision == "amp" \
+            else contextlib.nullcontext()
+        arms = {}
+        with guard:
+            for impl, (main, startup, f) in builds.items():
+                arms[impl] = rewrite_arm(
+                    main, startup, f["loss"], weights, feed, card,
+                    f"NMT 6+6 {impl} {precision}", TRAIN_STEPS)
+                check_flash_launches(f"NMT 6+6 {impl} {precision}",
+                                     arms[impl], names, REWRITE_SITES)
+                gc.collect()
+                torch.cuda.empty_cache()
+        got = arms["composed"]["rewrite"]
+        if got is None or got["outlined"] != REWRITE_SITES or \
+                got["aborted"]:
+            raise SystemExit(f"NMT 6+6 composed {precision}: rewrite {got}, "
+                             f"expected {REWRITE_SITES} outlined sites")
+        hold_bitwise(f"NMT 6+6 composed vs fused, {precision}",
+                     arms["composed"], arms["fused"], card)
+        for arm in arms.values():
+            arm.pop("params")
+        out[precision] = arms
+    return out
+
+
+def composed_2x2_cost(card):
+    """Phase 20 (b): the composed NMT at phase 14's 2+2 depth with the
+    pipeline off (PADDLE_TPU_OPTIMIZE=0: cuBLAS matmuls and the softmax
+    op, no kernel) and on (6 outlined sites on the flash kernels): ms a
+    step, busy share, peak; losses within phase 4's flash-vs-naive
+    rule."""
+    import gc
+    import torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import transformer
+    with framework.isolated_name_scope():
+        main, startup, f = transformer.build_train(
+            **CVE_NMT_CFG, attention_impl="composed")
+    weights = seeded_weights(startup, seed=0)
+    feed = nmt_feed(CVE_NMT_CFG)
+    arms = {}
+    for label, value in (("off", "0"), ("on", "1")):
+        with knob("PADDLE_TPU_OPTIMIZE", value):
+            arms[label] = rewrite_arm(
+                main, startup, f["loss"], weights, feed, card,
+                f"NMT 2+2 composed, pipeline {label}", CVE_STEPS,
+                profiled=CVE_PROFILED)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if arms["off"]["launches_per_step"] or arms["off"]["rewrite"]:
+        raise SystemExit(f"NMT 2+2 pipeline off: launches "
+                         f"{arms['off']['launches_per_step']}, rewrite "
+                         f"{arms['off']['rewrite']}")
+    check_flash_launches("NMT 2+2 composed, pipeline on", arms["on"],
+                         NMT_TRAINING_KERNELS, REWRITE_2X2_SITES)
+    for arm in arms.values():
+        arm.pop("params")
+    np.testing.assert_allclose(arms["on"]["losses"], arms["off"]["losses"],
+                               rtol=TRAIN_LOSS_RTOL,
+                               err_msg="NMT 2+2 pipeline on vs off losses")
+    return arms
+
+
+def gate_cost(card):
+    """Phase 20 (d): the host-bound paths with the gate and the pipeline
+    off (PADDLE_TPU_VERIFY=0, PADDLE_TPU_OPTIMIZE=0) and at the defaults,
+    GATE_ROUNDS rounds in turns (off, on, on, off, ...): DeepFM through
+    the Trainer at K = 1 (phase 13's configuration and batches; ms a
+    batch, the median of the dispatch intervals after the first
+    CVE_WARM; costs and parameters bit for bit across the settings) and
+    serving decode at the largest cache bucket (phase 3's model; ms a
+    step over GATE_DECODE_STEPS steps after two untimed ones, which
+    compile and capture the setting's key; the same tokens). Then what
+    the defaults add to every run on this host: the gate's memoized
+    check and the rewrite cache's lookup, timed alone on the decode
+    program (timeit)."""
+    import gc
+    import timeit
+    import torch
+    from paddle_tpu_torch.analysis import verifier
+    from paddle_tpu_torch import framework, load_param_arrays
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.serving.generation import (GenerationModel,
+                                                     GenerationSpec)
+    settings = (("off", "0"), ("defaults", "1"))
+    with framework.isolated_name_scope():
+        main, startup, f = deepfm.build_train(**DEEPFM_CFG)
+    weights = seeded_weights(startup, seed=0)
+    batches = deepfm_batches()
+    dfm = {label: [] for label, _ in settings}
+    ref = None
+    turns = [settings[::1 - 2 * (r % 2)] for r in range(GATE_ROUNDS)]
+    for turn in turns:
+        for label, value in turn:
+            with knob("PADDLE_TPU_VERIFY", value), \
+                    knob("PADDLE_TPU_OPTIMIZE", value):
+                arm = trainer_arm(main, startup, f["loss"], weights,
+                                  batches, card, f"DeepFM gate {label}")
+            dfm[label].append(float(np.median(arm["dispatch_ms"][
+                CVE_WARM:])))
+            arm.pop("trainer")
+            ref = ref or arm
+            if arm["costs"] != ref["costs"] or \
+                    bitwise_gaps(arm["params"], ref["params"]):
+                raise SystemExit(f"DeepFM gate {label}: costs or "
+                                 "parameters differ from the first arm's")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = GenerationSpec(**SERVE_SPEC)
+    model = GenerationModel.build(spec)
+    load_param_arrays(model, seeded_weights(model.programs["startup"],
+                                            seed=0))
+    bucket = spec.cache_buckets[-1]
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(1, spec.vocab_size, spec.slots).astype(np.int64)
+    positions = np.full(spec.slots, bucket - 1, np.int64)
+    dec = {label: [] for label, _ in settings}
+    toks = {}
+    for turn in turns:
+        for label, value in turn:
+            with knob("PADDLE_TPU_VERIFY", value), \
+                    knob("PADDLE_TPU_OPTIMIZE", value):
+                for _ in range(2):
+                    nxt = model.run_decode(tokens, positions, bucket)
+                t0 = time.perf_counter()
+                for _ in range(GATE_DECODE_STEPS):
+                    model.run_decode(tokens, positions, bucket)
+                dec[label].append((time.perf_counter() - t0)
+                                  / GATE_DECODE_STEPS * 1e3)
+            toks.setdefault(label, np.asarray(nxt).tolist())
+    if toks["off"] != toks["defaults"]:
+        raise SystemExit(f"decode gate: tokens {toks}")
+    exe, lm = model.executor, model.programs["decode"][bucket]
+    prog, feeds, fetch = lm.main.desc, lm.feed_names, [lm.fetch_name]
+    n = 20000
+    gate_us = timeit.timeit(
+        lambda: verifier.verify_enabled() and verifier.executor_gate(
+            prog, 0, fetch, feeds, exe.donate_state, True),
+        number=n) / n * 1e6
+    lookup_us = timeit.timeit(lambda: exe._rewritten(prog, feeds, fetch),
+                              number=n) / n * 1e6
+    del model, exe, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"deepfm_ms_per_batch": dfm, "decode_ms_per_step": dec,
+           "decode_bucket": bucket, "order": [[label for label, _ in t]
+                                              for t in turns],
+           "gate_us_per_run": gate_us, "rewrite_lookup_us_per_run":
+           lookup_us}
+    print(f"[{card}] gate cost on this host: the memoized gate "
+          f"{gate_us:.2f} us and the rewrite cache's lookup "
+          f"{lookup_us:.2f} us a run ({n} calls each)", flush=True)
+    for what, by in (("DeepFM Trainer K=1, ms a batch", dfm),
+                     (f"decode at cache bucket {bucket}, ms a step", dec)):
+        off, on = np.median(by["off"]), np.median(by["defaults"])
+        print(f"[{card}] gate cost, {what}: off {by['off']} defaults "
+              f"{by['defaults']}; medians {off:.3f} vs {on:.3f} "
+              f"({100 * (on / off - 1):+.1f}%)", flush=True)
+    return out
+
+
+def train_rewrite(card):
+    """Phase 20: the rewrite pipeline and the gates on the card (a, b, d;
+    (c) is every path's report, path_report). Launch counts are set to 0
+    just before and read just after; returns the phase's summary and
+    those counts."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    summary = {"card": card}
+    summary["composed_vs_fused"] = composed_vs_fused(card)
+    t1 = time.perf_counter()
+    summary["composed_2x2"] = composed_2x2_cost(card)
+    t2 = time.perf_counter()
+    summary["gate"] = gate_cost(card)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    summary["phase_s"] = time.perf_counter() - t0
+    summary["part_s"] = {"a": t1 - t0, "b": t2 - t1,
+                         "d": summary["phase_s"] - (t2 - t0)}
+    print(f"[{card}] phase 20: {summary['phase_s']:.1f} s "
+          f"({summary['part_s']}); launches {launches}", flush=True)
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5955,6 +6387,17 @@ def main() -> int:
     # without timing, gives the same sums on every run
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    record_misses()
+    rewrite_paths = {}
+
+    def enter(path):
+        """Close the current path's rewrite report (phase 20 (c)) and
+        open `path`'s."""
+        if CURRENT_PATH[0] != "setup":
+            rewrite_paths[CURRENT_PATH[0]] = path_report(CURRENT_PATH[0],
+                                                         card)
+        CURRENT_PATH[0] = path
+        torch.cuda.reset_peak_memory_stats()
 
     # -- 1. card and build ---------------------------------------------------
     card = card_line()
@@ -5984,6 +6427,7 @@ def main() -> int:
     mega_coverage_err = check_megakernel(card)
 
     # -- 3. serve at Transformer-base width --------------------------------
+    enter("serving")
     spec = GenerationSpec(**SERVE_SPEC)
     t0 = time.perf_counter()
     gpu = GenerationModel.build(spec)
@@ -6024,21 +6468,27 @@ def main() -> int:
     del gpu, cpu
 
     # -- 4. train at Transformer-base width ----------------------------------
+    enter("training")
     training, train_launches, flash32 = train(card)
 
     # -- 5. train the stacked-LSTM LM ----------------------------------------
+    enter("lstm_training")
     lstm_training, lstm_launches = train_lstm(card)
 
     # -- 6, 7. train the book's GRU encoder-decoder; reload it -------------
+    enter("gru_nmt_training")
     gru_training, gru_launches = train_gru_nmt(card)
 
     # -- 8. train MNIST conv on the card and on the CPU ----------------------
+    enter("mnist_training")
     mnist_training, mnist_launches = train_mnist(card)
 
     # -- 9. train ResNet-50 ----------------------------------------------------
+    enter("resnet_training")
     resnet_training, resnet_launches = train_resnet(card)
 
     # -- 10. the bottleneck chain: fused conv kernels vs composed --------------
+    enter("conv_chain")
     chain, chain_launches = conv_chain(card)
 
     # -- 11. the megakernel chain: batch-BN vs ghost composed vs the kernel --
@@ -6048,30 +6498,43 @@ def main() -> int:
     micro, micro_launches = roll_micro(card)
 
     # -- 13. the Trainer: the LSTM LM and DeepFM at full width --------------
+    enter("trainer")
     trainer, trainer_launches = train_trainer(card)
 
     # -- 14. the eager arm beside the compiled arm ---------------------------
+    enter("compiled")
     compiled = compiled_vs_eager(card)
 
     # -- 15. bf16 AMP: the bf16 flash kernels, NMT and ResNet-50 -------------
+    enter("amp_training")
     amp_summary, amp_rows, amp_launches = train_amp(
         card, flash32, training["profiled_step"], compiled["resnet50"])
     del flash32
 
     # -- 16. RNNs under AMP: the LSTM LM, stacked_lstm_net, both GRU NMTs ----
+    enter("rnn_amp_training")
     rnn_amp, rnn_amp_launches = train_rnn_amp(card)
 
     # -- 17. the dense optimizers and the learning-rate schedules ----------
+    enter("optimizers")
     optimizers = train_optimizers(card)
 
     # -- 18. the sentiment program and the hierarchical LSTM ---------------
+    enter("sequence_models")
     sequence_models, seq_launches = train_sequence_models(card)
 
     # -- 19. control flow: the MT decoder, dyn_rnn_lstm, the WhileGrad ------
+    enter("control_flow")
     control_flow, cf_launches = train_control_flow(
         card, sequence_models["sentiment"])
 
-    # -- 20. result lines ------------------------------------------------------
+    # -- 20. the rewrite pipeline: composed NMT, its cost, the gate ----------
+    enter("train_rewrite")
+    rewrite, rewrite_launches = train_rewrite(card)
+    enter("done")
+    rewrite["paths"] = rewrite_paths
+
+    # -- 21. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -6091,7 +6554,8 @@ def main() -> int:
                       "amp_training": amp_launches[name],
                       "rnn_amp_training": rnn_amp_launches.get(name, 0),
                       "sequence_models": seq_launches.get(name, 0),
-                      "control_flow": cf_launches.get(name, 0)}
+                      "control_flow": cf_launches.get(name, 0),
+                      "train_rewrite": rewrite_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -6273,6 +6737,7 @@ def main() -> int:
     print(json.dumps({"optimizers": optimizers}))
     print(json.dumps({"sequence_models": sequence_models}))
     print(json.dumps({"control_flow": control_flow}))
+    print(json.dumps({"rewrite": rewrite}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

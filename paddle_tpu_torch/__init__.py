@@ -19,7 +19,10 @@ turns on bf16 automatic mixed precision (PADDLE_TPU_AMP=1 or
 amp.amp_guard()). layers/control_flow.py builds StaticRNN, DynamicRNN,
 IfElse and While programs (ops/control_flow_ops.py runs them, an
 unbounded While's gradient through the executor's probe-and-replay
-WhileGrad). It imports neither jax nor paddle_tpu.
+WhileGrad). analysis/ verifies programs, prices them (cost model,
+memory plan) and rewrites them (outlining a composed attention chain
+onto the flash kernels) before the executors run them. It imports
+neither jax nor paddle_tpu.
 """
 from . import amp  # noqa: F401
 from . import ops  # noqa: F401  (registers every ported op)
@@ -31,6 +34,7 @@ from .framework import (Program, default_main_program,  # noqa: F401
                         default_startup_program, program_guard,
                         reset_default_programs)
 from . import io  # noqa: F401
+from . import analysis  # noqa: F401  (verifier, cost, memory, rewrite)
 from .io import load_param_arrays  # noqa: F401
 from . import reader, resilience  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401

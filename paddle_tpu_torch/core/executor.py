@@ -49,10 +49,25 @@ forward op under autograd by itself, every value kept until the run ends.
 Read-write persistable state (the KV caches of the generation programs)
 is updated IN PLACE by its ops on both paths; with
 ``donate_state=False`` the compiled path updates copies, and the tensors
-a caller held before a run are left as they were. Before a run, the
-kernel-dispatch stamps of the JAX executor's rewrite are applied to a
-copy of the program (core/dispatch.py), cached per program, program
-version and knob values.
+a caller held before a run are left as they were.
+
+The analysis layer (analysis/) runs as in the JAX executor. Every run
+first passes the pre-compile gate (``executor_gate``: def-use, the
+build-time shape markers, dead code, donation hazards; memoized per
+program version; PADDLE_TPU_VERIFY=0 skips it). Both executors then run
+the rewrite pipeline's output (``rewrite_program``: folding, CSE, dead
+ops and gradients, attention and SE outlining, the kernel-dispatch
+stamps, buffer reuse; PADDLE_TPU_OPTIMIZE=0 runs the program as built),
+cached per program version, feed and fetch names and knob values; a
+pipeline that raises falls back to the program as built. Per compile
+key, the static memory plan of the program that runs is held against
+the device's memory (``hbm_budget_bytes``: a VerificationError before
+anything runs when it does not fit) and the cost model priced:
+``CompiledProgram.rewrite/.memory/.cost``, ``Executor.last_cost``,
+``last_memory`` and ``cost_table()``. Buffer reuse gives one name
+several values: the plan pairs a ``__vjp__`` op with its forward op
+through the names its FwdIn reads, and releases each value at its last
+reader before the next write of its name.
 
 The step counter lives in the scope, as in the JAX package: ``STEP_VAR``
 holds a 0-d int32 tensor on the host (it seeds host-side generators, so
@@ -84,7 +99,6 @@ with every run of its block and checked one run later (a warning, once
 per program and flag), or at once under PADDLE_TPU_CHECK_WHILE_BOUND=1
 (an error); `close()` and interpreter exit check the last ones.
 
-Not ported yet: the cost/memory reports and the rewrite pipeline (A6).
 """
 from __future__ import annotations
 
@@ -99,7 +113,6 @@ import torch
 
 from .. import flags
 from ..amp import amp_enabled
-from . import dispatch
 from .ir import BlockDesc, OpDesc, Program, SUB_BLOCK_ATTRS
 from .lod import (RAGGED_TYPES, LoDTensor, RaggedNested, RaggedPair,
                   RaggedTree, ragged_like, ragged_parts, with_data)
@@ -107,6 +120,11 @@ from .registry import OpRegistry, op_capturable, run_op
 from .scope import Scope, global_scope
 
 STEP_VAR = "@step_counter@"
+
+# the knobs the rewrite pipeline reads: a change gives another rewrite
+_REWRITE_KNOBS = ("PADDLE_TPU_OPTIMIZE", "PADDLE_TPU_INPLACE_REUSE",
+                  "PADDLE_TPU_PALLAS_LSTM", "PADDLE_TPU_PALLAS_GRU",
+                  "PADDLE_TPU_PALLAS_SDPA")
 
 # A bounded While that hit max_steps with its condition still true warns
 # once per (program, flag) by default; PADDLE_TPU_CHECK_WHILE_BOUND=1
@@ -596,17 +614,38 @@ def _copy_into(static, value, what: str) -> None:
         dst.copy_(src)
 
 
-def _same_op(op: OpDesc, fwd: Dict[str, Any]) -> bool:
-    """True when `op` is the op the ``fwd_op`` dict `fwd` was copied
-    from, attrs included."""
+def _flat(slots: Dict[str, List[str]]) -> List[str]:
+    return [n for names in slots.values() for n in names]
+
+
+def _is_forward_of(op: OpDesc, fwd: Dict[str, Any], fwd_in: List[str]
+                   ) -> bool:
+    """True when `op` is the op the ``fwd_op`` dict `fwd` of a
+    ``__vjp__`` op (whose FwdIn names are `fwd_in`) was copied from: the
+    same type, attrs and slot layout, and each input name the one the
+    ``__vjp__`` op reads in its place. The rewrite pipeline's buffer reuse
+    renames an op's inputs and outputs and the ``__vjp__`` op's FwdIn
+    alike but not the ``fwd_op`` copy, so names are held against FwdIn,
+    not against the copy; an input the op also writes (read by the
+    ``__vjp__`` op through its ``@PRE.`` snapshot) keeps its own name."""
+    if op.type != fwd.get("type"):
+        return False
     try:
-        return bool(op.to_dict() == fwd)
+        if op.attrs != fwd.get("attrs", {}):
+            return False
     except (TypeError, ValueError):  # attrs that do not compare as bools
         return False
-
-
-def _outputs_key(op_type: str, outputs: Dict[str, List[str]]) -> Tuple:
-    return (op_type, tuple(sorted((k, tuple(v)) for k, v in outputs.items())))
+    for mine, theirs in ((op.inputs, fwd["inputs"]),
+                         (op.outputs, fwd["outputs"])):
+        if list(mine) != list(theirs) or any(
+                len(mine[k]) != len(theirs[k]) for k in mine):
+            return False
+    mutated = set(_flat(fwd["outputs"]))
+    for mine, orig, read in zip(op.input_names(), _flat(fwd["inputs"]),
+                                fwd_in):
+        if mine != (orig if orig in mutated else read):
+            return False
+    return True
 
 
 # the kinds of a plan step
@@ -621,45 +660,59 @@ class _Plan:
     def __init__(self, program: Program, block: BlockDesc, keep,
                  while_bounds=None):
         ops = list(block.ops)
-        fwd_of: Dict[int, int] = {}     # __vjp__ op index -> forward index
+        # __vjp__ op index -> (forward index, the record's names of its
+        # cotangent outputs)
+        fwd_of: Dict[int, Tuple[int, List[str]]] = {}
         # forward index -> (in_need_grad, the __vjp__'s closure names)
         need: Dict[int, Tuple[List[bool], List[str]]] = {}
-        writers: Dict[Tuple, List[int]] = {}  # outputs key -> op indices
+        by_type: Dict[str, List[int]] = {}   # op type -> op indices
         producer: Dict[str, int] = {}
         self.replayed: List[int] = []
         for j, op in enumerate(ops):
             if op.type != "__vjp__":
-                writers.setdefault(_outputs_key(op.type, op.outputs),
-                                   []).append(j)
+                by_type.setdefault(op.type, []).append(j)
                 producer.update((n, j) for n in op.output_names())
                 continue
             fwd = op.attrs["fwd_op"]
-            cands = [i for i in writers.get(
-                _outputs_key(fwd["type"], fwd["outputs"]), ())
-                if _same_op(ops[i], fwd)]
+            fwd_in = op.input("FwdIn")
+            cands = [i for i in by_type.get(fwd["type"], ())
+                     if _is_forward_of(ops[i], fwd, fwd_in)]
+            # the op that wrote exactly the copy's outputs, where one did
+            # (no buffer reuse renamed them)
+            cands = [i for i in cands if ops[i].outputs == fwd["outputs"]] \
+                or cands
             # an op that writes its own input (a While carry, an in-place
             # array_write or increment) is the first such op after the
             # assign that snapshotted its pre-op value (backward.py
-            # _snapshot_pre_value); otherwise the latest writer
-            snaps = [producer[n] for n in op.input("FwdIn")
-                     if "@PRE." in n and n in producer]
+            # _snapshot_pre_value): FwdIn reads the snapshot at each
+            # position whose name the op also writes; otherwise the
+            # latest candidate
+            mutated = set(_flat(fwd["outputs"]))
+            snaps = [producer[n] for n, orig in
+                     zip(fwd_in, _flat(fwd["inputs"]))
+                     if orig in mutated and n in producer]
             cands = [i for i in cands if i > max(snaps)][:1] if snaps \
                 else cands[-1:]
             flags_ = (list(op.attrs["in_need_grad"]),
                       list(op.attrs.get("closure_names") or []))
             if cands and need.setdefault(cands[0], flags_) == flags_:
-                fwd_of[j] = cands[0]
+                # the record's names of the cotangent outputs
+                # (ops/core_ops.py vjp_out_names, through the renaming)
+                outs = zip(ops[cands[0]].output_names(),
+                           op.attrs["out_has_grad"])
+                fwd_of[j] = (cands[0], [n for n, h in outs if h])
             else:
                 self.replayed.append(j)
         # the last __vjp__ op reading a record drops it
-        last_vjp = {i: j for j, i in fwd_of.items()}
+        last_vjp = {i: j for j, (i, _) in fwd_of.items()}
         self.steps: List[Tuple[OpDesc, int, Any]] = []
+        self.drops: List[List[str]] = [[] for _ in ops]
         last: Dict[str, int] = {}
         for j, op in enumerate(ops):
             opdef = OpRegistry.get(op.type)
             if j in fwd_of:
-                i = fwd_of[j]
-                kind, arg = _VJP, (i, last_vjp[i] == j)
+                i, out_names = fwd_of[j]
+                kind, arg = _VJP, (i, last_vjp[i] == j, out_names)
                 reads = op.input("OutGrad")
             else:
                 if j in need:
@@ -672,9 +725,17 @@ class _Plan:
                     if op.type == "__vjp__" else op
                 reads = op.input_names() + _outer_reads(program, fwd)
             self.steps.append((op, kind, arg))
-            for n in reads + op.output_names():
+            for n in reads:
                 last[n] = j
-        self.drops: List[List[str]] = [[] for _ in ops]
+            for n in op.output_names():
+                # a write that does not read the name starts a new value
+                # under it (buffer reuse gives one name several): the
+                # value before dies at its last reader
+                prev = last.get(n)
+                if prev is not None and prev < j and n not in keep and \
+                        n not in reads:
+                    self.drops[prev].append(n)
+                last[n] = j
         for n, j in last.items():
             if n not in keep:
                 self.drops[j].append(n)
@@ -692,11 +753,20 @@ class CompiledProgram:
     bounds). `replayed` lists the ``__vjp__`` op types that replay their
     forward op instead of reading its record."""
 
-    def __init__(self, plan: _Plan, stamped: Program, read_names,
+    def __init__(self, plan: _Plan, program: Program, read_names,
                  write_names, fetch_names, ro_names=(), rw_names=(),
                  while_bounds=None):
         self.plan = plan
-        self.stamped = stamped
+        # the program this key runs: the rewrite pipeline's output, or
+        # the program as built (PADDLE_TPU_OPTIMIZE=0, or a failed rewrite)
+        self.program = program
+        # the analysis reports of this key (analysis/): the rewrite
+        # pipeline's RewriteResult (None when it did not run or raised),
+        # the static MemoryReport and ProgramCost of `program` at this
+        # key's feed shapes
+        self.rewrite = None
+        self.memory = None
+        self.cost = None
         # the probed While bounds of this key ({while_id: bound}) or None
         self.while_bounds = while_bounds
         self.read_names = list(read_names)
@@ -745,8 +815,17 @@ class Executor:
         # (program uid, version, op index): the position table's
         # assign_value alone is a list of max_seq_len * d_model floats
         self._const_cache: Dict[Tuple, Dict[str, torch.Tensor]] = {}
-        # program uid -> (version, knob values, dispatch-stamped program)
-        self._stamped: Dict[int, Tuple[int, Tuple, Program]] = {}
+        # (program uid, version, feed names, fetch names, knob values,
+        # donate_state) -> (the program the run executes, its
+        # RewriteResult): the rewrite pipeline runs once per entry
+        self._rewrites: Dict[Tuple, Tuple[Program, Any]] = {}
+        # the eager walk's (program run, MemoryReport, ProgramCost) per
+        # compile key (the compiled path keeps them on CompiledProgram)
+        self._eager_reports: Dict[Tuple, Tuple[Program, Any, Any]] = {}
+        # the static ProgramCost and MemoryReport of the most recent run
+        # (analysis/cost_model.py, analysis/memory.py)
+        self.last_cost = None
+        self.last_memory = None
         # the event recorded after the last dispatch on the card, until
         # synchronize() has waited for it
         self._inflight: Optional[torch.cuda.Event] = None
@@ -788,16 +867,93 @@ class Executor:
                 else None, iterations, stacked_feed,
                 donate_state_default() if donate is None else bool(donate))
 
-    def _dispatched(self, program: Program) -> Program:
-        """`program` with the kernel-dispatch stamps of the knobs in force
-        (core/dispatch.py): itself, or a stamped copy made once per
-        program version and knob values."""
-        knob = dispatch.knobs()
-        hit = self._stamped.get(program.uid)
-        if hit is None or hit[0] != program.version or hit[1] != knob:
-            hit = (program.version, knob, dispatch.stamped(program, knob))
-            self._stamped[program.uid] = hit
-        return hit[2]
+    def _rewritten(self, program: Program, feed_names,
+                   fetch_names) -> Tuple[Program, Any]:
+        """(the program a run of `program` executes, its RewriteResult):
+        the rewrite pipeline's output (analysis/rewrite.py) under
+        PADDLE_TPU_OPTIMIZE, else `program` itself and None. Cached per
+        program version, feed and fetch names and knob values; the
+        caller's program is never changed. A pipeline that raises falls
+        back to the program as built, as the JAX executor's does. Its
+        passes are verified as for a synchronous run: the one verdict
+        an asynchronous run changes, a fetch of donated state, is the
+        gate's error before the rewrite."""
+        from ..analysis import rewrite as _rewrite
+        knob = tuple(flags.get(k) for k in _REWRITE_KNOBS)
+        key = (program.uid, program.version, tuple(sorted(feed_names)),
+               tuple(fetch_names), knob, self.donate_state)
+        hit = self._rewrites.get(key)
+        if hit is None:
+            result = None
+            if _rewrite.optimize_enabled():
+                try:
+                    result = _rewrite.rewrite_program(
+                        program, 0, feed_names=list(feed_names),
+                        fetch_names=list(fetch_names),
+                        donate=self.donate_state,
+                        label=f"program uid={program.uid} block=0")
+                except Exception:  # noqa: BLE001 — run the program as built
+                    result = None
+            exec_program = result.program if result is not None \
+                and result.changed else program
+            hit = self._rewrites[key] = (exec_program, result)
+        return hit
+
+    def _reports(self, source: Program, program: Program, feed_vals,
+                 stacked_feed: bool):
+        """(MemoryReport, ProgramCost) of `program`, the program a run
+        executes, at this run's feed shapes (a stacked feed's leading
+        axis stripped: both are per step). The memory gate: when
+        verification is on and the static peak exceeds the device budget
+        (analysis/memory.py hbm_budget_bytes), a VerificationError before
+        anything runs. The reports themselves are best effort."""
+        from ..analysis import cost_model as _cost_model
+        from ..analysis import memory as _memory
+        from ..analysis import verifier as _verifier
+        fs = {}
+        for k, v in feed_vals.items():
+            shp = getattr(v, "shape", None)
+            if isinstance(shp, tuple):
+                fs[k] = tuple(shp)[1:] if stacked_feed else tuple(shp)
+        label = f"program uid={source.uid} block=0"
+        try:
+            mem = _memory.program_memory(program, 0, feed_shapes=fs,
+                                         feed_names=feed_vals.keys(),
+                                         label=label)
+        except Exception:  # noqa: BLE001 — the plan never fails a run
+            mem = None
+        if mem is not None and _verifier.verify_enabled():
+            budget = _memory.hbm_budget_bytes(self.device)
+            if budget > 0 and mem.peak_bytes > budget:
+                _memory.check_budget(mem, budget).raise_if_errors(
+                    context="pre-compile memory gate")
+        try:
+            cost = _cost_model.program_cost(program, 0, feed_shapes=fs)
+        except Exception:  # noqa: BLE001 — the cost never fails a run
+            cost = None
+        return mem, cost
+
+    def cost_for(self, program):
+        """The static ProgramCost of a compiled key of `program` (any
+        feed signature) at its current version, or None when this
+        executor compiled none yet."""
+        desc = program.desc if hasattr(program, "desc") else program
+        for k, compiled in list(self._cache.items()):
+            if k[0] == desc.uid and k[1] == desc.version \
+                    and compiled.cost is not None:
+                return compiled.cost
+        for k, (_prog, _mem, cost) in list(self._eager_reports.items()):
+            if k[0] == desc.uid and k[1] == desc.version \
+                    and cost is not None:
+                return cost
+        return None
+
+    def cost_table(self, program=None, limit: int = 20) -> Optional[str]:
+        """The rendered per-op cost table of `program` (default: the
+        most recent run's)."""
+        cost = self.cost_for(program) if program is not None \
+            else self.last_cost
+        return None if cost is None else cost.table(limit=limit)
 
     def _feed_values(self, feed) -> Dict[str, Any]:
         """The feed in device form; a `device_feed` upload is awaited on
@@ -938,6 +1094,8 @@ class Executor:
         self._cache.clear()
         self._probe_cache.clear()
         self._stateful_cache.clear()
+        self._rewrites.clear()
+        self._eager_reports.clear()
 
     def run(self, program, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -974,34 +1132,54 @@ class Executor:
 
         The Exhausted flag of every bounded While of the block is
         fetched with the run and checked (see CHECK_WHILE_BOUND)."""
+        from ..analysis import verifier as _verifier
         if hasattr(program, "desc"):  # accept the python builder wrapper
             program = program.desc
-        source, program = program, self._dispatched(program)
+        source = program
         scope = global_scope() if scope is None else scope
+        feed = feed or {}
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
         n_user = len(fetch_names)
         # appended even when the caller fetches one too: the checked tail
         # must be complete
         fetch_names += [op.outputs["Exhausted"][0]
-                        for op in program.global_block.ops
+                        for op in source.global_block.ops
                         if op.type == "while" and op.outputs.get("Exhausted")]
-        feed_vals = self._feed_values(feed or {})
+        # the pre-compile gate (analysis/verifier.py): structural checks
+        # before anything runs, memoized per program version
+        if _verifier.verify_enabled():
+            _verifier.executor_gate(source, 0, fetch_names[:n_user],
+                                    feed.keys(), self.donate_state, sync)
+        feed_vals = self._feed_values(feed)
         self._check_iterations(feed_vals, iterations, stacked_feed)
+        program, rewrite = self._rewritten(source, list(feed_vals),
+                                           fetch_names)
         counter = scope.find(STEP_VAR)
         step = 0 if counter is None else int(counter)
         bounds = self._prepare(source, program, feed_vals, scope, step,
                                iterations, stacked_feed)
+        key = self.compile_key(source, feed_signature(feed_vals),
+                               fetch_names, while_bounds=bounds,
+                               iterations=iterations,
+                               stacked_feed=stacked_feed,
+                               donate=self.donate_state)
         if not self.compiled:
+            reports = self._eager_reports.get(key)
+            if reports is None or reports[0] is not program:
+                reports = (program,) + self._reports(
+                    source, program, feed_vals, stacked_feed)
+                self._eager_reports[key] = reports
+            _, self.last_memory, self.last_cost = reports
             fetched = self._run_eager(source, program, feed_vals,
                                       fetch_names, n_user, scope,
                                       iterations, stacked_feed, sync, step,
                                       bounds)
         else:
-            fetched = self._run_compiled(source, program, feed_vals,
-                                         fetch_names, n_user, scope,
-                                         iterations, stacked_feed, sync,
-                                         step, bounds)
+            fetched = self._run_compiled(key, source, program, rewrite,
+                                         feed_vals, fetch_names, n_user,
+                                         scope, iterations, stacked_feed,
+                                         sync, step, bounds)
         scope.set(STEP_VAR, torch.tensor(step + iterations,
                                          dtype=torch.int32))
         result = self._result(fetched[:n_user], fetch_names[:n_user],
@@ -1009,21 +1187,22 @@ class Executor:
         self._check_flags(source, fetch_names[n_user:], fetched[n_user:])
         return result
 
-    def _run_compiled(self, source, program, feed_vals, fetch_names, n_user,
-                      scope, iterations, stacked_feed, sync, step, bounds):
-        key = self.compile_key(source, feed_signature(feed_vals),
-                               fetch_names, while_bounds=bounds,
-                               iterations=iterations,
-                               stacked_feed=stacked_feed,
-                               donate=self.donate_state)
+    def _run_compiled(self, key, source, program, rewrite, feed_vals,
+                      fetch_names, n_user, scope, iterations, stacked_feed,
+                      sync, step, bounds):
         compiled = self._cache.get(key)
-        if compiled is None or compiled.stamped is not program:
+        if compiled is None or compiled.program is not program:
             self.cache_stats["misses"] += 1
+            mem, cost = self._reports(source, program, feed_vals,
+                                      stacked_feed)
             compiled = self._compile(program, fetch_names, scope, bounds)
+            compiled.rewrite, compiled.memory, compiled.cost = \
+                rewrite, mem, cost
             self._cache[key] = compiled
         else:
             self.cache_stats["hits"] += 1
         self.last_compiled = compiled
+        self.last_cost, self.last_memory = compiled.cost, compiled.memory
         if not sync and self.donate_state:
             aliased = [n for n in fetch_names[:n_user]
                        if n in compiled.rw_names]
@@ -1086,15 +1265,16 @@ class Executor:
                   env: Dict[str, Any], step: int) -> None:
         """The planned step over `env`, as run number `step`."""
         plan = compiled.plan
-        extra = self._extra(compiled.stamped, step, compiled.while_bounds)
+        extra = self._extra(compiled.program, step, compiled.while_bounds)
         records: Dict[int, Tuple] = {}
-        from ..ops.core_ops import vjp_grads, vjp_leaves, vjp_out_names
+        from ..ops.core_ops import vjp_grads, vjp_leaves
         with torch.no_grad():
             for j, (op, kind, arg) in enumerate(plan.steps):
                 if kind == _RUN:
                     outs = run_op(op, env, extra)
                 elif kind == _CONST:
-                    key = (source.uid, source.version, j)
+                    key = (compiled.program.uid, compiled.program.version,
+                           j)
                     outs = self._const_cache.get(key)
                     if outs is None:
                         outs = run_op(op, env, extra)
@@ -1112,10 +1292,10 @@ class Executor:
                     records[j] = (recorded, leaves, wrapped)
                     outs = {n: _detached(v) for n, v in recorded.items()}
                 else:
-                    i, last_use = arg
+                    i, last_use, out_names = arg
                     recorded, leaves, wrapped = records[i] if not last_use \
                         else records.pop(i)
-                    grads = vjp_grads(recorded, vjp_out_names(op),
+                    grads = vjp_grads(recorded, out_names,
                                       [env[n] for n in op.input("OutGrad")],
                                       leaves, wrapped,
                                       retain_graph=not last_use)
@@ -1266,7 +1446,7 @@ class Executor:
                 opdef = OpRegistry.get(op.type)
                 if opdef.constant and not any(
                         n in write_names for n in op.output_names()):
-                    key = (source.uid, source.version, i)
+                    key = (program.uid, program.version, i)
                     outs = self._const_cache.get(key)
                     if outs is None:
                         outs = run_op(op, env, extra)

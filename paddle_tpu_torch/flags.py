@@ -24,20 +24,22 @@ FLAGS: Dict[str, tuple] = {
         "on a CUDA tensor auto-routes to the flash-attention kernel; below "
         "it the naive composition runs"),
     "PADDLE_TPU_PALLAS_LSTM": (
-        "1", "core/dispatch.py, ops/sequence_ops.py",
+        "1", "analysis/rewrite.py (kernel_dispatch pass), ops/sequence_ops.py",
         "lstm op route: \"1\" or \"force\" is stamped onto every eligible "
-        "lstm op before a run (over its __pallas__ attr); \"1\" takes the "
+        "lstm op by the rewrite pipeline (over its __pallas__ attr; under "
+        "PADDLE_TPU_OPTIMIZE=0 the op reads this knob itself); \"1\" takes the "
         "fused-LSTM kernel on CUDA tensors and the masked torch scan "
         "elsewhere, \"force\" the kernel anywhere (its plain twin on CPU "
         "tensors), \"0\" the scan (a stamp an op carries is kept)"),
     "PADDLE_TPU_PALLAS_GRU": (
-        "1", "core/dispatch.py, ops/sequence_ops.py",
+        "1", "analysis/rewrite.py (kernel_dispatch pass), ops/sequence_ops.py",
         "gru op route, as PADDLE_TPU_PALLAS_LSTM for the lstm op, over the "
         "fused-GRU kernel"),
     "PADDLE_TPU_PALLAS_SDPA": (
-        "1", "core/dispatch.py",
+        "1", "analysis/rewrite.py (kernel_dispatch pass)",
         "scaled_dot_product_attention route: \"force\" or \"0\" is stamped "
-        "onto every attention op without seq_axis before a run (use_flash "
+        "onto every attention op without seq_axis by the rewrite pipeline "
+        "(use_flash "
         "true or false); \"1\" leaves the op's use_flash attr, or else its "
         "min-seq auto policy, in charge"),
     "PADDLE_TPU_CONV_LAYOUT": (
@@ -68,6 +70,37 @@ FLAGS: Dict[str, tuple] = {
         "default cache-length buckets for the decode-step programs, "
         "comma-separated ascending; a step runs the smallest bucket "
         "covering the deepest active position"),
+    "PADDLE_TPU_VERIFY": (
+        "1", "analysis/verifier.py (gates in core/executor.py, trainer.py, "
+        "serving/generation/model.py, io.py)",
+        "static program verification gates: pre-compile (every executor "
+        "run, memoized per program version), trainer setup, generation "
+        "model build and save_inference_model raise VerificationError on "
+        "error-severity diagnostics; \"0\" disables every gate, the "
+        "pre-compile memory gate included"),
+    "PADDLE_TPU_OPTIMIZE": (
+        "1", "analysis/rewrite.py (gate in core/executor.py)",
+        "ProgramDesc rewrite pipeline on every compile-cache miss of both "
+        "executors: constant folding, CSE, dead-op elimination, dead-"
+        "gradient pruning, attention and SE-block outlining, kernel-"
+        "dispatch stamps and in-place buffer reuse, each pass verified by "
+        "fast_passes() and discarded on failure; \"0\" runs every program "
+        "exactly as built (the ops then read their kernel knobs "
+        "themselves)"),
+    "PADDLE_TPU_INPLACE_REUSE": (
+        "1", "analysis/rewrite.py (inplace_reuse pass)",
+        "liveness-driven buffer reuse during rewrite: rename an op's "
+        "output onto a dead same-signature buffer (value-preserving, root "
+        "block only, never a persistable, donated, fed or fetched name); "
+        "\"0\" keeps every var its own buffer"),
+    "PADDLE_TPU_HBM_BYTES": (
+        "", "analysis/memory.py (gate in core/executor.py)",
+        "device-memory budget of the pre-compile memory gate, in bytes: a "
+        "program whose static peak estimate exceeds it raises a "
+        "VerificationError (top offenders and the high-water op) before "
+        "it runs. Unset: the executor device's total memory as torch "
+        "reports it on a CUDA card, and no gate on the CPU (which has no "
+        "device memory to read); \"0\" disables the gate"),
 }
 
 

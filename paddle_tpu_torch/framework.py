@@ -182,17 +182,9 @@ _DUMMY_SUB = 7
 #: (and why) — the same attr the JAX package stamps.
 SHAPE_INFER_SKIPPED_ATTR = "__shape_infer_skipped__"
 #: OpDesc attr recording declared-vs-inferred conflicts found at build
-#: time — the same attr, and the same conflict dicts, as the JAX
-#: package's (its analysis/passes.py ShapeDtypePass.compare).
+#: time (dicts of analysis/passes.py ShapeDtypePass.compare) — the same
+#: attr the JAX package stamps, read by the executor's no-retrace gate.
 SHAPE_INFER_CONFLICT_ATTR = "__shape_infer_conflict__"
-
-_DTYPE_FAMILY = {
-    "float16": "float", "bfloat16": "float", "float32": "float",
-    "float64": "float",
-    "int8": "int", "int16": "int", "int32": "int", "int64": "int",
-    "uint8": "int",
-    "bool": "bool",
-}
 
 
 class _SkipInference(Exception):
@@ -228,10 +220,8 @@ def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
         else:
             if explicit:
                 _apply_inferred(block_desc, op, explicit)
-            unresolved = [
-                n for n in op.output_names() if n not in (explicit or ())
-                and (v := block_desc.find_var_recursive(n)) is not None
-                and (v.shape is None or v.dtype is None)]
+            unresolved = unresolved_outputs(block_desc, op,
+                                            covered=explicit or ())
             if unresolved:
                 op.attrs[SHAPE_INFER_SKIPPED_ATTR] = \
                     RULE_UNRESOLVED_PREFIX + str(unresolved[:3])
@@ -241,16 +231,34 @@ def _infer_shapes(block_desc: ir.BlockDesc, op: ir.OpDesc) -> None:
     op.attrs[SHAPE_INFER_SKIPPED_ATTR] = str(skip)[:200]
 
 
+def unresolved_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc,
+                       covered=()) -> List[str]:
+    """Output names still lacking a declared shape or dtype, minus the
+    names in `covered` (specs an explicit rule provided): the one
+    definition shared by the build-time markers and the verifier's
+    retrace (the JAX package's framework.unresolved_outputs)."""
+    out = []
+    for n in op.output_names():
+        if n in covered:
+            continue
+        v = block_desc.find_var_recursive(n)
+        if v is not None and (v.shape is None or v.dtype is None):
+            out.append(n)
+    return out
+
+
 def _apply_inferred(block_desc: ir.BlockDesc, op: ir.OpDesc, outs) -> None:
     """Write inferred {name: {shape, dtype, lod_level}} onto the
     VarDescs, filling only what the layer left unknown, and stamp
-    declared-vs-inferred conflicts on the op."""
+    declared-vs-inferred conflicts on the op (the verifier's
+    ShapeDtypePass.compare decides what a conflict is)."""
+    from .analysis.passes import ShapeDtypePass  # lazy: no import cycle
     conflicts = []
     for name, spec in outs.items():
         v = block_desc.find_var_recursive(name)
         if v is None:
             continue
-        conflicts.extend(_conflicts(name, v, spec))
+        conflicts.extend(ShapeDtypePass.compare(name, v, spec))
         if v.shape is None and spec.get("shape") is not None:
             v.shape = list(spec["shape"])
         if spec.get("lod_level"):
@@ -261,34 +269,6 @@ def _apply_inferred(block_desc: ir.BlockDesc, op: ir.OpDesc, outs) -> None:
         op.attrs[SHAPE_INFER_CONFLICT_ATTR] = conflicts
     else:
         op.attrs.pop(SHAPE_INFER_CONFLICT_ATTR, None)
-
-
-def _conflicts(name, v, spec):
-    """Declared VarDesc vs inferred spec: a list of conflict dicts (a
-    dtype of another family, another rank, or two concrete extents that
-    differ); empty when they agree."""
-    out = []
-    fam_d = _DTYPE_FAMILY.get(v.dtype)
-    fam_i = _DTYPE_FAMILY.get(spec.get("dtype"))
-    if fam_d and fam_i and fam_d != fam_i:
-        out.append({"kind": "dtype", "var": name, "declared": v.dtype,
-                    "inferred": spec["dtype"]})
-    inferred = spec.get("shape")
-    if v.shape is None or inferred is None or \
-            spec.get("lod_level", 0) != v.lod_level:
-        return out
-    if len(v.shape) != len(inferred):
-        out.append({"kind": "rank", "var": name, "declared": list(v.shape),
-                    "inferred": list(inferred)})
-        return out
-    for d, (a, b) in enumerate(zip(v.shape, inferred)):
-        if isinstance(a, int) and isinstance(b, int) and \
-                a != -1 and b != -1 and a != b:
-            out.append({"kind": "dim", "var": name, "dim": d,
-                        "declared": list(v.shape),
-                        "inferred": list(inferred)})
-            break
-    return out
 
 
 def infer_op_outputs(block_desc: ir.BlockDesc, op: ir.OpDesc):

@@ -12,8 +12,9 @@ read and write the global scope (``scope_guard`` picks another).
 ``load_inference_model`` also reads the native PTIR binary ``__model__``
 that the JAX package writes where its native IR library builds
 (``native/ir.cc``), with a pure-Python decoder of that format
-(``decode_ptir``). Not ported yet (ROADMAP A7): writing PTIR, and
-``verify_program`` at save time.
+(``decode_ptir``). Not ported yet (ROADMAP A7): writing PTIR.
+``save_inference_model`` verifies the frozen program before it writes
+it (analysis/, PADDLE_TPU_VERIFY), as the JAX package's does.
 
 ``load_param_arrays`` is the port's own: the port's startup draws its
 random weights from torch generators, not from JAX's PRNG, so a port
@@ -220,6 +221,16 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     fetch_names = [t.name for t in target_vars]
     pruned = _prune(program, feeded_var_names, fetch_names)
     pruned = pruned.inference_optimize()
+    # Verify the frozen artifact BEFORE it reaches disk: a broken export
+    # (fetch pruned away, a dangling input) fails the save, not the
+    # eventual load. PADDLE_TPU_VERIFY=0 opts out.
+    from .analysis import verify_enabled, verify_program
+    if verify_enabled():
+        verify_program(
+            pruned, feed_names=list(feeded_var_names),
+            fetch_names=fetch_names,
+            program_label="frozen inference program",
+        ).raise_if_errors(context="save_inference_model")
     meta = dict(pruned.desc.to_dict())
     meta["feed_names"] = list(feeded_var_names)
     meta["fetch_names"] = fetch_names

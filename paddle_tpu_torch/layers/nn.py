@@ -5,7 +5,7 @@ machine-translation chapter, and the conv models (MNIST, ResNet, VGG):
 fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
 layer_norm, dropout, cross_entropy, softmax_with_cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, accuracy,
-topk, relu, softmax, mean, reduce_sum,
+topk, relu, matmul, softmax, mean, reduce_sum,
 elementwise_add/sub/mul/div/max, scale, increment,
 scaled_dot_product_attention;
 and the sequence layers: sequence_pool, sequence_first_step,
@@ -28,7 +28,7 @@ __all__ = ["fc", "embedding", "increment", "dynamic_lstm", "dynamic_gru",
            "cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "square_error_cost",
            "accuracy",
-           "topk", "sequence_pool", "relu", "softmax", "mean",
+           "topk", "sequence_pool", "relu", "matmul", "softmax", "mean",
            "reduce_sum",
            "sequence_first_step", "sequence_last_step", "sequence_reverse",
            "nested_sequence_flatten", "nested_sequence_pack",
@@ -640,6 +640,17 @@ def _unary(op_type):
 
 
 relu = _unary("relu")
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": x, "Y": y},
+                     outputs={"Out": out},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
 
 
 def softmax(input, axis=-1, name=None):

@@ -4,11 +4,14 @@ token-serving engine.
 The port's copy of ``paddle_tpu/models/transformer.py`` (reference model:
 python/paddle/fluid/tests/unittests/transformer_model.py). ``build_train``
 builds the NMT train step — forward, backward and Adam — with the same
-ops, attrs and var names as the JAX package; multi-head attention runs
-through the fused scaled_dot_product_attention op. The JAX package's
-"composed" matmul/softmax chain and distributed embedding are not
-ported; context parallelism (``seq_axis``) and ``tp_param_specs`` need
-a mesh and are not ported either.
+ops, attrs and var names as the JAX package. Multi-head attention runs
+through the fused scaled_dot_product_attention op, or with
+``attention_impl="composed"`` through the user-level matmul -> (+mask)
+-> softmax -> matmul chain that the rewrite pipeline's attention
+outlining (analysis/rewrite.py) turns back into that op. The JAX
+package's distributed embedding is not ported; context parallelism
+(``seq_axis``) and ``tp_param_specs`` need a mesh and are not ported
+either.
 
 The decoder LM's three modes share one parameter set:
 
@@ -44,11 +47,14 @@ KV_CACHE_PREFIX = "kv_cache."
 
 
 def multi_head_attention(q_in, k_in, v_in, d_model, n_head, mask=None,
-                         dropout_rate=0.0, causal=False):
-    """Appends the single scaled_dot_product_attention op (the JAX
-    package's "fused" impl). The "tp_col_*"/"tp_row_*" name prefixes are
-    the JAX package's Megatron pairing marks; the port keeps them so
-    parameter names agree."""
+                         dropout_rate=0.0, causal=False,
+                         attention_impl="fused"):
+    """attention_impl="fused" appends the single
+    scaled_dot_product_attention op; "composed" builds the user-level
+    matmul -> (+mask) -> softmax -> matmul chain instead, the program
+    shape the rewrite pipeline's attention outlining exists for. The
+    "tp_col_*"/"tp_row_*" name prefixes are the JAX package's Megatron
+    pairing marks; the port keeps them so parameter names agree."""
     d_key = d_model // n_head
     q = layers.fc(q_in, size=d_model, num_flatten_dims=2,
                   bias_attr=False, name="tp_col_qkv")
@@ -62,8 +68,20 @@ def multi_head_attention(q_in, k_in, v_in, d_model, n_head, mask=None,
         reshaped = layers.reshape(x, [0, 0, n_head, d_key])
         return layers.transpose(reshaped, [0, 2, 1, 3])
 
-    ctx_v = _sdpa_op(split_heads(q), split_heads(k), split_heads(v), mask,
-                     causal)
+    qh, kh, vh = split_heads(q), split_heads(k), split_heads(v)
+    if attention_impl == "composed":
+        if causal:
+            raise ValueError(
+                "attention_impl='composed' expresses causality and "
+                "padding through the additive mask only; use the fused "
+                "impl for the causal-attr / context-parallel paths")
+        scores = layers.matmul(qh, kh, transpose_y=True,
+                               alpha=float(1.0 / np.sqrt(d_key)))
+        if mask is not None:
+            scores = layers.elementwise_add(scores, mask)
+        ctx_v = layers.matmul(layers.softmax(scores), vh)
+    else:
+        ctx_v = _sdpa_op(qh, kh, vh, mask, causal)
     merged = layers.transpose(ctx_v, [0, 2, 1, 3])
     merged = layers.reshape(merged, [0, 0, d_model])
     out = layers.fc(merged, size=d_model, num_flatten_dims=2,
@@ -87,20 +105,25 @@ def _add_norm(x, y, d_model):
                              begin_norm_axis=2)
 
 
-def encoder_layer(x, d_model, n_head, d_inner, mask=None, dropout=0.0):
-    attn = multi_head_attention(x, x, x, d_model, n_head, mask, dropout)
+def encoder_layer(x, d_model, n_head, d_inner, mask=None, dropout=0.0,
+                  attention_impl="fused"):
+    attn = multi_head_attention(x, x, x, d_model, n_head, mask, dropout,
+                                attention_impl=attention_impl)
     x = _add_norm(x, attn, d_model)
     f = ffn(x, d_model, d_inner, dropout)
     return _add_norm(x, f, d_model)
 
 
 def decoder_layer(x, enc_out, d_model, n_head, d_inner, self_mask=None,
-                  cross_mask=None, dropout=0.0, self_causal=False):
+                  cross_mask=None, dropout=0.0, self_causal=False,
+                  attention_impl="fused"):
     self_attn = multi_head_attention(x, x, x, d_model, n_head, self_mask,
-                                     dropout, causal=self_causal)
+                                     dropout, causal=self_causal,
+                                     attention_impl=attention_impl)
     x = _add_norm(x, self_attn, d_model)
     cross = multi_head_attention(x, enc_out, enc_out, d_model, n_head,
-                                 cross_mask, dropout)
+                                 cross_mask, dropout,
+                                 attention_impl=attention_impl)
     x = _add_norm(x, cross, d_model)
     f = ffn(x, d_model, d_inner, dropout)
     return _add_norm(x, f, d_model)
@@ -135,14 +158,14 @@ def _pad_attn_mask(ids, pad_id=0):
 def transformer(src_ids, trg_ids, trg_labels, pos_src, pos_trg,
                 src_vocab=10000, trg_vocab=10000, max_len=64, n_layer=2,
                 n_head=8, d_model=512, d_inner=2048, dropout=0.0,
-                causal_mask=None, pad_id=0):
+                causal_mask=None, pad_id=0, attention_impl="fused"):
     """Encoder-decoder forward and the pad-masked mean token loss.
     Returns (loss [1], logits [b, t, trg_vocab])."""
     src_mask = _pad_attn_mask(src_ids, pad_id)
     enc = embed(src_ids, src_vocab, d_model, max_len, pos_src)
     for _ in range(n_layer):
         enc = encoder_layer(enc, d_model, n_head, d_inner, src_mask,
-                            dropout)
+                            dropout, attention_impl=attention_impl)
     dec = embed(trg_ids, trg_vocab, d_model, max_len, pos_trg)
     self_mask = causal_mask
     if causal_mask is not None:
@@ -150,7 +173,8 @@ def transformer(src_ids, trg_ids, trg_labels, pos_src, pos_trg,
         self_mask = layers.elementwise_add(trg_mask, causal_mask)
     for _ in range(n_layer):
         dec = decoder_layer(dec, enc, d_model, n_head, d_inner,
-                            self_mask, src_mask, dropout)
+                            self_mask, src_mask, dropout,
+                            attention_impl=attention_impl)
     logits = layers.fc(dec, size=trg_vocab, num_flatten_dims=2)
     tok_loss = layers.softmax_with_cross_entropy(logits, trg_labels)
     # Average only over non-pad target positions.
@@ -166,11 +190,13 @@ def transformer(src_ids, trg_ids, trg_labels, pos_src, pos_trg,
 
 
 def build_train(src_vocab=10000, trg_vocab=10000, max_len=64, n_layer=2,
-                n_head=8, d_model=512, d_inner=2048, lr=1e-3):
+                n_head=8, d_model=512, d_inner=2048, lr=1e-3,
+                attention_impl="fused"):
     """The NMT train step: (main, startup, {"loss": loss}). Feeds:
     src_ids, trg_ids, trg_labels [b, max_len, 1] int64 (0 is the pad
     id) and pos_ids [max_len] int64. The decoder's self-attention mask
-    is the target pad mask plus an assigned triu(-1e9) causal bias."""
+    is the target pad mask plus an assigned triu(-1e9) causal bias.
+    attention_impl: "fused" or "composed" (multi_head_attention)."""
     main, startup = framework.Program(), framework.Program()
     with framework.program_guard(main, startup):
         src = layers.data("src_ids", [max_len, 1], dtype="int64")
@@ -182,7 +208,8 @@ def build_train(src_vocab=10000, trg_vocab=10000, max_len=64, n_layer=2,
             np.triu(np.full((max_len, max_len), -1e9, np.float32), k=1))
         loss, _logits = transformer(src, trg, lbl, pos, pos, src_vocab,
                                     trg_vocab, max_len, n_layer, n_head,
-                                    d_model, d_inner, causal_mask=causal)
+                                    d_model, d_inner, causal_mask=causal,
+                                    attention_impl=attention_impl)
         opt.AdamOptimizer(learning_rate=lr).minimize(loss)
     return main, startup, {"loss": loss}
 

@@ -8,3 +8,4 @@ from . import cache_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
+from . import fusion_ops  # noqa: F401

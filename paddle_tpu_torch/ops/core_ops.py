@@ -193,6 +193,12 @@ def vjp_leaves(names, values, need_grad):
     return env, leaves, wrapped
 
 
+def _aval(t) -> str:
+    """A tensor's type as JAX prints an abstract value: float32[2,3]."""
+    return f"{str(t.dtype).replace('torch.', '')}[" \
+        f"{','.join(str(int(d)) for d in t.shape)}]"
+
+
 def vjp_grads(outs, grad_out_names, out_grads, leaves, wrapped,
               retain_graph=False):
     """Pull the cotangents `out_grads` of the outputs `grad_out_names` of
@@ -200,6 +206,16 @@ def vjp_grads(outs, grad_out_names, out_grads, leaves, wrapped,
     vjp_leaves' env) back to the leaves: one gradient a leaf, zeros for
     a leaf the outputs do not depend on (as jax.vjp gives), ragged with
     its lengths where the leaf stood for a ragged value."""
+    for n, g in zip(grad_out_names, out_grads):
+        y, ct = _dense(outs[n]), _dense(g)
+        if tuple(y.shape) != tuple(ct.shape):
+            # jax.vjp's refusal, word for word (the verifier's re-run of
+            # a __vjp__ op's inference records it, as the reference's does)
+            raise ValueError(
+                "unexpected JAX type (e.g. shape/dtype) for argument to "
+                f"VJP function: got {_aval(ct)}, but expected {_aval(y)} "
+                "because the corresponding output of the differentiated "
+                f"function had JAX type {_aval(y)}")
     with torch.enable_grad():
         pairs = [(_dense(outs[n]), _dense(g))
                  for n, g in zip(grad_out_names, out_grads)

@@ -1,5 +1,5 @@
 """Math ops: elementwise (with the reference's axis broadcast), mul,
-reduce_sum, mean, activations, clipping, comparisons and logical ops,
+matmul, reduce_sum, mean, activations, clipping, comparisons and logical ops,
 arg_max.
 
 The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops its
@@ -102,6 +102,26 @@ def _mul(ctx):
             f"shape, got ({x2.shape[1]},) and ({y2.shape[0]},).")
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     ctx.set_output("Out", _mxu_matmul(x2, y2).reshape(out_shape))
+
+
+@register_op("matmul")
+def _matmul(ctx):
+    """The reference's `matmul` op (matmul_op.cc): optional transposes
+    of the last two axes, a batched product broadcast over the leading
+    ones, then `alpha` (after the product, as the reference scales: under
+    AMP that is the bf16 result times alpha). Its gradient is the
+    generic ``__vjp__``."""
+    x = ctx.input("X")
+    y = ctx.input("Y")
+    if ctx.attr("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = _mxu_matmul(x, y)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.set_output("Out", out)
 
 
 @register_op("reduce_sum")

@@ -2,10 +2,11 @@
 decode-step / re-forward baseline), pinned weights, and KV-cache state
 in a private scope, on one torch device.
 
-The port's copy of ``paddle_tpu/serving/generation/model.py``. Not
-ported yet: static verification at build (``_verify``, needs the
-analysis package), ``load``/``save`` of artifacts, and the cost/memory
-reports.
+The port's copy of ``paddle_tpu/serving/generation/model.py``, with its
+static verification of every program at build (``_verify``, analysis/).
+Not ported yet: ``load``/``save`` of artifacts, and the per-engine
+publication of the cost and memory reports (observability/, ROADMAP
+A11; the executor keeps them, ``executor.last_cost``/``last_memory``).
 """
 from __future__ import annotations
 
@@ -97,6 +98,7 @@ class GenerationModel:
         self._run_lock = threading.Lock()
         self.cache_names = kv_cache_names(spec.n_layer)
         self._check_frozen()
+        self._verify()
         with self._run_lock:
             self.executor.run(programs["startup"], scope=self.scope)
 
@@ -135,6 +137,22 @@ class GenerationModel:
                 f"non-cache persistable vars: {offenders}")
 
     # ------------------------------------------------------------------
+    def _verify(self):
+        """Static verification of every program at build (startup
+        included, so the cache vars' zero-fill satisfies the
+        uninit-persistable pass). Honors PADDLE_TPU_VERIFY=0."""
+        from ...analysis import verify_enabled, verify_program
+        if not verify_enabled():
+            return
+        for mode in ("prefill", "decode", "full"):
+            for bucket, lm in self.programs[mode].items():
+                verify_program(
+                    lm.main, startup=lm.startup,
+                    feed_names=lm.feed_names,
+                    fetch_names=[lm.fetch_name],
+                    program_label=f"generation {mode}[{bucket}]",
+                ).raise_if_errors(context="GenerationModel load")
+
     def run(self, lm, feed, fetch_names) -> List[np.ndarray]:
         """Run one program of the set under the model's lock and return
         the named fetches as numpy arrays."""

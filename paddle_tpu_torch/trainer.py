@@ -10,15 +10,16 @@ the event loop, asynchronous dispatch with lazy cost fetches,
 (distributed/checkpoint.py) and test() evaluation live here on the
 host.
 
-Not ported yet: the setup verification gate (ROADMAP A6), the metrics,
-trace spans and attribution the JAX Trainer publishes while its metrics
-registry is enabled (A11; the port runs the loop as the JAX package
-does with the registry disabled), and StreamingInputService readers
-(A11). Each refuses with NotImplementedError where it is asked for.
+The (main, startup) pair is verified once at setup, as the JAX
+Trainer does (analysis/, PADDLE_TPU_VERIFY, on by default). Not ported
+yet: the metrics, trace spans and attribution the JAX Trainer publishes
+while its metrics registry is enabled (A11; the port runs the loop as
+the JAX package does with the registry disabled), and
+StreamingInputService readers (A11). Each refuses with
+NotImplementedError where it is asked for.
 """
 from __future__ import annotations
 
-import os
 import warnings
 from collections import deque
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
@@ -143,15 +144,33 @@ class Trainer:
         self.last_checkpoint_error = None
 
     def _verify_programs(self):
-        """The JAX Trainer verifies the (main, startup) pair at setup
-        unless PADDLE_TPU_VERIFY=0. The port has no verifier yet: it runs
-        as the JAX Trainer does under PADDLE_TPU_VERIFY=0, and refuses
-        when the environment asks for the gate."""
-        if os.environ.get("PADDLE_TPU_VERIFY", "0") != "0":
-            raise NotImplementedError(
-                "PADDLE_TPU_VERIFY is set: the Trainer's setup "
-                "verification gate is not ported yet (ROADMAP A6); unset "
-                "it or set it to 0")
+        """Static verification of the (main, startup) pair, once at
+        setup — the only gate that sees BOTH programs, so it is where
+        uninitialized-persistable detection runs (a param the startup
+        program never writes fails here with the var named, instead of
+        as a scope KeyError mid-run). Uses the cheap no-retrace shape
+        pass: trainer programs come from the layer calls, which already
+        stamped coverage/conflict markers. PADDLE_TPU_VERIFY=0 opts
+        out."""
+        from .analysis import verify_enabled, verify_program
+        from .analysis.passes import fast_passes
+        if not verify_enabled():
+            return
+        fetch = [self.loss.name] + [getattr(v, "name", str(v))
+                                    for v in self.fetch_metrics.values()]
+        feeds = [v.name for v in self._feeder.feed_vars] \
+            if self._feeder is not None else None
+        verify_program(
+            self.main_program, startup=self.startup_program,
+            feed_names=feeds, fetch_names=fetch,
+            donate=getattr(self.exe, "donate_state", False),
+            # train() always dispatches sync=False: a donated-fetch
+            # hazard in fetch_metrics must fail HERE, not on the first
+            # step after startup + checkpoint restore already ran
+            async_dispatch=True,
+            passes=fast_passes(with_uninit=True),
+            program_label="trainer main program",
+        ).raise_if_errors(context="Trainer setup")
 
     # -- lifecycle --------------------------------------------------------
     def start(self, resume: bool = True):

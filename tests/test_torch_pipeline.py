@@ -260,7 +260,8 @@ def test_stacked_feed_validation(kw, feed_of, match):
     exe.run(startup)
     feed = {"stacked": stacked, "single": batches[0],
             "ragged": {"img": LoDTensor.from_sequences(
-                [np.zeros((2, 1), np.float32)] * 2)}}[feed_of]
+                [np.zeros((2, 1), np.float32)] * 2),
+                "label": stacked["label"]}}[feed_of]
     with pytest.raises(ValueError, match=match):
         exe.run(main, feed=feed, fetch_list=[loss], **kw)
 
