@@ -240,12 +240,30 @@ launch counts include what every graph replay launches.
      the largest static memory plan beside the card's peak allocation,
      and the cost model's FLOPs a step of its largest key (phase 20's
      arms also at their step time).
- 21. JSON lines of the kernels, serving, the three earlier trainings,
+ 21. slice 20: (a) control flow under AMP: phase 19's MT and
+     dyn_rnn_lstm at phase 19's width under amp_guard(), compiled
+     against eager bit for bit, the MT's bf16 fused-LSTM kernels exactly
+     1 + 1 a compiled step (A4C_LAUNCHES), the step-1 loss against phase
+     19's float32 arm by phase 16's rule, every loop carry's dtype at
+     every pass printed (one dtype each); (b) the image models bench.py
+     runs (SE-ResNeXt-152 at batch 12, GoogLeNet without its auxiliary
+     heads and AlexNet with lrn at batch 128, 3x224x224), float32 and
+     AMP, each compiled against eager bit for bit with ms a step, busy
+     share and peak memory beside the static memory plan, no hand kernel
+     launched (cuDNN convolutions); fuse_se outlines no gate of
+     SE-ResNeXt-152's training program and 50 of its inference program,
+     whose predictions with the pipeline on and off are held (SE_F32_ATOL
+     and the AMP rule) and timed; (c) four chapters of the Fluid book on
+     the port's dataset readers, card losses against the port's CPU run
+     (BOOK_FIRST_RTOL, BOOK_LATER_RTOL), and each chapter's save / load
+     round trip on the card bit for bit.
+ 22. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
      micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
      16 (`rnn_amp`), phase 17 (`optimizers`), phase 18
-     (`sequence_models`), phase 19 (`control_flow`) and phase 20
-     (`rewrite`), then, last, the JSON result line.
+     (`sequence_models`), phase 19 (`control_flow`), phase 20
+     (`rewrite`) and phase 21 (`slice20`), then, last, the JSON result
+     line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -845,6 +863,63 @@ REWRITE_2X2_SITES = 6
 # largest cache bucket
 GATE_ROUNDS = 4
 GATE_DECODE_STEPS = 20
+
+# phase 21, slice 20. (a) Control flow under AMP: phase 19's MT and
+# dyn_rnn_lstm programs at phase 19's width and feeds under amp_guard():
+# compiled against eager bit for bit (phase 14's rule, CF_CVE_STEPS
+# steps), the MT's bf16 fused-LSTM kernels exactly A4C_LAUNCHES a compiled
+# step (no float32 LSTM launch), the step-1 loss within RNN_AMP_LOSS_RTOL
+# of phase 19's float32 arm on the same weights and feed (phase 16's
+# rule), and the dtype of every loop carry at every pass printed.
+A4C_LAUNCHES = {"mt": {"fused_lstm_fwd_bf16": 1.0,
+                       "fused_lstm_bwd_bf16": 1.0},
+                "dyn_rnn_lstm": {}}
+# (b) The image models bench.py runs that the port lacked, at bench.py's
+# batch and shape (bench.py:534-575; 1000 classes, 3x224x224, Momentum
+# 0.9): SE-ResNeXt-152 (counts (3, 8, 36, 3), cardinality 32, lr 0.1) at
+# batch 12, GoogLeNet without its auxiliary heads (bench.py's protocol,
+# lr 0.01) and AlexNet with lrn (lr 0.01) at batch 128. Each in float32
+# and under amp_guard(): IMAGE_STEPS steps of the eager and the compiled
+# executor (phase 14's rule: bit for bit; CVE_WARM untimed, the rest
+# timed, IMAGE_PROFILED profiled), no hand-kernel launch (the convs go to
+# cuDNN, as the reference's go to XLA), ms a step, busy share and peak
+# memory beside the largest static memory plan of the arm's keys. Their
+# dropout keeps the compiled keys from a CUDA graph.
+IMAGE_MODELS = {"se_resnext152": 12, "googlenet": 128, "alexnet": 128}
+IMAGE_SHAPE, IMAGE_CLASSES = (3, 224, 224), 1000
+IMAGE_STEPS, IMAGE_PROFILED = 4, 1
+# SE-ResNeXt-152's inference program (its trained program pruned to the
+# logits and cloned for_test, as io.save_inference_model freezes it;
+# every batch_norm's running statistics set to the batch's own, as a
+# trained network's would normalize it: calibrate_batch_norms) at batch
+# 12 with the pipeline on (fuse_se outlines one se_block a block:
+# SE_SITES) and off (the composed gates): the float32 logits within
+# SE_F32_ATOL of the largest, or RESNET_NOISE_FACTOR times how far
+# weights one ulp away move the composed logits where that is larger
+# (se_block sums the pool in another order than pool2d's window, and 50
+# gates and 155 batch_norms pass that on); under AMP the outlined logits
+# no farther from the composed ones than the composed AMP logits sit
+# from the float32 ones (2-norm); ms a batch of each, SE_TIMED runs after
+# two untimed. fuse_se outlines no gate of the training program: its
+# backward reads the intermediates.
+SE_SITES = 50
+SE_F32_ATOL = 1e-4
+SE_TIMED = 5
+# (c) Four chapters of the Fluid book (tests/test_book.py:47, :69, :96,
+# :122), each built as its chapter builds it, fed BOOK_BATCHES batches
+# from the port's dataset readers through reader.batch (the synthetic
+# corpora: DATA_HOME an empty directory) on the card and on the port's
+# CPU path from the same seeded weights: the first loss within rtol 1e-4
+# (phase 8's rule: cuDNN and cuBLAS sum in other orders than the CPU),
+# the later ones within BOOK_LATER_RTOL of the CPU's (Adam's first steps
+# move a weight whose gradient is within float noise of 0 by the
+# learning rate either way); then the chapter's save/load round trip on
+# the card, the reloaded model's output bit for bit the trained
+# program's pruned forward on the same feed.
+BOOK_BATCHES = 4
+BOOK_FIRST_RTOL = 1e-4
+BOOK_LATER_RTOL = {"fit_a_line": 1e-4, "recognize_digits": 1e-4,
+                   "image_classification": 1e-3, "word2vec": 1e-4}
 
 
 def card_line() -> str:
@@ -6365,6 +6440,510 @@ def train_rewrite(card):
     return summary, launches
 
 
+# -- phase 21: control flow under AMP, the image models, the book -------------
+
+def loop_carries(main):
+    """The names each loop op of `main` carries from pass to pass (a
+    DynamicRNN's or StaticRNN's memories as its body reads them, a
+    While's carried vars)."""
+    out = []
+    for blk in main.desc.blocks:
+        for op in blk.ops:
+            if op.type in ("dynamic_rnn", "static_rnn"):
+                out += op.attrs["mem_pre_names"]
+            elif op.type == "while":
+                out += op.attrs["carried_names"]
+    return out
+
+
+def carry_dtypes(main, startup, weights, feed, fetch):
+    """One eager step of `main` under AMP on the card with every loop
+    carry's dtype recorded at every pass: {carry: sorted dtypes seen}."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, amp, load_param_arrays
+    from paddle_tpu_torch.ops import control_flow_ops as cfo
+    seen = {n: set() for n in loop_carries(main)}
+    trace = cfo._trace_sub
+
+    def recording(ctx, block_idx, env):
+        for n, dts in seen.items():
+            if isinstance(env.get(n), torch.Tensor):
+                dts.add(str(env[n].dtype).replace("torch.", ""))
+        return trace(ctx, block_idx, env)
+
+    exe, scope = Executor(DEVICE, compiled=False), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    cfo._trace_sub = recording
+    try:
+        with amp.amp_guard():
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    finally:
+        cfo._trace_sub = trace
+    return {n: sorted(d) for n, d in seen.items()}
+
+
+def a4c_on_card(card, control_flow=None):
+    """Phase 21 (a): phase 19's programs under AMP (A4C_LAUNCHES);
+    `control_flow` is phase 19's summary, whose float32 arms ran the same
+    weights and first feed (None: one float32 step of each here).
+    Returns the part's summary and launches."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels
+    out, total = {}, {}
+    for name, want in A4C_LAUNCHES.items():
+        t1 = time.perf_counter()
+        main, startup, loss, _ = build_cf_program(name)
+        weights = seeded_weights(startup, seed=0)
+        feeds, info = cf_feeds(name)
+        with amp.amp_guard():
+            pair = cve_training_pair(f"{name} AMP", main, startup, loss,
+                                     weights, feeds, card,
+                                     steps=CF_CVE_STEPS, profiled=0)
+        for n, k in kernels.launch_counts().items():
+            if k:
+                total[n] = total.get(n, 0) + k
+        c = pair["compiled"]
+        launches = {n: k for n, k in c["launches_per_step"].items() if k}
+        print(f"[{card}] {name} AMP compiled launches a step {launches}",
+              flush=True)
+        if launches != want or not c["captured"]:
+            raise SystemExit(f"{name} AMP: launches a step {launches}, "
+                             f"expected {want}; captured {c['captured']}")
+        if control_flow:
+            f32, source = control_flow[name]["f32"]["losses"][0], "phase 19"
+        else:   # phase 21 run alone: one float32 step of its own
+            f32 = steps_arm(main, startup, loss, weights, feeds[0], [],
+                            card, f"{name} float32", 1)[0]["losses"][0]
+            source = "one float32 step"
+        rel = abs(c["losses"][0] - f32) / abs(f32)
+        print(f"[{card}] {name} AMP step-1 loss {c['losses'][0]:.6f} vs "
+              f"float32 {f32:.6f} ({source}; relative {rel:.3e}, limit "
+              f"{RNN_AMP_LOSS_RTOL})", flush=True)
+        if not rel <= RNN_AMP_LOSS_RTOL:
+            raise SystemExit(f"{name} AMP step-1 loss {c['losses'][0]} vs "
+                             f"float32 {f32}")
+        carries = carry_dtypes(main, startup, weights, feeds[0],
+                               [loss.name])
+        print(f"[{card}] {name} AMP loop carries, dtype at every pass: "
+              f"{carries}", flush=True)
+        if any(len(d) != 1 for d in carries.values()):
+            raise SystemExit(f"{name}: a carry changed dtype between "
+                             f"passes: {carries}")
+        out[name] = {"feed": info, "compiled_vs_eager": pair,
+                     "launches_per_step": launches,
+                     "loss_rel_to_f32": rel, "carry_dtypes": carries,
+                     "program_s": time.perf_counter() - t1}
+        del pair, main, startup, weights, feeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, total
+
+
+def build_image_model(name):
+    """(main, startup, fetches) of phase 21 (b)'s model `name` at
+    bench.py's configuration."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import alexnet, googlenet, resnet
+    kw = dict(class_dim=IMAGE_CLASSES, image_shape=IMAGE_SHAPE)
+    with framework.isolated_name_scope():
+        if name == "se_resnext152":
+            return resnet.build_se_resnext_train(
+                layers_counts=(3, 8, 36, 3), lr=0.1, **kw)
+        if name == "googlenet":
+            return googlenet.build_train(lr=0.01, with_aux=False, **kw)
+        return alexnet.build_train(lr=0.01, **kw)
+
+
+def static_plan(mark):
+    """The largest static memory plan (arena, ideal) of the keys planned
+    since MISS_LOG[mark], and the cost model's FLOPs a step of the
+    largest of them."""
+    plans = [r for r in MISS_LOG[mark:] if r["kind"] == "reports"
+             and r["peak_bytes"] is not None]
+    if not plans:
+        return None, None, None
+    top = max(plans, key=lambda r: r["peak_bytes"])
+    return top["peak_bytes"], top["ideal_peak_bytes"], \
+        max(r["flops"] or 0 for r in plans)
+
+
+def calibrate_batch_norms(main, startup, weights, img, scope):
+    """Set every batch_norm's running mean and variance in `scope` to the
+    statistics of `img` in one training-mode forward of `main` (pruned to
+    those statistics: no backward, no update) from `weights`, in a scope
+    of its own: the inference program then normalizes as a trained
+    network does. From
+    the initial statistics (mean 0, variance 1) the seeded SE-ResNeXt-152
+    grows its activations to ~1e4 and saturates its SE gates, and a 1e-7
+    change at gate 20 flips gates until the logits part by 90%
+    (measured on the CPU at 3x64x64)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, io, load_param_arrays
+    bns = [op for op in main.desc.global_block.ops
+           if op.type == "batch_norm"]
+    fetch = [n for op in bns for n in (op.output("SavedMean")[0],
+                                       op.output("SavedVariance")[0])]
+    exe, tmp = Executor(DEVICE), Scope()
+    exe.run(startup, scope=tmp)
+    load_param_arrays(tmp, weights)
+    got = exe.run(io._prune(main, ["img"], fetch), feed={"img": img},
+                  fetch_list=fetch, scope=tmp)
+    stats = {}
+    for i, op in enumerate(bns):
+        inv = np.asarray(got[2 * i + 1], np.float64)   # rsqrt(var + eps)
+        stats[op.input("Mean")[0]] = np.asarray(got[2 * i], np.float32)
+        stats[op.input("Variance")[0]] = (
+            1.0 / inv ** 2 - op.attrs.get("epsilon", 1e-5)).astype(np.float32)
+    for name, value in stats.items():
+        scope.set(name, torch.from_numpy(value).to(DEVICE))
+
+
+def se_inference(card, main, startup, f, weights, img):
+    """Phase 21 (b), SE-ResNeXt-152's gates: no gate outlined in the
+    training program; the inference program (calibrated: see
+    calibrate_batch_norms) with the pipeline on (exactly SE_SITES
+    se_block ops run) and off, float32 and AMP, held as SE_F32_ATOL says;
+    ms a batch of each."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, amp, io, load_param_arrays
+    from paddle_tpu_torch.analysis import rewrite
+    train = rewrite.rewrite_program(main, feed_names=["img", "label"],
+                                    fetch_names=[f["loss"].name])
+    if train.count("fuse_se") != 0:
+        raise SystemExit("fuse_se outlined a gate of the training program")
+    # the logits, before the softmax: from seeded weights the
+    # probabilities saturate
+    logits = next(op.input("X")[0] for op in main.desc.global_block.ops
+                  if op.type == "softmax"
+                  and op.output("Out") == [f["pred"].name])
+    infer = io._prune(main, ["img"], [logits]).inference_optimize()
+    params = [p.name for p in main.all_parameters()]
+    scopes = {}
+    for label, w in (("seeded", weights), ("nudged", _nudged(weights,
+                                                             params))):
+        scopes[label] = Scope()
+        Executor(DEVICE).run(startup, scope=scopes[label])
+        load_param_arrays(scopes[label], w)
+        calibrate_batch_norms(main, startup, w, img, scopes[label])
+    out, preds = {"train_outlined": 0}, {}
+    for prec, on, label in (("f32", "0", "seeded"), ("f32", "1", "seeded"),
+                            ("amp", "0", "seeded"), ("amp", "1", "seeded"),
+                            ("f32", "0", "nudged")):
+        with knob("PADDLE_TPU_OPTIMIZE", on), amp.amp_guard(prec == "amp"):
+            exe = Executor(DEVICE)
+            for _ in range(2):
+                got = exe.run(infer, feed={"img": img}, fetch_list=[logits],
+                              scope=scopes[label])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SE_TIMED):
+                got = exe.run(infer, feed={"img": img}, fetch_list=[logits],
+                              scope=scopes[label])
+            ms = (time.perf_counter() - t0) / SE_TIMED * 1e3
+        preds[(prec, on, label)] = np.asarray(got[0], np.float64)
+        if label == "nudged":
+            continue
+        sites = [op.type for blk in exe.last_compiled.program.blocks
+                 for op in blk.ops].count("se_block")
+        want = SE_SITES if on == "1" else 0
+        print(f"[{card}] SE-ResNeXt-152 inference, batch {len(img)}, "
+              f"{prec}, pipeline {'on' if on == '1' else 'off'}: "
+              f"{sites} se_block ops, {ms:.2f} ms a batch", flush=True)
+        if sites != want:
+            raise SystemExit(f"SE-ResNeXt-152 inference ran {sites} "
+                             f"se_block ops, expected {want}")
+        out[f"{prec}_{'on' if on == '1' else 'off'}_ms"] = ms
+    off = preds[("f32", "0", "seeded")]
+    f32_gap = float(np.abs(preds[("f32", "1", "seeded")] - off).max())
+    noise = float(np.abs(preds[("f32", "0", "nudged")] - off).max())
+    limit = max(SE_F32_ATOL * float(np.abs(off).max()),
+                RESNET_NOISE_FACTOR * noise)
+    amp_gap = float(np.linalg.norm(preds[("amp", "1", "seeded")]
+                                   - preds[("amp", "0", "seeded")]))
+    amp_dist = float(np.linalg.norm(preds[("amp", "0", "seeded")] - off))
+    print(f"[{card}] SE-ResNeXt-152 inference logits, outlined vs "
+          f"composed: float32 max |diff| {f32_gap:.3e} of max "
+          f"{np.abs(off).max():.3e} (limit {limit:.3e}; weights one ulp "
+          f"away move the composed logits {noise:.3e}; "
+          f"{'bit for bit' if f32_gap == 0 else 'other summation order'}"
+          f"); AMP 2-norm {amp_gap:.3e} vs the composed AMP arm's "
+          f"distance from float32 {amp_dist:.3e}", flush=True)
+    if not f32_gap <= limit or not amp_gap <= amp_dist:
+        raise SystemExit(f"SE-ResNeXt-152 outlined vs composed: float32 "
+                         f"{f32_gap} (limit {limit}), AMP {amp_gap} (limit "
+                         f"{amp_dist})")
+    out.update(sites=SE_SITES, f32_max_abs_diff=f32_gap,
+               f32_nudge_max_abs_diff=noise, f32_limit=limit,
+               amp_norm_diff=amp_gap, amp_norm_to_f32=amp_dist)
+    return out
+
+
+def image_models_on_card(card):
+    """Phase 21 (b): IMAGE_MODELS at bench.py's batch and shape, float32
+    and AMP, compiled against eager; SE-ResNeXt-152's gates
+    (se_inference). Launch counts set to 0 just before each arm pair and
+    read just after: no hand kernel launches here."""
+    import gc
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels
+    out = {}
+    for name, batch in IMAGE_MODELS.items():
+        t1 = time.perf_counter()
+        main, startup, f = build_image_model(name)
+        weights = seeded_weights(startup, seed=0)
+        params = [p.name for p in main.all_parameters()]
+        rng = np.random.RandomState(4)
+        feeds = [{"img": rng.rand(batch, *IMAGE_SHAPE).astype(np.float32),
+                  "label": rng.randint(0, IMAGE_CLASSES, (batch, 1))
+                  .astype(np.int64)} for _ in range(2)]
+        res = {"batch": batch, "ops": len(main.desc.global_block.ops),
+               "parameters": sum(weights[p].size for p in params),
+               "build_s": time.perf_counter() - t1}
+        print(f"[{card}] {name}: {res['ops']} ops, {res['parameters']} "
+              f"parameters, batch {batch}, built on the host in "
+              f"{res['build_s']:.2f} s", flush=True)
+        for prec in ("f32", "amp"):
+            mark = len(MISS_LOG)
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with amp.amp_guard(prec == "amp"):
+                pair = cve_training_pair(f"{name} {prec}", main, startup,
+                                         f["loss"], weights, feeds, card,
+                                         steps=IMAGE_STEPS,
+                                         profiled=IMAGE_PROFILED)
+            torch.cuda.synchronize()
+            launched = {n: k for n, k in kernels.launch_counts().items()
+                        if k}
+            if launched:
+                raise SystemExit(f"{name} {prec} launched {launched}; no "
+                                 "op dispatches a hand kernel there")
+            arena, ideal, flops = static_plan(mark)
+            c = pair["compiled"]
+            print(f"[{card}] {name} {prec}: compiled {c['step_ms']:.2f} ms "
+                  f"a step ({batch * 1e3 / c['step_ms']:.1f} images/s; cost "
+                  f"model {flops / 1e12:.3f} TFLOP a step, "
+                  f"{flops / c['step_ms'] / 1e9:.1f} TFLOP/s), "
+                  f"{100 * c['busy']:.1f}% busy, peak "
+                  f"{c['peak_bytes'] / 2**30:.3f} GiB beside the static "
+                  f"plan {arena / 2**30:.3f} GiB arena / "
+                  f"{ideal / 2**30:.3f} GiB ideal; eager "
+                  f"{pair['eager']['step_ms']:.2f} ms; no hand kernel ran "
+                  "(convs on cuDNN, no op dispatches fused_conv)",
+                  flush=True)
+            res[prec] = {"compiled_vs_eager": pair,
+                         "static_plan_bytes": arena,
+                         "static_ideal_bytes": ideal,
+                         "cost_model_flops": flops,
+                         "images_per_s": batch * 1e3 / c["step_ms"]}
+            gc.collect()
+            torch.cuda.empty_cache()
+        if name == "se_resnext152":
+            res["gates"] = se_inference(card, main, startup, f, weights,
+                                        feeds[0]["img"])
+        res["program_s"] = time.perf_counter() - t1
+        out[name] = res
+        del main, startup, weights, feeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_chapter(name):
+    """Phase 21 (c)'s chapter `name` on the port, as tests/test_book.py
+    builds it: (main, startup, loss, batches(), feed names, target,
+    probe feed)."""
+    from paddle_tpu_torch import (ParamAttr, dataset, framework, layers,
+                                  optimizer, reader)
+    from paddle_tpu_torch.models import resnet
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        if name == "fit_a_line":
+            x = layers.data("x", [13])
+            y = layers.data("y", [1])
+            target = layers.fc(x, size=1)
+            loss = layers.mean(layers.square_error_cost(target, y))
+            optimizer.SGDOptimizer(learning_rate=0.01).minimize(loss)
+
+            def batches():
+                for b in reader.batch(dataset.uci_housing.train(), 32)():
+                    yield {"x": np.stack([s[0] for s in b]),
+                           "y": np.stack([s[1] for s in b])}
+            return main, startup, loss, batches, ["x"], target, \
+                {"x": np.zeros((4, 13), np.float32)}
+        if name == "recognize_digits":
+            img = layers.data("img", [784])
+            label = layers.data("label", [1], dtype="int64")
+            x = layers.reshape(img, [-1, 1, 28, 28])
+            x = layers.conv2d(x, num_filters=8, filter_size=5, act="relu")
+            x = layers.pool2d(x, pool_size=2, pool_stride=2)
+            target = layers.fc(x, size=10)
+            loss = layers.mean(layers.softmax_with_cross_entropy(target,
+                                                                 label))
+            layers.accuracy(layers.softmax(target), label)
+            optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+
+            def batches():
+                for b in reader.batch(dataset.mnist.train(), 32)():
+                    yield {"img": np.stack([s[0] for s in b]),
+                           "label": np.array([[s[1]] for s in b],
+                                             np.int64)}
+            return main, startup, loss, batches, ["img"], target, \
+                {"img": np.zeros((2, 784), np.float32)}
+        if name == "image_classification":
+            img = layers.data("img", [3, 32, 32])
+            label = layers.data("label", [1], dtype="int64")
+            target = resnet.resnet_cifar10(img, class_dim=10, depth=20)
+            loss = layers.mean(layers.softmax_with_cross_entropy(target,
+                                                                 label))
+            optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+
+            def batches():
+                for b in reader.batch(dataset.cifar.train10(), 16)():
+                    yield {"img": np.stack([s[0].reshape(3, 32, 32)
+                                            for s in b]),
+                           "label": np.array([[s[1]] for s in b],
+                                             np.int64)}
+            return main, startup, loss, batches, ["img"], target, \
+                {"img": np.zeros((2, 3, 32, 32), np.float32)}
+        n = dataset.imikolov.N
+        dict_size = len(dataset.imikolov.build_dict())
+        words = [layers.data(f"w{i}", [1], dtype="int64")
+                 for i in range(n - 1)]
+        nxt = layers.data("target", [1], dtype="int64")
+        embs = [layers.embedding(w, size=[dict_size, 32],
+                                 param_attr=ParamAttr(name="shared_emb"))
+                for w in words]
+        hidden = layers.fc(layers.concat(embs, axis=1), size=64, act="relu")
+        target = layers.fc(hidden, size=dict_size)
+        loss = layers.mean(layers.softmax_with_cross_entropy(target, nxt))
+        optimizer.AdamOptimizer(learning_rate=5e-3).minimize(loss)
+
+        def batches():
+            for b in reader.batch(dataset.imikolov.train(), 64)():
+                f = {f"w{i}": np.array([[s[i]] for s in b], np.int64)
+                     for i in range(n - 1)}
+                f["target"] = np.array([[s[n - 1]] for s in b], np.int64)
+                yield f
+        return main, startup, loss, batches, \
+            [f"w{i}" for i in range(n - 1)], target, \
+            {f"w{i}": np.zeros((2, 1), np.int64) for i in range(n - 1)}
+
+
+def book_on_card(card):
+    """Phase 21 (c): the four chapters on the card against the port's CPU
+    path (BOOK_FIRST_RTOL, BOOK_LATER_RTOL), then each chapter's save /
+    load round trip on the card. Launch counts set to 0 just before and
+    read just after: no hand kernel launches here."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import (Executor, Scope, dataset, io,
+                                  load_param_arrays, scope_guard)
+    from paddle_tpu_torch.ops import kernels
+    out = {}
+    kernels.reset_launch_counts()
+    saved_home = dataset.common.DATA_HOME
+    with tempfile.TemporaryDirectory() as tmp:
+        # the synthetic corpora, whatever a cache under HOME holds
+        dataset.common.DATA_HOME = os.path.join(tmp, "data_home")
+        try:
+            for name in BOOK_LATER_RTOL:
+                t1 = time.perf_counter()
+                main, startup, loss, batches, feed_names, target, probe = \
+                    build_chapter(name)
+                weights = seeded_weights(startup, seed=0)
+                feeds = [b for _, b in zip(range(BOOK_BATCHES), batches())]
+                losses, ms = {}, {}
+                for device in (DEVICE, "cpu"):
+                    exe, scope = Executor(device), Scope()
+                    exe.run(startup, scope=scope)
+                    load_param_arrays(scope, weights)
+                    losses[device] = []
+                    step_ms = []
+                    for feed in feeds:
+                        t2 = time.perf_counter()
+                        (lv,) = exe.run(main, feed=feed,
+                                        fetch_list=[loss.name], scope=scope)
+                        step_ms.append((time.perf_counter() - t2) * 1e3)
+                        losses[device].append(float(np.asarray(lv)
+                                                    .reshape(-1)[0]))
+                    # after the key's first run and its capture
+                    ms[device] = _median_ms(step_ms)
+                    if device == DEVICE:
+                        card_exe, card_scope = exe, scope
+                card_l, cpu_l = (np.asarray(losses[d]) for d in (DEVICE,
+                                                                 "cpu"))
+                rel = np.abs(card_l - cpu_l) / np.abs(cpu_l)
+                print(f"[{card}] book {name}: card losses "
+                      f"{[round(float(v), 6) for v in card_l]} vs CPU "
+                      f"{[round(float(v), 6) for v in cpu_l]} (relative "
+                      f"{rel.max():.3e}); {ms[DEVICE]:.2f} ms a batch on "
+                      "the card", flush=True)
+                if not (np.all(np.isfinite(card_l))
+                        and rel[0] <= BOOK_FIRST_RTOL
+                        and np.all(rel[1:] <= BOOK_LATER_RTOL[name])):
+                    raise SystemExit(f"book {name}: card {card_l} vs CPU "
+                                     f"{cpu_l}")
+                d = os.path.join(tmp, name)
+                with scope_guard(card_scope):
+                    io.save_inference_model(d, feed_names, [target],
+                                            card_exe, main_program=main)
+                    prog, names, fetches = io.load_inference_model(
+                        d, card_exe)
+                    got = card_exe.run(prog, feed=probe, fetch_list=fetches)
+                forward = io._prune(main, feed_names, [target.name]) \
+                    .inference_optimize()
+                want = card_exe.run(forward, feed=probe,
+                                    fetch_list=[target.name],
+                                    scope=card_scope)
+                if names != feed_names or \
+                        got[0].tobytes() != want[0].tobytes():
+                    raise SystemExit(f"book {name}: the reloaded model's "
+                                     f"output differs from the trained "
+                                     f"program's forward")
+                print(f"[{card}] book {name}: saved, reloaded, output "
+                      f"{tuple(got[0].shape)} bit for bit the trained "
+                      "program's forward", flush=True)
+                out[name] = {"card_losses": losses[DEVICE],
+                             "cpu_losses": losses["cpu"],
+                             "max_rel_diff": float(rel.max()),
+                             "card_ms_per_batch": ms[DEVICE],
+                             "cpu_ms_per_batch": ms["cpu"],
+                             "program_s": time.perf_counter() - t1}
+        finally:
+            dataset.common.DATA_HOME = saved_home
+    torch.cuda.synchronize()
+    launched = {n: k for n, k in kernels.launch_counts().items() if k}
+    if launched:
+        raise SystemExit(f"the book chapters launched {launched}; no op "
+                         "dispatches a hand kernel there")
+    return out
+
+
+def train_slice20(card, control_flow=None):
+    """Phase 21: (a) control flow under AMP, (b) the image models, (c) the
+    book's chapters; `control_flow` is phase 19's summary (None when the
+    phase runs alone). Returns the phase's summary and its launches
+    (those of (a); (b) and (c) launch none, each checked)."""
+    t0 = time.perf_counter()
+    summary = {"card": card}
+    summary["control_flow_amp"], launches = a4c_on_card(card, control_flow)
+    t1 = time.perf_counter()
+    summary["image_models"] = image_models_on_card(card)
+    t2 = time.perf_counter()
+    summary["book"] = book_on_card(card)
+    summary["phase_s"] = time.perf_counter() - t0
+    summary["part_s"] = {"a": t1 - t0, "b": t2 - t1,
+                         "c": summary["phase_s"] - (t2 - t0)}
+    print(f"[{card}] phase 21: {summary['phase_s']:.1f} s "
+          f"({summary['part_s']}); launches {launches}", flush=True)
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6531,10 +7110,14 @@ def main() -> int:
     # -- 20. the rewrite pipeline: composed NMT, its cost, the gate ----------
     enter("train_rewrite")
     rewrite, rewrite_launches = train_rewrite(card)
+
+    # -- 21. control flow under AMP, the image models, the book chapters -----
+    enter("slice20")
+    slice20, slice20_launches = train_slice20(card, control_flow)
     enter("done")
     rewrite["paths"] = rewrite_paths
 
-    # -- 21. result lines ------------------------------------------------------
+    # -- 22. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -6555,7 +7138,8 @@ def main() -> int:
                       "rnn_amp_training": rnn_amp_launches.get(name, 0),
                       "sequence_models": seq_launches.get(name, 0),
                       "control_flow": cf_launches.get(name, 0),
-                      "train_rewrite": rewrite_launches.get(name, 0)}
+                      "train_rewrite": rewrite_launches.get(name, 0),
+                      "slice20": slice20_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -6738,6 +7322,7 @@ def main() -> int:
     print(json.dumps({"sequence_models": sequence_models}))
     print(json.dumps({"control_flow": control_flow}))
     print(json.dumps({"rewrite": rewrite}, default=float))
+    print(json.dumps({"slice20": slice20}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,8 +21,9 @@ IfElse and While programs (ops/control_flow_ops.py runs them, an
 unbounded While's gradient through the executor's probe-and-replay
 WhileGrad). analysis/ verifies programs, prices them (cost model,
 memory plan) and rewrites them (outlining a composed attention chain
-onto the flash kernels) before the executors run them. It imports
-neither jax nor paddle_tpu.
+onto the flash kernels) before the executors run them. dataset/ gives
+the book's corpora (synthetic with the real schema unless the files are
+under its DATA_HOME). It imports neither jax nor paddle_tpu.
 """
 from . import amp  # noqa: F401
 from . import ops  # noqa: F401  (registers every ported op)
@@ -36,7 +37,8 @@ from .framework import (Program, default_main_program,  # noqa: F401
 from . import io  # noqa: F401
 from . import analysis  # noqa: F401  (verifier, cost, memory, rewrite)
 from .io import load_param_arrays  # noqa: F401
-from . import reader, resilience  # noqa: F401
+from . import dataset, reader, resilience  # noqa: F401
+from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .reader import batch  # noqa: F401
 from . import learning_rate_decay, optimizer  # noqa: F401

@@ -1,9 +1,10 @@
 """Neural-net layer functions: the subset of ``paddle_tpu/layers/nn.py``
 that the port's models build with: the decoder LM, the Transformer NMT
 model, the LSTM LM, the GRU encoder-decoder of the book's
-machine-translation chapter, and the conv models (MNIST, ResNet, VGG):
-fc, embedding, dynamic_lstm, dynamic_gru, conv2d, pool2d, batch_norm,
-layer_norm, dropout, cross_entropy, softmax_with_cross_entropy,
+machine-translation chapter, and the conv models (MNIST, ResNet,
+SE-ResNeXt, VGG, GoogLeNet, AlexNet): fc, embedding, dynamic_lstm,
+dynamic_gru, conv2d, pool2d, batch_norm, layer_norm, lrn, dropout,
+cross_entropy, softmax_with_cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, accuracy,
 topk, relu, matmul, softmax, mean, reduce_sum,
 elementwise_add/sub/mul/div/max, scale, increment,
@@ -24,7 +25,7 @@ from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = ["fc", "embedding", "increment", "dynamic_lstm", "dynamic_gru",
            "conv2d",
-           "pool2d", "batch_norm", "layer_norm", "dropout",
+           "pool2d", "batch_norm", "layer_norm", "lrn", "dropout",
            "cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "square_error_cost",
            "accuracy",
@@ -291,6 +292,18 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels (the lrn op; the
+    layer's k default 1.0 is written into the op's attrs)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    mid = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,

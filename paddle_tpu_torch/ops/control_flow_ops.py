@@ -18,6 +18,16 @@ package's lowerings map onto torch as:
 - lax.cond (cond): reads the predicate on the host and runs the taken
   branch only; registered capturable=False.
 
+lax.scan and lax.while_loop refuse a body whose carry leaves with another
+dtype or shape than it entered (under AMP a bf16 ``mul`` can turn a
+float32 memory into bf16), and the reference raises TypeError before the
+program runs. Every loop here checks each carry after each pass
+(``_check_carry``) and raises TypeError in the same cases, before any
+optimizer op of the step; where the reference selects finished rows
+with jnp.where (dynamic_rnn, a bounded While), the check reads the
+selected value, which type promotion keeps float32 when a float32
+memory meets a bf16 update, as there.
+
 ``go`` (channels) waits for the CSP module (ROADMAP A11).
 """
 from __future__ import annotations
@@ -116,6 +126,24 @@ def _select(mask, new, old):
     return one(new, old)
 
 
+def _dt(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def _check_carry(lowering, names, before, after):
+    """TypeError where a carry leaves a pass with another dtype or shape
+    than it entered it (each part of a ragged carry), as `lowering`
+    ("scan" or "while_loop") refuses such a body in the reference."""
+    for name, old, new in zip(names, before, after):
+        for o, n in zip(ragged_parts(old), ragged_parts(new)):
+            if o.dtype != n.dtype or o.shape != n.shape:
+                raise TypeError(
+                    f"{lowering} body function carry input and carry output"
+                    f" must have equal types, but they differ: the carry "
+                    f"{name!r} enters as {_dt(o)}{list(o.shape)} and "
+                    f"leaves as {_dt(n)}{list(n.shape)}")
+
+
 def _max_steps(maxes, rep, nested, ctx):
     return [torch.maximum(m, rep.get(w, _zero_steps(ctx)))
             for w, m in zip(nested, maxes)]
@@ -145,7 +173,9 @@ def _static_rnn(ctx):
 
         env, rep = _collect_reports(ctx, trace)
         maxes = _max_steps(maxes, rep, nested, ctx)
-        carry = [env[n] for n in mem_new]
+        new = [env[n] for n in mem_new]
+        _check_carry("scan", mem_pre, carry, new)
+        carry = new
         for acc, n in zip(stacked, out_names):
             acc.append(env[n])
     ctx.set_outputs("Out", [torch.stack(acc) for acc in stacked])
@@ -205,7 +235,9 @@ def _while(ctx):
         active, count = cond0, _zero_steps(ctx)
         for _ in range(max_steps):
             new_cond, new_vals, new_maxes = body(vals, maxes)
-            vals = [_select(active, n, o) for n, o in zip(new_vals, vals)]
+            new_vals = [_select(active, n, o) for n, o in zip(new_vals, vals)]
+            _check_carry("scan", carried, vals, new_vals)
+            vals = new_vals
             maxes = [torch.where(active, nm, m)
                      for nm, m in zip(new_maxes, maxes)]
             count = count + active.to(torch.int32)
@@ -219,7 +251,9 @@ def _while(ctx):
 
     cond, steps = cond0, 0
     while bool(cond):
-        cond, vals, maxes = body(vals, maxes)
+        cond, new_vals, maxes = body(vals, maxes)
+        _check_carry("while_loop", carried, vals, new_vals)
+        vals = new_vals
         steps += 1
     steps = torch.tensor(steps, dtype=torch.int32).to(ctx.device)
     ctx.set_outputs("Out", vals)
@@ -326,8 +360,10 @@ def _dynamic_rnn(ctx):
 
         env, rep = _collect_reports(ctx, trace)
         maxes = _max_steps(maxes, rep, nested, ctx)
-        carry = [_select(active, env[n], old)
-                 for old, n in zip(carry, mem_new)]
+        new = [_select(active, env[n], old)
+               for old, n in zip(carry, mem_new)]
+        _check_carry("scan", mem_pre, carry, new)
+        carry = new
         for acc, n in zip(stacked, out_names):
             o = env[n]
             acc.append(_select(active, o, torch.zeros_like(o)))

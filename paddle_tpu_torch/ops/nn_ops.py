@@ -1,4 +1,4 @@
-"""NN ops: conv2d, pool2d, batch_norm, layer_norm, dropout,
+"""NN ops: conv2d, pool2d, batch_norm, layer_norm, lrn, dropout,
 cross_entropy, softmax_with_cross_entropy, lookup_table, one_hot,
 scaled_dot_product_attention.
 
@@ -26,7 +26,8 @@ Under AMP (amp.py) conv2d takes bf16 operands and its output stays bf16,
 as the reference's; every other rule here keeps the reference's dtypes
 as they are: pool2d averages a bf16 input in float32 and returns bf16;
 batch_norm and layer_norm normalize in float32 with float32 statistics
-and return the input's dtype; dropout returns its input's dtype; the
+and return the input's dtype; lrn computes in its input's dtype (a bf16
+input stays bf16, each op rounded); dropout returns its input's dtype; the
 cross-entropy losses compute in float32; lookup_table returns its
 table's dtype; the naive attention promotes as jnp.einsum does (a bf16
 score plus a float32 mask is float32).
@@ -187,6 +188,31 @@ def _layer_norm(ctx):
     ctx.set_output("Y", y.to(x.dtype))
     ctx.set_output("Mean", mean.reshape(x.shape[:begin]))
     ctx.set_output("Variance", var.reshape(x.shape[:begin]))
+
+
+@register_op("lrn")
+def _lrn(ctx):
+    """Cross-channel local response normalization of an NCHW X: Out = X /
+    (k + alpha * s)^beta, s the sum of X^2 over the n channels centred on
+    each (zeros past the ends), MidOut = k + alpha * s. The op's defaults
+    (k 2.0) are the reference op's, not layers.lrn's (k 1.0). No AMP
+    cast, as in the reference: every step runs in X's dtype, the window
+    summed in the reference's order, and k, alpha and beta rounded to X's
+    dtype first, as jnp rounds a Python float meeting a bf16 array; the
+    gradient is the generic __vjp__."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    k, alpha, beta = (float(torch.tensor(float(ctx.attr(a, d)),
+                                         dtype=x.dtype))
+                      for a, d in (("k", 2.0), ("alpha", 1e-4),
+                                   ("beta", 0.75)))
+    half, c = n // 2, x.shape[1]
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    acc = pad[:, 0:c]
+    for i in range(1, n):
+        acc = acc + pad[:, i:i + c]
+    ctx.set_output("Out", x / torch.pow(k + alpha * acc, beta))
+    ctx.set_output("MidOut", k + alpha * acc)
 
 
 @register_op("dropout", capturable=False)

@@ -4,9 +4,10 @@ The port's copy of ``paddle_tpu/resilience/faults.py``: named fault
 points — cheap no-op hooks at the failure-prone call sites — that a test
 arms with raise/delay schedules, deterministically under a fixed seed.
 The port fires ``checkpoint.write`` and ``checkpoint.read``
-(distributed/checkpoint.py) and ``reader.next`` (reader/__init__.py
+(distributed/checkpoint.py), ``reader.next`` (reader/__init__.py
 ``batch()`` per yielded batch, ``FeedPrefetcher`` per pulled batch, in
-its producer thread). The other names of ``FAULT_POINTS`` belong to
+its producer thread) and ``dataset.download`` (dataset/common.py, before
+each transfer attempt). The other names of ``FAULT_POINTS`` belong to
 modules not ported yet; arming one is allowed, as in the JAX package.
 
 `fire(point)` is on hot paths (per batch), so the disabled cost is one

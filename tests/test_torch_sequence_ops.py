@@ -334,8 +334,9 @@ def test_programs_serialize_equal_and_register_every_op(runs):
     for op_type in PORTED:
         assert OpRegistry.get(op_type).no_grad_slots == \
             RefRegistry.get(op_type).no_grad_slots, op_type
-    # 114 with matmul and se_block (the analysis slice)
-    assert len(OpRegistry._ops) == 114
+    # 115 with matmul and se_block (the analysis slice) and lrn (the
+    # image models)
+    assert len(OpRegistry._ops) == 115
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
