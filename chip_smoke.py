@@ -246,24 +246,44 @@ launch counts include what every graph replay launches.
      1 + 1 a compiled step (A4C_LAUNCHES), the step-1 loss against phase
      19's float32 arm by phase 16's rule, every loop carry's dtype at
      every pass printed (one dtype each); (b) the image models bench.py
-     runs (SE-ResNeXt-152 at batch 12, GoogLeNet without its auxiliary
+     runs (SE-ResNeXt at batch 12, cut from 152 layers to 50 to hold the
+     script's time, GoogLeNet without its auxiliary
      heads and AlexNet with lrn at batch 128, 3x224x224), float32 and
      AMP, each compiled against eager bit for bit with ms a step, busy
      share and peak memory beside the static memory plan, no hand kernel
      launched (cuDNN convolutions); fuse_se outlines no gate of
-     SE-ResNeXt-152's training program and 50 of its inference program,
+     SE-ResNeXt's training program and 16 of its inference program,
      whose predictions with the pipeline on and off are held (SE_F32_ATOL
      and the AMP rule) and timed; (c) four chapters of the Fluid book on
      the port's dataset readers, card losses against the port's CPU run
      (BOOK_FIRST_RTOL, BOOK_LATER_RTOL), and each chapter's save / load
      round trip on the card bit for bit.
- 22. JSON lines of the kernels, serving, the three earlier trainings,
+ 22. slice 21, on a fresh metrics registry with the flight recorder's
+     bundles in a scratch directory: (a) the book's last two chapters
+     (label_semantic_roles with its linear-chain CRF, recommender_system
+     with cos_sim) as phase 21 (c) runs the first four, SRL's
+     crf_decoding tags equal to the CPU's on the card's emissions, its
+     fused-LSTM kernels exactly 1 + 1 a compiled step, and SRL once more
+     at the Fluid book's widths, timed; (b) ModelHost serving bench.py's
+     frozen ResNet-50 (1000 classes, one 3x224x224 image a request,
+     buckets 1-256): every delivered row bit for bit a direct run of its
+     padded bucket, one compiled key and one CUDA graph a bucket,
+     images/s, latency, batch fill and busy share under closed-loop
+     clients, a hot swap under them with zero client errors and its
+     blackout, admission at 2x the calibrated rate (the shed ledger, the
+     admitted p99 bound); (c) a two-model GenerationHost at phase 3's
+     width: streams equal a direct engine's, flash launches a prefill,
+     a generation.step fault tripping the breaker with the completed
+     tokens kept, a swap keeping an in-flight stream, save / load, idle
+     TTFT, the decode arm at 2x with decode tokens/s and the MFU gauge
+     against the card's peak; (d) the registry's serving families.
+ 23. JSON lines of the kernels, serving, the three earlier trainings,
      MNIST, ResNet-50, the conv chain, the megakernel chain, the roll
      micro, the Trainer, phase 14 (`compiled`), phase 15 (`amp`), phase
      16 (`rnn_amp`), phase 17 (`optimizers`), phase 18
      (`sequence_models`), phase 19 (`control_flow`), phase 20
-     (`rewrite`) and phase 21 (`slice20`), then, last, the JSON result
-     line.
+     (`rewrite`), phase 21 (`slice20`) and phase 22 (`slice21`), then,
+     last, the JSON result line.
 
 cuDNN runs deterministic algorithms picked without timing
 (torch.backends.cudnn.deterministic, benchmark off); phases 8-10
@@ -876,19 +896,23 @@ A4C_LAUNCHES = {"mt": {"fused_lstm_fwd_bf16": 1.0,
                 "dyn_rnn_lstm": {}}
 # (b) The image models bench.py runs that the port lacked, at bench.py's
 # batch and shape (bench.py:534-575; 1000 classes, 3x224x224, Momentum
-# 0.9): SE-ResNeXt-152 (counts (3, 8, 36, 3), cardinality 32, lr 0.1) at
-# batch 12, GoogLeNet without its auxiliary heads (bench.py's protocol,
-# lr 0.01) and AlexNet with lrn (lr 0.01) at batch 128. Each in float32
-# and under amp_guard(): IMAGE_STEPS steps of the eager and the compiled
+# 0.9): SE-ResNeXt (cardinality 32, lr 0.1) at batch 12 with its depth
+# cut from bench.py's 152 layers (counts (3, 8, 36, 3)) to 50
+# (SE_LAYER_COUNTS: a SE-ResNeXt-152 step walks 3018 forward ops on the
+# host, 116 s of the script's phase 21 at full depth), GoogLeNet
+# without its auxiliary heads (bench.py's protocol, lr 0.01) and AlexNet
+# with lrn (lr 0.01) at batch 128. Each in float32 and under
+# amp_guard(): IMAGE_STEPS steps of the eager and the compiled
 # executor (phase 14's rule: bit for bit; CVE_WARM untimed, the rest
 # timed, IMAGE_PROFILED profiled), no hand-kernel launch (the convs go to
 # cuDNN, as the reference's go to XLA), ms a step, busy share and peak
 # memory beside the largest static memory plan of the arm's keys. Their
 # dropout keeps the compiled keys from a CUDA graph.
-IMAGE_MODELS = {"se_resnext152": 12, "googlenet": 128, "alexnet": 128}
+IMAGE_MODELS = {"se_resnext": 12, "googlenet": 128, "alexnet": 128}
+SE_LAYER_COUNTS = (3, 4, 6, 3)
 IMAGE_SHAPE, IMAGE_CLASSES = (3, 224, 224), 1000
 IMAGE_STEPS, IMAGE_PROFILED = 4, 1
-# SE-ResNeXt-152's inference program (its trained program pruned to the
+# SE-ResNeXt's inference program (its trained program pruned to the
 # logits and cloned for_test, as io.save_inference_model freezes it;
 # every batch_norm's running statistics set to the batch's own, as a
 # trained network's would normalize it: calibrate_batch_norms) at batch
@@ -902,7 +926,7 @@ IMAGE_STEPS, IMAGE_PROFILED = 4, 1
 # from the float32 ones (2-norm); ms a batch of each, SE_TIMED runs after
 # two untimed. fuse_se outlines no gate of the training program: its
 # backward reads the intermediates.
-SE_SITES = 50
+SE_SITES = sum(SE_LAYER_COUNTS)
 SE_F32_ATOL = 1e-4
 SE_TIMED = 5
 # (c) Four chapters of the Fluid book (tests/test_book.py:47, :69, :96,
@@ -920,6 +944,119 @@ BOOK_BATCHES = 4
 BOOK_FIRST_RTOL = 1e-4
 BOOK_LATER_RTOL = {"fit_a_line": 1e-4, "recognize_digits": 1e-4,
                    "image_classification": 1e-3, "word2vec": 1e-4}
+
+# phase 22, slice 21. (a) The book's last two chapters
+# (tests/test_book.py:208 label_semantic_roles, :262 recommender_system)
+# as phase 21 (c) runs the first four (BOOK_BATCHES batches, card vs CPU
+# by BOOK_FIRST_RTOL and LAST_CHAPTERS_RTOL, the round trip bit for bit);
+# SRL's crf_decoding tags on the card equal the CPU's crf_decoding of the
+# card's emissions and transition exactly (integer tags); SRL's fused-LSTM
+# launches exactly SRL_LAUNCHES a compiled step (its dynamic_lstm on the
+# kernel, forward and backward). Then SRL once more at the Fluid book's
+# widths (SRL_BOOK_CFG: word_dim 32, mark_dim 5, hidden 512, its single
+# LSTM layer; the chapter's batch of 16), SRL_BOOK_STEPS steps timed.
+LAST_CHAPTERS_RTOL = {"label_semantic_roles": 1e-4,
+                      "recommender_system": 1e-4}
+SRL_TEST_CFG = {"emb": 16, "mark_emb": 16, "hid": 32}
+SRL_BOOK_CFG = {"emb": 32, "mark_emb": 5, "hid": 512}
+SRL_MAXLEN, SRL_BATCH, SRL_BOOK_STEPS = 32, 16, 6
+SRL_LAUNCHES = {"fused_lstm_fwd": 1, "fused_lstm_bwd": 1}
+# (b) ModelHost serving bench.py:619's frozen ResNet-50 (1000 classes,
+# test-mode batch norm, 3x224x224 float32, seeded weights; a second
+# version from another seed), one image a request, batch buckets 1-256
+# (bench.py's batch), RESNET_LATENCY_MS deadline: every delivered row of
+# a burst drive (RESNET_BURSTS) bit for bit a direct Executor.run of the
+# same padded bucket (tests/test_serving.py:29); one compiled key and one
+# CUDA graph per bucket; closed-loop clients (RESNET_CLIENTS threads,
+# RESNET_WINDOW requests in flight each) calibrate the capacity over
+# RESNET_CAL_S and give images/s, p50/p99, batch fill and, profiled over
+# RESNET_PROFILE_S, the busy share; a hot swap to the second version
+# under those clients with zero client errors and its blackout (the
+# largest gap between completions within 0.25 s of the swap); then
+# admission (max_queue_rows RESNET_ADMIT_ROWS) at 2x the calibrated
+# rate open loop for RESNET_ADMIT_S: every refused request in the shed
+# ledger, every admitted one answered, admitted p99 within
+# RESNET_P99_FACTOR times the queue's drain time (admitted rows + two
+# buckets over the capacity).
+SERVE_RESNET_CFG = {"class_dim": 1000, "depth": 50}
+RESNET_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+RESNET_LATENCY_MS = 5.0
+RESNET_BURSTS = [1, 2, 5, 16, 40, 100, 256, 300]
+RESNET_IMAGES = 32
+RESNET_CLIENTS, RESNET_WINDOW = 4, 128
+RESNET_CAL_S, RESNET_PROFILE_S, RESNET_ADMIT_S = 4.0, 1.5, 4.0
+RESNET_ADMIT_ROWS = 512
+RESNET_P99_FACTOR = 2.0
+# (c) A two-model GenerationHost at phase 3's width (SERVE_SPEC; the
+# second model from seed 1), driven as benchmarks/serving_latency.py:351's
+# decode arm drives it: the streams of phase 3's prompts, one request at
+# a time, equal a direct GenerationEngine's of the same weights; flash
+# forward launches exactly n_layer a prefill at a prompt bucket of
+# PADDLE_TPU_FLASH_MIN_SEQ or more (phase 3's count); a generation.step
+# fault after GEN_FAULT_AFTER steps trips a one-failure breaker and the
+# request keeps its completed tokens (the solo stream's prefix); a swap
+# keeps an in-flight request's stream; a save / load round trip streams
+# the same tokens; idle TTFT per prompt bucket (max_new_tokens 1, median
+# of GEN_TTFT_RUNS); closed-loop calibration (2 x slots clients,
+# GEN_CAL_S) then open loop at 2x for GEN_DRIVE_S: goodput, decode
+# tokens/s, latency and the MFU gauge against the card's peak.
+GEN_FAULT_AFTER = 2
+# the MFU gauges are read against the card's peak (observability/
+# attribution.py's default, unless PADDLE_TPU_PEAK_FLOPS says otherwise)
+PEAK_FLOPS = BF16_FLOPS_PER_S
+PEAK_NOTE = ("989e12 FLOP/s, the dense bf16 peak of an NVIDIA H100 80GB "
+             "HBM3 at 700 W")
+GEN_TTFT_RUNS = 3
+GEN_CAL_S, GEN_DRIVE_S = 3.0, 4.0
+# (d) After (b) and (c), on the fresh registry the phase installs: the
+# serving and token-serving families tests/test_metric_names.py expects
+# (SERVING_FAMILIES; tests/test_torch_serving.py holds the same list) all
+# published, and nothing else but the rest of serving's
+# (OTHER_SERVING_FAMILIES) and the process-wide mirrors
+# (PROCESS_FAMILIES).
+SERVING_FAMILIES = frozenset({
+    "paddle_tpu_serving_requests_total",
+    "paddle_tpu_circuit_breaker_state",
+    "paddle_tpu_mfu",
+    "paddle_tpu_model_flops",
+    "paddle_tpu_serving_swaps_total",
+    "paddle_tpu_serving_shed_total",
+    "paddle_tpu_serving_model_version",
+    "paddle_tpu_serving_canary_requests_total",
+    "paddle_tpu_decode_requests_total",
+    "paddle_tpu_decode_tokens_total",
+    "paddle_tpu_decode_steps_total",
+    "paddle_tpu_decode_prefills_total",
+    "paddle_tpu_decode_retired_total",
+    "paddle_tpu_decode_shed_total",
+    "paddle_tpu_decode_step_seconds",
+    "paddle_tpu_decode_prefill_seconds",
+    "paddle_tpu_decode_slots_active",
+    "paddle_tpu_decode_slots_total",
+    "paddle_tpu_decode_host_requests_total",
+    "paddle_tpu_decode_host_swaps_total",
+    "paddle_tpu_decode_host_models",
+    "paddle_tpu_memory_peak_bytes",
+})
+OTHER_SERVING_FAMILIES = frozenset({
+    "paddle_tpu_serving_rejected_total",
+    "paddle_tpu_serving_timeouts_total",
+    "paddle_tpu_serving_errors_total",
+    "paddle_tpu_serving_batches_total",
+    "paddle_tpu_serving_warmup_compiles_total",
+    "paddle_tpu_serving_queue_depth_rows",
+    "paddle_tpu_serving_batch_fill_ratio",
+    "paddle_tpu_serving_batch_rows",
+    "paddle_tpu_serving_latency_seconds",
+    "paddle_tpu_serving_queue_wait_seconds",
+    "paddle_tpu_circuit_breaker_opened_total",
+    "paddle_tpu_circuit_breaker_shed_total",
+})
+PROCESS_FAMILIES = frozenset({
+    "paddle_tpu_retry_calls_total", "paddle_tpu_retry_retries_total",
+    "paddle_tpu_retry_failures_total",
+    "paddle_tpu_flight_recorder_dumps_total",
+})
 
 
 def card_line() -> str:
@@ -6549,9 +6686,9 @@ def build_image_model(name):
     from paddle_tpu_torch.models import alexnet, googlenet, resnet
     kw = dict(class_dim=IMAGE_CLASSES, image_shape=IMAGE_SHAPE)
     with framework.isolated_name_scope():
-        if name == "se_resnext152":
+        if name == "se_resnext":
             return resnet.build_se_resnext_train(
-                layers_counts=(3, 8, 36, 3), lr=0.1, **kw)
+                layers_counts=SE_LAYER_COUNTS, lr=0.1, **kw)
         if name == "googlenet":
             return googlenet.build_train(lr=0.01, with_aux=False, **kw)
         return alexnet.build_train(lr=0.01, **kw)
@@ -6602,7 +6739,7 @@ def calibrate_batch_norms(main, startup, weights, img, scope):
 
 
 def se_inference(card, main, startup, f, weights, img):
-    """Phase 21 (b), SE-ResNeXt-152's gates: no gate outlined in the
+    """Phase 21 (b), SE-ResNeXt's gates: no gate outlined in the
     training program; the inference program (calibrated: see
     calibrate_batch_norms) with the pipeline on (exactly SE_SITES
     se_block ops run) and off, float32 and AMP, held as SE_F32_ATOL says;
@@ -6649,11 +6786,11 @@ def se_inference(card, main, startup, f, weights, img):
         sites = [op.type for blk in exe.last_compiled.program.blocks
                  for op in blk.ops].count("se_block")
         want = SE_SITES if on == "1" else 0
-        print(f"[{card}] SE-ResNeXt-152 inference, batch {len(img)}, "
+        print(f"[{card}] SE-ResNeXt inference, batch {len(img)}, "
               f"{prec}, pipeline {'on' if on == '1' else 'off'}: "
               f"{sites} se_block ops, {ms:.2f} ms a batch", flush=True)
         if sites != want:
-            raise SystemExit(f"SE-ResNeXt-152 inference ran {sites} "
+            raise SystemExit(f"SE-ResNeXt inference ran {sites} "
                              f"se_block ops, expected {want}")
         out[f"{prec}_{'on' if on == '1' else 'off'}_ms"] = ms
     off = preds[("f32", "0", "seeded")]
@@ -6664,7 +6801,7 @@ def se_inference(card, main, startup, f, weights, img):
     amp_gap = float(np.linalg.norm(preds[("amp", "1", "seeded")]
                                    - preds[("amp", "0", "seeded")]))
     amp_dist = float(np.linalg.norm(preds[("amp", "0", "seeded")] - off))
-    print(f"[{card}] SE-ResNeXt-152 inference logits, outlined vs "
+    print(f"[{card}] SE-ResNeXt inference logits, outlined vs "
           f"composed: float32 max |diff| {f32_gap:.3e} of max "
           f"{np.abs(off).max():.3e} (limit {limit:.3e}; weights one ulp "
           f"away move the composed logits {noise:.3e}; "
@@ -6672,7 +6809,7 @@ def se_inference(card, main, startup, f, weights, img):
           f"); AMP 2-norm {amp_gap:.3e} vs the composed AMP arm's "
           f"distance from float32 {amp_dist:.3e}", flush=True)
     if not f32_gap <= limit or not amp_gap <= amp_dist:
-        raise SystemExit(f"SE-ResNeXt-152 outlined vs composed: float32 "
+        raise SystemExit(f"SE-ResNeXt outlined vs composed: float32 "
                          f"{f32_gap} (limit {limit}), AMP {amp_gap} (limit "
                          f"{amp_dist})")
     out.update(sites=SE_SITES, f32_max_abs_diff=f32_gap,
@@ -6683,7 +6820,7 @@ def se_inference(card, main, startup, f, weights, img):
 
 def image_models_on_card(card):
     """Phase 21 (b): IMAGE_MODELS at bench.py's batch and shape, float32
-    and AMP, compiled against eager; SE-ResNeXt-152's gates
+    and AMP, compiled against eager; SE-ResNeXt's gates
     (se_inference). Launch counts set to 0 just before each arm pair and
     read just after: no hand kernel launches here."""
     import gc
@@ -6741,7 +6878,7 @@ def image_models_on_card(card):
                          "images_per_s": batch * 1e3 / c["step_ms"]}
             gc.collect()
             torch.cuda.empty_cache()
-        if name == "se_resnext152":
+        if name == "se_resnext":
             res["gates"] = se_inference(card, main, startup, f, weights,
                                         feeds[0]["img"])
         res["program_s"] = time.perf_counter() - t1
@@ -6752,16 +6889,108 @@ def image_models_on_card(card):
     return out
 
 
-def build_chapter(name):
-    """Phase 21 (c)'s chapter `name` on the port, as tests/test_book.py
-    builds it: (main, startup, loss, batches(), feed names, target,
-    probe feed)."""
+def _ragged_feed(seqs, max_len):
+    """tests/test_book.py _ragged on the port: int64 [n, max_len, 1] rows
+    and their lengths."""
+    from paddle_tpu_torch.core.lod import LoDTensor, RaggedPair
+    arrs = [np.asarray(q, np.int64).reshape(len(q), 1) for q in seqs]
+    padded, lengths = LoDTensor.from_sequences(arrs).to_padded(
+        max_len=max_len)
+    return RaggedPair(padded, lengths)
+
+
+def build_srl(cfg):
+    """tests/test_book.py:208's SRL program at `cfg`'s widths (word and
+    verb embeddings cfg["emb"], mark cfg["mark_emb"], one LSTM of
+    cfg["hid"]): (main, startup, loss, batches(), feed names, target,
+    probe feed, {"emission", "path"})."""
     from paddle_tpu_torch import (ParamAttr, dataset, framework, layers,
                                   optimizer, reader)
-    from paddle_tpu_torch.models import resnet
+    word_dict, verb_dict, label_dict = dataset.conll05.get_dict()
+    ln = len(label_dict)
+    hid = cfg["hid"]
     main, startup = framework.Program(), framework.Program()
     with framework.isolated_name_scope(), \
             framework.program_guard(main, startup):
+        word = layers.data("word", [1], dtype="int64", lod_level=1)
+        verb = layers.data("verb", [1], dtype="int64", lod_level=1)
+        mark = layers.data("mark", [1], dtype="int64", lod_level=1)
+        tag = layers.data("target", [1], dtype="int64", lod_level=1)
+        feat = layers.concat([
+            layers.embedding(word, size=[len(word_dict), cfg["emb"]]),
+            layers.embedding(verb, size=[len(verb_dict), cfg["emb"]]),
+            layers.embedding(mark, size=[2, cfg["mark_emb"]])], axis=-1)
+        h, _ = layers.dynamic_lstm(layers.fc(feat, size=4 * hid),
+                                   size=4 * hid)
+        emission = layers.fc(h, size=ln)
+        loss = layers.mean(layers.linear_chain_crf(
+            emission, tag, param_attr=ParamAttr(name="crfw")))
+        optimizer.AdamOptimizer(learning_rate=1e-2).minimize(loss)
+        path = layers.crf_decoding(emission, param_attr=ParamAttr(name="crfw"))
+
+    def batches():
+        for b in reader.batch(dataset.conll05.train(), SRL_BATCH)():
+            yield {k: _ragged_feed([s[i] for s in b], SRL_MAXLEN)
+                   for k, i in (("word", 0), ("verb", 6), ("mark", 7),
+                                ("target", 8))}
+    probe = next(batches())
+    return main, startup, loss, batches, ["word", "verb", "mark"], path, \
+        {k: probe[k] for k in ("word", "verb", "mark")}, \
+        {"emission": emission, "path": path, "main": main}
+
+
+def build_chapter(name):
+    """Phase 21 (c)'s and 22 (a)'s chapter `name` on the port, as
+    tests/test_book.py builds it: (main, startup, loss, batches(), feed
+    names, target, probe feed, named vars a check reads)."""
+    from paddle_tpu_torch import (ParamAttr, dataset, framework, layers,
+                                  optimizer, reader)
+    from paddle_tpu_torch.models import resnet
+    if name == "label_semantic_roles":
+        return build_srl(SRL_TEST_CFG)
+    main, startup = framework.Program(), framework.Program()
+    with framework.isolated_name_scope(), \
+            framework.program_guard(main, startup):
+        if name == "recommender_system":
+            ml = dataset.movielens
+            emb = 16
+            uid = layers.data("uid", [1], dtype="int64")
+            gender = layers.data("gender", [1], dtype="int64")
+            age = layers.data("age", [1], dtype="int64")
+            job = layers.data("job", [1], dtype="int64")
+            mid = layers.data("mid", [1], dtype="int64")
+            title = layers.data("title", [1], dtype="int64", lod_level=1)
+            rating = layers.data("rating", [1])
+            usr = layers.concat([
+                layers.embedding(uid, size=[ml.max_user_id() + 1, emb]),
+                layers.embedding(gender, size=[2, emb]),
+                layers.embedding(age, size=[len(ml.age_table()), emb]),
+                layers.embedding(job, size=[ml.max_job_id() + 1, emb]),
+            ], axis=1)
+            usr_feat = layers.fc(usr, size=32, act="tanh")
+            mov = layers.concat([
+                layers.embedding(mid, size=[ml.max_movie_id() + 1, emb]),
+                layers.sequence_pool(layers.embedding(
+                    title, size=[len(ml.get_movie_title_dict()), emb]),
+                    pool_type="sum")], axis=1)
+            mov_feat = layers.fc(mov, size=32, act="tanh")
+            target = layers.scale(layers.cos_sim(usr_feat, mov_feat),
+                                  scale=5.0)
+            loss = layers.mean(layers.square_error_cost(target, rating))
+            optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+
+            def batches():
+                for b in reader.batch(ml.train(), 32)():
+                    f = {k: np.array([[s[i]] for s in b], np.int64)
+                         for k, i in (("uid", 0), ("gender", 1), ("age", 2),
+                                      ("job", 3), ("mid", 4))}
+                    f["title"] = _ragged_feed([s[6] for s in b], 8)
+                    f["rating"] = np.array([[s[7]] for s in b], np.float32)
+                    yield f
+            probe = {k: v for k, v in next(batches()).items()
+                     if k != "rating"}
+            return main, startup, loss, batches, list(probe), target, \
+                probe, {}
         if name == "fit_a_line":
             x = layers.data("x", [13])
             y = layers.data("y", [1])
@@ -6774,7 +7003,7 @@ def build_chapter(name):
                     yield {"x": np.stack([s[0] for s in b]),
                            "y": np.stack([s[1] for s in b])}
             return main, startup, loss, batches, ["x"], target, \
-                {"x": np.zeros((4, 13), np.float32)}
+                {"x": np.zeros((4, 13), np.float32)}, {}
         if name == "recognize_digits":
             img = layers.data("img", [784])
             label = layers.data("label", [1], dtype="int64")
@@ -6793,7 +7022,7 @@ def build_chapter(name):
                            "label": np.array([[s[1]] for s in b],
                                              np.int64)}
             return main, startup, loss, batches, ["img"], target, \
-                {"img": np.zeros((2, 784), np.float32)}
+                {"img": np.zeros((2, 784), np.float32)}, {}
         if name == "image_classification":
             img = layers.data("img", [3, 32, 32])
             label = layers.data("label", [1], dtype="int64")
@@ -6809,7 +7038,7 @@ def build_chapter(name):
                            "label": np.array([[s[1]] for s in b],
                                              np.int64)}
             return main, startup, loss, batches, ["img"], target, \
-                {"img": np.zeros((2, 3, 32, 32), np.float32)}
+                {"img": np.zeros((2, 3, 32, 32), np.float32)}, {}
         n = dataset.imikolov.N
         dict_size = len(dataset.imikolov.build_dict())
         words = [layers.data(f"w{i}", [1], dtype="int64")
@@ -6831,7 +7060,113 @@ def build_chapter(name):
                 yield f
         return main, startup, loss, batches, \
             [f"w{i}" for i in range(n - 1)], target, \
-            {f"w{i}": np.zeros((2, 1), np.int64) for i in range(n - 1)}
+            {f"w{i}": np.zeros((2, 1), np.int64) for i in range(n - 1)}, {}
+
+
+def launch_delta(before):
+    """The kernel launches since `before` (a launch_counts() snapshot),
+    those that moved only."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    return {n: k - before.get(n, 0)
+            for n, k in kernels.launch_counts().items()
+            if k != before.get(n, 0)}
+
+
+def _host_bytes(value):
+    """A fetch as (bytes of its data, its LoD) for a bit-for-bit
+    comparison (a ragged fetch is a LoDTensor)."""
+    if hasattr(value, "lod"):
+        return (np.asarray(value.data).tobytes(),
+                [list(map(int, level)) for level in value.lod])
+    return np.asarray(value).tobytes(), None
+
+
+def chapter_on_card(card, name, later_rtol, tmp):
+    """One chapter of phase 21 (c) or 22 (a): BOOK_BATCHES batches on the
+    card and on the port's CPU path from the same seeded weights (the
+    first loss within BOOK_FIRST_RTOL of the CPU's, the later ones within
+    `later_rtol`), then the save / load round trip on the card bit for
+    bit. Returns (summary, the card's executor, scope, batches, the
+    chapter's named vars, the card arm's launch counts)."""
+    import torch
+    from paddle_tpu_torch import (Executor, Scope, io, load_param_arrays,
+                                  scope_guard)
+    from paddle_tpu_torch.ops import kernels
+    t1 = time.perf_counter()
+    main, startup, loss, batches, feed_names, target, probe, named = \
+        build_chapter(name)
+    weights = seeded_weights(startup, seed=0)
+    feeds = [b for _, b in zip(range(BOOK_BATCHES), batches())]
+    losses, ms = {}, {}
+    for device in (DEVICE, "cpu"):
+        exe, scope = Executor(device), Scope()
+        exe.run(startup, scope=scope)
+        load_param_arrays(scope, weights)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+        losses[device] = []
+        step_ms = []
+        for feed in feeds:
+            t2 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss.name],
+                            scope=scope)
+            step_ms.append((time.perf_counter() - t2) * 1e3)
+            losses[device].append(float(np.asarray(lv).reshape(-1)[0]))
+        # after the key's first run and its capture
+        ms[device] = _median_ms(step_ms)
+        if device == DEVICE:
+            launches = launch_delta(before)
+            card_exe, card_scope = exe, scope
+    card_l, cpu_l = (np.asarray(losses[d]) for d in (DEVICE, "cpu"))
+    rel = np.abs(card_l - cpu_l) / np.abs(cpu_l)
+    print(f"[{card}] book {name}: card losses "
+          f"{[round(float(v), 6) for v in card_l]} vs CPU "
+          f"{[round(float(v), 6) for v in cpu_l]} (relative "
+          f"{rel.max():.3e}); {ms[DEVICE]:.2f} ms a batch on the card; "
+          f"launches {launches}", flush=True)
+    if not (np.all(np.isfinite(card_l)) and rel[0] <= BOOK_FIRST_RTOL
+            and np.all(rel[1:] <= later_rtol)):
+        raise SystemExit(f"book {name}: card {card_l} vs CPU {cpu_l}")
+    d = os.path.join(tmp, name)
+    with scope_guard(card_scope):
+        io.save_inference_model(d, feed_names, [target], card_exe,
+                                main_program=main)
+        prog, names, fetches = io.load_inference_model(d, card_exe)
+        got = card_exe.run(prog, feed=probe, fetch_list=fetches)
+    forward = io._prune(main, feed_names, [target.name]) \
+        .inference_optimize()
+    want = card_exe.run(forward, feed=probe, fetch_list=[target.name],
+                        scope=card_scope)
+    if names != feed_names or _host_bytes(got[0]) != _host_bytes(want[0]):
+        raise SystemExit(f"book {name}: the reloaded model's output "
+                         "differs from the trained program's forward")
+    shape = np.asarray(getattr(got[0], "data", got[0])).shape
+    print(f"[{card}] book {name}: saved, reloaded, output {tuple(shape)} "
+          "bit for bit the trained program's forward", flush=True)
+    out = {"card_losses": losses[DEVICE], "cpu_losses": losses["cpu"],
+           "max_rel_diff": float(rel.max()),
+           "card_ms_per_batch": ms[DEVICE], "cpu_ms_per_batch": ms["cpu"],
+           "program_s": time.perf_counter() - t1}
+    return out, card_exe, card_scope, feeds, named, launches
+
+
+@contextlib.contextmanager
+def synthetic_corpora():
+    """The dataset readers' synthetic corpora (DATA_HOME an empty
+    directory, whatever a cache under HOME holds); yields a scratch
+    directory."""
+    import tempfile
+    from paddle_tpu_torch import dataset
+    saved_home = dataset.common.DATA_HOME
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset.common.DATA_HOME = os.path.join(tmp, "data_home")
+        try:
+            yield tmp
+        finally:
+            dataset.common.DATA_HOME = saved_home
 
 
 def book_on_card(card):
@@ -6839,88 +7174,13 @@ def book_on_card(card):
     path (BOOK_FIRST_RTOL, BOOK_LATER_RTOL), then each chapter's save /
     load round trip on the card. Launch counts set to 0 just before and
     read just after: no hand kernel launches here."""
-    import tempfile
-    import torch
-    from paddle_tpu_torch import (Executor, Scope, dataset, io,
-                                  load_param_arrays, scope_guard)
-    from paddle_tpu_torch.ops import kernels
     out = {}
-    kernels.reset_launch_counts()
-    saved_home = dataset.common.DATA_HOME
-    with tempfile.TemporaryDirectory() as tmp:
-        # the synthetic corpora, whatever a cache under HOME holds
-        dataset.common.DATA_HOME = os.path.join(tmp, "data_home")
-        try:
-            for name in BOOK_LATER_RTOL:
-                t1 = time.perf_counter()
-                main, startup, loss, batches, feed_names, target, probe = \
-                    build_chapter(name)
-                weights = seeded_weights(startup, seed=0)
-                feeds = [b for _, b in zip(range(BOOK_BATCHES), batches())]
-                losses, ms = {}, {}
-                for device in (DEVICE, "cpu"):
-                    exe, scope = Executor(device), Scope()
-                    exe.run(startup, scope=scope)
-                    load_param_arrays(scope, weights)
-                    losses[device] = []
-                    step_ms = []
-                    for feed in feeds:
-                        t2 = time.perf_counter()
-                        (lv,) = exe.run(main, feed=feed,
-                                        fetch_list=[loss.name], scope=scope)
-                        step_ms.append((time.perf_counter() - t2) * 1e3)
-                        losses[device].append(float(np.asarray(lv)
-                                                    .reshape(-1)[0]))
-                    # after the key's first run and its capture
-                    ms[device] = _median_ms(step_ms)
-                    if device == DEVICE:
-                        card_exe, card_scope = exe, scope
-                card_l, cpu_l = (np.asarray(losses[d]) for d in (DEVICE,
-                                                                 "cpu"))
-                rel = np.abs(card_l - cpu_l) / np.abs(cpu_l)
-                print(f"[{card}] book {name}: card losses "
-                      f"{[round(float(v), 6) for v in card_l]} vs CPU "
-                      f"{[round(float(v), 6) for v in cpu_l]} (relative "
-                      f"{rel.max():.3e}); {ms[DEVICE]:.2f} ms a batch on "
-                      "the card", flush=True)
-                if not (np.all(np.isfinite(card_l))
-                        and rel[0] <= BOOK_FIRST_RTOL
-                        and np.all(rel[1:] <= BOOK_LATER_RTOL[name])):
-                    raise SystemExit(f"book {name}: card {card_l} vs CPU "
-                                     f"{cpu_l}")
-                d = os.path.join(tmp, name)
-                with scope_guard(card_scope):
-                    io.save_inference_model(d, feed_names, [target],
-                                            card_exe, main_program=main)
-                    prog, names, fetches = io.load_inference_model(
-                        d, card_exe)
-                    got = card_exe.run(prog, feed=probe, fetch_list=fetches)
-                forward = io._prune(main, feed_names, [target.name]) \
-                    .inference_optimize()
-                want = card_exe.run(forward, feed=probe,
-                                    fetch_list=[target.name],
-                                    scope=card_scope)
-                if names != feed_names or \
-                        got[0].tobytes() != want[0].tobytes():
-                    raise SystemExit(f"book {name}: the reloaded model's "
-                                     f"output differs from the trained "
-                                     f"program's forward")
-                print(f"[{card}] book {name}: saved, reloaded, output "
-                      f"{tuple(got[0].shape)} bit for bit the trained "
-                      "program's forward", flush=True)
-                out[name] = {"card_losses": losses[DEVICE],
-                             "cpu_losses": losses["cpu"],
-                             "max_rel_diff": float(rel.max()),
-                             "card_ms_per_batch": ms[DEVICE],
-                             "cpu_ms_per_batch": ms["cpu"],
-                             "program_s": time.perf_counter() - t1}
-        finally:
-            dataset.common.DATA_HOME = saved_home
-    torch.cuda.synchronize()
-    launched = {n: k for n, k in kernels.launch_counts().items() if k}
-    if launched:
-        raise SystemExit(f"the book chapters launched {launched}; no op "
-                         "dispatches a hand kernel there")
+    with synthetic_corpora() as tmp:
+        for name, rtol in BOOK_LATER_RTOL.items():
+            out[name], *_, launched = chapter_on_card(card, name, rtol, tmp)
+            if launched:
+                raise SystemExit(f"book {name} launched {launched}; no "
+                                 "op dispatches a hand kernel there")
     return out
 
 
@@ -6941,6 +7201,736 @@ def train_slice20(card, control_flow=None):
                          "c": summary["phase_s"] - (t2 - t0)}
     print(f"[{card}] phase 21: {summary['phase_s']:.1f} s "
           f"({summary['part_s']}); launches {launches}", flush=True)
+    return summary, launches
+
+
+# -- phase 22: the book's last chapters, ModelHost, GenerationHost -----------
+
+def srl_tags_on_cpu(exe, scope, feed, named):
+    """One more SRL step on the card fetching its crf_decoding path and
+    emissions; the CPU's crf_decoding of those emissions with the card's
+    transition (read after the step, as the program's crf_decoding reads
+    it after the update). Returns (card path, CPU path) as LoDTensors."""
+    import torch
+    from paddle_tpu_torch.core.ir import OpDesc
+    from paddle_tpu_torch.core.lod import LoDTensor, RaggedPair
+    from paddle_tpu_torch.core.registry import run_op
+    path, em = exe.run(named["main"], feed=feed,
+                       fetch_list=[named["path"].name,
+                                   named["emission"].name], scope=scope)
+    padded, lengths = em.to_padded()
+    op = OpDesc("crf_decoding", {"Emission": ["em"], "Transition": ["tr"]},
+                {"ViterbiPath": ["path"]})
+    out = run_op(op, {
+        "em": RaggedPair(torch.from_numpy(padded),
+                         torch.from_numpy(lengths.astype(np.int32))),
+        "tr": scope.get("crfw").detach().cpu()},
+        {"device": torch.device("cpu")})["path"]
+    cpu = LoDTensor.from_padded(out.data.numpy(), out.lengths.numpy())
+    return path, cpu
+
+
+def srl_at_book_width(card):
+    """Phase 22 (a): SRL at the Fluid book's widths (SRL_BOOK_CFG) on the
+    card, SRL_BOOK_STEPS steps from seeded weights: finite losses, the
+    fused LSTM exactly SRL_LAUNCHES a step, ms a step (median after two
+    untimed)."""
+    import torch
+    from paddle_tpu_torch import Executor, Scope, load_param_arrays
+    from paddle_tpu_torch.ops import kernels
+    main, startup, loss, batches, *_ = build_srl(SRL_BOOK_CFG)
+    weights = seeded_weights(startup, seed=0)
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, weights)
+    feeds = [b for _, b in zip(range(SRL_BOOK_STEPS), batches())]
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    losses, step_ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss.name],
+                        scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    launched = launch_delta(before)
+    want = {n: k * len(feeds) for n, k in SRL_LAUNCHES.items()}
+    live = int(sum(np.asarray(f["word"].lengths).sum() for f in feeds))
+    out = {"config": SRL_BOOK_CFG, "batch": SRL_BATCH, "losses": losses,
+           "step_ms": _median_ms(step_ms), "launches": launched,
+           "tokens_per_s": live / (sum(step_ms[2:]) / 1e3)
+           * (len(feeds) - 2) / len(feeds),
+           "parameters": int(sum(w.size for n, w in weights.items()
+                                 if n in {p.name for p in
+                                          main.all_parameters()})),
+           "note": capture_note(exe)}
+    print(f"[{card}] SRL at the book's widths {SRL_BOOK_CFG}, batch "
+          f"{SRL_BATCH}: losses {[round(v, 4) for v in losses]}, "
+          f"{out['step_ms']:.2f} ms a step, launches {launched}; "
+          f"{out['note']}", flush=True)
+    if not np.all(np.isfinite(losses)) or launched != want:
+        raise SystemExit(f"SRL at the book's widths: losses {losses}, "
+                         f"launches {launched} (want {want})")
+    return out
+
+
+def last_chapters_on_card(card):
+    """Phase 22 (a): label_semantic_roles and recommender_system as phase
+    21 (c) runs the first four; SRL's launches a compiled step and its
+    crf_decoding tags against the CPU's on the same emissions; then SRL
+    at the book's widths."""
+    out = {}
+    with synthetic_corpora() as tmp:
+        for name, rtol in LAST_CHAPTERS_RTOL.items():
+            res, exe, scope, feeds, named, launched = chapter_on_card(
+                card, name, rtol, tmp)
+            want = {n: k * BOOK_BATCHES for n, k in SRL_LAUNCHES.items()} \
+                if name == "label_semantic_roles" else {}
+            if launched != want:
+                raise SystemExit(f"book {name}: launches {launched}, want "
+                                 f"{want} (SRL_LAUNCHES a compiled step)")
+            res["launches"] = launched
+            if named:
+                card_path, cpu_path = srl_tags_on_cpu(exe, scope, feeds[-1],
+                                                      named)
+                equal = _host_bytes(card_path) == _host_bytes(cpu_path)
+                print(f"[{card}] book {name}: crf_decoding tags of "
+                      f"{len(card_path.data)} positions on the card "
+                      f"{'equal' if equal else 'DIFFER FROM'} the CPU's "
+                      "on the same emissions", flush=True)
+                if not equal:
+                    raise SystemExit(f"book {name}: crf_decoding tags "
+                                     "differ from the CPU's")
+                res["tags_equal"] = True
+                res["tag_positions"] = int(len(card_path.data))
+            out[name] = res
+        out["srl_book_width"] = srl_at_book_width(card)
+    return out
+
+
+def frozen_resnet50(tmp, seed, version):
+    """bench.py:619's frozen ResNet-50 (1000 classes, test-mode batch
+    norm) from seeded weights, saved as an inference model with
+    `version`; returns its directory."""
+    from paddle_tpu_torch import (Executor, Scope, framework, io,
+                                  load_param_arrays, scope_guard)
+    from paddle_tpu_torch.models import resnet
+    with framework.isolated_name_scope():
+        main, startup, f = resnet.build_train(image_shape=IMAGE_SHAPE,
+                                              **SERVE_RESNET_CFG)
+    exe, scope = Executor(DEVICE), Scope()
+    exe.run(startup, scope=scope)
+    load_param_arrays(scope, seeded_weights(startup, seed))
+    d = os.path.join(tmp, version)
+    with scope_guard(scope):
+        io.save_inference_model(d, ["img"], [f["pred"]], exe,
+                                 main_program=main, model_version=version)
+    return d
+
+
+class ClosedLoop:
+    """RESNET_CLIENTS threads, each keeping RESNET_WINDOW single-image
+    requests in flight against `submit`; completion times, latencies and
+    errors recorded."""
+
+    def __init__(self, submit, images):
+        import threading
+        self.submit, self.images = submit, images
+        self.done, self.lat, self.errors = [], [], []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i,),
+                                          daemon=True)
+                         for i in range(RESNET_CLIENTS)]
+
+    def _run(self, i):
+        from collections import deque
+        q, k = deque(), i
+        while not self._stop.is_set() or q:
+            while not self._stop.is_set() and len(q) < RESNET_WINDOW:
+                t = time.monotonic()
+                try:
+                    q.append((self.submit(
+                        {"img": self.images[k % len(self.images)]}), t))
+                except Exception as e:  # noqa: BLE001 — counted, asserted
+                    with self._lock:
+                        self.errors.append(e)
+                k += 1
+            if not q:
+                continue
+            fut, t = q.popleft()
+            try:
+                fut.result(timeout=120)
+            except Exception as e:  # noqa: BLE001 — counted, asserted
+                with self._lock:
+                    self.errors.append(e)
+                continue
+            now = time.monotonic()
+            with self._lock:
+                self.done.append(now)
+                self.lat.append(now - t)
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+        return False
+
+
+def _pcts_ms(lat):
+    if not lat:
+        return {"p50": None, "p99": None}
+    return {"p50": float(np.percentile(lat, 50) * 1e3),
+            "p99": float(np.percentile(lat, 99) * 1e3)}
+
+
+def _max_gap(times, lo, hi):
+    ts = sorted(t for t in times if lo <= t <= hi)
+    return max((b - a for a, b in zip(ts, ts[1:])), default=None)
+
+
+def resnet_host_on_card(card, tmp):
+    """Phase 22 (b): ModelHost serving the frozen ResNet-50."""
+    import threading
+    import torch
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving.batcher import QueueFullError
+    from paddle_tpu_torch.resilience.health import CircuitOpenError
+    t_phase = t0 = time.perf_counter()
+    d1 = frozen_resnet50(tmp, 0, "r50_v1")
+    d2 = frozen_resnet50(tmp, 1, "r50_v2")
+    out = {"freeze_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(5)
+    images = [rng.rand(1, *IMAGE_SHAPE).astype(np.float32)
+              for _ in range(RESNET_IMAGES)]
+    config = serving.BatchingConfig(
+        max_batch_size=RESNET_BUCKETS[-1], batch_buckets=RESNET_BUCKETS,
+        max_latency_ms=RESNET_LATENCY_MS, queue_capacity_rows=16384)
+    t0 = time.perf_counter()
+    host = serving.ModelHost(d1, config=config,
+                             admission=serving.AdmissionConfig(
+                                 max_queue_rows=RESNET_ADMIT_ROWS)).start()
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        v1 = host._current
+        exe = v1.model.executor
+        print(f"[{card}] ModelHost started ResNet-50 {v1.name} in "
+              f"{out['start_s']:.2f} s: {len(RESNET_BUCKETS)} buckets "
+              f"warmed, {v1.engine.warm_captures} captured by the worker; "
+              f"{capture_note(exe)}", flush=True)
+
+        # -- every delivered row against a direct run of its bucket ------
+        recorded = []
+        complete = v1.engine._complete
+
+        def record(batch, fetches, t, cost=None):
+            recorded.append((batch, fetches[0]))
+            return complete(batch, fetches, t, cost)
+
+        v1.engine._complete = record
+        futures = []
+        try:
+            k = 0
+            for n in RESNET_BURSTS:
+                fs = [host.submit({"img": images[(k + j) % len(images)]})
+                      for j in range(n)]
+                k += n
+                futures += fs
+                for f in fs:
+                    f.result(timeout=300)
+        finally:
+            del v1.engine._complete
+        buckets_seen = sorted({b.bucket_rows for b, _ in recorded})
+        for batch, fetched in recorded:
+            (direct,) = v1.model.run_direct(batch.feed)
+            if direct.tobytes() != fetched.tobytes():
+                raise SystemExit(f"ResNet-50 serving: a batch of "
+                                 f"{batch.rows} in bucket "
+                                 f"{batch.bucket_rows} differs from a "
+                                 "direct run of the same padded bucket")
+            for req, (i0, i1) in zip(batch.requests, batch.slices):
+                if req.future.result(timeout=0)[0].tobytes() != \
+                        fetched[i0:i1].tobytes():
+                    raise SystemExit("ResNet-50 serving: a request's rows "
+                                     "differ from its batch's")
+        keys = list(exe._cache.values())
+        captured = sum(c.captured for c in keys)
+        graphs = len(RESNET_BUCKETS) if DEVICE == "cuda" else 0
+        if not (len(keys) == exe.cache_stats["misses"]
+                == len(RESNET_BUCKETS)
+                and captured == v1.engine.warm_captures == graphs):
+            raise SystemExit(f"ResNet-50 serving: {len(keys)} keys, "
+                             f"{exe.cache_stats}, {captured} captured, want "
+                             f"one captured key per bucket")
+        print(f"[{card}] ResNet-50 serving: {len(futures)} requests in "
+              f"{len(recorded)} batches (buckets {buckets_seen}) bit for "
+              "bit a direct run of the same padded bucket; one compiled "
+              f"key and one CUDA graph per bucket ({len(keys)}; "
+              f"{exe.cache_stats})", flush=True)
+        out["bitwise"] = {"requests": len(futures),
+                          "batches": len(recorded),
+                          "buckets_seen": buckets_seen,
+                          "keys": len(keys), "captured": captured,
+                          "cache_stats": dict(exe.cache_stats)}
+
+        # -- capacity, latency, fill and busy share ------------------------
+        stats0 = v1.engine.stats()
+        hist = v1.engine.metrics.latency_s
+        n0 = hist.count
+        with ClosedLoop(host.submit, images) as loop:
+            time.sleep(0.5)
+            t_a = time.monotonic()
+            time.sleep(RESNET_CAL_S)
+            t_b = time.monotonic()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t_p = time.perf_counter()
+                time.sleep(RESNET_PROFILE_S)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t_p) * 1e3
+        if loop.errors:
+            raise SystemExit(f"ResNet-50 calibration: {loop.errors[:3]}")
+        n_cal = sum(1 for t in loop.done if t_a <= t <= t_b)
+        capacity = n_cal / (t_b - t_a)
+        busy = sum(ms for _, ms, _ in device_kernels(prof)) / wall_ms
+        stats1 = v1.engine.stats()
+        served = list(hist._vals)[-(hist.count - n0):]
+        batches = stats1["batches"] - stats0["batches"]
+        rows = stats1["requests"] - stats0["requests"]
+        fill = stats1["batch_fill_ratio"]
+        out["closed_loop"] = {
+            "images_per_s": capacity, "latency_ms": _pcts_ms(served),
+            "client_latency_ms": _pcts_ms(loop.lat),
+            "in_flight": RESNET_CLIENTS * RESNET_WINDOW,
+            "rows_per_batch": rows / max(batches, 1),
+            "batch_fill_p50": fill["p50"], "busy": busy,
+            "mfu": stats1["mfu"], "model_flops": stats1["model_flops"]}
+        print(f"[{card}] ResNet-50 serving, {RESNET_CLIENTS} x "
+              f"{RESNET_WINDOW} in flight: {capacity:.1f} images/s, "
+              f"latency {_pcts_ms(served)} ms (clients "
+              f"{_pcts_ms(loop.lat)}), "
+              f"{rows / max(batches, 1):.1f} rows a batch, fill p50 "
+              f"{fill['p50']}, busy {100 * busy:.1f}% over "
+              f"{wall_ms:.0f} ms profiled, MFU gauge {stats1['mfu']:.4f} "
+              f"of {PEAK_NOTE}", flush=True)
+
+        # -- hot swap under the same clients --------------------------------
+        with ClosedLoop(host.submit, images) as loop:
+            time.sleep(1.0)
+            t_s0 = time.monotonic()
+            report = host.swap(d2, canary_fraction=0.1)
+            t_s1 = time.monotonic()
+            time.sleep(1.0)
+        blackout = _max_gap(loop.done, t_s0 - 0.25, t_s1 + 0.25)
+        steady = _max_gap(loop.done, t_s0 - 1.0, t_s0 - 0.25)
+        out["swap"] = {"report": report, "client_errors": len(loop.errors),
+                       "completed": len(loop.done),
+                       "swap_wall_s": t_s1 - t_s0,
+                       "blackout_ms": blackout * 1e3 if blackout else None,
+                       "steady_max_gap_ms": steady * 1e3 if steady
+                       else None}
+        print(f"[{card}] ResNet-50 hot swap r50_v1 -> r50_v2 under "
+              f"{RESNET_CLIENTS} x {RESNET_WINDOW} clients: "
+              f"{report['outcome']} in {t_s1 - t_s0:.2f} s "
+              f"({report['durations_s']}), canary {report['canary']}, "
+              f"{len(loop.errors)} client errors, blackout "
+              f"{out['swap']['blackout_ms']} ms (steady largest gap "
+              f"{out['swap']['steady_max_gap_ms']} ms)", flush=True)
+        if report["outcome"] != "completed" or loop.errors or \
+                host.current_version != "r50_v2":
+            raise SystemExit(f"ResNet-50 hot swap: {report}, client "
+                             f"errors {loop.errors[:3]}")
+        v2 = host._current
+        (served,) = host.predict({"img": images[0]}, timeout=300)
+        (direct,) = v2.model.run_direct({"img": images[0]})
+        if served.tobytes() != direct.tobytes():
+            raise SystemExit("after the swap the host does not serve "
+                             "r50_v2's weights")
+
+        # -- admission at 2x the calibrated rate ------------------------------
+        shed0 = sum(v2.engine.metrics.shed_by_reason().values())
+        hist = v2.engine.metrics.latency_s
+        n0 = hist.count
+        offered, refused = 0, 0
+        pending, lat, errors = [], [], []
+        done = threading.Event()
+        lock = threading.Lock()
+
+        def collect():
+            i = 0
+            while not done.is_set() or i < len(pending):
+                if i >= len(pending):
+                    time.sleep(0.001)
+                    continue
+                fut, t = pending[i]
+                i += 1
+                try:
+                    fut.result(timeout=300)
+                except Exception as e:  # noqa: BLE001 — asserted
+                    with lock:
+                        errors.append(e)
+                    continue
+                with lock:
+                    lat.append(time.monotonic() - t)
+
+        collector = threading.Thread(target=collect, daemon=True)
+        collector.start()
+        period = 1.0 / (2.0 * capacity)
+        t_a = time.monotonic()
+        while time.monotonic() - t_a < RESNET_ADMIT_S:
+            t = time.monotonic()
+            try:
+                pending.append((host.submit(
+                    {"img": images[offered % len(images)]}), t))
+            except (serving.ServiceOverloadedError, QueueFullError,
+                    CircuitOpenError):
+                refused += 1
+            offered += 1
+            wait = t_a + offered * period - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+        done.set()
+        collector.join(timeout=600)
+        elapsed = time.monotonic() - t_a
+        shed = sum(v2.engine.metrics.shed_by_reason().values()) - shed0
+        bound_s = RESNET_P99_FACTOR * (RESNET_ADMIT_ROWS
+                                       + 2 * RESNET_BUCKETS[-1]) / capacity
+        # the engine's own submit-to-delivery latencies of the admitted
+        # requests (the client threads' clocks add their scheduling)
+        served = list(hist._vals)[-(hist.count - n0):] \
+            if hist.count > n0 else []
+        p = _pcts_ms(served)
+        out["admission"] = {
+            "offered_rps": offered / elapsed, "offered": offered,
+            "admitted": len(pending), "refused": refused,
+            "shed_ledger": shed,
+            "shed_by_reason": v2.engine.metrics.shed_by_reason(),
+            "completed": len(lat), "errors": len(errors),
+            "admitted_latency_ms": p,
+            "client_latency_ms": _pcts_ms(lat),
+            "p99_bound_ms": bound_s * 1e3,
+            "goodput_rps": len(lat) / elapsed}
+        print(f"[{card}] ResNet-50 admission at 2x ({offered / elapsed:.1f}"
+              f" offered requests/s): {len(pending)} admitted, {refused} "
+              f"refused ({shed} in the shed ledger: "
+              f"{v2.engine.metrics.shed_by_reason()}), {len(errors)} "
+              f"errors, admitted latency {p} ms (bound "
+              f"{bound_s * 1e3:.0f} ms)", flush=True)
+        if refused == 0 or shed != refused or errors or \
+                len(lat) != len(pending) or len(served) != len(pending) \
+                or p["p99"] > bound_s * 1e3:
+            raise SystemExit(f"ResNet-50 admission: {out['admission']}")
+    finally:
+        host.stop(timeout=600)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def generation_host_on_card(card, tmp):
+    """Phase 22 (c): the two-model GenerationHost at phase 3's width."""
+    import threading
+    import torch
+    from paddle_tpu_torch import flags, load_param_arrays
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import FaultInjector
+    from paddle_tpu_torch.resilience.health import (CircuitBreaker,
+                                                    CircuitOpenError,
+                                                    HealthMonitor)
+    from paddle_tpu_torch.serving.admission import ServiceOverloadedError
+    from paddle_tpu_torch.serving.batcher import QueueFullError
+    from paddle_tpu_torch.serving.generation import (GenerationConfig,
+                                                     GenerationHost,
+                                                     GenerationModel,
+                                                     GenerationSpec,
+                                                     bucket_for)
+    t0 = time.perf_counter()
+    spec = GenerationSpec(**SERVE_SPEC)
+    spec1 = GenerationSpec(**{**SERVE_SPEC, "seed": 1})
+    slots = spec.slots
+    cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS,
+                           queue_capacity=4 * slots, idle_wait_s=0.002)
+    host = GenerationHost(config=cfg, default_budget=2 * slots)
+    host.deploy("m0", spec)
+    host.deploy("m1", spec1)
+    w0 = seeded_weights(host._hosted["m0"].model.programs["startup"], 0)
+    w1 = seeded_weights(host._hosted["m1"].model.programs["startup"], 1)
+    load_param_arrays(host._hosted["m0"].model, w0)
+    load_param_arrays(host._hosted["m1"].model, w1)
+    direct = GenerationModel.build(spec)
+    load_param_arrays(direct, w0)
+    out = {"build_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, spec.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    try:
+        # -- streams against a direct engine; flash launches --------------
+        min_seq = int(flags.get("PADDLE_TPU_FLASH_MIN_SEQ"))
+        want_flash = spec.n_layer * sum(
+            bucket_for(len(p), spec.prompt_buckets) >= min_seq
+            for p in prompts)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        hosted = [host.generate("m0", p, timeout=600) for p in prompts]
+        launches = launch_delta(before)
+        eng = direct.serve(config=cfg).start()
+        try:
+            solo = [eng.generate(p, timeout=600) for p in prompts]
+        finally:
+            eng.stop(timeout=600)
+        same = [a.tokens == b.tokens and a.finish_reason == b.finish_reason
+                for a, b in zip(hosted, solo)]
+        print(f"[{card}] GenerationHost m0: {len(prompts)} prompts "
+              f"{PROMPT_LENS}, streams equal a direct engine's: {same}; "
+              f"launches {launches} (want flash_attention_fwd "
+              f"{want_flash}: {spec.n_layer} a prefill at a bucket >= "
+              f"{min_seq})", flush=True)
+        flash = launches.pop("flash_attention_fwd", 0)
+        if not all(same) or launches or flash != want_flash or \
+                (DEVICE == "cuda" and flash == 0):
+            raise SystemExit("GenerationHost: streams or flash launches")
+        out["streams_equal"] = True
+        out["flash_launches"] = want_flash
+
+        # -- the breaker keeps completed tokens ------------------------------
+        health = HealthMonitor(breaker=CircuitBreaker(
+            failure_threshold=1, reset_timeout_s=3600))
+        eng = direct.serve(config=cfg, health=health).start()
+        try:
+            with FaultInjector(seed=0) as fi:
+                fi.on("generation.step", after=GEN_FAULT_AFTER)
+                res = eng.submit(prompts[0]).result(timeout=600)
+            state = eng.health.snapshot()["breaker"]["state"]
+            try:
+                eng.submit(prompts[1])
+                shed = False
+            except CircuitOpenError:
+                shed = True
+        finally:
+            eng.stop(drain=False, timeout=600)
+        kept = res.tokens == solo[0].tokens[:GEN_FAULT_AFTER + 1]
+        print(f"[{card}] generation.step fault after {GEN_FAULT_AFTER} "
+              f"steps: finish {res.finish_reason!r}, {len(res.tokens)} "
+              f"tokens kept (the solo stream's prefix: {kept}), breaker "
+              f"{state}, next submit shed: {shed}", flush=True)
+        if res.finish_reason != "aborted" or not kept or state != "open" \
+                or not shed:
+            raise SystemExit("GenerationEngine breaker")
+
+        # -- a swap keeps an in-flight request -----------------------------
+        fut = host.submit("m0", prompts[5])
+        report = host.swap("m0", GenerationSpec(**{**SERVE_SPEC,
+                                                  "seed": 99}),
+                           probe_prompts=([3, 4, 5],))
+        inflight = fut.result(timeout=600)
+        print(f"[{card}] GenerationHost swap of m0: {report['outcome']} "
+              f"({report['phases']}); the in-flight request's stream "
+              f"equals its solo stream: {inflight.tokens == solo[5].tokens}",
+              flush=True)
+        if report["outcome"] != "completed" or \
+                inflight.tokens != solo[5].tokens:
+            raise SystemExit(f"GenerationHost swap: {report}")
+        out["swap"] = report
+
+        # -- save / load --------------------------------------------------
+        d = os.path.join(tmp, "generation")
+        direct.save(d, model_version="g1")
+        loaded = GenerationModel.load(d)
+        eng = loaded.serve(config=cfg).start()
+        try:
+            again = [eng.generate(p, timeout=600) for p in prompts[:3]]
+        finally:
+            eng.stop(timeout=600)
+        if [r.tokens for r in again] != [r.tokens for r in solo[:3]] or \
+                loaded.version != "g1":
+            raise SystemExit("GenerationModel save / load changed tokens")
+        print(f"[{card}] GenerationModel.save / load: the loaded model "
+              "streams the saved one's tokens bit for bit", flush=True)
+        del loaded, eng
+
+        # -- idle TTFT per prompt bucket -------------------------------------
+        ttft = {}
+        for b in spec.prompt_buckets:
+            p = rng.randint(1, spec.vocab_size, b).tolist()
+            runs = []
+            for i in range(GEN_TTFT_RUNS + 2):
+                t = time.perf_counter()
+                host.generate("m1", p, max_new_tokens=1, timeout=600)
+                runs.append((time.perf_counter() - t) * 1e3)
+            ttft[b] = float(np.median(runs[2:]))
+        out["ttft_ms"] = ttft
+        print(f"[{card}] idle TTFT (submit to the first token) by prompt "
+              f"bucket: {ttft} ms", flush=True)
+
+        # -- the decode arm: calibration, then 2x open loop --------------
+        models = ["m0", "m1"]
+        prompt_len = max(1, spec.prompt_buckets[0] // 2)
+
+        def one(i):
+            return host.submit(models[i % 2],
+                               rng.randint(1, spec.vocab_size,
+                                           prompt_len).tolist())
+
+        calib, stop, lock = [0], threading.Event(), threading.Lock()
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    one(i).result(timeout=600)
+                except Exception:  # noqa: BLE001 — shed under load
+                    continue
+                with lock:
+                    calib[0] += 1
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(2 * slots)]
+        ta = time.monotonic()
+        for t in threads:
+            t.start()
+        time.sleep(GEN_CAL_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        capacity = calib[0] / (time.monotonic() - ta)
+        period = 1.0 / max(2.0, 2.0 * capacity)
+        done, shed, failed, lat, toks = [0], [0], [0], [], [0]
+        waiters = []
+
+        def wait_on(f, ts):
+            try:
+                r = f.result(timeout=600)
+            except Exception:  # noqa: BLE001 — counted
+                with lock:
+                    failed[0] += 1
+                return
+            with lock:
+                done[0] += 1
+                lat.append(time.monotonic() - ts)
+                toks[0] += len(r.tokens)
+
+        ta = time.monotonic()
+        i = 0
+        while time.monotonic() - ta < GEN_DRIVE_S:
+            ts = time.monotonic()
+            try:
+                f = one(i)
+            except (ServiceOverloadedError, QueueFullError,
+                    CircuitOpenError):
+                shed[0] += 1
+            else:
+                w = threading.Thread(target=wait_on, args=(f, ts),
+                                     daemon=True)
+                w.start()
+                waiters.append(w)
+            i += 1
+            wait = ts + period - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+        for w in waiters:
+            w.join(timeout=600)
+        elapsed = time.monotonic() - ta
+        stats = host.stats()
+        mfu = {n: stats["models"][n]["mfu"] for n in models}
+        out["decode_arm"] = {
+            "capacity_rps": capacity, "offered": i,
+            "offered_rps": i / elapsed, "completed": done[0],
+            "shed": shed[0], "failed": failed[0],
+            "goodput_rps": done[0] / elapsed,
+            "latency_ms": _pcts_ms(lat),
+            "decode_tokens_per_s": toks[0] / elapsed,
+            "shed_by_model": {n: stats["models"][n]["shed_by_reason"]
+                              for n in models},
+            "mfu": mfu, "peak_flops": PEAK_FLOPS,
+            "compile_cache": stats.get("compile_cache")}
+        print(f"[{card}] GenerationHost decode arm: capacity "
+              f"{capacity:.2f} requests/s closed loop; at 2x "
+              f"({i / elapsed:.2f}/s offered) {done[0]} completed, "
+              f"{shed[0]} shed, {failed[0]} failed, latency "
+              f"{_pcts_ms(lat)} ms, {toks[0] / elapsed:.1f} decode "
+              f"tokens/s; MFU gauge {mfu} of {PEAK_NOTE}", flush=True)
+        if failed[0] or done[0] == 0:
+            raise SystemExit(f"GenerationHost decode arm: {out}")
+    finally:
+        host.stop(timeout=600)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def registry_families(card, reg):
+    """Phase 22 (d): the families (b) and (c) published."""
+    names = {f.name for f in reg.families()}
+    missing = SERVING_FAMILIES - names
+    extra = names - SERVING_FAMILIES - OTHER_SERVING_FAMILIES \
+        - PROCESS_FAMILIES
+    print(f"[{card}] registry after (b)-(c): {len(names)} families, the "
+          f"{len(SERVING_FAMILIES)} serving families of "
+          f"tests/test_metric_names.py all present: {not missing}; "
+          f"others: {sorted(names - SERVING_FAMILIES)}", flush=True)
+    if missing or extra:
+        raise SystemExit(f"registry families: missing {sorted(missing)}, "
+                         f"unexpected {sorted(extra)}")
+    return sorted(names)
+
+
+def serve_slice21(card):
+    """Phase 22: (a) the book's last two chapters, (b) ModelHost serving
+    ResNet-50, (c) the two-model GenerationHost, (d) the registry's
+    families, on a fresh default registry, with the flight recorder's
+    dumps in a scratch directory. Returns the summary and the launches
+    of (a) and (c) (counts set to 0 just before each path and read just
+    after it)."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import flight_recorder as fr
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    summary = {"card": card}
+    launches = {}
+
+    def count(part, fn, *args):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        for n, k in kernels.launch_counts().items():
+            launches[n] = launches.get(n, 0) + k
+        summary["part_s"][part] = time.perf_counter() - t1
+        return res
+
+    summary["part_s"] = {}
+    prev_reg = obs.set_default_registry(obs.MetricsRegistry())
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = fr.FlightRecorder(
+            dump_dir=os.path.join(tmp, "flightrec")).enable()
+        prev_rec = fr.set_flight_recorder(rec)
+        try:
+            t1 = time.perf_counter()
+            summary["chapters"] = count("a", last_chapters_on_card, card)
+            t1 = time.perf_counter()
+            summary["resnet_host"] = count("b", resnet_host_on_card, card,
+                                           tmp)
+            t1 = time.perf_counter()
+            summary["generation_host"] = count(
+                "c", generation_host_on_card, card, tmp)
+            summary["families"] = registry_families(
+                card, obs.default_registry())
+            summary["flight_dumps"] = sorted(
+                os.path.basename(b).split("_", 4)[-1] for b in rec.dumps())
+        finally:
+            rec.disable()
+            fr.set_flight_recorder(prev_rec)
+            obs.set_default_registry(prev_reg)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"[{card}] phase 22: {summary['phase_s']:.1f} s "
+          f"({summary['part_s']}); flight-recorder bundles "
+          f"{summary['flight_dumps']}; launches "
+          f"{ {n: k for n, k in launches.items() if k} }", flush=True)
     return summary, launches
 
 
@@ -7114,10 +8104,14 @@ def main() -> int:
     # -- 21. control flow under AMP, the image models, the book chapters -----
     enter("slice20")
     slice20, slice20_launches = train_slice20(card, control_flow)
+
+    # -- 22. the book's last chapters, ModelHost, GenerationHost ----------
+    enter("slice21")
+    slice21, slice21_launches = serve_slice21(card)
     enter("done")
     rewrite["paths"] = rewrite_paths
 
-    # -- 22. result lines ------------------------------------------------------
+    # -- 23. result lines ------------------------------------------------------
     main_case = attn[MAIN_CASE]
     train_shapes = {name: {label: r for (n, label), r in
                            list(attn_bwd.items()) + list(lstm_rows.items())
@@ -7139,7 +8133,8 @@ def main() -> int:
                       "sequence_models": seq_launches.get(name, 0),
                       "control_flow": cf_launches.get(name, 0),
                       "train_rewrite": rewrite_launches.get(name, 0),
-                      "slice20": slice20_launches.get(name, 0)}
+                      "slice20": slice20_launches.get(name, 0),
+                      "slice21": slice21_launches.get(name, 0)}
                for name in launches}
     # the megakernel launches on its two paths only, each on its own
     for name, path in (("block_megakernel", "megakernel_chain"),
@@ -7323,6 +8318,7 @@ def main() -> int:
     print(json.dumps({"control_flow": control_flow}))
     print(json.dumps({"rewrite": rewrite}, default=float))
     print(json.dumps({"slice20": slice20}, default=float))
+    print(json.dumps({"slice21": slice21}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,12 @@ WhileGrad). analysis/ verifies programs, prices them (cost model,
 memory plan) and rewrites them (outlining a composed attention chain
 onto the flash kernels) before the executors run them. dataset/ gives
 the book's corpora (synthetic with the real schema unless the files are
-under its DATA_HOME). It imports neither jax nor paddle_tpu.
+under its DATA_HOME). serving/ serves frozen models (ServingEngine,
+ModelHost with canary hot-swap) and decoder LMs (serving/generation,
+GenerationHost), publishing to observability/ (metrics registry, spans,
+attribution against the card's peak, flight recorder) and shedding load
+through resilience/'s circuit breaker. It imports neither jax nor
+paddle_tpu.
 """
 from . import amp  # noqa: F401
 from . import ops  # noqa: F401  (registers every ported op)
@@ -42,3 +47,4 @@ from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .reader import batch  # noqa: F401
 from . import learning_rate_decay, optimizer  # noqa: F401
+from . import profiler, observability, serving  # noqa: F401

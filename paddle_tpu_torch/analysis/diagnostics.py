@@ -1,8 +1,9 @@
 """Structured findings of the static program verifier.
 
 The port's copy of ``paddle_tpu/analysis/diagnostics.py``. The JAX
-package also hands a failed verification to its flight recorder
-(observability/, ROADMAP A11); the port does not have that package yet.
+package also hands a failed verification to its flight recorder; the
+port's recorder (observability/flight_recorder.py) is not wired here
+yet (ROADMAP A11).
 
 A `Diagnostic` pins one defect (or observation) to a program location:
 severity, a stable machine-readable code, the op index inside its

@@ -28,9 +28,10 @@ The budget (:func:`hbm_budget_bytes`) is ``PADDLE_TPU_HBM_BYTES`` when
 set (``0`` disables the gate); unset, it is the executor device's total
 memory as torch reports it on a CUDA card, and no gate on the CPU, which
 has no device memory to read. (The JAX package defaults to one TPU
-core's 16 GiB; that number is a TPU's and is not the port's.) The JAX
-package also publishes the peak to its observability registry
-(``publish_peak``); observability/ is ROADMAP A11.
+core's 16 GiB; that number is a TPU's and is not the port's.)
+``publish_peak`` sets the ``paddle_tpu_memory_peak_bytes{job}`` gauge of
+the observability registry (the generation engine publishes each step's
+plan); the Trainer's publication is ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -383,3 +384,29 @@ class MemoryPass(AnalysisPass):
             ctx.program, ctx.block_idx, feed_shapes=self.feed_shapes,
             batch=self.batch, feed_names=ctx.feed_names,
             label=ctx.report.program_label)
+
+
+_obs_cache = None
+
+
+def publish_peak(job: str, peak_bytes: int) -> None:
+    """Best-effort gauge of the most recent dispatch's static peak
+    (``paddle_tpu_memory_peak_bytes{job}``), the family cached per
+    registry."""
+    global _obs_cache
+    try:
+        from ..observability import default_registry
+        reg = default_registry()
+        if reg is None:
+            return
+        cache = _obs_cache
+        if cache is None or cache[0] is not reg:
+            g = reg.gauge(
+                "paddle_tpu_memory_peak_bytes",
+                "Static pre-compile peak-HBM estimate of the most "
+                "recently dispatched program (arena model, bytes)",
+                ("job",))
+            cache = _obs_cache = (reg, g)
+        cache[1].labels(job=str(job)).set(float(peak_bytes))
+    except Exception:  # noqa: BLE001 — telemetry must never break a run
+        pass

@@ -45,7 +45,7 @@ carried/cond names).
 Wired into both executors' compile-cache-miss path behind
 ``PADDLE_TPU_OPTIMIZE`` (default on, flags.py). The JAX package also
 publishes the pipeline's time and action counts to its observability
-registry; observability/ is ROADMAP A11.
+registry; the port's hook is ROADMAP A11.
 """
 from __future__ import annotations
 

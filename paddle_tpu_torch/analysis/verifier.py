@@ -15,7 +15,7 @@ instead of a deep runtime error or a silent wrong answer:
 All gates honor ``PADDLE_TPU_VERIFY=0`` (read per call, so tests can
 flip it). The JAX package also publishes verify wall time to its
 observability registry; the port keeps the report and publishes nothing
-(observability/ is ROADMAP A11).
+yet (the hook is ROADMAP A11).
 """
 from __future__ import annotations
 

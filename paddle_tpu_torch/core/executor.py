@@ -547,14 +547,16 @@ class StepResult:
     iteration) converts to the host once, then drops the device
     references so the buffers are not held for the result's lifetime.
     On the CPU the ops ran before `run` returned, and `ready` is always
-    True."""
+    True. `cost` is the static ProgramCost of THIS dispatch (a later
+    run moves the executor's `last_cost`, this one stays)."""
 
     def __init__(self, raw_fetches, fetch_names, return_numpy: bool,
-                 event=None):
+                 event=None, cost=None):
         self._raw = list(raw_fetches)
         self.fetch_names = list(fetch_names)
         self._return_numpy = return_numpy
         self._event = event
+        self.cost = cost
         self._values: Optional[List[Any]] = None
 
     @property
@@ -1236,7 +1238,8 @@ class Executor:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
             self._inflight = event
-        result = StepResult(fetched, fetch_names, return_numpy, event)
+        result = StepResult(fetched, fetch_names, return_numpy, event,
+                            cost=self.last_cost)
         return result.fetches() if sync else result
 
     # -- the compiled path ---------------------------------------------------

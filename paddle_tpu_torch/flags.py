@@ -2,7 +2,8 @@
 
 The port's own copy of the entries of ``paddle_tpu/flags.py`` that its
 modules use; the names and defaults are the JAX package's, so one
-environment configures both.
+environment configures both — except PADDLE_TPU_PEAK_FLOPS, whose
+default is the card's peak, not the TPU's.
 """
 from __future__ import annotations
 
@@ -70,6 +71,35 @@ FLAGS: Dict[str, tuple] = {
         "default cache-length buckets for the decode-step programs, "
         "comma-separated ascending; a step runs the smallest bucket "
         "covering the deepest active position"),
+    "PADDLE_TPU_DECODE_MODEL_BUDGET": (
+        "8", "serving/generation/host.py",
+        "default per-model admission budget of a GenerationHost: max "
+        "concurrently admitted (queued + in-flight) requests per "
+        "hosted model before sheds with reason=model_budget"),
+    "PADDLE_TPU_ATTRIBUTION": (
+        "1", "observability/attribution.py (published from "
+        "serving/engine.py, serving/generation/engine.py)",
+        "live performance attribution: paddle_tpu_mfu / "
+        "paddle_tpu_model_flops gauges; 0 disables publication (the "
+        "disabled metrics registry also turns it off; "
+        "set_attribution_enabled() overrides the env)"),
+    "PADDLE_TPU_PEAK_FLOPS": (
+        "989e12", "observability/attribution.py",
+        "device peak FLOP/s the MFU gauge is normalized against "
+        "(default: the dense bf16 tensor-core peak of an NVIDIA H100 80GB "
+        "HBM3 at 700 W); read per step so tests can flip it"),
+    "PADDLE_TPU_FLIGHT_RECORDER": (
+        "1", "observability/flight_recorder.py",
+        "failure flight recorder: bounded ring of recent profiler "
+        "events dumped as a chrome-trace + JSON bundle when a failure "
+        "trigger fires (circuit-breaker open, swap rollback, shed "
+        "storm); 0 removes the listener entirely (zero overhead, "
+        "nothing ever written)"),
+    "PADDLE_TPU_FLIGHT_DIR": (
+        "<tmpdir>/paddle_tpu_flightrec", "observability/flight_recorder.py",
+        "directory flight-recorder dump bundles are written to "
+        "(flightrec_<ms>_<pid>_<seq>_<reason>/, pruned to this "
+        "process's newest 8)"),
     "PADDLE_TPU_VERIFY": (
         "1", "analysis/verifier.py (gates in core/executor.py, trainer.py, "
         "serving/generation/model.py, io.py)",

@@ -13,7 +13,9 @@ and the sequence layers: sequence_pool, sequence_first_step,
 sequence_last_step, sequence_reverse, nested_sequence_flatten,
 nested_sequence_pack, sequence_conv, sequence_softmax, sequence_expand,
 sequence_reshape, sequence_mask, sequence_pad, sequence_unpad, row_conv,
-warpctc, lstm_unit, gru_unit, dynamic_lstmp and ctc_greedy_decoder.
+warpctc, lstm_unit, gru_unit, dynamic_lstmp and ctc_greedy_decoder;
+cos_sim, linear_chain_crf and crf_decoding (the book's recommender and
+semantic-role chapters).
 Each function appends the same ops, with the same attrs and var names,
 as its JAX-package counterpart."""
 from __future__ import annotations
@@ -39,7 +41,8 @@ __all__ = ["fc", "embedding", "increment", "dynamic_lstm", "dynamic_gru",
            "gru_unit", "dynamic_lstmp", "ctc_greedy_decoder",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "scale",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "cos_sim", "linear_chain_crf",
+           "crf_decoding"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -304,6 +307,61 @@ def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
                      outputs={"Out": out, "MidOut": mid},
                      attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
     return out
+
+
+def cos_sim(x, y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_tmp_variable(x.dtype)
+    xn = helper.create_tmp_variable(x.dtype)
+    yn = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": x, "Y": y},
+                     outputs={"Out": out, "XNorm": xn, "YNorm": yn})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """Linear-chain CRF negative log-likelihood over ragged sequences.
+    Creates the [num_tags + 2, num_tags] transition parameter (rows 0
+    and 1 are the start and end weights)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    num_tags = int(input.shape[-1])
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[num_tags + 2, num_tags],
+        dtype=input.dtype)
+    ll = helper.create_tmp_variable(input.dtype)
+    alpha = helper.create_tmp_variable(input.dtype)
+    em_exps = helper.create_tmp_variable(input.dtype)
+    tr_exps = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="linear_chain_crf",
+                     inputs={"Emission": input, "Label": label,
+                             "Transition": transition},
+                     outputs={"LogLikelihood": ll, "Alpha": alpha,
+                              "EmissionExps": em_exps,
+                              "TransitionExps": tr_exps})
+    return ll
+
+
+def crf_decoding(input, param_attr=None, label=None):
+    """Viterbi decode with a CRF transition parameter: the one
+    linear_chain_crf created under the same ParamAttr name, else a new
+    one (an inference program loads it by name). With `label`, emits
+    per-position 0/1 correctness instead of the path."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    attr = helper.param_attr
+    num_tags = int(input.shape[-1])
+    if attr is not None and attr.name is not None and \
+            helper.main_program.global_block().has_var(attr.name):
+        transition = helper.main_program.global_block().var(attr.name)
+    else:
+        transition = helper.create_parameter(
+            attr, shape=[num_tags + 2, num_tags], dtype=input.dtype)
+    path = helper.create_tmp_variable("int64", lod_level=input.lod_level)
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": path})
+    return path
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,

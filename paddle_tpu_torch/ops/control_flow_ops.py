@@ -16,7 +16,12 @@ package's lowerings map onto torch as:
   condition each pass. It cannot be captured (registered capturable
   per op: see ``_while_capturable``);
 - lax.cond (cond): reads the predicate on the host and runs the taken
-  branch only; registered capturable=False.
+  branch; registered capturable=False. lax.cond refuses branches whose
+  outputs differ in dtype or shape (under AMP a bias-free fc in one
+  branch returns bf16 where the other returns float32), so the port
+  also runs the branch not taken, once per input signature and without
+  gradients, and raises the same TypeError whichever branch is taken
+  (``_branch_type``).
 
 lax.scan and lax.while_loop refuse a body whose carry leaves with another
 dtype or shape than it entered (under AMP a bf16 ``mul`` can turn a
@@ -37,6 +42,7 @@ from functools import partial
 import torch
 
 from ..core.lod import RAGGED_TYPES, RaggedPair, ragged_like, ragged_parts
+from ..amp import amp_enabled
 from ..core.registry import OpRegistry, register_op, run_op
 
 register_op_CF = partial(register_op, ragged_aware=True)
@@ -262,13 +268,52 @@ def _while(ctx):
     _publish_report(ctx, {wid: steps, **dict(zip(nested, maxes))})
 
 
+def _value_type(v):
+    """(dtype, shape) of each part of a tensor or ragged value."""
+    return tuple((_dt(t), tuple(t.shape)) for t in ragged_parts(v))
+
+
+#: (program uid, version, block, AMP state, input types) -> the type of
+#: the block's output: what a branch's output type is, learned from one
+#: run of the branch (bounded: cleared when it outgrows _TYPES_MAX)
+_BRANCH_TYPES = {}
+_TYPES_MAX = 4096
+
+
+def _branch_type(ctx, blk, out_name, env_type, value=None):
+    """The output type of branch `blk` on inputs of type `env_type`:
+    from `value` (the branch just ran), the cache, or one run of the
+    branch without gradients whose nested trip counts are dropped (the
+    branch lax.cond traces but does not take)."""
+    prog = ctx.extra["program"]
+    key = (prog.uid, prog.version, blk, amp_enabled(), env_type)
+    typ = _BRANCH_TYPES.get(key)
+    if typ is None:
+        if value is None:
+            with torch.no_grad():
+                env, _ = _collect_reports(
+                    ctx, lambda: _trace_sub(ctx, blk, dict(ctx.env)))
+            value = env[out_name]
+        typ = _value_type(value)
+        if len(_BRANCH_TYPES) >= _TYPES_MAX:
+            _BRANCH_TYPES.clear()
+        _BRANCH_TYPES[key] = typ
+    return typ
+
+
+def _type_str(typ):
+    return ", ".join(f"{d}[{','.join(map(str, s))}]" for d, s in typ)
+
+
 @register_op_CF("cond", capturable=False)
 def _cond(ctx):
     """Runs the branch the predicate takes, read on the host (the JAX
     package's lax.cond). The dynamic Whiles inside either branch report
     their trip counts as NestedSteps: 0 for a loop of the branch not
     taken, which can only under-report — the probe needs counts only for
-    what ran."""
+    what ran. Raises TypeError, before the output is set, where the two
+    branches' outputs differ in dtype or shape, as lax.cond refuses
+    them."""
     pred = ctx.input("Pred")
     prog = ctx.extra["program"]
     tb = ctx.attr("true_block_idx")
@@ -279,8 +324,20 @@ def _cond(ctx):
     taken = bool(pred.reshape(()))
     blk, out_name = (tb, ctx.attr("true_out")) if taken \
         else (fb, ctx.attr("false_out"))
+    env_type = tuple(sorted((n, _value_type(v)) for n, v in ctx.env.items()
+                            if isinstance(v, (torch.Tensor,) + RAGGED_TYPES)))
     env, rep = _collect_reports(
         ctx, lambda: _trace_sub(ctx, blk, dict(ctx.env)))
+    types = {blk: _branch_type(ctx, blk, out_name, env_type, env[out_name])}
+    other, other_out = (fb, ctx.attr("false_out")) if taken \
+        else (tb, ctx.attr("true_out"))
+    types[other] = _branch_type(ctx, other, other_out, env_type)
+    if types[tb] != types[fb]:
+        raise TypeError(
+            "cond branches must have equal output types but they differ: "
+            f"the output of true_fun has type {_type_str(types[tb])} but "
+            "the corresponding output of false_fun has type "
+            f"{_type_str(types[fb])}")
     steps = [rep.get(w, _zero_steps(ctx)) for w in wids]
     ctx.set_output("Out", env[out_name])
     ctx.set_outputs("NestedSteps", steps)

@@ -1,6 +1,6 @@
 """Math ops: elementwise (with the reference's axis broadcast), mul,
 matmul, reduce_sum, mean, activations, clipping, comparisons and logical ops,
-arg_max.
+arg_max, cos_sim.
 
 The port's compute rules for the ``paddle_tpu/ops/math_ops.py`` ops its
 models' train steps run (softmax and top_k included), plus the few that
@@ -224,3 +224,16 @@ def _logical_not(ctx):
 def _arg_max(ctx):
     ctx.set_output("Out", torch.argmax(ctx.input("X"),
                                        dim=ctx.attr("axis", -1)))
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx):
+    """Cosine similarity along the last axis, with the reference's
+    ``+ 1e-12`` in the denominator; XNorm and YNorm are the norms."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    out = torch.sum(x * y, -1, keepdim=True) / (xn * yn + 1e-12)
+    ctx.set_output("Out", out)
+    ctx.set_output("XNorm", xn)
+    ctx.set_output("YNorm", yn)

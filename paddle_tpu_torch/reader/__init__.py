@@ -269,8 +269,9 @@ class FeedPrefetcher:
       * `close()` is idempotent, unblocks a producer stuck on the full
         queue, and joins the thread with a timeout (no
         `feed-prefetcher-*` thread outlives its loop).
-    The JAX package's profiler events and span hand-off wait for
-    ROADMAP A11; `adopt_span` accepts a span and does nothing.
+    The JAX package's profiler events and span hand-off are not wired
+    here yet (ROADMAP A11); `adopt_span` accepts a span and does
+    nothing.
     """
 
     _END = object()
@@ -293,8 +294,8 @@ class FeedPrefetcher:
 
     # -- producer ------------------------------------------------------
     def adopt_span(self, ctx) -> None:
-        """Step-span attribution of producer work: waits for the
-        observability layer (ROADMAP A11); a no-op here."""
+        """Step-span attribution of producer work: not wired yet
+        (ROADMAP A11); a no-op here."""
 
     def _fill(self):
         try:

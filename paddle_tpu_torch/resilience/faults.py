@@ -6,9 +6,16 @@ arms with raise/delay schedules, deterministically under a fixed seed.
 The port fires ``checkpoint.write`` and ``checkpoint.read``
 (distributed/checkpoint.py), ``reader.next`` (reader/__init__.py
 ``batch()`` per yielded batch, ``FeedPrefetcher`` per pulled batch, in
-its producer thread) and ``dataset.download`` (dataset/common.py, before
-each transfer attempt). The other names of ``FAULT_POINTS`` belong to
-modules not ported yet; arming one is allowed, as in the JAX package.
+its producer thread), ``dataset.download`` (dataset/common.py, before
+each transfer attempt), ``serving.admission`` (serving/admission.py,
+per admission check: a fault is a fast shed), ``serving.batch``
+(serving/engine.py, per batch run), ``serving.swap`` (serving/
+lifecycle.py, at ModelHost.swap's phase boundaries: a fault rolls the
+swap back) and ``generation.step`` (serving/generation/engine.py, per
+decode step: a fault retires the in-flight requests with their tokens
+and counts toward the breaker). The other names of ``FAULT_POINTS``
+belong to modules not ported yet; arming one is allowed, as in the JAX
+package.
 
 `fire(point)` is on hot paths (per batch), so the disabled cost is one
 module-global read and an `is None` test. All bookkeeping lives on the

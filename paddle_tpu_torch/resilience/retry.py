@@ -1,4 +1,4 @@
-"""Unified retry/backoff policy.
+"""Retry with exponential backoff + jitter.
 
 The port's copy of ``paddle_tpu/resilience/retry.py``: the one retry
 layer that checkpoint save and load share. A `RetryPolicy` is immutable
@@ -6,24 +6,86 @@ configuration; `call()` executes a thunk under it. Backoff is
 exponential with decorrelating jitter, bounded by `max_delay_s` and an
 overall `deadline_s`. Which exceptions retry is the policy's `retryable`
 filter — everything else propagates immediately. `name` labels the
-operation in messages.
+operation in messages and metrics.
 
-Not ported yet (ROADMAP A11): the per-operation retry counters
-(``retry_counters``), their mirror into the metrics registry, and the
-``retry::<name>`` profiler events.
+Observability: every retry is counted in a module-level registry
+(`retry_counters()`) keyed by the operation name, and recorded as a
+``retry::<name>`` profiler event spanning the backoff sleep
+(cat=profiler.CAT_RESILIENCE). The counters mirror themselves into the
+metrics registry at scrape time
+(paddle_tpu_retry_{calls,retries,failures}_total{op=...}) through a
+global collector.
 """
 from __future__ import annotations
 
 import random
+import threading
 import time
 from typing import Callable, Optional, Tuple, Type, Union
 
-__all__ = ["RetryPolicy", "RetryError", "DEFAULT_RETRYABLE"]
+from .. import profiler
+from ..observability.registry import add_global_collector
+
+__all__ = ["RetryPolicy", "RetryError", "retry_counters",
+           "reset_retry_counters", "DEFAULT_RETRYABLE"]
 
 #: network + I/O failures that are usually transient. ConnectionError is
 #: an OSError subclass; listed for readability.
 DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
     ConnectionError, OSError, TimeoutError)
+
+_counters = {}
+_counters_lock = threading.Lock()
+
+
+def _count(name: str, key: str, n: int = 1):
+    with _counters_lock:
+        c = _counters.setdefault(
+            name, {"calls": 0, "retries": 0, "failures": 0})
+        c[key] += n
+
+
+def retry_counters() -> dict:
+    """{op name: {calls, retries, failures}} accumulated process-wide."""
+    with _counters_lock:
+        return {k: dict(v) for k, v in _counters.items()}
+
+
+def reset_retry_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
+
+
+def _collect_retry_metrics(reg) -> None:
+    """Scrape-time mirror of `_counters` into the metrics registry.
+    Registered as a global collector so it follows default-registry
+    swaps. After a reset_retry_counters() the exposed series DROP to
+    the new totals (Counter.set_total passes decreases through) —
+    Prometheus rate()/increase() read that as a counter reset, which
+    is the correct signal."""
+    counters = retry_counters()
+    if not counters:
+        return
+    families = {
+        "calls": reg.counter(
+            "paddle_tpu_retry_calls_total",
+            "Operations executed under a RetryPolicy, by op name.",
+            ("op",)),
+        "retries": reg.counter(
+            "paddle_tpu_retry_retries_total",
+            "Retry attempts taken (one backoff sleep each), by op name.",
+            ("op",)),
+        "failures": reg.counter(
+            "paddle_tpu_retry_failures_total",
+            "Operations that failed terminally (non-retryable, attempts "
+            "exhausted, or deadline exceeded), by op name.", ("op",)),
+    }
+    for op, c in counters.items():
+        for key, fam in families.items():
+            fam.labels(op=op).set_total(c[key])
+
+
+add_global_collector(_collect_retry_metrics)
 
 
 class RetryError(RuntimeError):
@@ -95,6 +157,7 @@ class RetryPolicy:
 
         on_retry(retry_index, exc) runs before each backoff sleep (e.g.
         to close a broken socket so the next attempt reconnects)."""
+        _count(name, "calls")
         t0 = self._clock()
         for attempt in range(self.max_attempts):
             try:
@@ -102,18 +165,23 @@ class RetryPolicy:
             except BaseException as exc:
                 last = attempt == self.max_attempts - 1
                 if last or not self._is_retryable(exc):
+                    _count(name, "failures")
                     raise
                 d = self.delay(attempt)
                 if self.deadline_s is not None and \
                         self._clock() - t0 + d > self.deadline_s:
+                    _count(name, "failures")
                     raise RetryError(
                         f"{name}: deadline {self.deadline_s}s would be "
                         f"exceeded after {attempt + 1} attempt(s)"
                     ) from exc
+                _count(name, "retries")
                 if on_retry is not None:
                     on_retry(attempt, exc)
-                if d:
-                    self._sleep(d)
+                with profiler.RecordEvent(f"retry::{name}",
+                                          cat=profiler.CAT_RESILIENCE):
+                    if d:
+                        self._sleep(d)
 
     def wrap(self, fn: Callable, name: Optional[str] = None,
              on_retry: Optional[Callable] = None) -> Callable:

@@ -20,31 +20,40 @@ re-runs the full causal forward over each row's entire history. The
 token stream is greedy either way, so cached-vs-reforward outputs are
 bit-comparable.
 
-A step failure retires every in-flight request with the tokens it
-already completed (finish_reason="aborted") and fails the queue; the
-exception is kept in ``last_error``. Not ported yet: the health/breaker,
-metrics, profiler-span, attribution and fault-injection hooks.
+Failure containment mirrors the batch-serving engine: a step failure
+records into the HealthMonitor (consecutive failures trip the breaker
+OPEN → submit() sheds with CircuitOpenError), and every in-flight
+request is retired with the tokens it already completed
+(finish_reason="aborted") rather than dropped — a breaker trip never
+loses delivered work; the requests taken from the queue and not yet
+admitted fail with the error, which ``last_error`` keeps. Each decode
+step fires the ``generation.step`` fault point. Prefills and steps are
+``generation::*`` profiler events (cat serving); GenerationMetrics
+publishes the volume counters, step/prefill histograms and slot gauges,
+and each step's cost and memory plans feed the MFU gauge
+(observability/attribution.py, the card's peak) and
+``paddle_tpu_memory_peak_bytes``.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
 
+from ... import profiler
+from ...observability import attribution as obs_attr
+from ...resilience import faults
+from ...resilience import health as health_mod
+from ...resilience.health import CircuitOpenError, HealthMonitor
+from ..batcher import QueueFullError, ServingStopped
+from .metrics import GenerationMetrics
 from .model import bucket_for
 
 __all__ = ["GenerationConfig", "GenerationResult", "GenerationFuture",
            "GenerationEngine", "QueueFullError", "ServingStopped"]
-
-
-class QueueFullError(RuntimeError):
-    """submit() beyond the engine's queue capacity."""
-
-
-class ServingStopped(RuntimeError):
-    """submit() to, or a queued request of, an engine that stopped."""
 
 
 class GenerationConfig:
@@ -112,19 +121,23 @@ class GenerationFuture:
 
 
 class _Request:
-    __slots__ = ("prompt", "max_new_tokens", "future", "tokens")
+    __slots__ = ("prompt", "max_new_tokens", "future", "tokens",
+                 "submitted_at")
 
     def __init__(self, prompt, max_new_tokens, future):
         self.prompt = list(int(t) for t in prompt)
         self.max_new_tokens = max_new_tokens
         self.future = future
         self.tokens: List[int] = []
+        self.submitted_at = time.monotonic()
 
 
 class GenerationEngine:
     """Continuous-batching token server for one GenerationModel."""
 
     def __init__(self, model, config: Optional[GenerationConfig] = None,
+                 metrics: Optional[GenerationMetrics] = None,
+                 health: Optional[HealthMonitor] = None,
                  mode: str = "cached"):
         if mode not in ("cached", "reforward"):
             raise ValueError(f"mode must be 'cached' or 'reforward', "
@@ -132,6 +145,8 @@ class GenerationEngine:
         self.model = model
         self.spec = model.spec
         self.config = config or GenerationConfig()
+        self.metrics = metrics or GenerationMetrics()
+        self.health = health or HealthMonitor()
         self.mode = mode
         self._slots: List[Optional[_Request]] = [None] * self.spec.slots
         # per-slot history: [slots, max_seq_len] tokens
@@ -153,6 +168,7 @@ class GenerationEngine:
         top = (self.spec.cache_buckets[-1] if mode == "cached"
                else self.spec.prompt_buckets[-1])
         self._max_len = min(self.spec.max_seq_len, top)
+        self.metrics.slots_total.set(self.spec.slots)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -196,22 +212,52 @@ class GenerationEngine:
                 f"bucket {self.spec.prompt_buckets[-1]}")
         budget = int(max_new_tokens if max_new_tokens is not None
                      else self.config.max_new_tokens)
-        fut = GenerationFuture()
-        with self._wake:
-            if self._stopping:
-                raise ServingStopped("generation engine is stopping")
-            if len(self._queue) >= self.config.queue_capacity:
-                raise QueueFullError(
-                    f"generation queue at capacity "
-                    f"({self.config.queue_capacity})")
-            self._queue.append(_Request(prompt, budget, fut))
-            self._wake.notify_all()
-        return fut
+        admit = self.health.allow_request()
+        if not admit:
+            self.metrics.shed("circuit_open")
+            raise CircuitOpenError(
+                "generation circuit is open (step failures tripped the "
+                "breaker) — request shed; see engine.stats()['health']")
+        try:
+            fut = GenerationFuture()
+            with self._wake:
+                if self._stopping:
+                    raise ServingStopped(
+                        "generation engine is stopping")
+                if len(self._queue) >= self.config.queue_capacity:
+                    self.metrics.shed("queue_full")
+                    raise QueueFullError(
+                        f"generation queue at capacity "
+                        f"({self.config.queue_capacity})")
+                self._queue.append(_Request(prompt, budget, fut))
+                self.metrics.requests.inc()
+                self._wake.notify_all()
+            return fut
+        except BaseException:
+            # admitted but never queued: hand back a consumed half-open
+            # probe slot (only then — see ServingEngine.submit)
+            if admit is health_mod.PROBE:
+                self.health.release_probe()
+            raise
 
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  timeout: Optional[float] = None) -> GenerationResult:
         """Synchronous submit + wait."""
         return self.submit(prompt, max_new_tokens).result(timeout=timeout)
+
+    # -- observability -----------------------------------------------------
+    def stats(self):
+        out = self.metrics.stats(executor=self.model.executor)
+        with self._lock:
+            out["queued"] = len(self._queue)
+            out["active"] = sum(1 for s in self._slots if s is not None)
+        out["mode"] = self.mode
+        out["slots"] = self.spec.slots
+        out["cache_buckets"] = list(self.spec.cache_buckets)
+        out["started"] = self._started
+        out["stopping"] = self._stopping
+        out["health"] = self.health.snapshot()
+        return out
 
     # -- driver ------------------------------------------------------------
     def _driver_loop(self):
@@ -234,6 +280,7 @@ class GenerationEngine:
                 stopped = ServingStopped(
                     "generation engine stopped without drain")
                 for req in pending:
+                    self.metrics.retired("aborted")
                     req.future.set_exception(stopped)
                 self._abort_all(stopped)
                 return
@@ -244,28 +291,36 @@ class GenerationEngine:
             except Exception as e:  # noqa: BLE001 — the driver must live
                 # a failed step leaves every active slot's cache state
                 # suspect: retire them all with the tokens they already
-                # completed and keep the loop alive; the requests taken
-                # from the queue and not admitted (the one whose prefill
-                # failed first) fail with the error
+                # completed, count the failure toward the breaker (the
+                # breaker, not a dead thread, decides whether to shed)
+                # and keep the loop alive; the requests taken from the
+                # queue and not admitted (the one whose prefill failed
+                # first) fail with the error
                 self.last_error = e
+                self.health.record_failure(e)
                 for req in pending:
+                    self.metrics.retired("error")
                     req.future.set_exception(e)
-                self._abort_all(e)
+                self._abort_all(e, reason="error")
+            self.metrics.slots_active.set(
+                sum(1 for s in self._slots if s is not None))
 
-    def _abort_all(self, exc: BaseException):
+    def _abort_all(self, exc: BaseException, reason: str = "aborted"):
         """Retire every in-flight slot (delivering completed tokens —
-        a failure or stop never drops delivered work) and fail the
-        queue."""
+        a failure or stop never drops delivered work; counted under
+        `reason`) and fail the queue."""
         for i, req in enumerate(self._slots):
             if req is None:
                 continue
             self._slots[i] = None
             self._lengths[i] = 0
+            self.metrics.retired(reason)
             req.future.set_result(GenerationResult(
                 req.tokens, "aborted", len(req.prompt)))
         with self._lock:
             queued, self._queue = list(self._queue), deque()
         for req in queued:
+            self.metrics.retired("aborted")
             req.future.set_exception(exc)
 
     # -- admit -------------------------------------------------------------
@@ -283,11 +338,19 @@ class GenerationEngine:
                 break
             req = pending.popleft()
             if self.mode == "cached":
+                t0 = time.monotonic()
                 try:
-                    tok = self.model.run_prefill(req.prompt, slot)
+                    with profiler.RecordEvent(
+                            f"generation::prefill[{len(req.prompt)}]",
+                            cat=profiler.CAT_SERVING):
+                        tok = self.model.run_prefill(req.prompt, slot)
                 except BaseException:
                     pending.appendleft(req)
                     raise
+                self.metrics.prefills.inc()
+                self.metrics.prefill_seconds.record(
+                    time.monotonic() - t0)
+                self.health.record_success()
                 self._install(slot, req)
                 self._deliver_token(slot, req, tok)
             else:
@@ -305,10 +368,12 @@ class GenerationEngine:
 
     # -- step --------------------------------------------------------------
     def _step(self):
+        faults.fire("generation.step")
         if self.mode == "cached":
             self._step_cached()
         else:
             self._step_reforward()
+        self.metrics.steps.inc()
 
     def _active(self):
         return [i for i, s in enumerate(self._slots) if s is not None]
@@ -328,7 +393,12 @@ class GenerationEngine:
         bucket = bucket_for(depth, self.spec.cache_buckets)
         if bucket is None:  # deepest slot exceeded every bucket
             bucket = self.spec.cache_buckets[-1]
-        next_tokens = self.model.run_decode(tokens, positions, bucket)
+        t0 = time.monotonic()
+        with profiler.RecordEvent(
+                f"generation::decode_step[{bucket}]",
+                cat=profiler.CAT_SERVING):
+            next_tokens = self.model.run_decode(tokens, positions, bucket)
+        self._observe_step(t0)
         for i in active:
             self._deliver_token(i, self._slots[i], int(next_tokens[i]))
 
@@ -342,9 +412,29 @@ class GenerationEngine:
             bucket = self.spec.prompt_buckets[-1]
         matrix = self._history[:, :bucket]
         lengths = np.maximum(self._lengths, 1)  # inactive rows: dummy 1
-        next_tokens = self.model.run_full(matrix, lengths, bucket)
+        t0 = time.monotonic()
+        with profiler.RecordEvent(
+                f"generation::reforward_step[{bucket}]",
+                cat=profiler.CAT_SERVING):
+            next_tokens = self.model.run_full(matrix, lengths, bucket)
+        self._observe_step(t0)
         for i in active:
             self._deliver_token(i, self._slots[i], int(next_tokens[i]))
+
+    def _observe_step(self, t0: float):
+        t1 = time.monotonic()
+        self.health.record_success()
+        self.metrics.step_seconds.record(t1 - t0)
+        if obs_attr.attribution_enabled():
+            cost = self.model.last_cost()
+            if cost is not None and cost.flops and t1 > t0:
+                self.metrics.set_mfu(
+                    cost.flops / obs_attr.peak_flops() / (t1 - t0),
+                    cost.flops)
+        mem = self.model.last_memory()
+        if mem is not None:
+            from ...analysis.memory import publish_peak
+            publish_peak(self.metrics._attr_job, mem.peak_bytes)
 
     # -- retire ------------------------------------------------------------
     def _deliver_token(self, slot: int, req: _Request, tok: int):
@@ -355,6 +445,7 @@ class GenerationEngine:
         if length < self.spec.max_seq_len:
             self._history[slot, length] = tok
         self._lengths[slot] = length + 1
+        self.metrics.tokens.inc()
         reason = None
         if tok == self.spec.eos_id:
             reason = "eos"
@@ -365,5 +456,6 @@ class GenerationEngine:
         if reason is not None:
             self._slots[slot] = None
             self._lengths[slot] = 0
+            self.metrics.retired(reason)
             req.future.set_result(GenerationResult(
                 req.tokens, reason, len(req.prompt)))

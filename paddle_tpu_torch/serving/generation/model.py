@@ -4,9 +4,14 @@ in a private scope, on one torch device.
 
 The port's copy of ``paddle_tpu/serving/generation/model.py``, with its
 static verification of every program at build (``_verify``, analysis/).
-Not ported yet: ``load``/``save`` of artifacts, and the per-engine
-publication of the cost and memory reports (observability/, ROADMAP
-A11; the executor keeps them, ``executor.last_cost``/``last_memory``).
+A generation model is a FAMILY of programs sharing one parameter set by
+name (models/transformer.py build_decoder_lm), plus persistable
+``kv_cache.*`` state the decode programs update in place. ``save``
+freezes the re-forward program, the weights and the spec (the
+``__generation__.json`` sidecar of io.save_inference_model); ``load``
+rebuilds the set from the spec and loads the weights. Hosting N models
+on one executor (GenerationHost) collides nothing, because the compile
+key includes each program's uid and version.
 """
 from __future__ import annotations
 
@@ -15,9 +20,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ... import flags
+from ... import flags, io
 from ...core.executor import Executor
 from ...core.scope import Scope
+from ...executor import scope_guard
 from ...models.transformer import (KV_CACHE_PREFIX, build_decoder_lm,
                                    kv_cache_names)
 
@@ -33,7 +39,9 @@ def bucket_for(n: int, buckets) -> Optional[int]:
 
 
 class GenerationSpec:
-    """Everything needed to rebuild a generation program set."""
+    """Everything needed to rebuild a generation program set around a
+    saved checkpoint — rides ``save_inference_model`` meta (io.py) so
+    an artifact is self-describing for token serving."""
 
     FIELDS = ("vocab_size", "max_seq_len", "slots", "prompt_buckets",
               "cache_buckets", "n_layer", "n_head", "d_model", "d_inner",
@@ -85,35 +93,109 @@ class GenerationSpec:
 
 
 class GenerationModel:
-    """Program set + weights + KV-cache state for one decoder LM on one
-    device. Runs are serialized by one lock; the scope keeps weights AND
-    cache state private to the model."""
+    """Program set + weights + KV-cache state for one decoder LM.
 
-    def __init__(self, programs: Dict, spec: GenerationSpec, device=None):
+    ``executor``/``run_lock`` follow the ServableModel sharing contract:
+    a GenerationHost passes the same pair to every hosted model so all
+    their steps live in one compile cache, and runs are serialized by
+    one lock. Without them the model builds its own Executor on
+    `device` (None: the first CUDA card; "cpu" on a machine without
+    one). The per-model scope keeps weights AND cache state private —
+    two hosted models never alias each other's cache."""
+
+    def __init__(self, programs: Dict, spec: GenerationSpec,
+                 scope: Optional[Scope] = None,
+                 executor: Optional[Executor] = None,
+                 run_lock: Optional[threading.Lock] = None,
+                 version: Optional[str] = None,
+                 init_scope: bool = True, device=None):
+        if (executor is None) != (run_lock is None):
+            raise ValueError("share executor and run_lock together "
+                             "(executor internals are serialized by "
+                             "the lock)")
         self.programs = programs
         self.spec = spec
-        self.executor = Executor(place=device)
+        self.scope = scope if scope is not None else Scope()
+        self.executor = executor if executor is not None \
+            else Executor(place=device)
         self.device = self.executor.device
-        self.scope = Scope()
-        self._run_lock = threading.Lock()
+        self._run_lock = run_lock if run_lock is not None \
+            else threading.Lock()
+        self.version = version
         self.cache_names = kv_cache_names(spec.n_layer)
         self._check_frozen()
         self._verify()
-        with self._run_lock:
-            self.executor.run(programs["startup"], scope=self.scope)
+        if init_scope:
+            with self._run_lock:
+                self.executor.run(programs["startup"], scope=self.scope)
 
     @classmethod
-    def build(cls, spec: GenerationSpec, device=None) -> "GenerationModel":
+    def build(cls, spec: GenerationSpec,
+              executor: Optional[Executor] = None,
+              run_lock: Optional[threading.Lock] = None,
+              version: Optional[str] = None,
+              device=None) -> "GenerationModel":
         """Fresh model (randomly initialized weights) from a spec, on
-        `device` — the first CUDA card unless the caller names another
-        (with no card, the caller must pass device="cpu")."""
+        the shared `executor`'s device or else on `device` — the first
+        CUDA card unless the caller names another."""
         programs = build_decoder_lm(
             vocab_size=spec.vocab_size, max_seq_len=spec.max_seq_len,
             slots=spec.slots, prompt_buckets=spec.prompt_buckets,
             cache_buckets=spec.cache_buckets, n_layer=spec.n_layer,
             n_head=spec.n_head, d_model=spec.d_model,
             d_inner=spec.d_inner, seed=spec.seed)
-        return cls(programs, spec, device=device)
+        return cls(programs, spec, executor=executor, run_lock=run_lock,
+                   version=version, device=device)
+
+    @classmethod
+    def load(cls, dirname: str, executor: Optional[Executor] = None,
+             run_lock: Optional[threading.Lock] = None,
+             device=None) -> "GenerationModel":
+        """Load a ``save_inference_model`` artifact whose meta carries a
+        generation spec (this package's or the JAX package's): rebuild
+        the program set from the spec (param names are deterministic
+        under isolated_name_scope), run startup (weights re-randomized,
+        caches zeroed), then overwrite the weights from the
+        checkpoint."""
+        probe_exe = executor if executor is not None \
+            else Executor(place=device)
+        with scope_guard(Scope()):
+            _prog, _feeds, _fetch, meta = io.load_inference_model(
+                dirname, probe_exe, return_meta=True)
+        gspec = meta.get("generation_spec")
+        if not gspec:
+            raise ValueError(
+                f"artifact {dirname!r} carries no generation_spec — "
+                "save it with io.save_inference_model(..., "
+                "generation_spec=model.spec.to_dict()) or "
+                "GenerationModel.save()")
+        spec = GenerationSpec.from_dict(gspec)
+        model = cls.build(spec, executor=executor, run_lock=run_lock,
+                          version=meta.get("model_version"),
+                          device=probe_exe.device)
+        # overwrite the fresh random weights with the checkpoint's; the
+        # full program's persistable set is exactly the weights (no
+        # cache vars), so caches stay zero
+        full = model.programs["full"][spec.prompt_buckets[-1]]
+        with scope_guard(model.scope):
+            io.load_vars(model.executor, dirname, full.main,
+                         predicate=lambda v: v.persistable)
+        return model
+
+    def save(self, dirname: str, model_version: Optional[str] = None
+             ) -> str:
+        """Freeze the re-forward program + weights + generation spec.
+        The full program has no cache ops, so the saved persistable set
+        is the weights only — cache state never ships."""
+        full = self.programs["full"][self.spec.prompt_buckets[-1]]
+        block = full.main.global_block()
+        with scope_guard(self.scope):
+            io.save_inference_model(
+                dirname, full.feed_names, [block.var(full.fetch_name)],
+                self.executor, main_program=full.main,
+                model_version=model_version,
+                generation_spec=self.spec.to_dict())
+        return dirname
 
     # ------------------------------------------------------------------
     def _check_frozen(self):
@@ -204,8 +286,20 @@ class GenerationModel:
         return out.reshape(-1)
 
     # ------------------------------------------------------------------
-    def serve(self, config=None, mode: str = "cached"):
+    def last_cost(self):
+        """Static cost of the most recent dispatch's program."""
+        return self.executor.last_cost
+
+    def last_memory(self):
+        """Static memory plan (analysis/memory.py MemoryReport) of the
+        most recent dispatch's program."""
+        return self.executor.last_memory
+
+    # ------------------------------------------------------------------
+    def serve(self, config=None, metrics=None, health=None,
+              mode: str = "cached"):
         """Create (but do not start) a GenerationEngine bound to this
         model."""
         from .engine import GenerationEngine
-        return GenerationEngine(self, config=config, mode=mode)
+        return GenerationEngine(self, config=config, metrics=metrics,
+                                health=health, mode=mode)

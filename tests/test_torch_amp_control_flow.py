@@ -509,3 +509,57 @@ def test_changed_carry_is_refused_in_both_packages(name):
             loss = exe.run(main, feed=_feeds(name, pkg)[0],
                            fetch_list=fetch, scope=scope)[0]
         assert np.all(np.isfinite(np.asarray(loss)))
+
+
+# -- cond whose branches leave different dtypes under AMP ---------------------
+
+def _cond_fc_or_identity(pkg):
+    """cond(p, fc(x, bias_attr=False), scale(x, 1.0)): under AMP the fc
+    branch's ``mul`` returns bf16, the identity branch float32."""
+    lay, cf = pkg.layers, pkg.layers.control_flow
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.framework.isolated_name_scope(), \
+            pkg.program_guard(main, startup):
+        x = lay.data("x", [4])
+        p = lay.data("p", [1], dtype="bool", append_batch_size=False)
+        out = cf.cond_op(p, lambda: lay.fc(x, size=4, bias_attr=False),
+                         lambda: lay.scale(x, scale=1.0))
+        loss = lay.mean(out)
+        pkg.optimizer.SGDOptimizer(learning_rate=0.1).minimize(loss)
+    return main, startup, [loss, out]
+
+
+@pytest.mark.parametrize("taken", [True, False])
+def test_cond_branches_of_other_dtypes_are_refused(taken):
+    """The reference's lax.cond refuses branches whose outputs differ in
+    dtype (TypeError while it traces, whichever branch the predicate
+    takes); the port raises TypeError too before the cond sets its
+    output, and no parameter moves in either. In float32 the same
+    program runs in both packages with equal outputs."""
+    feed = {"x": np.linspace(-1, 1, 8, dtype=np.float32).reshape(2, 4),
+            "p": np.array([taken])}
+    results = {}
+    init = None
+    for pkg in (pt, ptt):
+        main, startup, fetch = _cond_fc_or_identity(pkg)
+        exe = pt.Executor() if pkg is pt else ptt.Executor(place="cpu")
+        scope = pkg.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {n: np.asarray(scope.get(n)) for n in scope.local_names()}
+        else:
+            ptt.load_param_arrays(scope, {n: init[n] for n in
+                                          scope.local_names() if n in init})
+        before = {n: _value(scope.get(n))[1]
+                  for n in scope.local_names()}
+        with amp.amp_guard(), pt.amp.amp_guard(), \
+                pytest.raises(TypeError, match="cond branches must have "
+                                               "equal output types"):
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        for n, v in before.items():
+            assert np.array_equal(_value(scope.get(n))[1], v), \
+                (pkg.__name__, n)
+        results[pkg.__name__] = exe.run(main, feed=feed, fetch_list=fetch,
+                                        scope=scope)
+    for r, p in zip(results["paddle_tpu"], results["paddle_tpu_torch"]):
+        np.testing.assert_allclose(p, r, rtol=1e-6, atol=1e-7)

@@ -1,12 +1,20 @@
-"""Four chapters of the Fluid book on paddle_tpu_torch against paddle_tpu:
-the chapters of tests/test_book.py that need no op type the port lacks.
+"""Six chapters of the Fluid book on paddle_tpu_torch against paddle_tpu:
+the chapters of tests/test_book.py but machine_translation (its own
+file, tests/test_torch_gru_nmt.py) and understand_sentiment
+(tests/test_torch_sequence_ops.py).
 
 - fit_a_line (:47): fc regression on uci_housing, SGD;
 - recognize_digits (:69): a conv + pool + fc classifier on mnist, Adam;
 - image_classification (:96): resnet_cifar10 at depth 20 on cifar10,
   Adam;
 - word2vec (:122): the N-gram LM on imikolov, four embeddings sharing
-  one table (ParamAttr name "shared_emb"), Adam.
+  one table (ParamAttr name "shared_emb"), Adam;
+- label_semantic_roles (:208): embeddings, fc, dynamic_lstm and a
+  linear-chain CRF on conll05 (ParamAttr name "crfw", shared by
+  crf_decoding), Adam; the ragged feeds padded to 32 as the chapter pads
+  them;
+- recommender_system (:262): user and movie towers on movielens, the
+  title summed by sequence_pool, cos_sim scaled to a rating, Adam.
 
 Each chapter is built by both packages (equal ``to_json`` of the main
 and startup programs) and trained for STEPS batches from the port's
@@ -19,7 +27,9 @@ recognize_digits and word2vec), and for image_classification rtol 1e-4
 (measured 6.9e-5 at the fourth batch: Adam's first steps move a weight
 whose gradient is within float noise of 0 by the learning rate either
 way, and 20 layers of batch_norm carry that into the later batches).
-Then the port's ``_roundtrip`` as the chapter runs it
+label_semantic_roles also decodes the feed of its last step with
+crf_decoding from the port's trained weights in both packages: the tags
+are equal exactly. Then the port's ``_roundtrip`` as the chapter runs it
 (tests/test_book.py:28):
 io.save_inference_model, io.load_inference_model into the same
 executor, one run on the chapter's feed: the output has the chapter's
@@ -140,10 +150,107 @@ def _word2vec(pkg):
                        for i in range(n - 1)}, shape=(2, dict_size))
 
 
+def _ragged(pkg, seqs, max_len):
+    """tests/test_book.py _ragged in `pkg`: int64 [n, max_len, 1] rows
+    and their lengths."""
+    lod = importlib.import_module(f"{pkg.__name__}.core.lod")
+    arrs = [np.asarray(q, np.int64).reshape(len(q), 1) for q in seqs]
+    padded, lengths = lod.LoDTensor.from_sequences(arrs).to_padded(
+        max_len=max_len)
+    return lod.RaggedPair(padded, lengths)
+
+
+SRL_MAXLEN = 32
+
+
+def _label_semantic_roles(pkg):
+    lay = pkg.layers
+    word_dict, verb_dict, label_dict = pkg.dataset.conll05.get_dict()
+    wn, vn, ln = len(word_dict), len(verb_dict), len(label_dict)
+    emb, hid = 16, 32
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        word = lay.data("word", [1], dtype="int64", lod_level=1)
+        verb = lay.data("verb", [1], dtype="int64", lod_level=1)
+        mark = lay.data("mark", [1], dtype="int64", lod_level=1)
+        target = lay.data("target", [1], dtype="int64", lod_level=1)
+        w_emb = lay.embedding(word, size=[wn, emb])
+        v_emb = lay.embedding(verb, size=[vn, emb])
+        m_emb = lay.embedding(mark, size=[2, emb])
+        feat = lay.concat([w_emb, v_emb, m_emb], axis=-1)
+        x = lay.fc(feat, size=4 * hid)
+        h, _ = lay.dynamic_lstm(x, size=4 * hid)
+        emission = lay.fc(h, size=ln)
+        crf_cost = lay.linear_chain_crf(
+            emission, target, param_attr=pkg.ParamAttr(name="crfw"))
+        loss = lay.mean(crf_cost)
+        pkg.optimizer.AdamOptimizer(learning_rate=1e-2).minimize(loss)
+        path = lay.crf_decoding(emission,
+                                param_attr=pkg.ParamAttr(name="crfw"))
+
+    def feeds():
+        for b in pkg.reader.batch(pkg.dataset.conll05.train(), 16)():
+            yield {k: _ragged(pkg, [s[i] for s in b], SRL_MAXLEN)
+                   for k, i in (("word", 0), ("verb", 6), ("mark", 7),
+                                ("target", 8))}
+    probe = next(feeds())
+    return dict(main=main, startup=startup, loss=loss, feeds=feeds,
+                feed_names=["word", "verb", "mark"], target=path,
+                probe={k: probe[k] for k in ("word", "verb", "mark")},
+                shape=(int(np.sum(np.asarray(probe["word"].lengths))), 1),
+                decode=path)
+
+
+def _recommender_system(pkg):
+    lay, ml = pkg.layers, pkg.dataset.movielens
+    emb = 16
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        uid = lay.data("uid", [1], dtype="int64")
+        gender = lay.data("gender", [1], dtype="int64")
+        age = lay.data("age", [1], dtype="int64")
+        job = lay.data("job", [1], dtype="int64")
+        mid = lay.data("mid", [1], dtype="int64")
+        title = lay.data("title", [1], dtype="int64", lod_level=1)
+        rating = lay.data("rating", [1])
+        usr = lay.concat([
+            lay.embedding(uid, size=[ml.max_user_id() + 1, emb]),
+            lay.embedding(gender, size=[2, emb]),
+            lay.embedding(age, size=[len(ml.age_table()), emb]),
+            lay.embedding(job, size=[ml.max_job_id() + 1, emb]),
+        ], axis=1)
+        usr_feat = lay.fc(usr, size=32, act="tanh")
+        mov_emb = lay.embedding(mid, size=[ml.max_movie_id() + 1, emb])
+        title_emb = lay.embedding(
+            title, size=[len(ml.get_movie_title_dict()), emb])
+        title_feat = lay.sequence_pool(title_emb, pool_type="sum")
+        mov = lay.concat([mov_emb, title_feat], axis=1)
+        mov_feat = lay.fc(mov, size=32, act="tanh")
+        sim = lay.cos_sim(usr_feat, mov_feat)
+        pred = lay.scale(sim, scale=5.0)
+        loss = lay.mean(lay.square_error_cost(pred, rating))
+        pkg.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+
+    def feeds():
+        for b in pkg.reader.batch(ml.train(), 32)():
+            f = {k: np.array([[s[i]] for s in b], np.int64)
+                 for k, i in (("uid", 0), ("gender", 1), ("age", 2),
+                              ("job", 3), ("mid", 4))}
+            f["title"] = _ragged(pkg, [s[6] for s in b], 8)
+            f["rating"] = np.array([[s[7]] for s in b], np.float32)
+            yield f
+    probe = {k: v for k, v in next(feeds()).items() if k != "rating"}
+    return dict(main=main, startup=startup, loss=loss, feeds=feeds,
+                feed_names=list(probe), target=pred, probe=probe,
+                shape=(32, 1))
+
+
 CHAPTERS = {"fit_a_line": (_fit_a_line, 1e-5),
             "recognize_digits": (_recognize_digits, 1e-5),
             "image_classification": (_image_classification, 1e-4),
-            "word2vec": (_word2vec, 1e-5)}
+            "word2vec": (_word2vec, 1e-5),
+            "label_semantic_roles": (_label_semantic_roles, 1e-5),
+            "recommender_system": (_recommender_system, 1e-5)}
 
 
 def _build(name):
@@ -185,8 +292,30 @@ def chapter(request):
             (lv,) = run_exe.run(c["main"], feed=feed,
                                 fetch_list=[c["loss"]], scope=run_scope)
             losses[who].append(float(np.asarray(lv).reshape(-1)[0]))
+    decoded = {}
+    if "decode" in built["port"]:
+        # both packages decode the last step's feed from the port's
+        # trained weights
+        trained = {n: scope.get(n).numpy() for n in scope.local_names()}
+        for who, pkg in (("ref", pt), ("port", ptt)):
+            c = built[who]
+            feed = list(zip(range(STEPS), c["feeds"]()))[-1][1]
+            if pkg is pt:
+                run_exe, run_scope = pt.Executor(), pt.Scope()
+                for n, v in trained.items():
+                    run_scope.set(n, jnp.asarray(v))
+            else:
+                run_exe, run_scope = exe, scope
+            (dv,) = run_exe.run(c["main"], feed=feed,
+                                fetch_list=[c["decode"]], scope=run_scope)
+            decoded[who] = _data(dv)
     return dict(name=name, built=built, losses=losses, exe=exe,
-                scope=scope)
+                scope=scope, decoded=decoded)
+
+
+def _data(v):
+    """A fetch as a numpy array (a ragged fetch by its rows)."""
+    return np.asarray(v.data if hasattr(v, "data") else v)
 
 
 def test_chapter_programs_json_equal(chapter):
@@ -202,6 +331,14 @@ def test_chapter_losses_match_reference(chapter):
     np.testing.assert_allclose(port, ref, rtol=CHAPTERS[chapter["name"]][1])
 
 
+@pytest.mark.parametrize("chapter", ["label_semantic_roles"],
+                         indirect=True)
+def test_chapter_crf_decoding_tags_match_reference(chapter):
+    ref, port = chapter["decoded"]["ref"], chapter["decoded"]["port"]
+    assert port.dtype == np.int64 and port.shape == ref.shape
+    np.testing.assert_array_equal(port, ref.astype(np.int64))
+
+
 def test_chapter_inference_roundtrip(chapter, tmp_path):
     """tests/test_book.py _roundtrip on the port: save, load into the
     same executor, run the chapter's probe feed."""
@@ -214,9 +351,21 @@ def test_chapter_inference_roundtrip(chapter, tmp_path):
         prog, feeds, fetches = ptt.io.load_inference_model(d, exe)
         got = exe.run(prog, feed=c["probe"], fetch_list=fetches)[0]
     assert feeds == c["feed_names"]
-    assert tuple(np.asarray(got).shape) == c["shape"]
+    assert tuple(_data(got).shape) == c["shape"]
     forward = ptt.io._prune(c["main"], c["feed_names"],
                             [c["target"].name]).inference_optimize()
     want = exe.run(forward, feed=c["probe"], fetch_list=[c["target"]],
                    scope=scope)[0]
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(_data(got), _data(want), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_new_op_types_register_the_reference_slots():
+    """cos_sim and the two CRF ops: registered as the reference registers
+    them (ragged-aware, no_grad_slots)."""
+    from paddle_tpu.core.registry import OpRegistry as RefRegistry
+    from paddle_tpu_torch.core.registry import OpRegistry
+    for t in ("cos_sim", "linear_chain_crf", "crf_decoding"):
+        ours, ref = OpRegistry.get(t), RefRegistry.get(t)
+        assert ours.no_grad_slots == ref.no_grad_slots, t
+        assert ours.ragged_aware == ref.ragged_aware, t

@@ -10,7 +10,17 @@ Pallas kernel, the port takes its plain flash path). The port's engine
 reproduces the JAX engine's token streams, its cached decode is
 bit-identical to its re-forward baseline, and the KV-cache ops clamp
 out-of-range indices as jax.lax.dynamic_update_slice does.
+
+The engine's health breaker, metrics and spans, GenerationHost and the
+artifact round trip (tests/test_generation.py:146, :180, :201, :308)
+run on the port too: a step fault retires a request with its completed
+tokens and trips the breaker, a stop without drain keeps partial
+tokens, two hosted models share one executor through budgets, a swap
+and a rollback, and save / load reproduces the saved weights' stream
+(an artifact of either package loads into the port).
 """
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,8 +147,9 @@ def test_engine_streams_match_reference(pair):
     assert [x.finish_reason for x in p] == [x.finish_reason for x in r]
 
 
-def _generate_all(model, prompts, mode, max_new_tokens=16):
-    eng = model.serve(config=GenerationConfig(max_new_tokens=max_new_tokens),
+def _generate_all(model, prompts, mode, max_new_tokens=16,
+                  config=GenerationConfig):
+    eng = model.serve(config=config(max_new_tokens=max_new_tokens),
                       mode=mode).start()
     try:
         futs = [eng.submit(p) for p in prompts]
@@ -264,3 +275,195 @@ def test_failed_prefill_fails_its_request_instead_of_dropping_it(pair):
     finally:
         model.run_prefill = real
         eng.stop(drain=True, timeout=30)
+
+
+# -- the health breaker, metrics, hosting and artifacts (ROADMAP A8) ----------
+
+def test_engine_stats_and_ledgers_match_reference(pair, monkeypatch):
+    """The same streams through both engines leave equal stats() keys and
+    equal volume counters and retirement ledgers; the port's steps are
+    generation::* profiler events and publish MFU and the memory peak."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import default_registry
+    monkeypatch.setenv("PADDLE_TPU_PEAK_FLOPS", "1e12")
+    ref, port = pair
+    prompts, budgets = [[5, 9, 3], [7, 3, 2, 4], [11, 6]], [4, 9, 6]
+    stats = []
+    profiler.start_profiler()
+    try:
+        for model, config in ((ref, RefConfig), (port, GenerationConfig)):
+            eng = model.serve(config=config(max_new_tokens=16)).start()
+            try:
+                for f in [eng.submit(p, max_new_tokens=b)
+                          for p, b in zip(prompts, budgets)]:
+                    f.result(timeout=120)
+            finally:
+                eng.stop(drain=True, timeout=120)
+            stats.append(eng.stats())
+    finally:
+        profiler.stop_profiler()
+    r, p = stats
+
+    def keys(d):
+        return {k: keys(v) if isinstance(v, dict) else None
+                for k, v in d.items()}
+
+    assert keys(p) == keys(r)
+    for k in ("requests", "tokens", "steps", "prefills", "slots_active",
+              "slots_total", "retired_by_reason", "shed_by_reason",
+              "queued", "active", "mode", "slots", "cache_buckets"):
+        assert p[k] == r[k], k
+    assert p["health"]["breaker"] == r["health"]["breaker"]
+    assert p["mfu"] > 0
+    names = {e["name"].split("[")[0]
+             for e in profiler.events(cat=profiler.CAT_SERVING)}
+    assert names == {"generation::prefill", "generation::decode_step"}
+    peaks = default_registry().get("paddle_tpu_memory_peak_bytes")
+    assert any(k[0].startswith("engine_gen_") and g.value > 0
+               for k, g in peaks.samples())
+    assert port.last_cost() is port.executor.last_cost is not None
+    assert port.last_memory() is port.executor.last_memory is not None
+
+
+def test_breaker_trip_preserves_completed_tokens(pair):
+    """tests/test_generation.py:146 on the port: a step fault after two
+    steps with a trip-on-first-failure breaker retires the request with
+    its three completed tokens (the reference's greedy prefix), and the
+    open breaker sheds the next submit."""
+    from paddle_tpu_torch.resilience.faults import FaultInjector
+    from paddle_tpu_torch.resilience.health import (CircuitBreaker,
+                                                    CircuitOpenError,
+                                                    HealthMonitor)
+    ref, port = pair
+    solo = _generate_all(ref, [[5, 9, 3, 2]], "cached",
+                         max_new_tokens=12, config=RefConfig)[0]
+    health = HealthMonitor(breaker=CircuitBreaker(failure_threshold=1,
+                                                  reset_timeout_s=3600))
+    eng = port.serve(config=GenerationConfig(max_new_tokens=12),
+                     health=health).start()
+    try:
+        with FaultInjector(seed=0) as fi:
+            fi.on("generation.step", after=2)  # steps 3+ fail
+            res = eng.submit([5, 9, 3, 2]).result(timeout=120)
+        assert res.finish_reason == "aborted"
+        assert res.tokens == solo.tokens[:3]
+        assert eng.health.snapshot()["breaker"]["state"] == "open"
+        with pytest.raises(CircuitOpenError):
+            eng.submit([1, 2, 3])
+        assert eng.metrics.stats()["shed_by_reason"] == \
+            {"circuit_open": 1}
+        assert eng.metrics.stats()["retired_by_reason"] == {"error": 1}
+    finally:
+        eng.stop(drain=False, timeout=120)
+
+
+def test_stop_without_drain_keeps_partial_tokens(pair):
+    """tests/test_generation.py:180 on the port."""
+    _, port = pair
+    eng = port.serve(config=GenerationConfig(max_new_tokens=500,
+                                             idle_wait_s=0.005)).start()
+    fut = eng.submit([5, 9, 3], max_new_tokens=500)
+    deadline = time.monotonic() + 60
+    while eng.metrics.tokens.value < 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    eng.stop(drain=False, timeout=120)
+    res = fut.result(timeout=120)
+    assert res.finish_reason == "aborted" and len(res.tokens) >= 1
+    assert eng.metrics.stats()["retired_by_reason"] == {"aborted": 1}
+
+
+def test_host_routes_budgets_and_swap_preserves_inflight():
+    """tests/test_generation.py:201 on the port: two models on one
+    executor, a budget shed that leaves the other model serving, a swap
+    whose in-flight request finishes on the old weights, and a rollback
+    whose probe fails at ``generation.step``."""
+    from paddle_tpu_torch.resilience.faults import FaultInjector
+    from paddle_tpu_torch.serving import ServiceOverloadedError
+    from paddle_tpu_torch.serving.generation import GenerationHost
+    spec_a = GenerationSpec(**SPEC_KW)
+    spec_b = GenerationSpec(**{**SPEC_KW, "seed": 11, "vocab_size": 40})
+    host = GenerationHost(config=GenerationConfig(max_new_tokens=6),
+                          default_budget=4, device="cpu")
+    host.deploy("a", spec_a)
+    host.deploy("b", spec_b)
+    try:
+        assert host._hosted["a"].model.executor is \
+            host._hosted["b"].model.executor is host.executor
+        ra = host.generate("a", [5, 9, 3], timeout=120)
+        rb = host.generate("b", [7, 2], timeout=120)
+        assert ra.tokens and rb.tokens
+        host._hosted["a"].budget = 0
+        with pytest.raises(ServiceOverloadedError):
+            host.submit("a", [1, 2])
+        assert host.generate("b", [7, 2], timeout=120).tokens
+        host._hosted["a"].budget = 4
+
+        old_solo = ra.tokens
+        fut = host.submit("a", [5, 9, 3])
+        report = host.swap("a", GenerationSpec(**{**SPEC_KW, "seed": 99}),
+                           probe_prompts=([3, 4],))
+        assert report["outcome"] == "completed", report
+        assert fut.result(timeout=120).tokens == old_solo
+        new = host.generate("a", [5, 9, 3], timeout=120)
+        assert new.tokens != old_solo
+
+        with FaultInjector(seed=0) as fi:
+            fi.on("generation.step", times=1000)
+            report = host.swap("a", GenerationSpec(**{**SPEC_KW,
+                                                     "seed": 5}),
+                               probe_prompts=([3, 4],))
+        assert report["outcome"] == "rolled_back", report
+        assert host.generate("a", [5, 9, 3], timeout=120).tokens \
+            == new.tokens
+        stats = host.stats()
+        assert set(stats["models"]) == {"a", "b"}
+        assert stats["models"]["a"]["shed_by_reason"] == {}
+    finally:
+        host.stop(drain=True, timeout=120)
+
+
+def test_generation_spec_save_load_roundtrip(tmp_path, pair):
+    """tests/test_generation.py:308 on the port: save -> load reproduces
+    the stream from the SAVED weights (a perturbed one), with the
+    version and spec; an artifact the reference saved loads into the
+    port and streams the reference's tokens."""
+    from paddle_tpu_torch import io
+    ref, _ = pair
+    src = GenerationModel.build(GenerationSpec(**SPEC_KW), device="cpu")
+    ptt.load_param_arrays(src, _weights(ref))
+    wname = next(n for n in src.scope.local_names()
+                 if "lm_head" in n and ".w" in n)
+    src.scope.set(wname, src.scope.get(wname) + 0.37)
+    before = _generate_all(src, [[5, 9, 3]], "cached", max_new_tokens=8)[0]
+    d = str(tmp_path / "gen_model")
+    src.save(d, model_version="v7")
+    loaded = GenerationModel.load(d, device="cpu")
+    assert loaded.version == "v7" and loaded.spec == src.spec
+    after = _generate_all(loaded, [[5, 9, 3]], "cached",
+                          max_new_tokens=8)[0]
+    assert after.tokens == before.tokens
+    with ptt.scope_guard(ptt.Scope()):
+        meta = io.load_inference_model(d, ptt.Executor("cpu"),
+                                       return_meta=True)[3]
+    gs = meta["generation_spec"]
+    assert gs["max_seq_len"] == SPEC_KW["max_seq_len"]
+    assert gs["kv_cache_layout"] == "[slots, n_head, max_seq_len, d_key]"
+
+    d_ref = str(tmp_path / "ref_model")
+    ref.save(d_ref, model_version="r1")
+    from_ref = GenerationModel.load(d_ref, device="cpu")
+    assert from_ref.version == "r1"
+    want = _generate_all(ref, [[5, 9, 3]], "cached", max_new_tokens=8,
+                         config=RefConfig)[0]
+    got = _generate_all(from_ref, [[5, 9, 3]], "cached",
+                        max_new_tokens=8)[0]
+    assert got.tokens == want.tokens
+    with pytest.raises(ValueError, match="no generation_spec"):
+        serving_dir = str(tmp_path / "plain")
+        lm = src.programs["full"][src.spec.prompt_buckets[-1]]
+        with ptt.scope_guard(src.scope):
+            io.save_inference_model(
+                serving_dir, lm.feed_names,
+                [lm.main.global_block().var(lm.fetch_name)],
+                src.executor, main_program=lm.main)
+        GenerationModel.load(serving_dir, device="cpu")
